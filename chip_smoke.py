@@ -1,0 +1,500 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with a CUDA card and the
+CUDA toolkit (``nvcc``):
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (any failure exits non-zero):
+
+  1. device — require CUDA, print the card and its power limit, build
+     every hand-written kernel from ``src/repro_torch/kernels/csrc``;
+  2. kernel vs plain — the Tree-LSTM megastep kernel against its plain
+     PyTorch version on the card, at full width (H=512, A=2, M=4096) and
+     on edge cases (M=1; A=3 DAG levels with shared children; padded
+     slots; absent children at the sentinel): max-abs error <= 1e-4 on
+     the written block, every other row bit-unchanged;
+  2b. served levels — the same check on every level the serving phase
+     launches (the served traffic is scored once with a tap on the
+     kernel layer that keeps each level's arguments), each level timed
+     with CUDA events against its plain version: these times, at the
+     main path's own shapes, are the ones the JSON line reports;
+  3. serving — ``StructureServeEngine`` for the paper's ``tree_lstm``
+     (hidden 512, input 256, arity 2, random weights from a seed) scores
+     512 SST-like requests in batches of 64: every request ends ``ok``,
+     no degradation, the breaker closed, one kernel launch per padded
+     level; the roots match the op-by-op path on the card and the plain
+     path on the CPU to 1e-4;
+  4. report — one JSON line per the kernel table, then the device line.
+
+Imports nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+TOL = 1e-4
+DEVICE = "cuda"
+#: Full width of the paper's tree_lstm, the kernel check's level width,
+#: and the served traffic.
+HIDDEN, M_FULL, N_REQUESTS, BATCH = 512, 4096, 512, 64
+#: Published H100 SXM peaks (NVIDIA data sheet): fp32 without tensor
+#: cores, and HBM3 bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        fail(msg)
+
+
+if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
+    fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
+         f"the root of a checkout")
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import repro_torch  # noqa: E402,F401  (turns TF32 off)
+from repro_torch.configs.paper import get_paper_model  # noqa: E402
+from repro_torch.core.structure import (pack_batch, random_binary_tree,  # noqa: E402
+                                        random_dag)
+from repro_torch.data.trees import sst_like_dataset  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import level_megastep as lm  # noqa: E402
+from repro_torch.obs.registry import get_registry  # noqa: E402
+from repro_torch.serve import StructureRequest, StructureServeEngine  # noqa: E402
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: device
+# ---------------------------------------------------------------------------
+
+def device_phase() -> dict:
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false: "
+          "this smoke run needs a CUDA card")
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(f"device: {name} (count {count}); torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    print(f"card: {smi_line}")
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    print(f"build: {len(built)} kernel(s) built in "
+          f"{time.perf_counter() - t0:.1f} s: {', '.join(built) or '-'}")
+    for k in _build.KERNELS:
+        for line in _build.build_log(k).splitlines():
+            if "ptxas info" in line and ("registers" in line
+                                         or "spill" in line):
+                print(f"  {k}: {line.strip()}")
+    return {"name": name, "count": count, "smi": smi_line}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernel vs plain
+# ---------------------------------------------------------------------------
+
+def _weights(H: int, gen: torch.Generator, dev):
+    fn = get_paper_model("tree_lstm").make_vertex(hidden=H, input_dim=8)
+    p = fn.init(gen, device=dev)
+    # A non-zero bias exercises every bias lane of the epilogue.
+    p["b"] = torch.randn(4 * H, generator=gen).mul_(0.1).to(dev)
+    return tuple(p[k] for k in ("ui", "uf", "uo", "uu", "b"))
+
+
+def synthetic_level(M: int, A: int, H: int, gen: torch.Generator, dev,
+                    absent: float = 0.1, masked: float = 0.05):
+    """One level at offset M of a 2-level buffer: children are random
+    rows of level 0 or (with prob. ``absent``) the sentinel; the last
+    ``masked`` share of the slots is padding."""
+    R = 2 * M + 1
+    buf = torch.randn(R, 2 * H, generator=gen) * 0.5
+    buf[R - 1] = 0.0                                 # zero sentinel
+    cids = torch.randint(0, M, (M, A), generator=gen, dtype=torch.int32)
+    miss = torch.rand(M, A, generator=gen) < absent
+    cids[miss] = R - 1
+    cmask = (~miss).float()
+    n_live = max(1, M - int(M * masked))
+    nmask = torch.zeros(M)
+    nmask[:n_live] = 1.0
+    cids[n_live:] = R - 1
+    cmask[n_live:] = 0.0
+    ext = torch.randn(M + 1, 4 * H, generator=gen) * 0.5
+    ext[M] = 0.0
+    eids = torch.randperm(M, generator=gen).to(torch.int32)
+    eids[n_live:] = M
+    return (buf.to(dev), cids.to(dev), cmask.to(dev), eids.to(dev),
+            nmask.to(dev), M, ext.to(dev), _weights(H, gen, dev))
+
+
+def schedule_level(graphs, t: int, H: int, gen: torch.Generator, dev,
+                   **pads):
+    """Level ``t`` of a real packed schedule, buffer rows filled at
+    random (the sentinel stays zero)."""
+    s = pack_batch(graphs, with_runs=False, **pads)
+    d = s.to_device(dev)
+    R = s.T * s.M + 1
+    buf = torch.randn(R, 2 * H, generator=gen) * 0.5
+    buf[R - 1] = 0.0
+    ext = torch.randn(s.K * s.N + 1, 4 * H, generator=gen) * 0.5
+    ext[-1] = 0.0
+    return (buf.to(dev), d.child_ids[t], d.child_mask[t], d.ext_ids[t],
+            d.node_mask[t], t * s.M, ext.to(dev), _weights(H, gen, dev))
+
+
+def compare(case) -> float:
+    buf, cids, cmask, eids, nmask, off, ext, w = case
+    M = cids.shape[0]
+    got = lm.treelstm_megastep(buf.clone(), cids, eids, nmask, off, ext, *w)
+    want = ref.level_megastep("treelstm", buf.clone(), cids, cmask, eids,
+                              nmask, off, ext, w)
+    torch.cuda.synchronize()
+    err = float((got[off:off + M] - want[off:off + M]).abs().max())
+    outside = torch.ones(buf.shape[0], dtype=torch.bool, device=buf.device)
+    outside[off:off + M] = False
+    check(torch.equal(got[outside], buf[outside]),
+          "kernel changed rows outside [offset, offset+M)")
+    check(bool(torch.isfinite(got).all()), "kernel wrote non-finite values")
+    return err
+
+
+def time_ms(fn, n: int = 50, warmup: int = 5) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def bound_ms(case) -> tuple:
+    """Least time for the level on the card, from this level's data:
+    FLOPs of the multiply-adds its live slots need (h_k·U_f for each
+    child a slot has, and hsum·U_i/U_o/U_u for a slot with any child; a
+    leaf needs none), and bytes of each input read once (distinct child
+    rows and ext rows of live slots, the weights unless no slot needs
+    them, the indices) and the block written once.  Returns (bound_ms,
+    bound_by, flops, bytes)."""
+    buf, cids, cmask, eids, nmask, off, ext, w = case
+    M, A = cids.shape
+    H = w[0].shape[0]
+    live = nmask != 0
+    present = (cids != buf.shape[0] - 1) & live[:, None]
+    n_child = present.sum(dim=1)
+    flops = float((n_child + 3 * (n_child > 0)).sum()) * H * H * 2
+    rows = torch.unique(cids[present])
+    erows = torch.unique(eids[live])
+    weights = (4 * H * H + 4 * H) if flops > 0 else 0
+    nbytes = 4 * (rows.numel() * H * 2 + erows.numel() * 4 * H + weights
+                  + M * (A + 2) + M * 2 * H)
+    t_op, t_by = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
+            else "bytes", flops, nbytes)
+
+
+def time_level(case, n: int = 20, warmup: int = 3) -> tuple:
+    """(kernel ms, plain ms) for one level, each on its own copy of the
+    buffer, launched in place as the main path does."""
+    buf, cids, cmask, eids, nmask, off, ext, w = case
+    k_buf, p_buf = buf.clone(), buf.clone()
+    ms = time_ms(lambda: lm.treelstm_megastep(k_buf, cids, eids, nmask, off,
+                                              ext, *w), n, warmup)
+    plain_ms = time_ms(lambda: ref.level_megastep(
+        "treelstm", p_buf, cids, cmask, eids, nmask, off, ext, w), n, warmup)
+    return ms, plain_ms
+
+
+def kernel_phase() -> dict:
+    dev = DEVICE
+    gen = torch.Generator().manual_seed(1234)
+    rng = np.random.default_rng(1234)
+    H = HIDDEN
+    errs = {}
+    full = synthetic_level(M_FULL, 2, H, gen, dev)
+    errs[f"H{H}_A2_M{M_FULL}"] = compare(full)
+    errs["M1"] = compare(synthetic_level(1, 2, H, gen, dev, absent=0.0,
+                                         masked=0.0))
+    errs["A1_M64"] = compare(synthetic_level(64, 1, H, gen, dev))
+    dags = [random_dag(int(rng.integers(6, 30)), rng, max_arity=3)
+            for _ in range(24)]
+    T = pack_batch(dags, with_runs=False).T
+    for t in (1, T // 2, T - 1):
+        errs[f"dag_A3_level{t}"] = compare(
+            schedule_level(dags, t, H, gen, dev))
+    trees = [random_binary_tree(int(rng.integers(2, 40)), rng)
+             for _ in range(16)]
+    errs["tree_padded_level0"] = compare(
+        schedule_level(trees, 0, H, gen, dev, pad_levels=64, pad_width=512))
+    errs["tree_padded_level3"] = compare(
+        schedule_level(trees, 3, H, gen, dev, pad_levels=64, pad_width=512))
+    errs["tree_all_padding_level40"] = compare(
+        schedule_level(trees, 40, H, gen, dev, pad_levels=64, pad_width=512))
+    errs["H72_ragged"] = compare(synthetic_level(100, 2, 72, gen, dev))
+    for k, v in errs.items():
+        print(f"kernel vs plain: {k}: max_abs_err {v:.3e}")
+    worst = max(errs.values())
+    check(worst <= TOL, f"kernel disagrees with its plain version: "
+          f"max_abs_err {worst:.3e} > {TOL}")
+
+    ms, plain_ms = time_level(full, n=50, warmup=5)
+    b_ms, b_by, flops, nbytes = bound_ms(full)
+    print(f"timing synthetic H{H}_A2_M{M_FULL} (not a served shape): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
+          f"{b_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); kernel "
+          f"at {flops / ms / 1e9:.2f} TFLOP/s = {b_ms / ms:.1%} of bound")
+    return {"max_abs_err": worst}
+
+
+def served_levels_phase() -> dict:
+    """Every level the serving phase launches, with its own inputs: the
+    served traffic is scored once, with a tap on the kernel layer that
+    keeps each level's arguments.  The buffer kept is the one the batch
+    finished with: a level reads only rows below its offset (final by
+    then) and the zero sentinel, so a level re-run on a copy of it sees
+    what the main path saw.  Each level is compared with its plain
+    version and both are timed; the means per launch over these levels
+    are the numbers the JSON line reports."""
+    from repro_torch.kernels import ops
+    fn, params, ds = served_traffic()
+    levels = []
+    inner = ops.level_megastep
+
+    def tap(kind, buf, *args):
+        levels.append((buf,) + args)
+        return inner(kind, buf, *args)
+
+    ops.level_megastep = tap
+    try:
+        eng = StructureServeEngine(fn, params, batch_size=BATCH,
+                                   device=DEVICE)
+        for r in _requests(ds):
+            eng.submit(r)
+        eng.run()
+    finally:
+        ops.level_megastep = inner
+    check(levels, "the served traffic reached no kernel level")
+    rows, worst = [], 0.0
+    for case in levels:
+        worst = max(worst, compare(case))
+        ms, plain_ms = time_level(case)
+        b_ms, b_by, flops, _ = bound_ms(case)
+        rows.append((case[1].shape[0], int(case[5]) // case[1].shape[0],
+                     ms, plain_ms, b_ms, b_by, flops))
+    check(worst <= TOL, f"kernel disagrees with its plain version on a "
+          f"served level: max_abs_err {worst:.3e} > {TOL}")
+    n = len(rows)
+    for M in sorted({r[0] for r in rows}):
+        sel = [r for r in rows if r[0] == M]
+        T = max(r[1] for r in sel) + 1
+        for t in (0, T // 2):
+            at = [r for r in sel if r[1] == t]
+            print(f"served M{M} level {t} (x{len(at)}): kernel "
+                  f"{np.mean([r[2] for r in at]):.4f} ms, plain "
+                  f"{np.mean([r[3] for r in at]):.4f} ms, bound "
+                  f"{np.mean([r[4] for r in at]):.4f} ms, "
+                  f"{np.mean([r[6] for r in at]) / 1e9:.3f} GFLOP")
+        print(f"served M{M}, all {len(sel)} levels: kernel "
+              f"{sum(r[2] for r in sel):.4f} ms, plain "
+              f"{sum(r[3] for r in sel):.4f} ms, bound "
+              f"{sum(r[4] for r in sel):.4f} ms")
+    by_ops = sum(r[4] for r in rows if r[5] == "operations")
+    out = {"levels": n, "max_abs_err": worst,
+           "ms": sum(r[2] for r in rows) / n,
+           "plain_ms": sum(r[3] for r in rows) / n,
+           "bound_ms": sum(r[4] for r in rows) / n,
+           "bound_by": ("operations" if by_ops >= sum(r[4] for r in rows) / 2
+                        else "bytes")}
+    print(f"served levels: {n} levels, max_abs_err {worst:.3e}; mean per "
+          f"launch: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} "
+          f"ms, bound {out['bound_ms']:.4f} ms by {out['bound_by']} "
+          f"({out['bound_ms'] / out['ms']:.1%} of bound)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: serving
+# ---------------------------------------------------------------------------
+
+def _requests(ds):
+    return [StructureRequest(i, g, x)
+            for i, (g, x) in enumerate(zip(ds.graphs, ds.inputs))]
+
+
+def served_traffic():
+    """The serving phase's model (random weights from seed 0) and its
+    traffic (SST-like parses from seed 0)."""
+    cfg = get_paper_model("tree_lstm")
+    fn = cfg.make_vertex(hidden=HIDDEN, input_dim=cfg.input_dim)
+    params = fn.init(torch.Generator().manual_seed(0), device=DEVICE)
+    ds = sst_like_dataset(N_REQUESTS, input_dim=cfg.input_dim, seed=0)
+    return fn, params, ds
+
+
+def serve_phase(card: str) -> dict:
+    fn, params, ds = served_traffic()
+    eng = StructureServeEngine(fn, params, batch_size=BATCH, device=DEVICE)
+    reqs = _requests(ds)
+    for r in reqs:
+        check(eng.submit(r), f"request {r.request_id} rejected: {r.error}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm.reset_launches()
+    get_registry().reset()
+    lat = []
+    t_all = time.perf_counter()
+    while eng.queue:
+        t0 = time.perf_counter()
+        eng.step()                 # ends in a device→host copy of roots
+        lat.append(time.perf_counter() - t0)
+    wall = time.perf_counter() - t_all
+    launches = lm.LAUNCHES["treelstm_megastep"]
+    peak = torch.cuda.max_memory_allocated()
+
+    h = eng.health()
+    levels = sum(shape[0] * n
+                 for shape, n in eng.pipeline.census.counts().items())
+    print(f"serve: health {json.dumps(h)}")
+    check(all(r.status == "ok" for r in reqs),
+          f"{sum(r.status != 'ok' for r in reqs)} request(s) not ok: "
+          f"{[r.error for r in reqs if r.status != 'ok'][:3]}")
+    check(h["degradations"] == 0, f"{h['degradations']} fused → oracle "
+          f"degradation(s): {eng.last_degradation}")
+    check(not h["breaker_open"], "circuit breaker open")
+    check(launches == levels and launches > 0,
+          f"{launches} kernel launches for {levels} padded levels")
+    roots = np.stack([r.root_state for r in reqs])
+    check(roots.shape == (N_REQUESTS, fn.state_dim), f"roots shape {roots.shape}")
+    check(bool(np.isfinite(roots).all()), "non-finite root states")
+
+    oracle = StructureServeEngine(fn, params, batch_size=BATCH,
+                                  fusion_mode="none", device=DEVICE)
+    oreqs = _requests(ds)
+    for r in oreqs:
+        oracle.submit(r)
+    oracle.run()
+    o_roots = np.stack([r.root_state for r in oreqs])
+    err_op = float(np.abs(roots - o_roots).max())
+    check(err_op <= TOL, f"fused roots vs op-by-op on the card: "
+          f"{err_op:.3e} > {TOL}")
+
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    cpu = StructureServeEngine(fn, cpu_params, batch_size=8, device="cpu")
+    creqs = _requests(ds)[:16]
+    for r in creqs:
+        cpu.submit(r)
+    cpu.run()
+    err_cpu = float(np.abs(roots[:16]
+                           - np.stack([r.root_state for r in creqs])).max())
+    check(err_cpu <= TOL, f"card roots vs CPU plain path: {err_cpu:.3e} "
+          f"> {TOL}")
+
+    lat_ms = np.asarray(lat) * 1e3
+    shapes = {f"T{t}xM{m}": n
+              for (t, m, _a, _n), n in eng.pipeline.census.counts().items()}
+    out = {"requests": len(reqs), "batches": eng.batches,
+           "requests_per_s": len(reqs) / wall,
+           "batch_p50_ms": float(np.percentile(lat_ms, 50)),
+           "batch_p99_ms": float(np.percentile(lat_ms, 99)),
+           "max_memory_allocated_bytes": int(peak),
+           "launches": launches, "padded_levels": levels,
+           "shapes": shapes, "err_vs_opbyop": err_op,
+           "err_vs_cpu": err_cpu, "card": card}
+    print(f"serve: {json.dumps(out)}")
+    return out
+
+
+def profile_phase() -> None:
+    """Where a served batch's time goes, on two warm batches of the same
+    traffic: one under the port's tracer (host spans; the tracer
+    synchronises the card at ``h2d.ext``) and one under
+    ``torch.profiler`` (wall time, time the card spent in kernels and
+    copies, the top ones).  The profiler's own host overhead inflates the
+    wall time, so the idle share it gives is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
+    cfg = get_paper_model("tree_lstm")
+    fn = cfg.make_vertex(hidden=HIDDEN, input_dim=cfg.input_dim)
+    params = fn.init(torch.Generator().manual_seed(0), device=DEVICE)
+    ds = sst_like_dataset(3 * BATCH, input_dim=cfg.input_dim, seed=1)
+    eng = StructureServeEngine(fn, params, batch_size=BATCH, device=DEVICE)
+    for r in _requests(ds):
+        eng.submit(r)
+    eng.step()                                   # warm
+    with trace.install_tracer(trace.Tracer()) as tracer:
+        eng.step()
+    spans = {}
+    for sp in tracer.snapshot():
+        if sp.ph == "X":
+            spans[sp.name] = spans.get(sp.name, 0.0) + sp.dur_ms
+    print("host spans of one batch (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in spans.items()))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    print(f"profile: one batch of {BATCH}: wall {wall_ms:.3f} ms (under the "
+          f"profiler), card busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.1%}")
+    for e in sorted(on_card, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}")
+
+
+def main() -> None:
+    dev = device_phase()
+    kern = kernel_phase()
+    served = served_levels_phase()
+    serve = serve_phase(dev["smi"])
+    check(served["levels"] == serve["launches"],
+          f"the tapped run had {served['levels']} levels, the main path "
+          f"{serve['launches']} launches")
+    profile_phase()
+    row = {"name": "treelstm_megastep", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/treelstm_megastep.cu",
+           "replaces": "src/repro/kernels/level_megastep.py:181",
+           "launches": serve["launches"],
+           "max_abs_err": max(kern["max_abs_err"], served["max_abs_err"]),
+           "ms": served["ms"], "plain_ms": served["plain_ms"],
+           "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
+           "library_ms": None}
+    print(dev["smi"])
+    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev["name"], "count": dev["count"]}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,482 @@
+"""Input graphs ``G`` and their packing into level schedules (Cavs §3.2).
+
+The *input graph* is per-example data, not program: it is read "through
+I/O" (paper §3) and never triggers recompilation.  Host-side, pure-NumPy
+code turns a minibatch of graphs into a :class:`LevelSchedule` — dense
+integer tensors encoding the paper's batching tasks ``V_t``:
+
+  level 0 = all leaves of all K graphs, level t = all vertices whose
+  children were all evaluated by level t-1 (breadth-first wavefronts).
+
+One step over the schedule is one batching task: it evaluates ``F``
+once, batched over the ``M`` slots of that level.  Because the schedule
+is *data*, the same kernels serve every minibatch — the Cavs property
+that buys static-graph optimization on dynamic models.
+
+This is the PyTorch port of ``repro.core.structure``: the host side is
+the same NumPy code (``pack_batch`` is byte-identical), and
+:class:`DeviceSchedule` holds torch tensors.
+
+Slot layout (the dynamic-tensor view, §3.3): the node-state buffer has
+``T*M + 1`` rows; the vertex at level ``t``, lane ``m`` owns row
+``t*M + m`` — i.e. task ``V_t`` writes the contiguous block
+``[t*M, (t+1)*M)``, this package's rendering of the paper's monotonically
+advancing ``offset``.  Row ``T*M`` is the zero *sentinel*: absent
+children and padding point at it, so gathers never need bounds branches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+# ---------------------------------------------------------------------------
+# Per-sample input graphs
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class InputGraph:
+    """One example's structure ``G``: a DAG given as child lists.
+
+    ``children[v]`` lists the vertex ids ``v`` gathers from (its inputs);
+    ``ext_row[v]`` is the row of this sample's external-input matrix the
+    vertex pulls (or -1 to pull the zero row).  Vertices may appear in any
+    order; levels are derived here.
+    """
+
+    children: List[List[int]]
+    ext_row: Optional[List[int]] = None
+
+    def __post_init__(self) -> None:
+        n = len(self.children)
+        if self.ext_row is None:
+            self.ext_row = list(range(n))
+        if len(self.ext_row) != n:
+            raise ValueError("ext_row length != num nodes")
+        for v, ch in enumerate(self.children):
+            for c in ch:
+                if not (0 <= c < n):
+                    raise ValueError(f"node {v} has out-of-range child {c}")
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self.children)
+
+    def levels(self) -> np.ndarray:
+        """Topological level of each vertex (leaves = 0). Raises on cycles.
+
+        Memoized: the schedule pipeline derives levels once for
+        bucketing and once for packing, and topologies are immutable
+        once they enter a batch.  (Mutating ``children`` after the first
+        call is unsupported — rebuild the graph instead.)
+        """
+        cached = getattr(self, "_levels_cache", None)
+        if cached is not None:
+            return cached
+        lvl = self._levels_uncached()
+        self._levels_cache = lvl
+        return lvl
+
+    def _levels_uncached(self) -> np.ndarray:
+        n = self.num_nodes
+        lvl = np.full(n, -1, np.int64)
+        # Kahn-style: process in waves.
+        indeg_children_done = [0] * n
+        remaining = n
+        pending = list(range(n))
+        while remaining:
+            progressed = False
+            nxt = []
+            for v in pending:
+                ch = self.children[v]
+                if all(lvl[c] >= 0 for c in ch):
+                    lvl[v] = 0 if not ch else 1 + max(lvl[c] for c in ch)
+                    remaining -= 1
+                    progressed = True
+                else:
+                    nxt.append(v)
+            pending = nxt
+            if not progressed and remaining:
+                raise ValueError("input graph has a cycle")
+        return lvl
+
+    def roots(self) -> List[int]:
+        """Vertices no other vertex gathers from (outputs of the structure)."""
+        has_parent = np.zeros(self.num_nodes, bool)
+        for ch in self.children:
+            for c in ch:
+                has_parent[c] = True
+        return [v for v in range(self.num_nodes) if not has_parent[v]]
+
+    @property
+    def max_arity(self) -> int:
+        return max((len(c) for c in self.children), default=0)
+
+
+def chain(n: int) -> InputGraph:
+    """A sequence RNN structure: vertex t gathers from t-1 (Fig. 2b)."""
+    return InputGraph(children=[[] if t == 0 else [t - 1] for t in range(n)])
+
+
+def balanced_binary_tree(num_leaves: int) -> InputGraph:
+    """Complete binary tree with ``num_leaves`` leaves (Tree-FC benchmark).
+
+    Requires a power of two, mirroring the paper's synthetic generator
+    (256 leaves -> 511 vertices).
+    """
+    if num_leaves < 1 or (num_leaves & (num_leaves - 1)):
+        raise ValueError("num_leaves must be a positive power of two")
+    children: List[List[int]] = [[] for _ in range(num_leaves)]
+    frontier = list(range(num_leaves))
+    while len(frontier) > 1:
+        nxt = []
+        for i in range(0, len(frontier), 2):
+            children.append([frontier[i], frontier[i + 1]])
+            nxt.append(len(children) - 1)
+        frontier = nxt
+    return InputGraph(children=children)
+
+
+def random_binary_tree(num_leaves: int, rng: np.random.Generator) -> InputGraph:
+    """Random binary bracketing over ``num_leaves`` leaves (SST-like)."""
+    if num_leaves < 1:
+        raise ValueError("need >= 1 leaf")
+    children: List[List[int]] = [[] for _ in range(num_leaves)]
+    frontier = list(range(num_leaves))
+    while len(frontier) > 1:
+        i = int(rng.integers(0, len(frontier) - 1))
+        children.append([frontier[i], frontier[i + 1]])
+        frontier[i : i + 2] = [len(children) - 1]
+    return InputGraph(children=children)
+
+
+def random_dag(num_nodes: int, rng: np.random.Generator,
+               max_arity: int = 3) -> InputGraph:
+    """Random DAG with multi-parent fan-out (paper Fig. 2d: general
+    graph-structured RNNs).  Node v gathers from 1..max_arity random
+    earlier nodes; a node may feed several parents."""
+    if num_nodes < 1:
+        raise ValueError("need >= 1 node")
+    children: List[List[int]] = [[]]
+    for v in range(1, num_nodes):
+        k = int(rng.integers(1, min(max_arity, v) + 1))
+        ch = sorted(rng.choice(v, size=k, replace=False).tolist())
+        children.append([int(c) for c in ch])
+    return InputGraph(children=children)
+
+
+def from_parent_pointers(parents: Sequence[int]) -> InputGraph:
+    """Build a tree from parent pointers (-1 = root), treebank style."""
+    n = len(parents)
+    children: List[List[int]] = [[] for _ in range(n)]
+    for v, p in enumerate(parents):
+        if p >= 0:
+            children[p].append(v)
+    return InputGraph(children=children)
+
+
+# ---------------------------------------------------------------------------
+# Level schedule (packed batch of graphs)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LevelSchedule:
+    """Dense encoding of the batching tasks for K graphs (host, NumPy).
+
+    Shapes: ``T`` levels, ``M`` slots per level, ``A`` max arity,
+    ``K`` samples, ``N`` max nodes per sample, ``R = K*N`` external rows.
+    The sentinel buffer row is ``T*M``; the sentinel external row is ``R``.
+    """
+
+    child_ids: np.ndarray   # [T, M, A] int32 -> buffer rows (sentinel T*M)
+    child_mask: np.ndarray  # [T, M, A] float32
+    ext_ids: np.ndarray     # [T, M] int32 -> external rows (sentinel R)
+    node_mask: np.ndarray   # [T, M] float32
+    slot_of: np.ndarray     # [K, N] int32: buffer row of node n of sample k
+    node_valid: np.ndarray  # [K, N] float32
+    root_slots: np.ndarray  # [K] int32 (first root per sample)
+    num_nodes: np.ndarray   # [K] int32
+    # Sorted-run precompute for the fused backward (∂gather = scatter-add
+    # under the sorted-run discipline): per level, the stable argsort of
+    # the flat [M*A] child_ids, the ids in sorted order, and the run
+    # boundaries (1 where a new destination run starts).  Host-side data
+    # like the rest of the schedule — carrying it here removes the T
+    # per-level XLA sorts from every grad step's reverse scan.
+    sort_perm: Optional[np.ndarray] = None        # [T, M*A] int32
+    sorted_child_ids: Optional[np.ndarray] = None  # [T, M*A] int32
+    run_head: Optional[np.ndarray] = None          # [T, M*A] int32 (0/1)
+
+    @property
+    def T(self) -> int:
+        return self.child_ids.shape[0]
+
+    @property
+    def M(self) -> int:
+        return self.child_ids.shape[1]
+
+    @property
+    def A(self) -> int:
+        return self.child_ids.shape[2]
+
+    @property
+    def K(self) -> int:
+        return self.slot_of.shape[0]
+
+    @property
+    def N(self) -> int:
+        return self.slot_of.shape[1]
+
+    @property
+    def num_slots(self) -> int:
+        """Buffer rows excluding the sentinel."""
+        return self.T * self.M
+
+    @property
+    def sentinel_slot(self) -> int:
+        return self.T * self.M
+
+    @property
+    def num_ext_rows(self) -> int:
+        return self.K * self.N
+
+    @property
+    def occupancy(self) -> float:
+        """Fraction of slots holding real vertices (padding efficiency)."""
+        return float(self.node_mask.sum()) / max(1, self.num_slots)
+
+    def to_device(self, device="cuda") -> "DeviceSchedule":
+        """Copy the schedule to ``device`` (index tensors stay int32,
+        the width the kernels take)."""
+        def _t(x):
+            return None if x is None else torch.from_numpy(
+                np.ascontiguousarray(x)).to(device)
+
+        return DeviceSchedule(
+            child_ids=_t(self.child_ids),
+            child_mask=_t(self.child_mask),
+            ext_ids=_t(self.ext_ids),
+            node_mask=_t(self.node_mask),
+            slot_of=_t(self.slot_of),
+            node_valid=_t(self.node_valid),
+            root_slots=_t(self.root_slots),
+            sort_perm=_t(self.sort_perm),
+            sorted_child_ids=_t(self.sorted_child_ids),
+            run_head=_t(self.run_head),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceSchedule:
+    """Device-resident view of a :class:`LevelSchedule` (torch tensors)."""
+
+    child_ids: torch.Tensor
+    child_mask: torch.Tensor
+    ext_ids: torch.Tensor
+    node_mask: torch.Tensor
+    slot_of: torch.Tensor
+    node_valid: torch.Tensor
+    root_slots: torch.Tensor
+    # Precomputed sorted runs for the fused backward (see LevelSchedule);
+    # ``None`` on forward-only schedules.
+    sort_perm: Optional[torch.Tensor] = None
+    sorted_child_ids: Optional[torch.Tensor] = None
+    run_head: Optional[torch.Tensor] = None
+
+    @property
+    def T(self) -> int:
+        return self.child_ids.shape[0]
+
+    @property
+    def M(self) -> int:
+        return self.child_ids.shape[1]
+
+    @property
+    def A(self) -> int:
+        return self.child_ids.shape[2]
+
+    @property
+    def num_slots(self) -> int:
+        return self.T * self.M
+
+    @property
+    def device(self) -> torch.device:
+        return self.child_ids.device
+
+
+def _tight_stats(graphs: Sequence[InputGraph]):
+    """Per-graph stats behind the tight dims: (levels, depths, per-level
+    width counts across the batch, arities, sizes).  Shared by
+    ``pack_batch`` and :func:`tight_dims` so the bucket policy can never
+    drift from what packing actually requires."""
+    levels = [g.levels() for g in graphs]
+    depths = [int(l.max()) + 1 for l in levels]
+    counts = np.zeros(max(depths), np.int64)
+    for l in levels:
+        for t, c in zip(*np.unique(l, return_counts=True)):
+            counts[t] += c
+    arities = [max(g.max_arity, 1) for g in graphs]
+    sizes = [g.num_nodes for g in graphs]
+    return levels, depths, counts, arities, sizes
+
+
+def tight_dims(graphs: Sequence[InputGraph]) -> Tuple[int, int, int, int]:
+    """The ``(T, M, A, N)`` a tight ``pack_batch`` of ``graphs`` yields
+    (the dims the pipeline's bucket policy quantizes up)."""
+    if not graphs:
+        raise ValueError("empty batch")
+    _, depths, counts, arities, sizes = _tight_stats(graphs)
+    return max(depths), int(counts.max()), max(arities), max(sizes)
+
+
+def pack_batch(
+    graphs: Sequence[InputGraph],
+    pad_levels: Optional[int] = None,
+    pad_width: Optional[int] = None,
+    pad_arity: Optional[int] = None,
+    pad_nodes: Optional[int] = None,
+    *,
+    with_runs: bool = True,
+) -> LevelSchedule:
+    """Pack K input graphs into one level schedule (the Cavs scheduler's
+    breadth-first batching, Alg. 1, precomputed host-side).
+
+    ``pad_*`` fix the padded dims (for bucketing — reusing one compiled
+    program across minibatches); when omitted the tightest fit is used.
+
+    ``with_runs=False`` skips the sorted-run precompute — the ~75% of
+    schedule bytes only the fused BACKWARD reads.  Forward-only
+    consumers (the serve engines) pack this way so their LRU/persist
+    stores don't carry training-only data; a runs-less schedule that
+    later reaches a backward falls back to the in-kernel argsort (or
+    use :func:`attach_sorted_runs`).
+    """
+    K = len(graphs)
+    if K == 0:
+        raise ValueError("empty batch")
+    levels, depths, counts, arities, sizes = _tight_stats(graphs)
+    T = max(depths)
+    A = max(arities)
+    N = max(sizes)
+    if pad_levels is not None:
+        if pad_levels < T:
+            k = int(np.argmax(depths))
+            raise ValueError(
+                f"pad_levels={pad_levels} < required T={T} "
+                f"(graph {k} has {depths[k]} levels)")
+        T = pad_levels
+    if pad_arity is not None:
+        if pad_arity < A:
+            k = int(np.argmax(arities))
+            raise ValueError(
+                f"pad_arity={pad_arity} < required A={A} "
+                f"(graph {k} has a vertex of arity {arities[k]})")
+        A = pad_arity
+    if pad_nodes is not None:
+        if pad_nodes < N:
+            k = int(np.argmax(sizes))
+            raise ValueError(
+                f"pad_nodes={pad_nodes} < required N={N} "
+                f"(graph {k} has {sizes[k]} nodes)")
+        N = pad_nodes
+
+    M = int(counts.max())
+    if pad_width is not None:
+        if pad_width < M:
+            t = int(np.argmax(counts))
+            widths = [int(np.sum(l == t)) for l in levels]
+            k = int(np.argmax(widths))
+            raise ValueError(
+                f"pad_width={pad_width} < required M={M} (level {t} is "
+                f"widest; graph {k} alone contributes {widths[k]} of its "
+                f"{M} slots)")
+        M = pad_width
+
+    sentinel = T * M
+    ext_sentinel = K * N
+
+    child_ids = np.full((T, M, A), sentinel, np.int32)
+    child_mask = np.zeros((T, M, A), np.float32)
+    ext_ids = np.full((T, M), ext_sentinel, np.int32)
+    node_mask = np.zeros((T, M), np.float32)
+    slot_of = np.full((K, N), sentinel, np.int32)
+    node_valid = np.zeros((K, N), np.float32)
+    root_slots = np.zeros(K, np.int32)
+    num_nodes = np.asarray([g.num_nodes for g in graphs], np.int32)
+
+    cursor = np.zeros(T, np.int64)  # next free lane per level
+    for k, (g, lvl) in enumerate(zip(graphs, levels)):
+        order = np.argsort(lvl, kind="stable")
+        for v in order:
+            t = int(lvl[v])
+            m = int(cursor[t])
+            cursor[t] += 1
+            slot = t * M + m
+            slot_of[k, v] = slot
+            node_valid[k, v] = 1.0
+            node_mask[t, m] = 1.0
+            er = g.ext_row[v]
+            ext_ids[t, m] = k * N + er if er >= 0 else ext_sentinel
+            for a, c in enumerate(g.children[v]):
+                child_ids[t, m, a] = slot_of[k, c]  # children are at lower levels
+                child_mask[t, m, a] = 1.0
+        r = g.roots()[0] if g.roots() else g.num_nodes - 1
+        root_slots[k] = slot_of[k, r]
+
+    sched = LevelSchedule(
+        child_ids=child_ids, child_mask=child_mask, ext_ids=ext_ids,
+        node_mask=node_mask, slot_of=slot_of, node_valid=node_valid,
+        root_slots=root_slots, num_nodes=num_nodes,
+    )
+    return attach_sorted_runs(sched) if with_runs else sched
+
+
+def attach_sorted_runs(sched: LevelSchedule) -> LevelSchedule:
+    """Return ``sched`` with the backward's sorted-run arrays attached
+    (idempotent; computes them from ``child_ids`` when absent).  The
+    upgrade path for runs-less schedules — e.g. a forward-only persist
+    entry reloaded by a training run."""
+    if sched.sort_perm is not None and sched.sorted_child_ids is not None \
+            and sched.run_head is not None:
+        return sched
+    sort_perm, sorted_cids, run_head = _sorted_runs(sched.child_ids)
+    return dataclasses.replace(sched, sort_perm=sort_perm,
+                               sorted_child_ids=sorted_cids,
+                               run_head=run_head)
+
+
+def _sorted_runs(child_ids: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-level sorted-run precompute for the fused backward.
+
+    For each level the flat ``[M*A]`` child ids are stably argsorted so
+    duplicate destinations become adjacent; ``run_head`` marks the first
+    contribution of each destination run.  This is the preprocessing the
+    reverse megastep previously did on device (one XLA sort per level,
+    every grad step) — the schedule is data, so it belongs here.
+    """
+    T = child_ids.shape[0]
+    flat = child_ids.reshape(T, -1).astype(np.int32)
+    perm = np.argsort(flat, axis=1, kind="stable").astype(np.int32)
+    scids = np.take_along_axis(flat, perm, axis=1)
+    head = np.ones_like(scids)
+    head[:, 1:] = (scids[:, 1:] != scids[:, :-1]).astype(np.int32)
+    return perm, scids, head
+
+
+def pack_external(inputs: Sequence[np.ndarray], schedule: LevelSchedule,
+                  ext_dim: int) -> np.ndarray:
+    """Pack per-sample external inputs ``[n_k, X]`` into ``[K*N + 1, X]``.
+
+    The final row is the zero sentinel pulled by input-less vertices.
+    """
+    K, N = schedule.K, schedule.N
+    out = np.zeros((K * N + 1, ext_dim), np.float32)
+    for k, x in enumerate(inputs):
+        if x.shape[0] > N:
+            raise ValueError(f"sample {k} has {x.shape[0]} rows > pad_nodes={N}")
+        out[k * N : k * N + x.shape[0], :] = x
+    return out

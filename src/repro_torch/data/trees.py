@@ -1,0 +1,49 @@
+"""Tree datasets for the serving path (the SST-like part of
+``repro.data.trees``): random binary parses with SST length statistics
+(≤ 54 words), random leaf embeddings, binary sentiment labels.  NumPy
+only; the same seed gives the same data as the JAX package."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+
+from repro_torch.core.structure import InputGraph, random_binary_tree
+
+
+@dataclasses.dataclass
+class TreeDataset:
+    graphs: List[InputGraph]
+    inputs: List[np.ndarray]              # per sample [num_nodes, X]
+    labels: Optional[np.ndarray] = None   # [K] int labels (classification)
+
+    def __len__(self) -> int:
+        return len(self.graphs)
+
+
+def _leaf_inputs(g: InputGraph, dim: int, rng: np.random.Generator
+                 ) -> np.ndarray:
+    """Random embeddings at leaves, zeros at internal nodes (the usual
+    Tree-RNN convention: internal vertices pull nothing)."""
+    x = np.zeros((g.num_nodes, dim), np.float32)
+    for v in range(g.num_nodes):
+        if not g.children[v]:
+            x[v] = rng.standard_normal(dim).astype(np.float32) * 0.1
+    return x
+
+
+def sst_like_dataset(n: int, max_leaves: int = 54, min_leaves: int = 2,
+                     input_dim: int = 256, seed: int = 0) -> TreeDataset:
+    """Random binary parses, SST length stats, binary sentiment labels."""
+    rng = np.random.default_rng(seed)
+    graphs, inputs = [], []
+    for _ in range(n):
+        # SST sentence lengths: roughly lognormal, clipped at 54.
+        leaves = int(np.clip(rng.lognormal(2.7, 0.6), min_leaves, max_leaves))
+        g = random_binary_tree(leaves, rng)
+        graphs.append(g)
+        inputs.append(_leaf_inputs(g, input_dim, rng))
+    labels = rng.integers(0, 2, size=n).astype(np.int32)
+    return TreeDataset(graphs=graphs, inputs=inputs, labels=labels)

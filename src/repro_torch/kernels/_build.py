@@ -1,0 +1,116 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` source is compiled on first use, from the sources in
+this checkout only, by ``nvcc`` into a shared library with a plain C
+interface (no PyTorch headers: seconds to build, not minutes), and
+loaded with ``ctypes``.  Libraries go to ``<checkout>/build/kernels/``,
+named by the hash of their source, so an edited source is rebuilt and a
+stale library is never loaded.  :func:`build_all` starts one ``nvcc``
+per missing library, all at once, and waits for every one.  A failed
+build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional, Tuple
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+#: <checkout>/src/repro_torch/kernels/_build.py → <checkout>
+_ROOT = Path(__file__).resolve().parents[3]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+#: kernel name → (source file, C entry point, argtypes).  Every pointer
+#: and the stream are ``c_void_p`` so ctypes never cuts them to 32 bits.
+KERNELS: Dict[str, Tuple[str, str, List]] = {
+    "treelstm_megastep": (
+        "treelstm_megastep.cu", "treelstm_megastep_launch",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOADED: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def build_dir() -> Path:
+    return _ROOT / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = _CSRC / KERNELS[name][0]
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return build_dir() / f"{name}-{digest}.so"
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc -Xptxas -v`` said when ``name`` was built (registers,
+    shared memory, spills), or "" if it was built by another process."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> List[str]:
+    """Build every kernel in ``names`` (default: all) whose library is
+    missing — one ``nvcc`` each, all started together.  Returns the
+    names built; raises ``RuntimeError`` with the compiler's output if
+    any build fails."""
+    names = list(KERNELS if names is None else names)
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return []
+    nvcc = _nvcc()
+    build_dir().mkdir(parents=True, exist_ok=True)
+    procs = []
+    for n in todo:
+        out = library_path(n)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / KERNELS[n][0])]
+        procs.append((n, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for n, out, tmp, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{n}: nvcc exited {p.returncode}\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return todo
+
+
+def load(name: str) -> ctypes._CFuncPtr:
+    """The C entry point of kernel ``name``, built on first use."""
+    fn = _LOADED.get(name)
+    if fn is None:
+        build_all([name])
+        _src, entry, argtypes = KERNELS[name]
+        lib = ctypes.CDLL(str(library_path(name)))
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LOADED[name] = fn
+    return fn

@@ -1,0 +1,76 @@
+"""Plain PyTorch versions of the kernels (port of the part of
+``repro.kernels.ref`` the serving path needs).
+
+These are the semantic ground truth: simplest correct code, no tiling.
+On a CPU tensor the ``ops`` dispatch runs them; on the card,
+``chip_smoke.py`` holds each hand-written kernel against them.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def treelstm_gates(i_pre: torch.Tensor, f_pre: torch.Tensor,
+                   o_pre: torch.Tensor, u_pre: torch.Tensor,
+                   c_k: torch.Tensor, child_mask: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Child-sum Tree-LSTM gate math (paper Fig. 4 L7-17).
+
+    ``i_pre/o_pre/u_pre``: ``[M, H]``; ``f_pre/c_k``: ``[M, A, H]``;
+    ``child_mask``: ``[M, A]``.
+    """
+    i = torch.sigmoid(i_pre)
+    f = torch.sigmoid(f_pre)
+    o = torch.sigmoid(o_pre)
+    u = torch.tanh(u_pre)
+    c = i * u + torch.sum(f * c_k * child_mask[..., None], dim=1)
+    return c, o * torch.tanh(c)
+
+
+def megastep_cell_state(kind: str, child: torch.Tensor, rows: torch.Tensor,
+                        child_mask: torch.Tensor,
+                        weights: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """The megastep cell math alone: gathered child rows ``[M, A, S]``
+    plus pulled (eagerly projected) rows ``[M, G]`` → state ``[M, S]``
+    (before node masking)."""
+    if kind != "treelstm":
+        raise NotImplementedError(
+            f"megastep kind {kind!r} is not ported yet (only 'treelstm')")
+    M, A = child.shape[:2]
+    ui, uf, uo, uu, b = weights
+    H = ui.shape[0]
+    mk = child_mask.to(child.dtype)[..., None]
+    cs = child * mk
+    c_k, h_k = cs[..., :H], cs[..., H:]
+    h_sum = torch.sum(h_k, dim=1)
+    xi, xf, xo, xu = torch.split(rows, H, dim=-1)
+    bi, bf, bo, bu = torch.split(b, H)
+    rec_f = (h_k.reshape(M * A, H) @ uf).reshape(M, A, H)
+    c, h = treelstm_gates(
+        xi + h_sum @ ui + bi,
+        xf[:, None, :] + rec_f + bf,
+        xo + h_sum @ uo + bo,
+        xu + h_sum @ uu + bu,
+        c_k, child_mask.to(child.dtype))
+    return torch.cat([c, h], dim=-1)
+
+
+def level_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
+                   child_mask: torch.Tensor, ext_ids: torch.Tensor,
+                   node_mask: torch.Tensor, offset: int, ext: torch.Tensor,
+                   weights: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """One batching task as gather → cell math → contiguous block write
+    of rows ``[offset, offset+M)``.  Writes ``buf`` IN PLACE, like the
+    kernel it stands beside, and returns it."""
+    M, A = child_ids.shape
+    S = buf.shape[1]
+    child = buf.index_select(0, child_ids.reshape(-1)).reshape(M, A, S)
+    rows = ext.index_select(0, ext_ids)
+    nm = node_mask.to(buf.dtype)[:, None]
+    state = megastep_cell_state(kind, child, rows,
+                                child_mask.to(buf.dtype), weights)
+    buf[offset:offset + M] = (state * nm).to(buf.dtype)
+    return buf

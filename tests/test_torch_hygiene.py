@@ -1,0 +1,68 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no
+JAX and nothing of the JAX package, and the port imports in a process
+where ``jax`` cannot be imported at all."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)"
+    r"|from\s+repro(\.|\s))", re.MULTILINE)
+
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m.group(0).strip() for m in FORBIDDEN.finditer(path.read_text())]
+    assert not bad, f"{path}: {bad}"
+
+
+def test_port_imports_with_jax_blocked():
+    modules = sorted(
+        ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("")
+                 .parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n"
+        "print('ok', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):
+    """Without CUDA (or copied out of its checkout) the smoke run exits
+    non-zero and prints no result line."""
+    here = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300,
+                          env={"CUDA_VISIBLE_DEVICES": "",
+                               "PATH": "/usr/bin:/bin"})
+    assert here.returncode != 0
+    assert '"ok"' not in here.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env={"PATH": "/usr/bin:/bin"})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
