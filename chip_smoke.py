@@ -26,13 +26,32 @@ Phases, each of which must pass (any failure exits non-zero):
      no degradation, the breaker closed, one kernel launch per padded
      level; the roots match the op-by-op path on the card and the plain
      path on the CPU to 1e-4;
-  4. report — one JSON line per the kernel table, then the device line.
+  4. training levels — one full-width training step of the paper's
+     ``tree_lstm`` (the example ``examples/torch_treelstm_sentiment.py``,
+     SST-like parses of seed 0 in batches of 64, pow2 buckets with the
+     backward's sorted runs), taken with taps on ``ops.bwd_megastep`` and
+     ``ops.scatter_add_rows``: every reverse level through the reverse
+     megastep kernel against its plain version on the same inputs (error
+     relative to max |plain| <= 1e-4, untouched rows bit-unchanged), every
+     scatter of the step and a duplicate-heavy case through the
+     scatter-add kernel against its plain version, each timed with CUDA
+     events beside its bound (and the scatter beside ``index_add_``); the
+     fused leg's gradients (every param and the external matrix) against
+     ``fusion_mode="none"`` on the card within 1e-4 relative; two
+     backward passes of the step bitwise equal;
+  5. training — the example's loop (AdamW, warmup-cosine) for
+     ``TRAIN_STEPS`` steps: finite losses, step time p50/p99, steps/s,
+     peak device memory, one forward and one reverse megastep launch per
+     padded level and one scatter-add launch per step; then a
+     ``torch.profiler`` breakdown of one warm step;
+  6. report — one JSON line per the kernel table, then the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,6 +64,9 @@ DEVICE = "cuda"
 #: Full width of the paper's tree_lstm, the kernel check's level width,
 #: and the served traffic.
 HIDDEN, M_FULL, N_REQUESTS, BATCH = 512, 4096, 512, 64
+#: The training loop: steps, and the SST-like corpus it cycles through in
+#: batches of ``BATCH`` (the example's FIFO epochs).
+TRAIN_STEPS, TRAIN_DATA = 30, 512
 #: Published H100 SXM peaks (NVIDIA data sheet): fp32 without tensor
 #: cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
@@ -74,8 +96,10 @@ from repro_torch.configs.paper import get_paper_model  # noqa: E402
 from repro_torch.core.structure import (pack_batch, random_binary_tree,  # noqa: E402
                                         random_dag)
 from repro_torch.data.trees import sst_like_dataset  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import level_megastep as lm  # noqa: E402
+from repro_torch.kernels import level_megastep_bwd as lmb  # noqa: E402
+from repro_torch.pipeline import BucketPolicy, SchedulePipeline  # noqa: E402
 from repro_torch.obs.registry import get_registry  # noqa: E402
 from repro_torch.serve import StructureRequest, StructureServeEngine  # noqa: E402
 
@@ -104,8 +128,8 @@ def device_phase() -> dict:
           f"{time.perf_counter() - t0:.1f} s: {', '.join(built) or '-'}")
     for k in _build.KERNELS:
         for line in _build.build_log(k).splitlines():
-            if "ptxas info" in line and ("registers" in line
-                                         or "spill" in line):
+            if ("ptxas info" in line and "registers" in line) \
+                    or "spill stores" in line:
                 print(f"  {k}: {line.strip()}")
     return {"name": name, "count": count, "smi": smi_line}
 
@@ -279,7 +303,6 @@ def served_levels_phase() -> dict:
     what the main path saw.  Each level is compared with its plain
     version and both are timed; the means per launch over these levels
     are the numbers the JSON line reports."""
-    from repro_torch.kernels import ops
     fn, params, ds = served_traffic()
     levels = []
     inner = ops.level_megastep
@@ -473,6 +496,342 @@ def profile_phase() -> None:
               f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 4-5: training
+# ---------------------------------------------------------------------------
+
+def _example():
+    """The training example, loaded from the checkout (``examples/`` is
+    not a package)."""
+    import importlib.util
+    path = ROOT / "examples" / "torch_treelstm_sentiment.py"
+    spec = importlib.util.spec_from_file_location("torch_treelstm_sentiment",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_setup():
+    """The training phases' model (the paper's tree_lstm at full width,
+    random weights and head from seed 0), the example's FIFO batches of
+    SST-like parses (seed 0) and a pipeline that packs pow2 buckets with
+    the backward's sorted runs."""
+    ex = _example()
+    cfg = get_paper_model("tree_lstm")
+    fn = cfg.make_vertex(hidden=HIDDEN, input_dim=cfg.input_dim)
+    params = ex.init_params(fn, 0, DEVICE)
+    ds = sst_like_dataset(TRAIN_DATA, input_dim=cfg.input_dim, seed=0)
+    pipe = SchedulePipeline(cfg.input_dim,
+                            bucket_policy=BucketPolicy(mode="pow2"),
+                            with_runs=True, device=DEVICE)
+    batches = ex.fifo_batches(ds, BATCH, np.random.default_rng(0))
+    return ex, fn, params, pipe, batches
+
+
+def _labels(labels: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(labels.astype(np.int64)).to(DEVICE)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Worst error relative to max |want|."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def grads_of(ex, fn, params, b, y, fusion_mode: str):
+    """Loss and gradients of one training step (no update): every param
+    and the packed external matrix."""
+    bx = dataclasses.replace(b, ext=b.ext.clone().requires_grad_())
+    loss, _acc, grads = ex.loss_and_grads(fn, params, bx, y, fusion_mode)
+    out = {**grads["cell"], "head": grads["head"], "external": bx.ext.grad}
+    return float(loss), out
+
+
+def bwd_bound_ms(case) -> tuple:
+    """Least time for one reverse level on the card, from this level's
+    data: the multiply-adds that slots with a live child need (the gate
+    recompute, (a + 3) H^2 for a slot with a children, and as many again
+    for the child-row cotangents) at 67 TFLOP/s, against each input read
+    once (distinct child rows, the live slots' ext and gradient rows, the
+    weights unless no slot needs them, indices and runs) and each touched
+    row read and written once, at 3.35 TB/s.  Returns (bound_ms,
+    bound_by, flops, bytes)."""
+    (_kind, g, _buf, cids, _cmask, eids, nmask, _off, _ext, w), _kw = case
+    M, A = cids.shape
+    H = w[0].shape[0]
+    live = nmask != 0
+    present = (cids != g.shape[0] - 1) & live[:, None]
+    n_child = present.sum(dim=1)
+    flops = 2.0 * float((n_child + 3 * (n_child > 0)).sum()) * H * H * 2
+    rows = torch.unique(cids[present]).numel()
+    erows = torch.unique(eids[live]).numel()
+    weights = (4 * H * H + 4 * H) if flops > 0 else 0
+    nbytes = 4 * (rows * 2 * H + erows * 4 * H + int(live.sum()) * 2 * H
+                  + weights + M * (A + 2) + 3 * M * A + 2 * rows * 2 * H)
+    t_op, t_by = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
+            else "bytes", flops, nbytes)
+
+
+def scatter_bound_ms(idx: torch.Tensor, rows: torch.Tensor) -> tuple:
+    """Least time for one scatter-add: the rows and indices read once and
+    each touched destination row read and written once, at 3.35 TB/s."""
+    n, D = rows.shape
+    nbytes = 4 * (n * D + n + 2 * torch.unique(idx).numel() * D)
+    return nbytes / PEAK_BYTES * 1e3, "bytes", nbytes
+
+
+def heavy_scatter_case(gen: torch.Generator):
+    """A duplicate-heavy scatter shaped like the step's pulled-row one:
+    most rows are zero rows aimed at the sentinel, the rest spread."""
+    R, D, n = 4097, 4 * HIDDEN, 32768
+    idx = torch.randint(0, R, (n,), generator=gen, dtype=torch.int32)
+    heavy = torch.rand(n, generator=gen) < 0.9
+    idx[heavy] = R - 1
+    rows = torch.randn(n, D, generator=gen)
+    rows[heavy & (torch.rand(n, generator=gen) < 0.8)] = 0.0
+    dst = torch.randn(R, D, generator=gen)
+    return dst.to(DEVICE), idx.to(DEVICE), rows.to(DEVICE)
+
+
+def train_levels_phase() -> dict:
+    """One full-width training step, its backward taken with taps on
+    ``ops.bwd_megastep`` and ``ops.scatter_add_rows`` that keep each
+    launch's arguments (the gradient buffer and scatter destination as
+    they were before the launch).  Each reverse level and scatter is then
+    re-run through its kernel and its plain version on the same CUDA
+    inputs, compared and timed; the fused gradients are held against the
+    op-by-op leg's and against a second fused backward, bit for bit."""
+    ex, fn, params, pipe, batches = train_setup()
+    graphs, inputs, labels = next(batches)
+    b = pipe.pack(graphs, inputs)
+    y = _labels(labels)
+    levels, scatters = [], []
+    inner_bwd, inner_sc = ops.bwd_megastep, ops.scatter_add_rows
+
+    def tap_bwd(kind, g, *args, **kw):
+        levels.append(((kind, g.clone()) + args, kw))
+        return inner_bwd(kind, g, *args, **kw)
+
+    def tap_sc(dst, idx, rows):
+        scatters.append((dst.clone(), idx, rows))
+        return inner_sc(dst, idx, rows)
+
+    ops.bwd_megastep, ops.scatter_add_rows = tap_bwd, tap_sc
+    try:
+        loss, fused = grads_of(ex, fn, params, b, y, "auto")
+    finally:
+        ops.bwd_megastep, ops.scatter_add_rows = inner_bwd, inner_sc
+    T, M = b.sched.T, b.sched.M
+    check(len(levels) == T, f"{len(levels)} reverse levels for T={T}")
+    check(len(scatters) == 1, f"{len(scatters)} scatters in a fused step")
+
+    rows, worst_rel, worst_abs = [], 0.0, 0.0
+    torch.set_grad_enabled(False)          # re-runs of the backward's work
+    for case in levels:
+        (kind, g0, buf, cids, cmask, eids, nmask, off, ext, w), kw = case
+        got = lmb.bwd_megastep(kind, g0.clone(), buf, cids, eids, nmask,
+                               off, ext, w, **kw)
+        want = ref.bwd_megastep(kind, g0.clone(), buf, cids, cmask, eids,
+                                nmask, off, ext, w)
+        torch.cuda.synchronize()
+        worst_rel = max(worst_rel, rel_err(got, want))
+        worst_abs = max(worst_abs, float((got - want).abs().max()))
+        touched = torch.zeros(g0.shape[0], dtype=torch.bool, device=DEVICE)
+        touched[cids.reshape(-1).long()] = True
+        touched[-1] = False
+        check(bitwise_equal(got[~touched], g0[~touched]),
+              f"reverse megastep changed rows it does not touch at offset "
+              f"{off}")
+        check(bool(torch.isfinite(got).all()),
+              "reverse megastep wrote non-finite values")
+        gk, gp = g0.clone(), g0.clone()
+        ms = time_ms(lambda: lmb.bwd_megastep(kind, gk, buf, cids, eids,
+                                              nmask, off, ext, w, **kw),
+                     n=10, warmup=2)
+        plain_ms = time_ms(lambda: ref.bwd_megastep(
+            kind, gp, buf, cids, cmask, eids, nmask, off, ext, w),
+            n=10, warmup=2)
+        b_ms, b_by, flops, nbytes = bwd_bound_ms(case)
+        rows.append((off // M, ms, plain_ms, b_ms, b_by, flops, nbytes))
+    print(f"train step: T{T}xM{M}, loss {loss:.6f}")
+    for t, ms, plain_ms, b_ms, b_by, flops, nbytes in rows:
+        print(f"  reverse level {t:2d}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
+              f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    check(worst_rel <= TOL, f"reverse megastep disagrees with its plain "
+          f"version: error {worst_rel:.3e} of max |plain| > {TOL}")
+    n = len(rows)
+    bwd = {"levels": n, "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+           "ms": sum(r[1] for r in rows) / n,
+           "plain_ms": sum(r[2] for r in rows) / n,
+           "bound_ms": sum(r[3] for r in rows) / n,
+           "bound_by": ("operations" if sum(r[3] for r in rows
+                                            if r[4] == "operations")
+                        >= sum(r[3] for r in rows) / 2 else "bytes")}
+    print(f"reverse megastep: {n} levels, error {worst_rel:.3e} of max "
+          f"|plain| (max abs {worst_abs:.3e}); mean per launch: kernel "
+          f"{bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, bound "
+          f"{bwd['bound_ms']:.5f} ms by {bwd['bound_by']}")
+
+    sc_rel, sc_abs = 0.0, 0.0
+    gen = torch.Generator().manual_seed(7)
+    for name, (dst0, idx, src) in (("step's pulled-row scatter",
+                                    scatters[0]),
+                                   ("duplicate-heavy case",
+                                    heavy_scatter_case(gen))):
+        got = lmb.scatter_add_rows(dst0.clone(), idx, src)
+        again = lmb.scatter_add_rows(dst0.clone(), idx, src)
+        want = ref.scatter_add_rows(dst0.clone(), idx, src)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        hit = torch.zeros(dst0.shape[0], dtype=torch.bool, device=DEVICE)
+        hit[idx.long()] = True
+        check(bitwise_equal(got[~hit], dst0[~hit]),
+              f"scatter-add changed rows no index points at ({name})")
+        check(bitwise_equal(got, again), f"scatter-add not repeatable "
+              f"bit for bit ({name})")
+        print(f"scatter-add vs plain, {name} (n={idx.numel()}, "
+              f"R={dst0.shape[0]}, D={dst0.shape[1]}): error {e:.3e} of "
+              f"max |plain| (max abs "
+              f"{float((got - want).abs().max()):.3e})")
+        sc_rel = max(sc_rel, e)
+        sc_abs = max(sc_abs, float((got - want).abs().max()))
+    check(sc_rel <= TOL, f"scatter-add disagrees with its plain version: "
+          f"{sc_rel:.3e} > {TOL}")
+    dst0, idx, src = scatters[0]
+    dk, dp, dl = dst0.clone(), dst0.clone(), dst0.clone()
+    idx_long = idx.long()
+    sc = {"max_abs_err": sc_abs,
+          "ms": time_ms(lambda: lmb.scatter_add_rows(dk, idx, src), 20, 3),
+          "plain_ms": time_ms(lambda: ref.scatter_add_rows(dp, idx, src),
+                              20, 3),
+          "library_ms": time_ms(lambda: dl.index_add_(0, idx_long, src),
+                                20, 3)}
+    sc["bound_ms"], sc["bound_by"], nbytes = scatter_bound_ms(idx, src)
+    print(f"scatter-add, step's pulled-row scatter: kernel {sc['ms']:.4f} "
+          f"ms, plain {sc['plain_ms']:.4f} ms, index_add_ "
+          f"{sc['library_ms']:.4f} ms, bound {sc['bound_ms']:.5f} ms by "
+          f"bytes ({nbytes / 1e6:.1f} MB)")
+
+    torch.set_grad_enabled(True)
+    loss_n, none = grads_of(ex, fn, params, b, y, "none")
+    worst = 0.0
+    for k, v in fused.items():
+        e = rel_err(v, none[k])
+        worst = max(worst, e)
+        print(f"fused vs op-by-op gradient {k}: {e:.3e} of max |op-by-op|")
+    check(abs(loss - loss_n) <= TOL * max(1.0, abs(loss_n)),
+          f"fused loss {loss} vs op-by-op {loss_n}")
+    check(worst <= TOL, f"fused gradients vs op-by-op on the card: "
+          f"{worst:.3e} > {TOL}")
+    _, again = grads_of(ex, fn, params, b, y, "auto")
+    same = all(bitwise_equal(v, again[k]) for k, v in fused.items())
+    check(same, "two backward passes of the same step differ")
+    print(f"fused vs op-by-op: worst {worst:.3e}; two backward passes "
+          f"bitwise equal: {same}")
+    return {"bwd": bwd, "scatter": sc, "fused_vs_none": worst}
+
+
+def train_phase(card: str) -> dict:
+    """The main path: the example's training loop, AdamW with a
+    warmup-cosine schedule, for ``TRAIN_STEPS`` steps at full width,
+    launch counts set to 0 just before and read just after; then one warm
+    step under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import adamw_init, warmup_cosine
+    ex, fn, params, pipe, batches = train_setup()
+    opt = adamw_init(params)
+    lr = warmup_cosine(3e-3, 20, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm.reset_launches()
+    losses, step_s, pack_s, padded = [], [], [], 0
+    t_all = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        graphs, inputs, labels = next(batches)
+        b = pipe.pack(graphs, inputs)
+        t1 = time.perf_counter()
+        loss, _acc = ex.train_step(fn, params, opt, b, _labels(labels),
+                                   lr(opt.step))
+        losses.append(float(loss))         # waits for the step's work
+        step_s.append(time.perf_counter() - t0)
+        pack_s.append(t1 - t0)
+        padded += b.sched.T
+    wall = time.perf_counter() - t_all
+    launches = dict(lm.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(np.isfinite(losses).all()), f"non-finite losses: {losses}")
+    check(launches.get("treelstm_bwd_megastep", 0) == padded,
+          f"{launches.get('treelstm_bwd_megastep', 0)} reverse megastep "
+          f"launches for {padded} padded levels")
+    check(launches.get("treelstm_megastep", 0) == padded,
+          f"{launches.get('treelstm_megastep', 0)} forward megastep "
+          f"launches for {padded} padded levels")
+    check(launches.get("scatter_add_rows", 0) == TRAIN_STEPS,
+          f"{launches.get('scatter_add_rows', 0)} scatter-add launches for "
+          f"{TRAIN_STEPS} steps")
+    ms = np.asarray(step_s) * 1e3
+    stats = pipe.stats()
+    out = {"steps": TRAIN_STEPS, "loss_first": losses[0],
+           "loss_last": losses[-1], "steps_per_s": TRAIN_STEPS / wall,
+           "step_p50_ms": float(np.percentile(ms, 50)),
+           "step_p99_ms": float(np.percentile(ms, 99)),
+           "pack_p50_ms": float(np.percentile(np.asarray(pack_s) * 1e3, 50)),
+           "max_memory_allocated_bytes": int(peak),
+           "padded_levels": padded, "launches": launches,
+           "cache_hit_rate": stats["hit_rate"],
+           "shapes": {f"T{t}xM{m}": n for (t, m, _a, _n), n
+                      in pipe.census.counts().items()},
+           "card": card}
+    print("train losses: " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"train: {json.dumps(out)}")
+
+    graphs, inputs, labels = next(batches)
+    b = pipe.pack(graphs, inputs)
+    y = _labels(labels)
+    ex.train_step(fn, params, opt, b, y, lr(opt.step))       # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, _acc = ex.train_step(fn, params, opt, b, y, lr(opt.step))
+        float(loss)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    groups = {"K1 forward megastep": ("treelstm_megastep_kernel",),
+              "K2 reverse megastep": ("bwd_gates_kernel", "bwd_hgrad_kernel",
+                                      "scatter_runs_kernel"),
+              "K7 scatter-add": ("panel_count_kernel", "panel_fill_kernel",
+                                 "panel_add_kernel"),
+              "matmul": ("gemm", "Gemm", "cutlass", "xmma"),
+              "copy and fill": ("Memcpy", "Memset", "copy", "fill")}
+    sums = {k: 0.0 for k in list(groups) + ["other"]}
+    for e in on_card:
+        k = next((k for k, pats in groups.items()
+                  if any(p in e.key for p in pats)), "other")
+        sums[k] += e.self_device_time_total / 1e3
+    print(f"profile: one warm training step (T{b.sched.T}xM{b.sched.M}): "
+          f"wall {wall_ms:.3f} ms (under the profiler), card busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.1%}; "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in sums.items()))
+    for e in sorted(on_card, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}")
+    return out
+
+
 def main() -> None:
     dev = device_phase()
     kern = kernel_phase()
@@ -482,6 +841,8 @@ def main() -> None:
           f"the tapped run had {served['levels']} levels, the main path "
           f"{serve['launches']} launches")
     profile_phase()
+    levels = train_levels_phase()
+    train = train_phase(dev["smi"])
     row = {"name": "treelstm_megastep", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/treelstm_megastep.cu",
            "replaces": "src/repro/kernels/level_megastep.py:181",
@@ -490,8 +851,24 @@ def main() -> None:
            "ms": served["ms"], "plain_ms": served["plain_ms"],
            "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
            "library_ms": None}
+    bwd, sc = levels["bwd"], levels["scatter"]
+    rows = [row, {
+        "name": "treelstm_bwd_megastep", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/treelstm_bwd_megastep.cu",
+        "replaces": "src/repro/kernels/level_megastep_bwd.py:205",
+        "launches": train["launches"]["treelstm_bwd_megastep"],
+        "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": None}, {
+        "name": "scatter_add_rows", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/scatter_add_rows.cu",
+        "replaces": "src/repro/kernels/level_megastep_bwd.py:108",
+        "launches": train["launches"]["scatter_add_rows"],
+        "max_abs_err": sc["max_abs_err"], "ms": sc["ms"],
+        "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
+        "bound_by": sc["bound_by"], "library_ms": sc["library_ms"]}]
     print(dev["smi"])
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"], "count": dev["count"]}}))
 

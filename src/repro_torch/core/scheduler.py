@@ -22,21 +22,28 @@ the cell supports it; ``"none"`` keeps the op-by-op path (the
 correctness oracle); ``"megastep"`` requires fusion and raises when
 unsupported.  Both return the same buffer to 1e-4.
 
-This module is forward only: ``execute_lazy`` and the fused backward
-come with the training slice.
+Training goes through :func:`execute_lazy`, whose backward is lazily
+batched (§3.5): the state-chain cotangents are swept level by level in
+reverse, then ONE flat pass over all ``T*M`` slots gives the parameter
+and pulled-row gradients.  On the fused leg the reverse sweep is one
+reverse megastep per level (``kernels/level_megastep_bwd.py``) and the
+forward saves only the node buffer (remat).  The scatters of the
+backward (∂gather, ∂pull) go through ``ops.scatter_add_rows``, which on
+the card is a deterministic kernel: no float atomics.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.structure import DeviceSchedule
 from repro_torch.core.vertex import (GateSpec, VertexIO, get_gate_spec,
                                      has_eager_projection)
+from repro_torch.kernels import level_megastep as lm
 from repro_torch.kernels import ops as kops
 
 Params = Any
@@ -156,6 +163,80 @@ def _megastep_forward(spec: GateSpec, weights, sched: DeviceSchedule,
     return buf
 
 
+def _level_runs(sched: DeviceSchedule, t: int) -> Dict[str, Any]:
+    """Level ``t``'s precomputed sorted runs as keyword arguments of
+    ``ops.bwd_megastep`` (``None`` on a schedule packed without them)."""
+    names = ("sort_perm", "sorted_child_ids", "run_head")
+    return {k: None if getattr(sched, k) is None else getattr(sched, k)[t]
+            for k in names}
+
+
+class _ExecuteMegastep(torch.autograd.Function):
+    """The fused leg: one megastep per level forward, and the fused
+    backward — ONE reverse megastep per level for the state chain
+    (recompute + cotangent math + ∂gather scatter-add, §3.4), then ONE
+    flat lazily batched pass for the parameter and pulled-row gradients
+    (§3.5).  It takes the hoisted ``ext`` (autograd runs the projection's
+    VJP on the returned cotangent) and the params as separate tensors,
+    and saves only the node buffer, ``ext``, the params and the schedule:
+    activations are recomputed (remat)."""
+
+    @staticmethod
+    def forward(ctx, spec: GateSpec, sched: DeviceSchedule,
+                names: Tuple[str, ...], ext: torch.Tensor,
+                *values: torch.Tensor) -> torch.Tensor:
+        params = dict(zip(names, values))
+        buf = _megastep_forward(spec, spec.weights(params), sched, ext)
+        ctx.spec, ctx.sched, ctx.names = spec, sched, names
+        ctx.save_for_backward(buf, ext, *values)
+        return buf
+
+    @staticmethod
+    def backward(ctx, g_buf: torch.Tensor):
+        buf, ext, *values = ctx.saved_tensors
+        spec, sched = ctx.spec, ctx.sched
+        params = dict(zip(ctx.names, values))
+        weights = spec.weights(params)
+        T, M, A = sched.T, sched.M, sched.A
+        S = spec.state_dim
+        # The reverse megastep writes the gradient buffer in place: sweep
+        # a copy, never autograd's grad_output.
+        g = torch.empty_like(buf).copy_(g_buf)
+        ws = kops.bwd_workspace(g, M, A, spec.hidden)
+        for t in reversed(range(T)):
+            kops.bwd_megastep(spec.kind, g, buf, sched.child_ids[t],
+                              sched.child_mask[t], sched.ext_ids[t],
+                              sched.node_mask[t], t * M, ext, weights,
+                              workspace=ws, **_level_runs(sched, t))
+        # Row t*M+m reaches its final value before level t's reverse step
+        # runs (all its parents live at levels > t), so the swept buffer
+        # IS the per-slot state cotangent: no per-level stacking.
+        g_state = g[:T * M] * sched.node_mask.reshape(T * M, 1)
+        # Lazy batching: one analytic pass over ALL T*M slots.
+        child = buf.index_select(0, sched.child_ids.reshape(-1)) \
+            .reshape(T * M, A, S)
+        ext_ids = sched.ext_ids.reshape(T * M)
+        _, d_gates, aux = lm.level_bwd(spec.kind, g_state, child,
+                                       ext.index_select(0, ext_ids),
+                                       sched.child_mask.reshape(T * M, A),
+                                       weights)
+        g_params = spec.inject_grads(
+            params, lm.level_param_grads(spec.kind, d_gates, aux, weights))
+        # ∂pull = push: scatter the pulled-row cotangents back to the
+        # packed matrix (autograd then runs the projection's VJP).
+        g_ext = kops.scatter_add_rows(torch.zeros_like(ext), ext_ids,
+                                      d_gates)
+        return (None, None, None, g_ext,
+                *(g_params[k] for k in ctx.names))
+
+
+def _execute_megastep(spec: GateSpec, params: Params, ext: torch.Tensor,
+                      sched: DeviceSchedule) -> torch.Tensor:
+    names = tuple(params)
+    return _ExecuteMegastep.apply(spec, sched, names, ext,
+                                  *(params[k] for k in names))
+
+
 # ---------------------------------------------------------------------------
 # Batched forward (the paper's FORWARD, Alg. 1)
 # ---------------------------------------------------------------------------
@@ -177,8 +258,7 @@ def execute(fn, params: Params, sched: DeviceSchedule,
         # The hoisted W·x is one plain matmul, as the JAX package leaves
         # it to XLA.
         ext = fn.project_inputs(params, external)
-        return ExecResult(buf=_megastep_forward(spec, spec.weights(params),
-                                                sched, ext))
+        return ExecResult(buf=_execute_megastep(spec, params, ext, sched))
     T, M = sched.T, sched.M
     S = fn.state_dim
     ext, project_per_level = _maybe_hoist(fn, params, external, hoist)
@@ -201,6 +281,130 @@ def execute(fn, params: Params, sched: DeviceSchedule,
     if collect_push and pushes and pushes[0] is not None:
         pushed = torch.stack(pushes).reshape(T * M, -1)
     return ExecResult(buf=buf, pushed=pushed)
+
+
+# ---------------------------------------------------------------------------
+# Lazy-batched gradients (the paper's lazy batching, §3.5)
+# ---------------------------------------------------------------------------
+
+def _forward_buf(fn, params: Params, sched: DeviceSchedule,
+                 ext: torch.Tensor) -> torch.Tensor:
+    """Op-by-op forward producing only the node buffer (pushes are
+    post-run readouts, the lazy treatment of ``push``)."""
+    T, M, S = sched.T, sched.M, fn.state_dim
+    buf = torch.zeros((T * M + 1, S), dtype=ext.dtype, device=ext.device)
+    for t in range(T):
+        io = _level_io(buf, ext, sched.child_ids[t], sched.child_mask[t],
+                       sched.ext_ids[t], sched.node_mask[t], S)
+        out = fn.apply(params, io)
+        buf[t * M:(t + 1) * M] = out.state * io.node_mask[:, None]
+    return buf
+
+
+def _flat_io(fn, sched: DeviceSchedule, buf: torch.Tensor,
+             ext: torch.Tensor) -> VertexIO:
+    """One VertexIO covering ALL ``T*M`` slots at once (for the single
+    batched parameter-gradient evaluation)."""
+    T, M, A, S = sched.T, sched.M, sched.A, fn.state_dim
+    return _level_io(buf, ext, sched.child_ids.reshape(T * M, A),
+                     sched.child_mask.reshape(T * M, A),
+                     sched.ext_ids.reshape(T * M),
+                     sched.node_mask.reshape(T * M), S)
+
+
+def _vjp(f, inputs: Sequence[torch.Tensor],
+         cotangent: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Cotangents of ``f(*inputs)`` w.r.t. ``inputs`` (zeros for an input
+    ``f`` does not use), on detached copies: the counterpart of
+    ``jax.vjp`` inside a backward."""
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    with torch.enable_grad():
+        out = f(*leaves)
+    grads = torch.autograd.grad(out, leaves, cotangent, allow_unused=True)
+    return tuple(torch.zeros_like(x) if gx is None else gx
+                 for x, gx in zip(leaves, grads))
+
+
+class _ExecuteLazyOpByOp(torch.autograd.Function):
+    """The op-by-op leg (the ablation baseline and the correctness
+    oracle): gather / apply / scatter per level forward; backward sweeps
+    the state-chain cotangents level by level in reverse (a VJP of
+    ``fn.apply`` w.r.t. the child states, then the ∂gather scatter-add),
+    then ONE flat parameter/pulled-row VJP over all ``T*M`` slots."""
+
+    @staticmethod
+    def forward(ctx, fn, sched: DeviceSchedule, names: Tuple[str, ...],
+                ext: torch.Tensor, *values: torch.Tensor) -> torch.Tensor:
+        buf = _forward_buf(fn, dict(zip(names, values)), sched, ext)
+        ctx.fn, ctx.sched, ctx.names = fn, sched, names
+        ctx.save_for_backward(buf, ext, *values)
+        return buf
+
+    @staticmethod
+    def backward(ctx, g_buf: torch.Tensor):
+        buf, ext, *values = ctx.saved_tensors
+        fn, sched, names = ctx.fn, ctx.sched, ctx.names
+        params = {k: v.detach() for k, v in zip(names, values)}
+        T, M, A, S = sched.T, sched.M, sched.A, fn.state_dim
+        g = torch.empty_like(buf).copy_(g_buf)
+        g_states = [None] * T
+        for t in reversed(range(T)):
+            io = _level_io(buf, ext, sched.child_ids[t], sched.child_mask[t],
+                           sched.ext_ids[t], sched.node_mask[t], S)
+            nm = io.node_mask[:, None]
+            g_states[t] = g[t * M:(t + 1) * M] * nm
+
+            def f_of_children(ch, io=io, nm=nm):
+                out = fn.apply(params, dataclasses.replace(io,
+                                                           child_states=ch))
+                return out.state * nm
+
+            (g_ch,) = _vjp(f_of_children, (io.child_states,), g_states[t])
+            g_ch = g_ch * io.child_mask[..., None]
+            # ∂gather = scatter (§3.4): child cotangents back into the
+            # buffer; duplicate children accumulate.
+            kops.scatter_add_rows(g, sched.child_ids[t].reshape(-1),
+                                  g_ch.reshape(M * A, S))
+
+        # Lazy batching: ONE parameter/external VJP over all T*M slots.
+        io_flat = _flat_io(fn, sched, buf, ext)
+        nm_flat = io_flat.node_mask[:, None]
+
+        def f_flat(e_rows, *vals):
+            out = fn.apply(dict(zip(names, vals)),
+                           dataclasses.replace(io_flat, external=e_rows))
+            return out.state * nm_flat
+
+        g_rows, *g_params = _vjp(f_flat, (io_flat.external, *values),
+                                 torch.cat(g_states))
+        # ∂pull = push: pulled-row cotangents back to the packed matrix.
+        g_ext = kops.scatter_add_rows(torch.zeros_like(ext),
+                                      sched.ext_ids.reshape(T * M), g_rows)
+        return (None, None, None, g_ext, *g_params)
+
+
+def execute_lazy(fn, params: Params, external: torch.Tensor,
+                 sched: DeviceSchedule,
+                 fusion_mode: str = "auto") -> torch.Tensor:
+    """Like :func:`execute` (hoist on, no push) but with the lazy-batched
+    backward; differentiable in ``params`` and ``external``.  Returns the
+    ``[T*M + 1, S]`` buffer.
+
+    With ``fusion_mode`` "auto"/"megastep" and a GateSpec-declaring cell,
+    forward AND backward run the fused megastep path (on the card: the
+    forward and reverse megastep kernels; the schedule must carry its
+    sorted runs, ``pack_batch(with_runs=True)``); ``"none"`` keeps the
+    op-by-op lazy path as the ablation baseline.
+    """
+    spec = _fusion_spec(fn, fusion_mode, hoist=True, collect_push=False,
+                        sched_arity=sched.A)
+    if spec is not None:
+        return _execute_megastep(spec, params,
+                                 fn.project_inputs(params, external), sched)
+    ext, _ = _maybe_hoist(fn, params, external, True)
+    names = tuple(params)
+    return _ExecuteLazyOpByOp.apply(fn, sched, names, ext,
+                                    *(params[k] for k in names))
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ declared once against four message-passing primitives — ``gather``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -116,6 +116,16 @@ class GateSpec:
 
     def weights(self, params: Params) -> Tuple[torch.Tensor, ...]:
         return tuple(params[n] for n in self.weight_names)
+
+    def inject_grads(self, params: Params,
+                     grads: Sequence[torch.Tensor]) -> Params:
+        """Zero cotangent dict for ``params`` with the megastep weight
+        gradients filled in (the hoisted ``wx`` gradients are added by the
+        caller through the projection's VJP)."""
+        out = {k: torch.zeros_like(v) for k, v in params.items()}
+        for name, g in zip(self.weight_names, grads):
+            out[name] = g
+        return out
 
 
 def get_gate_spec(fn: Any) -> Optional[GateSpec]:

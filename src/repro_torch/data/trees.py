@@ -1,4 +1,4 @@
-"""Tree datasets for the serving path (the SST-like part of
+"""Tree datasets for the serving and training paths (the SST-like part of
 ``repro.data.trees``): random binary parses with SST length statistics
 (≤ 54 words), random leaf embeddings, binary sentiment labels.  NumPy
 only; the same seed gives the same data as the JAX package."""
@@ -6,7 +6,7 @@ only; the same seed gives the same data as the JAX package."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -21,6 +21,14 @@ class TreeDataset:
 
     def __len__(self) -> int:
         return len(self.graphs)
+
+    def batch(self, idx: Sequence[int]
+              ) -> Tuple[List[InputGraph], List[np.ndarray],
+                         Optional[np.ndarray]]:
+        g = [self.graphs[i] for i in idx]
+        x = [self.inputs[i] for i in idx]
+        y = None if self.labels is None else self.labels[np.asarray(idx)]
+        return g, x, y
 
 
 def _leaf_inputs(g: InputGraph, dim: int, rng: np.random.Generator

@@ -2,12 +2,13 @@
 recurrent weight the Tree-LSTM kernel takes.
 
 Parameters cross as NumPy arrays, so nothing here needs JAX:
-``np_params = {k: np.asarray(v) for k, v in jax_params.items()}``.
+``np_params = jax.tree.map(np.asarray, jax_params)`` one way,
+:func:`params_to_numpy` the other.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -36,11 +37,20 @@ def pack_recurrent(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def params_from_jax(np_params: Dict[str, np.ndarray],
-                    device="cuda") -> Dict[str, torch.Tensor]:
+def params_from_jax(np_params: Dict[str, Any], device="cuda"
+                    ) -> Dict[str, Any]:
     """Torch tensors on ``device`` from a JAX params dict converted to
-    NumPy, keys unchanged; Tree-LSTM recurrent weights come packed
-    (:func:`pack_recurrent`)."""
-    out = {k: torch.from_numpy(np.array(v, copy=True)).to(device)
+    NumPy, keys unchanged; nested dicts (``{"cell": {...}, "head": ...}``)
+    are carried level by level, and every dict with the Tree-LSTM
+    recurrent weights comes packed (:func:`pack_recurrent`)."""
+    out = {k: params_from_jax(v, device) if isinstance(v, dict)
+           else torch.from_numpy(np.array(v, copy=True)).to(device)
            for k, v in np_params.items()}
     return pack_recurrent(out)
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The same nested dict with every tensor copied to a NumPy array
+    (the way back, for comparing with the JAX package)."""
+    return {k: params_to_numpy(v) if isinstance(v, dict)
+            else v.detach().cpu().numpy().copy() for k, v in params.items()}

@@ -32,6 +32,12 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     "treelstm_megastep": (
         "treelstm_megastep.cu", "treelstm_megastep_launch",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "treelstm_bwd_megastep": (
+        "treelstm_bwd_megastep.cu", "treelstm_bwd_megastep_launch",
+        [_P] * 12 + [_I] * 8 + [_P]),
+    "scatter_add_rows": (
+        "scatter_add_rows.cu", "scatter_add_rows_launch",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -15,12 +15,21 @@ The wrapper takes CUDA tensors only: it launches the kernel or raises.
 The choice of the plain version for CPU tensors is made once, in
 :func:`repro_torch.kernels.ops.level_megastep`.  ``LAUNCHES`` counts
 kernel launches (and nothing else), so a run can show that it went
-through the kernel.
+through the kernel; :func:`require_cuda`, :func:`check_arg` and
+:func:`launch_kernel` are shared with the backward's wrappers
+(``level_megastep_bwd.py``).
+
+The module also holds the analytic backward of one megastep
+(:func:`level_bwd`, :func:`level_param_grads`) in plain PyTorch, as the
+reference does: the plain version of the reverse megastep and the
+scheduler's flat lazily batched parameter-gradient pass.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
+from typing import Tuple
 
 import torch
 
@@ -59,19 +68,41 @@ def packed_recurrent(ui: torch.Tensor, uf: torch.Tensor, uo: torch.Tensor,
     return torch.as_strided(ui, (H, 4 * H), (4 * H, 1))
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
-           device: torch.device) -> None:
+def require_cuda(op: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` lies on a CUDA card: a kernel's wrapper launches
+    or raises, and never falls back to the plain version."""
+    if not t.is_cuda:
+        raise ValueError(f"{op}: the kernel takes CUDA tensors, got one on "
+                         f"{t.device}")
+
+
+def check_arg(op: str, name: str, t: torch.Tensor, dtype: torch.dtype,
+              shape, device: torch.device) -> None:
+    """Raise unless argument ``name`` of kernel ``op`` has this dtype,
+    shape and device and is contiguous (what the kernels take)."""
     if t.dtype != dtype:
-        raise TypeError(f"treelstm_megastep: {name} must be {dtype}, "
-                        f"got {t.dtype}")
+        raise TypeError(f"{op}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"treelstm_megastep: {name} must have shape "
-                         f"{tuple(shape)}, got {tuple(t.shape)}")
+        raise ValueError(f"{op}: {name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
     if t.device != device:
-        raise ValueError(f"treelstm_megastep: {name} is on {t.device}, "
-                         f"the buffer on {device}")
+        raise ValueError(f"{op}: {name} is on {t.device}, the buffer on "
+                         f"{device}")
     if not t.is_contiguous():
-        raise ValueError(f"treelstm_megastep: {name} must be contiguous")
+        raise ValueError(f"{op}: {name} must be contiguous")
+
+
+def launch_kernel(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` (built on first use) with ``args`` on the
+    current stream of ``device``; raise if CUDA refuses the launch, and
+    count it in ``LAUNCHES`` only once it is in the stream."""
+    launch = _build.load(name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = launch(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
 
 
 def treelstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
@@ -87,12 +118,12 @@ def treelstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
     projection); ``node_mask``: ``[M]`` float32; ``offset``: first row
     written.  Returns ``buf``.
     """
-    if not buf.is_cuda:
-        raise ValueError(f"treelstm_megastep: the kernel takes CUDA "
-                         f"tensors, got a buffer on {buf.device}")
+    op = "treelstm_megastep"
+    require_cuda(op, buf)
     M, A = child_ids.shape
     H = ui.shape[0]
     dev = buf.device
+    _check = functools.partial(check_arg, op)
     _check("buf", buf, torch.float32, (buf.shape[0], 2 * H), dev)
     _check("child_ids", child_ids, torch.int32, (M, A), dev)
     _check("ext_ids", ext_ids, torch.int32, (M,), dev)
@@ -108,15 +139,94 @@ def treelstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
     if offset < 0 or offset + M > buf.shape[0]:
         raise ValueError(f"treelstm_megastep: rows [{offset}, {offset + M})"
                          f" outside a buffer of {buf.shape[0]} rows")
-    launch = _build.load("treelstm_megastep")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = launch(buf.data_ptr(), child_ids.data_ptr(), ext_ids.data_ptr(),
-                    node_mask.data_ptr(), ext.data_ptr(), w.data_ptr(),
-                    b.data_ptr(), M, A, H, offset, buf.stride(0),
-                    ext.stride(0), stream)
-    if rc != 0:
-        raise RuntimeError(f"treelstm_megastep: launch failed with CUDA "
-                           f"error {rc}")
-    LAUNCHES["treelstm_megastep"] += 1
+    launch_kernel(op, dev, buf.data_ptr(), child_ids.data_ptr(),
+                  ext_ids.data_ptr(), node_mask.data_ptr(), ext.data_ptr(),
+                  w.data_ptr(), b.data_ptr(), M, A, H, offset,
+                  buf.stride(0), ext.stride(0))
     return buf
+
+
+# ---------------------------------------------------------------------------
+# Analytic backward of one megastep (plain PyTorch), port of
+# ``repro.kernels.level_megastep.level_bwd`` / ``level_param_grads``.
+#
+# Shape-polymorphic over the leading ``N``: the same code is the plain
+# version of one reverse level (``ref.bwd_megastep``, N = M) and the
+# scheduler's flat lazily batched parameter-gradient pass over all T*M
+# slots (paper §3.5).  The reverse megastep kernel
+# (``csrc/treelstm_bwd_megastep.cu``) computes the same cotangents.
+# ---------------------------------------------------------------------------
+
+def _treelstm_bwd(g_state, child, ext_rows, child_mask, weights):
+    ui, uf, uo, uu, b = [w.float() for w in weights]
+    H = ui.shape[0]
+    N, A = child.shape[:2]
+    mk = child_mask[..., None].float()
+    cs = child.float() * mk
+    c_k, h_k = cs[..., :H], cs[..., H:]
+    h_sum = torch.sum(h_k, dim=1)
+    xi, xf, xo, xu = torch.split(ext_rows.float(), H, dim=-1)
+    bi, bf, bo, bu = torch.split(b, H, dim=-1)
+    i = torch.sigmoid(xi + h_sum @ ui + bi)
+    rec_f = (h_k.reshape(N * A, H) @ uf).reshape(N, A, H)
+    # The Tree-LSTM forget gate has no +1.0 (the LSTM's has).
+    f = torch.sigmoid(xf[:, None, :] + rec_f + bf)
+    o = torch.sigmoid(xo + h_sum @ uo + bo)
+    u = torch.tanh(xu + h_sum @ uu + bu)
+    c = i * u + torch.sum(f * c_k * mk, dim=1)
+    tc = torch.tanh(c)
+    g_c, g_h = g_state[:, :H], g_state[:, H:]
+    g_o = g_h * tc
+    gc = g_c + g_h * o * (1.0 - tc * tc)
+    d_i = gc * u * i * (1.0 - i)
+    d_u = gc * i * (1.0 - u * u)
+    d_o = g_o * o * (1.0 - o)
+    d_f = (gc[:, None, :] * c_k * mk) * f * (1.0 - f)          # [N, A, H]
+    # The pulled row's f lanes feed every child's gate: their cotangent
+    # is the sum over children; uf's gradient keeps the per-child d_f.
+    d_gates = torch.cat([d_i, torch.sum(d_f, dim=1), d_o, d_u], dim=-1)
+    g_h_k = (d_i @ ui.T + d_o @ uo.T + d_u @ uu.T)[:, None, :] \
+        + (d_f.reshape(N * A, H) @ uf.T).reshape(N, A, H)
+    g_c_k = gc[:, None, :] * f
+    g_child = torch.cat([g_c_k, g_h_k], dim=-1) * mk
+    return g_child, d_gates, (d_i, d_f, d_o, d_u, h_sum, h_k)
+
+
+def level_bwd(kind: str, g_state: torch.Tensor, child: torch.Tensor,
+              ext_rows: torch.Tensor, child_mask: torch.Tensor,
+              weights: Tuple[torch.Tensor, ...]):
+    """Reverse one megastep analytically (activations recomputed from the
+    gathered child rows — the remat policy).
+
+    ``g_state``: ``[N, S]`` node-masked state cotangent; ``child``:
+    ``[N, A, S]`` gathered child rows; ``ext_rows``: ``[N, 4H]``;
+    ``child_mask``: ``[N, A]``.  Returns ``(g_child, d_gates, aux)``:
+    ``g_child`` ``[N, A, S]`` is the child-masked cotangent to scatter-ADD
+    into the buffer (∂gather = scatter-add, §3.4); ``d_gates`` ``[N, 4H]``
+    the pulled-row cotangent (∂pull = push); ``aux`` feeds
+    :func:`level_param_grads`.
+    """
+    if kind != "treelstm":
+        raise NotImplementedError(
+            f"level_bwd: megastep kind {kind!r} is not ported yet "
+            f"(only 'treelstm')")
+    return _treelstm_bwd(g_state, child, ext_rows, child_mask, weights)
+
+
+def level_param_grads(kind: str, d_gates: torch.Tensor, aux,
+                      weights: Tuple[torch.Tensor, ...]
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Weight gradients from ONE flat batched pass over all slots (paper
+    §3.5 lazy batching), in ``GateSpec.weight_names`` order."""
+    if kind != "treelstm":
+        raise NotImplementedError(
+            f"level_param_grads: megastep kind {kind!r} is not ported yet "
+            f"(only 'treelstm')")
+    d_i, d_f, d_o, d_u, h_sum, h_k = aux
+    N, A, H = h_k.shape
+    return (h_sum.T @ d_i,
+            h_k.reshape(N * A, H).T @ d_f.reshape(N * A, H),
+            h_sum.T @ d_o,
+            h_sum.T @ d_u,
+            torch.cat([torch.sum(d_i, dim=0), torch.sum(d_f, dim=(0, 1)),
+                       torch.sum(d_o, dim=0), torch.sum(d_u, dim=0)]))

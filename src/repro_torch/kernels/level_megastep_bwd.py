@@ -1,0 +1,151 @@
+"""The reverse level-megastep and the duplicate-safe row scatter-add: two
+hand-written CUDA kernels of the backward.
+
+Port of ``repro.kernels.level_megastep_bwd``:
+
+  :func:`bwd_megastep` (``csrc/treelstm_bwd_megastep.cu``) — one reverse
+    batching task of kind ``treelstm``: re-gather the child rows from the
+    residual node buffer, recompute the gates, run the cotangent math of
+    ``level_megastep.level_bwd`` and scatter-ADD the child-row cotangents
+    into the gradient buffer along the level's sorted runs (∂gather =
+    scatter-add, §3.4), IN PLACE — the counterpart of the Pallas kernel's
+    ``input_output_aliases``.  Three launches per level (see the source's
+    header); ``LAUNCHES["treelstm_bwd_megastep"]`` counts levels.
+  :func:`scatter_add_rows` (``csrc/scatter_add_rows.cu``) —
+    ``dst[idx[i]] += rows[i]`` with repeats, in place, no float atomics.
+
+Both take CUDA tensors only: they launch the kernel or raise.  The
+choice of the plain version for CPU tensors is made once, in
+:mod:`repro_torch.kernels.ops`.  Neither synchronises the card.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.level_megastep import (MAX_ARITY, check_arg,
+                                                launch_kernel,
+                                                packed_recurrent,
+                                                require_cuda)
+
+
+#: Destination rows per panel of the scatter-add kernel (``BR`` in
+#: ``csrc/scatter_add_rows.cu``).
+SCATTER_PANEL_ROWS = 32
+
+
+def workspace_numel(M: int, A: int, H: int) -> int:
+    """Floats of the reverse megastep's workspace for levels of ``M``
+    slots: ``d_i|d_o|d_u`` ``[M, 3H]``, each child's ``d_f`` ``[M·A, H]``
+    and the child cotangents ``[M·A, 2H]``."""
+    return M * (3 + 3 * A) * H
+
+
+def bwd_workspace(M: int, A: int, H: int, device) -> torch.Tensor:
+    """One workspace for every level of a backward (allocated once)."""
+    return torch.empty(workspace_numel(M, A, H), dtype=torch.float32,
+                       device=device)
+
+
+def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
+                 child_ids: torch.Tensor, ext_ids: torch.Tensor,
+                 node_mask: torch.Tensor, offset: int, ext: torch.Tensor,
+                 weights: Tuple[torch.Tensor, ...], *,
+                 sort_perm: Optional[torch.Tensor],
+                 sorted_child_ids: Optional[torch.Tensor],
+                 run_head: Optional[torch.Tensor],
+                 workspace: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One fused reverse batching task, in place.
+
+    ``g``: ``[T*M+1, 2H]`` float32 gradient buffer; the child-row
+    cotangents of the level at ``offset`` are scatter-ADDED into it.
+    ``buf``: the residual forward node buffer (read only); ``child_ids``
+    ``[M, A]`` int32 (absent children at the sentinel row ``T*M``, from
+    which the child mask is derived); ``sort_perm`` / ``sorted_child_ids``
+    / ``run_head``: the level's flat ``[M·A]`` sorted runs, which
+    ``pack_batch(with_runs=True)`` precomputes (absent: raises).
+    ``workspace``: see :func:`bwd_workspace`; allocated here when omitted.
+    Rows ``[offset, offset+M)``, the sentinel and every row no child
+    points at come out bit-unchanged.  Returns ``g``.
+    """
+    op = "treelstm_bwd_megastep"
+    require_cuda(op, g)
+    if kind != "treelstm":
+        raise NotImplementedError(
+            f"no CUDA reverse megastep for kind {kind!r} yet")
+    if sort_perm is None or sorted_child_ids is None or run_head is None:
+        raise ValueError(f"{op}: the level's sorted runs are missing; pack "
+                         f"the schedule with pack_batch(with_runs=True)")
+    M, A = child_ids.shape
+    ui, uf, uo, uu, b = weights
+    H = ui.shape[0]
+    R = g.shape[0]
+    dev = g.device
+    check = functools.partial(check_arg, op)
+    check("g", g, torch.float32, (R, 2 * H), dev)
+    check("buf", buf, torch.float32, (R, 2 * H), dev)
+    check("child_ids", child_ids, torch.int32, (M, A), dev)
+    check("ext_ids", ext_ids, torch.int32, (M,), dev)
+    check("node_mask", node_mask, torch.float32, (M,), dev)
+    check("ext", ext, torch.float32, (ext.shape[0], 4 * H), dev)
+    check("b", b, torch.float32, (4 * H,), dev)
+    for name, t in (("sort_perm", sort_perm),
+                    ("sorted_child_ids", sorted_child_ids),
+                    ("run_head", run_head)):
+        check(name, t, torch.int32, (M * A,), dev)
+    w = packed_recurrent(ui, uf, uo, uu)
+    check("packed recurrent weight", w, torch.float32, (H, 4 * H), dev)
+    if workspace is None:
+        workspace = bwd_workspace(M, A, H, dev)
+    if workspace.numel() < workspace_numel(M, A, H):
+        raise ValueError(f"{op}: workspace of {workspace.numel()} floats, "
+                         f"needs {workspace_numel(M, A, H)}")
+    check("workspace", workspace, torch.float32, workspace.shape, dev)
+    if not 1 <= A <= MAX_ARITY:
+        raise NotImplementedError(f"{op}: arity {A} outside 1..{MAX_ARITY}")
+    offset = int(offset)
+    if offset < 0 or offset + M > R - 1:
+        raise ValueError(f"{op}: rows [{offset}, {offset + M}) outside a "
+                         f"buffer of {R} rows with its sentinel")
+    launch_kernel(op, dev, g.data_ptr(), buf.data_ptr(), child_ids.data_ptr(),
+                  ext_ids.data_ptr(), node_mask.data_ptr(), ext.data_ptr(),
+                  w.data_ptr(), b.data_ptr(), sort_perm.data_ptr(),
+                  sorted_child_ids.data_ptr(), run_head.data_ptr(),
+                  workspace.data_ptr(), M, A, H, offset, R - 1, g.stride(0),
+                  buf.stride(0), ext.stride(0))
+    return g
+
+
+def scatter_add_rows(dst: torch.Tensor, idx: torch.Tensor,
+                     rows: torch.Tensor) -> torch.Tensor:
+    """``dst[idx[i]] += rows[i]`` in place, duplicates accumulating in a
+    fixed order (no float atomics).  ``dst``: ``[R, D]`` float32;
+    ``idx``: ``[n]`` int32, every entry in ``[0, R)`` — masked rows
+    arrive as zero rows aimed at a sentinel, and nothing is dropped (an
+    index outside the range is the caller's error: checking it would
+    synchronise the card, and the kernel writes nothing for it);
+    ``rows``: ``[n, D]`` float32.  Rows no index points at come out
+    bit-unchanged.  Returns ``dst``."""
+    op = "scatter_add_rows"
+    require_cuda(op, dst)
+    if dst.dim() != 2:
+        raise ValueError(f"{op}: dst must be [R, D], got {tuple(dst.shape)}")
+    R, D = dst.shape
+    n = idx.shape[0]
+    check = functools.partial(check_arg, op)
+    check("dst", dst, torch.float32, (R, D), dst.device)
+    check("idx", idx, torch.int32, (n,), dst.device)
+    check("rows", rows, torch.float32, (n, D), dst.device)
+    if n == 0:
+        return dst
+    # Per-panel counts and offsets, and the list of contributions grouped
+    # by destination panel (see the source's header).
+    panels = -(-R // SCATTER_PANEL_ROWS)
+    ws = torch.empty(2 * panels + n, dtype=torch.int32, device=dst.device)
+    launch_kernel(op, dst.device, dst.data_ptr(), idx.data_ptr(),
+                  rows.data_ptr(), ws.data_ptr(), n, R, D, dst.stride(0),
+                  rows.stride(0))
+    return dst

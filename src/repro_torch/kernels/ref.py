@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the kernels (port of the part of
-``repro.kernels.ref`` the serving path needs).
+``repro.kernels.ref`` the serving and training paths need).
 
 These are the semantic ground truth: simplest correct code, no tiling.
 On a CPU tensor the ``ops`` dispatch runs them; on the card,
@@ -11,6 +11,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels import level_megastep as lm
 
 
 def treelstm_gates(i_pre: torch.Tensor, f_pre: torch.Tensor,
@@ -74,3 +76,33 @@ def level_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
                                 child_mask.to(buf.dtype), weights)
     buf[offset:offset + M] = (state * nm).to(buf.dtype)
     return buf
+
+
+def scatter_add_rows(dst: torch.Tensor, idx: torch.Tensor,
+                     rows: torch.Tensor) -> torch.Tensor:
+    """``dst[idx[i]] += rows[i]``, duplicates accumulate — the transpose
+    of a row gather: ∂gather = scatter-add (Cavs §3.4).  Writes ``dst``
+    IN PLACE, like the kernel it stands beside, and returns it.  Indices
+    must lie in ``[0, R)``: masked rows arrive as zero rows aimed at a
+    sentinel row, and nothing is dropped."""
+    return dst.index_add_(0, idx.long(), rows.to(dst.dtype))
+
+
+def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
+                 child_ids: torch.Tensor, child_mask: torch.Tensor,
+                 ext_ids: torch.Tensor, node_mask: torch.Tensor,
+                 offset: int, ext: torch.Tensor,
+                 weights: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """One reverse batching task as slice → analytic cell backward
+    (``level_megastep.level_bwd``) → scatter-add of the child-row
+    cotangents into the gradient buffer ``g``, IN PLACE.  Returns ``g``.
+    Rows ``[offset, offset+M)`` are only read."""
+    M, A = child_ids.shape
+    S = g.shape[1]
+    g_state = g[offset:offset + M] * node_mask.to(g.dtype)[:, None]
+    child = buf.index_select(0, child_ids.reshape(-1)).reshape(M, A, S)
+    rows = ext.index_select(0, ext_ids)
+    g_child, _, _ = lm.level_bwd(kind, g_state, child, rows,
+                                 child_mask.to(g.dtype), weights)
+    return scatter_add_rows(g, child_ids.reshape(-1),
+                            g_child.reshape(M * A, S))

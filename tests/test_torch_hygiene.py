@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no
-JAX and nothing of the JAX package, and the port imports in a process
+"""The port stands alone: ``repro_torch``, its examples
+(``examples/torch_*.py``) and ``chip_smoke.py`` import no JAX and nothing
+of the JAX package, and the port imports in a process
 where ``jax`` cannot be imported at all."""
 
 import re
@@ -16,7 +17,8 @@ FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)"
     r"|from\s+repro(\.|\s))", re.MULTILINE)
 
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + sorted(ROOT.glob("examples/torch_*.py")) \
+    + [ROOT / "chip_smoke.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES,
