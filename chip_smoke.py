@@ -44,7 +44,28 @@ Phases, each of which must pass (any failure exits non-zero):
      peak device memory, one forward and one reverse megastep launch per
      padded level and one scatter-add launch per step; then a
      ``torch.profiler`` breakdown of one warm step;
-  6. report — one JSON line per the kernel table, then the device line.
+  6-8. the paper's Var-LSTM (``var_lstm``: 128 variable-length chains
+     of ``_var_lstm_graphs``, seed 0, ``max_len=64``, ``LSTMVertex``),
+     GRU chains (the same chains, ``GRUVertex``) and Tree-FC
+     (``tree_fc``: 64 balanced 256-leaf trees, ``pad_arity=2``,
+     ``TreeFCVertex``), each at full width (hidden 512, input 256; weights
+     from ``torch.Generator`` seed 0 with a nonzero bias; seeded numpy
+     normal inputs), loss ``mean(readout_roots(buf)[:, h] ** 2)``: the
+     main path is ``TRAIN_CELL_STEPS`` AdamW steps through
+     ``execute_lazy`` with the launch counts set to 0 just before and
+     read just after (one forward megastep kernel — K3, K4 or K5 — and
+     one reverse megastep of the matching kind per level and step, one
+     scatter-add per step), step p50/p99 and peak memory; then, with the
+     params AdamW has moved, one step taken with taps on
+     ``ops.level_megastep``, ``ops.bwd_megastep`` and
+     ``ops.scatter_add_rows``: every forward and reverse level and the
+     pulled-row scatter re-run through its kernel and its plain version
+     (error relative to max |plain| <= 1e-4, untouched rows
+     bit-unchanged), timed beside its data-aware bound; the fused
+     gradients against ``fusion_mode="none"`` within 1e-4 relative; two
+     backward passes bitwise equal; a ``torch.profiler`` breakdown of one
+     warm step;
+  9. report — one JSON line per the kernel table, then the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -67,6 +88,8 @@ HIDDEN, M_FULL, N_REQUESTS, BATCH = 512, 4096, 512, 64
 #: The training loop: steps, and the SST-like corpus it cycles through in
 #: batches of ``BATCH`` (the example's FIFO epochs).
 TRAIN_STEPS, TRAIN_DATA = 30, 512
+#: AdamW steps of each of the Var-LSTM, GRU and Tree-FC phases.
+TRAIN_CELL_STEPS = 10
 #: Published H100 SXM peaks (NVIDIA data sheet): fp32 without tensor
 #: cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
@@ -93,12 +116,15 @@ import torch  # noqa: E402
 
 import repro_torch  # noqa: E402,F401  (turns TF32 off)
 from repro_torch.configs.paper import get_paper_model  # noqa: E402
-from repro_torch.core.structure import (pack_batch, random_binary_tree,  # noqa: E402
-                                        random_dag)
+from repro_torch.core.scheduler import execute_lazy, readout_roots  # noqa: E402
+from repro_torch.core.structure import (pack_batch, pack_external,  # noqa: E402
+                                        random_binary_tree, random_dag)
 from repro_torch.data.trees import sst_like_dataset  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import level_megastep as lm  # noqa: E402
 from repro_torch.kernels import level_megastep_bwd as lmb  # noqa: E402
+from repro_torch.models.rnn import GRUVertex  # noqa: E402
+from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.pipeline import BucketPolicy, SchedulePipeline  # noqa: E402
 from repro_torch.obs.registry import get_registry  # noqa: E402
 from repro_torch.serve import StructureRequest, StructureServeEngine  # noqa: E402
@@ -124,13 +150,14 @@ def device_phase() -> dict:
     print(f"card: {smi_line}")
     t0 = time.perf_counter()
     built = _build.build_all()
-    print(f"build: {len(built)} kernel(s) built in "
+    print(f"build: {len(built)} source(s) built in "
           f"{time.perf_counter() - t0:.1f} s: {', '.join(built) or '-'}")
-    for k in _build.KERNELS:
+    one_per_source = {src: k for k, (src, _e, _a) in _build.KERNELS.items()}
+    for src, k in sorted(one_per_source.items()):
         for line in _build.build_log(k).splitlines():
             if ("ptxas info" in line and "registers" in line) \
                     or "spill stores" in line:
-                print(f"  {k}: {line.strip()}")
+                print(f"  {src}: {line.strip()}")
     return {"name": name, "count": count, "smi": smi_line}
 
 
@@ -743,10 +770,7 @@ def train_phase(card: str) -> dict:
     warmup-cosine schedule, for ``TRAIN_STEPS`` steps at full width,
     launch counts set to 0 just before and read just after; then one warm
     step under ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.optim import adamw_init, warmup_cosine
+    from repro_torch.optim import warmup_cosine
     ex, fn, params, pipe, batches = train_setup()
     opt = adamw_init(params)
     lr = warmup_cosine(3e-3, 20, TRAIN_STEPS)
@@ -798,37 +822,355 @@ def train_phase(card: str) -> dict:
     graphs, inputs, labels = next(batches)
     b = pipe.pack(graphs, inputs)
     y = _labels(labels)
-    ex.train_step(fn, params, opt, b, y, lr(opt.step))       # warm
+    profile_step(f"one warm training step (T{b.sched.T}xM{b.sched.M})",
+                 lambda: float(ex.train_step(fn, params, opt, b, y,
+                                             lr(opt.step))[0]))
+    return out
+
+
+#: Kernel-name patterns of the profiler breakdowns.
+PROFILE_GROUPS = {
+    "forward megastep (K1, K3-K5)": ("treelstm_megastep_kernel",
+                                     "cell_megastep_kernel"),
+    "K2 reverse megastep": ("bwd_gates_kernel", "bwd_hgrad_kernel",
+                            "scatter_runs_kernel"),
+    "K7 scatter-add": ("panel_count_kernel", "panel_fill_kernel",
+                       "panel_add_kernel"),
+    "matmul": ("gemm", "Gemm", "cutlass", "xmma"),
+    "copy and fill": ("Memcpy", "Memset", "copy", "fill")}
+
+
+def profile_step(label: str, step) -> dict:
+    """``step`` once to warm, then once under ``torch.profiler``: wall
+    time, time the card spent in kernels and copies (by group of
+    ``PROFILE_GROUPS`` and the top ones) and the idle share.  ``step``
+    must end in a device→host read; the profiler's own host overhead
+    inflates the wall time, so the idle share is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss, _acc = ex.train_step(fn, params, opt, b, y, lr(opt.step))
-        float(loss)
+        step()
         wall_ms = (time.perf_counter() - t0) * 1e3
     on_card = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
-    groups = {"K1 forward megastep": ("treelstm_megastep_kernel",),
-              "K2 reverse megastep": ("bwd_gates_kernel", "bwd_hgrad_kernel",
-                                      "scatter_runs_kernel"),
-              "K7 scatter-add": ("panel_count_kernel", "panel_fill_kernel",
-                                 "panel_add_kernel"),
-              "matmul": ("gemm", "Gemm", "cutlass", "xmma"),
-              "copy and fill": ("Memcpy", "Memset", "copy", "fill")}
-    sums = {k: 0.0 for k in list(groups) + ["other"]}
+    sums = {k: 0.0 for k in list(PROFILE_GROUPS) + ["other"]}
     for e in on_card:
-        k = next((k for k, pats in groups.items()
+        k = next((k for k, pats in PROFILE_GROUPS.items()
                   if any(p in e.key for p in pats)), "other")
         sums[k] += e.self_device_time_total / 1e3
-    print(f"profile: one warm training step (T{b.sched.T}xM{b.sched.M}): "
-          f"wall {wall_ms:.3f} ms (under the profiler), card busy "
-          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.1%}; "
+    print(f"profile: {label}: wall {wall_ms:.3f} ms (under the profiler), "
+          f"card busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.1%}; "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in sums.items()))
     for e in sorted(on_card, key=lambda e: e.self_device_time_total,
                     reverse=True)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
               f"{e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, **sums}
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-8: training the Var-LSTM, GRU chains and Tree-FC
+# ---------------------------------------------------------------------------
+
+#: phase → (megastep kind, paper config of its graphs, pack pads).
+CELL_PHASES = {"var_lstm": ("lstm", "var_lstm", {}),
+               "gru": ("gru", "var_lstm", {}),
+               "tree_fc": ("treefc", "tree_fc", {"pad_arity": 2})}
+#: megastep kind → the TPU kernel its forward kernel replaces.
+FORWARD_REPLACES = {"lstm": "src/repro/kernels/level_megastep.py:98",
+                    "gru": "src/repro/kernels/level_megastep.py:238",
+                    "treefc": "src/repro/kernels/level_megastep.py:299"}
+
+
+def cell_setup(phase: str):
+    """The phase's cell at full width (params from ``torch.Generator``
+    seed 0, the bias drawn nonzero), its graphs (seed 0) packed once with
+    the backward's sorted runs, and seeded normal inputs."""
+    kind, cfg_name, pads = CELL_PHASES[phase]
+    cfg = get_paper_model(cfg_name)
+    fn = (GRUVertex(input_dim=cfg.input_dim, hidden=HIDDEN) if phase == "gru"
+          else cfg.make_vertex(hidden=HIDDEN, input_dim=cfg.input_dim))
+    gen = torch.Generator().manual_seed(0)
+    params = fn.init(gen, device=DEVICE)
+    # A non-zero bias exercises every bias lane of the epilogues.
+    params["b"] = (torch.randn(params["b"].shape, generator=gen) * 0.1) \
+        .to(DEVICE)
+    rng = np.random.default_rng(0)
+    graphs = (cfg.make_graphs(128, max_len=64, rng=rng)
+              if cfg_name == "var_lstm" else cfg.make_graphs(64))
+    s = pack_batch(graphs, with_runs=True, **pads)
+    xs = [rng.standard_normal((g.num_nodes, cfg.input_dim))
+          .astype(np.float32) for g in graphs]
+    ext = torch.from_numpy(pack_external(xs, s, cfg.input_dim)).to(DEVICE)
+    h_lo = HIDDEN if kind == "lstm" else 0          # the h part of a state
+    return kind, fn, params, s.to_device(DEVICE), ext, h_lo
+
+
+def cell_grads(fn, params, d, ext, h_lo, fusion_mode: str = "auto"):
+    """Loss ``mean(readout_roots(buf)[:, h_lo:] ** 2)`` and its gradients
+    w.r.t. every param (and ``ext`` when it requires them), taken w.r.t.
+    detached copies that share storage with ``params``."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    buf = execute_lazy(fn, leaves, ext, d, fusion_mode)
+    loss = torch.mean(readout_roots(buf, d)[:, h_lo:] ** 2)
+    loss.backward()
+    grads = {k: v.grad for k, v in leaves.items()}
+    if ext.requires_grad:
+        grads["external"] = ext.grad
+    return loss.detach(), grads
+
+
+def cell_bound_ms(kind: str, case, reverse: bool) -> tuple:
+    """Least time for one level on the card, from this level's data: the
+    multiply-adds its live slots need (an lstm/gru slot with a
+    predecessor NG*H*H, a Tree-FC slot H*H per child it has; twice that
+    in reverse: recompute and child cotangents) at 67 TFLOP/s fp32,
+    against each input read once (distinct child rows, the live slots'
+    ext rows and, in reverse, their gradient rows; the weight unless no
+    slot needs it; bias, indices and runs) and the block written once
+    (in reverse: each touched row read and written once) at 3.35 TB/s.
+    Returns (bound_ms, bound_by, flops, bytes)."""
+    _k, lead, cids, _cmask, eids, nmask, _off, _ext, (w, _b) = case
+    M, A = cids.shape
+    H = w.shape[1] if kind == "treefc" else w.shape[0]
+    S, G = lm.widths(kind, H)
+    live = nmask != 0
+    present = (cids != lead.shape[0] - 1) & live[:, None]
+    if kind == "treefc":
+        macs = float(present.sum()) * H * H
+        read = present
+    else:
+        macs = float(present[:, 0].sum()) * G * H
+        read = present if reverse else present[:, :1]
+    flops = 2.0 * macs * (2 if reverse else 1)
+    rows = torch.unique(cids[:, :read.shape[1]][read]).numel()
+    erows = torch.unique(eids[live]).numel()
+    weights = (w.numel() if flops > 0 else 0) + G
+    if reverse:
+        touched = torch.unique(cids[present]).numel()
+        nbytes = 4 * (rows * S + erows * G + int(live.sum()) * S + weights
+                      + M * (A + 2) + 3 * M * A + 2 * touched * S)
+    else:
+        nbytes = 4 * (rows * S + erows * G + weights + M * (A + 2) + M * S)
+    t_op, t_by = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
+            else "bytes", flops, nbytes)
+
+
+def _summary(rows) -> dict:
+    """Means per launch over a phase's levels (``rows``: ms, plain ms,
+    bound ms, bound_by, ...), and which of the two bounds holds most of
+    the bound time."""
+    n = len(rows)
+    by_ops = sum(r[2] for r in rows if r[3] == "operations")
+    total = sum(r[2] for r in rows)
+    return {"levels": n, "ms": sum(r[0] for r in rows) / n,
+            "plain_ms": sum(r[1] for r in rows) / n,
+            "bound_ms": total / n,
+            "bound_by": "operations" if by_ops >= total / 2 else "bytes"}
+
+
+def cell_levels_check(kind: str, fn, params, d, ext, h_lo) -> dict:
+    """One step of the phase taken with taps on ``ops.level_megastep``,
+    ``ops.bwd_megastep`` and ``ops.scatter_add_rows``; every forward and
+    reverse level and the pulled-row scatter re-run through its kernel
+    and its plain version on the same CUDA inputs, compared and timed;
+    then the fused gradients against the op-by-op leg's and a second
+    fused backward."""
+    fwd, bwd, scatters = [], [], []
+    inner = ops.level_megastep, ops.bwd_megastep, ops.scatter_add_rows
+
+    def tap_fwd(k, buf, *args):
+        fwd.append((k, buf) + args)
+        return inner[0](k, buf, *args)
+
+    def tap_bwd(k, g, *args, **kw):
+        bwd.append(((k, g.clone()) + args, kw))
+        return inner[1](k, g, *args, **kw)
+
+    def tap_sc(dst, idx, rows):
+        scatters.append((dst.clone(), idx, rows))
+        return inner[2](dst, idx, rows)
+
+    ops.level_megastep, ops.bwd_megastep, ops.scatter_add_rows = \
+        tap_fwd, tap_bwd, tap_sc
+    try:
+        ext_g = ext.clone().requires_grad_()
+        loss, fused = cell_grads(fn, params, d, ext_g, h_lo)
+    finally:
+        ops.level_megastep, ops.bwd_megastep, ops.scatter_add_rows = inner
+    T, M = d.T, d.M
+    print(f"{kind}: T{T}xM{M}xA{d.A}, loss {float(loss):.6f}; tapped "
+          f"{len(fwd)} forward levels, {len(bwd)} reverse levels, "
+          f"{len(scatters)} scatter(s)")
+    check(len(fwd) == T and len(bwd) == T and len(scatters) == 1,
+          f"{kind}: {len(fwd)} forward / {len(bwd)} reverse levels and "
+          f"{len(scatters)} scatters for T={T}")
+    check(all(c[0] == kind for c in fwd) and
+          all(c[0][0] == kind for c in bwd), f"{kind}: another kind ran")
+
+    f_rows, b_rows, f_err, b_err, b_abs, f_abs = [], [], 0.0, 0.0, 0.0, 0.0
+    with torch.no_grad():
+        for case in fwd:
+            _k, buf, cids, cmask, eids, nm, off, e, w = case
+            got = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nm, off, e, *w)
+            want = ref.level_megastep(kind, buf.clone(), cids, cmask, eids,
+                                      nm, off, e, w)
+            torch.cuda.synchronize()
+            f_err = max(f_err, rel_err(got, want))
+            f_abs = max(f_abs, float((got - want).abs().max()))
+            keep = torch.ones(buf.shape[0], dtype=torch.bool, device=DEVICE)
+            keep[off:off + cids.shape[0]] = False
+            check(bitwise_equal(got[keep], buf[keep]),
+                  f"{kind} forward kernel changed rows outside its block")
+            check(bool(torch.isfinite(got).all()),
+                  f"{kind} forward kernel wrote non-finite values")
+            kb, pb = buf.clone(), buf.clone()
+            ms = time_ms(lambda: lm.MEGASTEPS[kind](kb, cids, eids, nm, off,
+                                                    e, *w), n=10, warmup=2)
+            plain_ms = time_ms(lambda: ref.level_megastep(
+                kind, pb, cids, cmask, eids, nm, off, e, w), n=10, warmup=2)
+            f_rows.append((ms, plain_ms) + cell_bound_ms(kind, case, False)
+                          + (off // M,))
+        for case, kw in bwd:
+            _k, g0, buf, cids, cmask, eids, nm, off, e, w = case
+            got = lmb.bwd_megastep(kind, g0.clone(), buf, cids, eids, nm,
+                                   off, e, w, **kw)
+            want = ref.bwd_megastep(kind, g0.clone(), buf, cids, cmask, eids,
+                                    nm, off, e, w)
+            torch.cuda.synchronize()
+            b_err = max(b_err, rel_err(got, want))
+            b_abs = max(b_abs, float((got - want).abs().max()))
+            touched = torch.zeros(g0.shape[0], dtype=torch.bool,
+                                  device=DEVICE)
+            touched[cids.reshape(-1).long()] = True
+            touched[-1] = False
+            check(bitwise_equal(got[~touched], g0[~touched]),
+                  f"{kind} reverse megastep changed rows it does not touch")
+            check(bool(torch.isfinite(got).all()),
+                  f"{kind} reverse megastep wrote non-finite values")
+            gk, gp = g0.clone(), g0.clone()
+            ms = time_ms(lambda: lmb.bwd_megastep(kind, gk, buf, cids, eids,
+                                                  nm, off, e, w, **kw),
+                         n=10, warmup=2)
+            plain_ms = time_ms(lambda: ref.bwd_megastep(
+                kind, gp, buf, cids, cmask, eids, nm, off, e, w),
+                n=10, warmup=2)
+            b_rows.append((ms, plain_ms) + cell_bound_ms(
+                kind, (kind, g0) + case[3:], True) + (off // M,))
+        dst0, idx, src = scatters[0]
+        sc_got = lmb.scatter_add_rows(dst0.clone(), idx, src)
+        sc_again = lmb.scatter_add_rows(dst0.clone(), idx, src)
+        sc_want = ref.scatter_add_rows(dst0.clone(), idx, src)
+        torch.cuda.synchronize()
+        hit = torch.zeros(dst0.shape[0], dtype=torch.bool, device=DEVICE)
+        hit[idx.long()] = True
+        sc_err = rel_err(sc_got, sc_want)
+        check(bitwise_equal(sc_got[~hit], dst0[~hit]) and
+              bitwise_equal(sc_got, sc_again) and sc_err <= TOL,
+              f"{kind}: scatter-add at D={src.shape[1]}: error {sc_err:.3e}, "
+              f"or untouched rows changed, or not repeatable")
+        sentinel_share = float((idx == dst0.shape[0] - 1).float().mean())
+        dk, dp, dl = dst0.clone(), dst0.clone(), dst0.clone()
+        idx_long = idx.long()
+        sc = {"ms": time_ms(lambda: lmb.scatter_add_rows(dk, idx, src),
+                            10, 2),
+              "plain_ms": time_ms(lambda: ref.scatter_add_rows(dp, idx, src),
+                                  10, 2),
+              "library_ms": time_ms(lambda: dl.index_add_(0, idx_long, src),
+                                    10, 2),
+              "bound_ms": scatter_bound_ms(idx, src)[0],
+              "max_rel_err": sc_err}
+        print(f"{kind}: scatter-add of the pulled rows (n={idx.numel()}, "
+              f"D={src.shape[1]}, {sentinel_share:.0%} aimed at the "
+              f"sentinel): error {sc_err:.3e} of max |plain|, untouched "
+              f"rows bit-unchanged, repeatable; kernel {sc['ms']:.4f} ms, "
+              f"plain {sc['plain_ms']:.4f} ms, index_add_ "
+              f"{sc['library_ms']:.4f} ms, bound {sc['bound_ms']:.5f} ms by "
+              f"bytes")
+    for label, rows in (("forward", f_rows), ("reverse", b_rows)):
+        T_all = len(rows)
+        for r in rows[:2] + rows[T_all // 2:T_all // 2 + 1] + rows[-1:]:
+            print(f"  {kind} {label} level {r[-1]:2d}: kernel {r[0]:.4f} ms, "
+                  f"plain {r[1]:.4f} ms, bound {r[2]:.5f} ms by {r[3]} "
+                  f"({r[4] / 1e9:.3f} GFLOP, {r[5] / 1e6:.2f} MB)")
+    check(f_err <= TOL, f"{kind} forward kernel disagrees with its plain "
+          f"version: {f_err:.3e} of max |plain| > {TOL}")
+    check(b_err <= TOL, f"{kind} reverse megastep disagrees with its plain "
+          f"version: {b_err:.3e} of max |plain| > {TOL}")
+    fwd_s = {**_summary(f_rows), "max_rel_err": f_err, "max_abs_err": f_abs}
+    bwd_s = {**_summary(b_rows), "max_rel_err": b_err, "max_abs_err": b_abs}
+    for label, sm in (("forward", fwd_s), ("reverse", bwd_s)):
+        print(f"{kind} {label}: {sm['levels']} levels, error "
+              f"{sm['max_rel_err']:.3e} of max |plain| (max abs "
+              f"{sm['max_abs_err']:.3e}); mean per launch: kernel "
+              f"{sm['ms']:.4f} ms, plain {sm['plain_ms']:.4f} ms, bound "
+              f"{sm['bound_ms']:.5f} ms by {sm['bound_by']}")
+
+    ext_n = ext.clone().requires_grad_()
+    loss_n, none = cell_grads(fn, params, d, ext_n, h_lo, "none")
+    worst = max(rel_err(v, none[k]) for k, v in fused.items())
+    check(abs(float(loss) - float(loss_n)) <= TOL * max(1.0, float(loss_n)),
+          f"{kind}: fused loss {float(loss)} vs op-by-op {float(loss_n)}")
+    check(worst <= TOL, f"{kind}: fused gradients vs op-by-op on the card: "
+          f"{worst:.3e} > {TOL}")
+    _, again = cell_grads(fn, params, d, ext.clone().requires_grad_(), h_lo)
+    same = all(bitwise_equal(v, again[k]) for k, v in fused.items())
+    check(same, f"{kind}: two backward passes of the same step differ")
+    print(f"{kind}: fused vs op-by-op gradients: worst {worst:.3e} of max "
+          f"|op-by-op| over {', '.join(fused)}; two backward passes bitwise "
+          f"equal: {same}")
+    return {"fwd": fwd_s, "bwd": bwd_s, "fused_vs_none": worst,
+            "scatter": sc}
+
+
+def cell_train_phase(phase: str, card: str) -> dict:
+    """The main path of one phase: ``TRAIN_CELL_STEPS`` AdamW steps
+    through ``execute_lazy`` on one packed batch, launch counts set to 0
+    just before and read just after; then the level checks with the
+    params AdamW has moved, and a profile of one warm step."""
+    kind, fn, params, d, ext, h_lo = cell_setup(phase)
+    opt = adamw_init(params)
+
+    def step():
+        loss, grads = cell_grads(fn, params, d, ext, h_lo)
+        adamw_update(params, grads, opt, lr=1e-3, weight_decay=0.0)
+        return float(loss)                       # waits for the step's work
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm.reset_launches()
+    losses, step_s = [], []
+    for _ in range(TRAIN_CELL_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(lm.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    T, n = d.T, TRAIN_CELL_STEPS
+    check(bool(np.isfinite(losses).all()), f"{phase}: non-finite losses")
+    want = {f"{kind}_megastep": n * T, f"{kind}_bwd_megastep": n * T,
+            "scatter_add_rows": n}
+    check(launches == want, f"{phase}: launches {launches}, designed {want} "
+          f"({n} steps of T={T} levels)")
+    ms = np.asarray(step_s) * 1e3
+    out = {"phase": phase, "kind": kind, "T": T, "M": d.M, "A": d.A,
+           "steps": n, "loss_first": losses[0], "loss_last": losses[-1],
+           "step_p50_ms": float(np.percentile(ms, 50)),
+           "step_p99_ms": float(np.percentile(ms, 99)),
+           "max_memory_allocated_bytes": int(peak), "launches": launches,
+           "card": card}
+    print(f"{phase} losses: " + " ".join(f"{x:.6f}" for x in losses))
+    print(f"{phase}: {json.dumps(out)}")
+    out.update(cell_levels_check(kind, fn, params, d, ext, h_lo))
+    out["profile"] = profile_step(f"{phase}, one warm step (T{T}xM{d.M})",
+                                  step)
     return out
 
 
@@ -843,6 +1185,7 @@ def main() -> None:
     profile_phase()
     levels = train_levels_phase()
     train = train_phase(dev["smi"])
+    cells = [cell_train_phase(p, dev["smi"]) for p in CELL_PHASES]
     row = {"name": "treelstm_megastep", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/treelstm_megastep.cu",
            "replaces": "src/repro/kernels/level_megastep.py:181",
@@ -867,6 +1210,20 @@ def main() -> None:
         "max_abs_err": sc["max_abs_err"], "ms": sc["ms"],
         "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
         "bound_by": sc["bound_by"], "library_ms": sc["library_ms"]}]
+    for c in cells:
+        k = c["kind"]
+        for name, part, source, replaces in (
+                (f"{k}_megastep", c["fwd"], "cell_megastep.cu",
+                 FORWARD_REPLACES[k]),
+                (f"{k}_bwd_megastep", c["bwd"], "cell_bwd_megastep.cu",
+                 "src/repro/kernels/level_megastep_bwd.py:205")):
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": replaces, "launches": c["launches"][name],
+                "max_abs_err": part["max_abs_err"], "ms": part["ms"],
+                "plain_ms": part["plain_ms"], "bound_ms": part["bound_ms"],
+                "bound_by": part["bound_by"], "library_ms": None})
     print(dev["smi"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -202,7 +202,7 @@ class _ExecuteMegastep(torch.autograd.Function):
         # The reverse megastep writes the gradient buffer in place: sweep
         # a copy, never autograd's grad_output.
         g = torch.empty_like(buf).copy_(g_buf)
-        ws = kops.bwd_workspace(g, M, A, spec.hidden)
+        ws = kops.bwd_workspace(spec.kind, g, M, A, spec.hidden)
         for t in reversed(range(T)):
             kops.bwd_megastep(spec.kind, g, buf, sched.child_ids[t],
                               sched.child_mask[t], sched.ext_ids[t],

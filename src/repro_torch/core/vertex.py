@@ -20,6 +20,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.level_megastep import widths
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -92,8 +94,8 @@ class GateSpec:
     """
 
     #: Gate-math kind: "lstm", "treelstm", "gru" or "treefc" (the
-    #: vocabulary of ``repro.kernels.level_megastep``; this package has a
-    #: kernel for "treelstm").
+    #: vocabulary of ``repro.kernels.level_megastep``); each has a forward
+    #: and a reverse megastep kernel in ``repro_torch.kernels``.
     kind: str
     hidden: int
     weight_names: Tuple[str, ...]
@@ -101,18 +103,15 @@ class GateSpec:
     #: gate math is arity-agnostic.
     arity: Optional[int] = None
 
-    _STATE_MULT = {"lstm": 2, "treelstm": 2, "gru": 1, "treefc": 1}
-    _GATE_MULT = {"lstm": 4, "treelstm": 4, "gru": 3, "treefc": 1}
-
     @property
     def state_dim(self) -> int:
         """Width of the scattered state row (``[c|h]`` doubles it)."""
-        return self._STATE_MULT[self.kind] * self.hidden
+        return widths(self.kind, self.hidden)[0]
 
     @property
     def gate_dim(self) -> int:
         """Width of the pulled (eagerly projected) external row."""
-        return self._GATE_MULT[self.kind] * self.hidden
+        return widths(self.kind, self.hidden)[1]
 
     def weights(self, params: Params) -> Tuple[torch.Tensor, ...]:
         return tuple(params[n] for n in self.weight_names)

@@ -3,11 +3,14 @@
 Each ``csrc/*.cu`` source is compiled on first use, from the sources in
 this checkout only, by ``nvcc`` into a shared library with a plain C
 interface (no PyTorch headers: seconds to build, not minutes), and
-loaded with ``ctypes``.  Libraries go to ``<checkout>/build/kernels/``,
-named by the hash of their source, so an edited source is rebuilt and a
-stale library is never loaded.  :func:`build_all` starts one ``nvcc``
-per missing library, all at once, and waits for every one.  A failed
-build raises; nothing falls back.
+loaded with ``ctypes``.  A source may hold several kernels' entry points
+(``KERNELS`` maps each kernel to its source); its library is built once.
+Libraries go to ``<checkout>/build/kernels/``, named by the hash of
+their source, of every shared header (``csrc/*.cuh``) and of the
+compiler flags, so an edited source or header is rebuilt and a stale
+library is never loaded.  :func:`build_all` starts one ``nvcc`` per
+missing library, all at once, and waits for every one.  A failed build
+raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -28,16 +31,23 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: kernel name → (source file, C entry point, argtypes).  Every pointer
 #: and the stream are ``c_void_p`` so ctypes never cuts them to 32 bits.
+_CELL_FWD = [_P] * 7 + [_I] * 7 + [_P]
+_BWD = [_P] * 12 + [_I] * 8 + [_P]
 KERNELS: Dict[str, Tuple[str, str, List]] = {
     "treelstm_megastep": (
         "treelstm_megastep.cu", "treelstm_megastep_launch",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "treelstm_bwd_megastep": (
-        "treelstm_bwd_megastep.cu", "treelstm_bwd_megastep_launch",
-        [_P] * 12 + [_I] * 8 + [_P]),
+        "treelstm_bwd_megastep.cu", "treelstm_bwd_megastep_launch", _BWD),
     "scatter_add_rows": (
         "scatter_add_rows.cu", "scatter_add_rows_launch",
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    **{f"{kind}_megastep": ("cell_megastep.cu", f"{kind}_megastep_launch",
+                            _CELL_FWD)
+       for kind in ("lstm", "gru", "treefc")},
+    **{f"{kind}_bwd_megastep": ("cell_bwd_megastep.cu",
+                                f"{kind}_bwd_megastep_launch", _BWD)
+       for kind in ("lstm", "gru", "treefc")},
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -62,10 +72,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library that holds kernel ``name``'s entry point."""
     src = _CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return build_dir() / f"{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def build_log(name: str) -> str:
@@ -76,12 +89,13 @@ def build_log(name: str) -> str:
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> List[str]:
-    """Build every kernel in ``names`` (default: all) whose library is
-    missing — one ``nvcc`` each, all started together.  Returns the
-    names built; raises ``RuntimeError`` with the compiler's output if
-    any build fails."""
+    """Build the library of every kernel in ``names`` (default: all) that
+    is missing — one ``nvcc`` per source, all started together.  Returns
+    the sources built; raises ``RuntimeError`` with the compiler's output
+    if any build fails."""
     names = list(KERNELS if names is None else names)
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = list({KERNELS[n][0]: n for n in names
+                 if not library_path(n).exists()}.values())
     if not todo:
         return []
     nvcc = _nvcc()
@@ -105,7 +119,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> List[str]:
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return todo
+    return [KERNELS[n][0] for n in todo]
 
 
 def load(name: str) -> ctypes._CFuncPtr:

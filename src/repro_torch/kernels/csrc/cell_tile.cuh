@@ -1,0 +1,144 @@
+// The register-tiled fp32 gate product shared by the forward megasteps of
+// kinds lstm, gru and treefc (cell_megastep.cu) and by the gate recompute
+// of their reverse megasteps (cell_bwd_megastep.cu).  Hopper (sm_90a),
+// CUDA cores, no TF32 (the 1e-4 fp32 bar).
+//
+// A block owns a tile of BM slots x BN hidden columns.  For hidden column
+// j it accumulates the NG gate lanes j, H+j, ..., (NG-1)H+j of
+//
+//   X . W,   X[m, a*H + k] = buf[child_ids[m, a], h_off + k]   (a < KA)
+//
+// with W row-major [KA*H, NG*H]: lstm (NG 4, W = W_h [H, 4H], X = h half of
+// the predecessor row), gru (NG 3, W = W_h [H, 3H], X = the predecessor
+// row), treefc (NG 1, KA = A, W = wc [A*H, H], X = the A child rows side by
+// side; the concatenation never exists in memory).  Every lane of a column
+// lands in the same thread, so the gate epilogues stay column-local.  An
+// absent child points at the zero sentinel row; it is read as zeros
+// without a load.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace cell {
+
+constexpr int BM = 64;                    // slots per block
+constexpr int BN = 64;                    // hidden columns per block
+constexpr int BK = 16;                    // depth of one staged chunk
+constexpr int TM = 4;                     // slots per thread
+constexpr int TN = 4;                     // columns per thread
+constexpr int NT = (BM / TM) * (BN / TN); // 256 threads
+constexpr int LDM = BM + 4;               // padded row of the slot-major tiles
+constexpr int LDN = BN + 4;               // padded row of the transposed weights
+constexpr int MAX_A = 4;                  // largest arity taken
+
+enum Kind { LSTM = 0, GRU = 1, TREEFC = 2 };
+
+// NG: gate lanes per hidden column (G = NG*H, the pulled row's width);
+// SM: state width in units of H (S = SM*H).
+template <int KIND> struct Traits;
+template <> struct Traits<LSTM> { static constexpr int NG = 4, SM = 2; };
+template <> struct Traits<GRU> { static constexpr int NG = 3, SM = 1; };
+template <> struct Traits<TREEFC> { static constexpr int NG = 1, SM = 1; };
+
+__device__ __forceinline__ float sigmoid_f(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// Loads the tile's child rows (-1 for an absent child or a slot past M)
+// and node mask.  Returns LIVE if a slot of the tile is live
+// (node_mask != 0), ORed with KIDS if a slot has a child that is not the
+// sentinel.  Every thread of the block must call it.
+constexpr int LIVE = 1, KIDS = 2;
+__device__ __forceinline__ int load_ids(int (*cid)[BM], float* nm,
+                                        const int* __restrict__ child_ids,
+                                        const float* __restrict__ node_mask,
+                                        int M, int A, int m0, int sentinel) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < BM * A; i += NT) {
+    const int m = i / A, a = i % A, gm = m0 + m;
+    const int row = gm < M ? child_ids[(size_t)gm * A + a] : sentinel;
+    cid[a][m] = row == sentinel ? -1 : row;
+  }
+  for (int i = tid; i < BM; i += NT) {
+    nm[i] = (m0 + i) < M ? node_mask[m0 + i] : 0.0f;
+  }
+  __syncthreads();
+  int kid = 0;
+  if (tid < BM) {
+    for (int a = 0; a < A; ++a) kid |= cid[a][tid] >= 0;
+  }
+  const int live = __syncthreads_or(tid < BM && nm[tid] != 0.0f);
+  const int kids = __syncthreads_or(kid);
+  return (live ? LIVE : 0) | (kids ? KIDS : 0);
+}
+
+template <int NG>
+struct alignas(16) GemmSmem {
+  float x[BK][LDM];                       // X chunk, k-major
+  float w[NG][BK][BN];                    // W chunk, one panel per lane
+};
+
+// acc[q][tm][tn] += sum_k X[ty*TM + tm, k] * W[k, q*H + n0 + tx*TN + tn].
+// Every thread of the block must call it (it synchronises).
+template <int NG>
+__device__ __forceinline__ void tile_gemm(float (&acc)[NG][TM][TN],
+                                          GemmSmem<NG>& sm,
+                                          int (*cid)[BM],
+                                          const float* __restrict__ buf,
+                                          int buf_stride, int h_off,
+                                          const float* __restrict__ w,
+                                          int H, int KA, int n0) {
+  const int tid = threadIdx.x;
+  const int ty = tid / (BN / TN);
+  const int tx = tid % (BN / TN);
+  const size_t ldw = (size_t)NG * H;
+  for (int a = 0; a < KA; ++a) {
+    for (int k0 = 0; k0 < H; k0 += BK) {
+      // Gather this chunk of each slot's row of child a; consecutive
+      // threads read consecutive k of one row.
+#pragma unroll
+      for (int r = 0; r < (BM * BK) / NT; ++r) {
+        const int k = tid % BK;
+        const int m = tid / BK + r * (NT / BK);
+        const int gk = k0 + k;
+        const int row = cid[a][m];
+        sm.x[k][m] = (row >= 0 && gk < H)
+                         ? buf[(size_t)row * buf_stride + h_off + gk] : 0.0f;
+      }
+      // Stage the chunk of the NG lanes of W for this block's columns.
+#pragma unroll
+      for (int r = 0; r < (BK * BN) / NT; ++r) {
+        const int j = tid % BN;
+        const int k = tid / BN + r * (NT / BN);
+        const int gk = k0 + k, gj = n0 + j;
+        const bool ok = gk < H && gj < H;
+        const size_t base = ((size_t)a * H + gk) * ldw + gj;
+#pragma unroll
+        for (int q = 0; q < NG; ++q)
+          sm.w[q][k][j] = ok ? w[base + (size_t)q * H] : 0.0f;
+      }
+      __syncthreads();
+
+#pragma unroll
+      for (int k = 0; k < BK; ++k) {
+        const float4 x4 = *reinterpret_cast<const float4*>(&sm.x[k][ty * TM]);
+        const float xs[TM] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+        for (int q = 0; q < NG; ++q) {
+          const float4 w4 =
+              *reinterpret_cast<const float4*>(&sm.w[q][k][tx * TN]);
+          const float ws[TN] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+          for (int tm = 0; tm < TM; ++tm)
+#pragma unroll
+            for (int tn = 0; tn < TN; ++tn)
+              acc[q][tm][tn] = fmaf(xs[tm], ws[tn], acc[q][tm][tn]);
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace cell

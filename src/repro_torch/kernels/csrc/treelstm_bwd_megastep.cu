@@ -33,11 +33,12 @@
 //       d_f and g_c_k into a workspace;
 //   (b) bwd_hgrad: a tiled fp32 product g_h_k = D . U^T over the same
 //       tiles (H-deep, 3 shared products per slot plus one per child);
-//   (c) scatter_runs: one block per destination run of the level's sorted
-//       child ids (sort_perm / sorted_child_ids / run_head, precomputed on
-//       the host by pack_batch): the block seeds from g, adds the run's
-//       contributions in sorted order and writes the row once.  No float
-//       atomics, so two runs of the same backward give the same bits.
+//   (c) scatter_runs (runs.cuh): one block per destination run of the
+//       level's sorted child ids (sort_perm / sorted_child_ids / run_head,
+//       precomputed on the host by pack_batch): the block seeds from g,
+//       adds the run's contributions in sorted order and writes the row
+//       once.  No float atomics, so two runs of the same backward give the
+//       same bits.
 // A tile whose slots have no live child (every tile of level 0, and the
 // padding of a bucketed batch) writes zeros to its workspace and exits
 // after one barrier.  The workspace is allocated by the caller once per
@@ -56,6 +57,8 @@
 
 #include <cuda_runtime.h>
 
+#include "runs.cuh"
+
 namespace {
 
 constexpr int BM = 64;                    // slots per block
@@ -67,7 +70,6 @@ constexpr int TN = 4;                     // columns per thread
 constexpr int NT = (BM / TM) * (BN / TN); // 256 threads
 constexpr int LDM = BM + 4;               // padded row of the slot-major tiles
 constexpr int LDN = BN + 4;               // padded row of the transposed weights
-constexpr int NT_RUN = 256;               // threads of a scatter_runs block
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -398,33 +400,6 @@ bwd_hgrad_kernel(const int* __restrict__ child_ids,
   }
 }
 
-// Pass (c): one block per sorted position; the block at the head of a
-// destination run seeds from g, adds the run's child cotangents in sorted
-// order and writes the row once.  The sentinel run (absent children,
-// whose cotangents are exact zeros) is skipped, so the sentinel row is
-// left as it came in.
-__global__ void __launch_bounds__(NT_RUN)
-scatter_runs_kernel(float* __restrict__ g, int g_stride,
-                    const float* __restrict__ ws_gch,
-                    const int* __restrict__ sort_perm,
-                    const int* __restrict__ sorted_child_ids,
-                    const int* __restrict__ run_head,
-                    int n, int S, int sentinel) {
-  const int i = blockIdx.x;
-  if (run_head[i] == 0) return;
-  const int dest = sorted_child_ids[i];
-  if (dest == sentinel) return;
-  int end = i + 1;
-  while (end < n && run_head[end] == 0) ++end;
-  float* out = g + (size_t)dest * g_stride;
-  for (int col = threadIdx.x; col < S; col += NT_RUN) {
-    float acc = out[col];
-    for (int j = i; j < end; ++j)
-      acc += ws_gch[(size_t)sort_perm[j] * S + col];
-    out[col] = acc;
-  }
-}
-
 template <int A>
 cudaError_t launch(float* g, int g_stride, const float* buf, int buf_stride,
                    const int* child_ids, const int* ext_ids,
@@ -446,10 +421,8 @@ cudaError_t launch(float* g, int g_stride, const float* buf, int buf_stride,
       child_ids, node_mask, w, ws_d, ws_df, ws_gch, M, H, sentinel);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  scatter_runs_kernel<<<M * A, NT_RUN, 0, stream>>>(
-      g, g_stride, ws_gch, sort_perm, sorted_child_ids, run_head, M * A,
-      2 * H, sentinel);
-  return cudaGetLastError();
+  return runs::scatter_runs(g, g_stride, ws_gch, sort_perm, sorted_child_ids,
+                            run_head, M * A, 2 * H, 1, sentinel, stream);
 }
 
 }  // namespace

@@ -1,17 +1,25 @@
 """Fused level-megastep: one hand-written CUDA launch per batching task.
 
-Port of ``repro.kernels.level_megastep.treelstm_megastep``.  The CUDA
-source is ``csrc/treelstm_megastep.cu`` (its header states the bound and
-the design); :mod:`repro_torch.kernels._build` compiles it with ``nvcc``
-for ``sm_90a`` on first use.
+Port of the forward kernels of ``repro.kernels.level_megastep``, one
+wrapper per megastep kind (``GateSpec.kind``):
 
-The launch writes rows ``[offset, offset+M)`` of the node-state buffer
-IN PLACE — the counterpart of the Pallas kernel's
+  :func:`treelstm_megastep` (``csrc/treelstm_megastep.cu``) — the N-ary
+    child-sum Tree-LSTM level (K1);
+  :func:`lstm_megastep`, :func:`gru_megastep`, :func:`treefc_megastep`
+    (``csrc/cell_megastep.cu``) — the arity-1 LSTM and GRU levels and
+    the Tree-FC level (K3, K4, K5).
+
+Each source's header states its bound and design;
+:mod:`repro_torch.kernels._build` compiles the sources with ``nvcc`` for
+``sm_90a`` on first use.
+
+A launch writes rows ``[offset, offset+M)`` of the node-state buffer
+IN PLACE — the counterpart of the Pallas kernels'
 ``input_output_aliases`` — on PyTorch's current stream, allocating
 nothing.  Reads (child rows below ``offset`` and the zero sentinel) never
 overlap the written block, which is what makes the in-place write sound.
 
-The wrapper takes CUDA tensors only: it launches the kernel or raises.
+The wrappers take CUDA tensors only: they launch the kernel or raise.
 The choice of the plain version for CPU tensors is made once, in
 :func:`repro_torch.kernels.ops.level_megastep`.  ``LAUNCHES`` counts
 kernel launches (and nothing else), so a run can show that it went
@@ -38,8 +46,35 @@ from repro_torch.kernels import _build
 #: kernel name → launches of that kernel in this process.
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
-#: Largest arity the kernel is instantiated for.
+#: Largest arity the kernels take.
 MAX_ARITY = 4
+
+#: megastep kind → (state width S, pulled-row width G) in units of H.
+WIDTHS = {"lstm": (2, 4), "treelstm": (2, 4), "gru": (1, 3),
+          "treefc": (1, 1)}
+
+
+def widths(kind: str, H: int) -> Tuple[int, int]:
+    """``(S, G)`` of kind ``kind`` at hidden width ``H``; raises on an
+    unknown kind."""
+    if kind not in WIDTHS:
+        raise ValueError(f"unknown megastep gate kind: {kind!r}")
+    s, g = WIDTHS[kind]
+    return s * H, g * H
+
+
+def cell_hidden(kind: str, w: torch.Tensor, A: int) -> int:
+    """``H`` of an ``lstm``/``gru``/``treefc`` megastep from its one
+    recurrent weight (``wh`` ``[H, 4H]`` / ``[H, 3H]``, or ``wc``
+    ``[A·H, H]``).  A ``wc`` whose rows are not ``A·H`` raises, as the
+    reference does."""
+    if kind != "treefc":
+        return w.shape[0]
+    H = w.shape[1]
+    if w.shape[0] != A * H:
+        raise ValueError(f"treefc weight expects A*H={A}*{H} rows, "
+                         f"got {w.shape[0]}")
+    return H
 
 
 def reset_launches() -> None:
@@ -146,6 +181,83 @@ def treelstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
     return buf
 
 
+def _cell_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
+                   ext_ids: torch.Tensor, node_mask: torch.Tensor,
+                   offset: int, ext: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    op = f"{kind}_megastep"
+    require_cuda(op, buf)
+    M, A = child_ids.shape
+    H = cell_hidden(kind, w, A)
+    S, G = widths(kind, H)
+    R = buf.shape[0]
+    dev = buf.device
+    _check = functools.partial(check_arg, op)
+    _check("buf", buf, torch.float32, (R, S), dev)
+    _check("child_ids", child_ids, torch.int32, (M, A), dev)
+    _check("ext_ids", ext_ids, torch.int32, (M,), dev)
+    _check("node_mask", node_mask, torch.float32, (M,), dev)
+    _check("ext", ext, torch.float32, (ext.shape[0], G), dev)
+    _check("w", w, torch.float32, (A * H, H) if kind == "treefc"
+           else (H, G), dev)
+    _check("b", b, torch.float32, (G,), dev)
+    if not 1 <= A <= MAX_ARITY:
+        raise NotImplementedError(f"{op}: arity {A} outside 1..{MAX_ARITY}")
+    offset = int(offset)
+    if offset < 0 or offset + M > R - 1:
+        raise ValueError(f"{op}: rows [{offset}, {offset + M}) outside a "
+                         f"buffer of {R} rows with its sentinel")
+    launch_kernel(op, dev, buf.data_ptr(), child_ids.data_ptr(),
+                  ext_ids.data_ptr(), node_mask.data_ptr(), ext.data_ptr(),
+                  w.data_ptr(), b.data_ptr(), M, A, H, offset, R - 1,
+                  buf.stride(0), ext.stride(0))
+    return buf
+
+
+def lstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
+                  ext_ids: torch.Tensor, node_mask: torch.Tensor,
+                  offset: int, ext: torch.Tensor, wh: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """One fused LSTM batching task, in place (K3).
+
+    ``buf``: ``[T*M+1, 2H]`` float32 node-state buffer ``[c|h]``, its last
+    row the zero sentinel; ``child_ids``: ``[M, A]`` int32, column 0 the
+    predecessor; ``ext``: ``[R+1, 4H]``; ``wh``: ``[H, 4H]``; ``b``:
+    ``[4H]``.  The forget gate adds +1.0.  Returns ``buf``."""
+    return _cell_megastep("lstm", buf, child_ids, ext_ids, node_mask,
+                          offset, ext, wh, b)
+
+
+def gru_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
+                 ext_ids: torch.Tensor, node_mask: torch.Tensor,
+                 offset: int, ext: torch.Tensor, wh: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """One fused GRU batching task, in place (K4): state ``h`` (``buf``
+    ``[T*M+1, H]``), ``ext`` ``[R+1, 3H]`` (``z|r|n``), ``wh`` ``[H, 3H]``,
+    ``b`` ``[3H]``; the reset gate multiplies the recurrent candidate
+    with its bias.  Returns ``buf``."""
+    return _cell_megastep("gru", buf, child_ids, ext_ids, node_mask,
+                          offset, ext, wh, b)
+
+
+def treefc_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
+                    ext_ids: torch.Tensor, node_mask: torch.Tensor,
+                    offset: int, ext: torch.Tensor, wc: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """One fused Tree-FC batching task, in place (K5): state ``h``
+    (``buf`` ``[T*M+1, H]``), ``ext`` ``[R+1, H]``, the concat weight
+    ``wc`` ``[A*H, H]`` (raises unless it has ``A*H`` rows), ``b``
+    ``[H]``.  Returns ``buf``."""
+    return _cell_megastep("treefc", buf, child_ids, ext_ids, node_mask,
+                          offset, ext, wc, b)
+
+
+#: megastep kind → its kernel's wrapper, all called as
+#: ``fn(buf, child_ids, ext_ids, node_mask, offset, ext, *weights)``.
+MEGASTEPS = {"treelstm": treelstm_megastep, "lstm": lstm_megastep,
+             "gru": gru_megastep, "treefc": treefc_megastep}
+
+
 # ---------------------------------------------------------------------------
 # Analytic backward of one megastep (plain PyTorch), port of
 # ``repro.kernels.level_megastep.level_bwd`` / ``level_param_grads``.
@@ -153,9 +265,36 @@ def treelstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
 # Shape-polymorphic over the leading ``N``: the same code is the plain
 # version of one reverse level (``ref.bwd_megastep``, N = M) and the
 # scheduler's flat lazily batched parameter-gradient pass over all T*M
-# slots (paper §3.5).  The reverse megastep kernel
-# (``csrc/treelstm_bwd_megastep.cu``) computes the same cotangents.
+# slots (paper §3.5).  The reverse megastep kernels
+# (``csrc/treelstm_bwd_megastep.cu``, ``csrc/cell_bwd_megastep.cu``)
+# compute the same cotangents.
 # ---------------------------------------------------------------------------
+
+def _lstm_bwd(g_state, child, ext_rows, child_mask, weights):
+    wh, b = (w.float() for w in weights)
+    H = wh.shape[0]
+    prev = child[:, 0, :].float()
+    c_prev, h_prev = prev[:, :H], prev[:, H:]
+    gates = ext_rows.float() + h_prev @ wh + b
+    i = torch.sigmoid(gates[:, :H])
+    f = torch.sigmoid(gates[:, H:2 * H] + 1.0)
+    o = torch.sigmoid(gates[:, 2 * H:3 * H])
+    u = torch.tanh(gates[:, 3 * H:])
+    c = f * c_prev + i * u
+    tc = torch.tanh(c)
+    g_c, g_h = g_state[:, :H], g_state[:, H:]
+    g_o = g_h * tc
+    gc = g_c + g_h * o * (1.0 - tc * tc)
+    d_gates = torch.cat([gc * u * i * (1.0 - i),
+                         gc * c_prev * f * (1.0 - f),
+                         g_o * o * (1.0 - o),
+                         gc * i * (1.0 - u * u)], dim=-1)
+    # As in the reference, every existing child receives the predecessor's
+    # cotangent (an arity-1 cell has one).
+    g_child = torch.cat([gc * f, d_gates @ wh.T], dim=-1)[:, None, :] \
+        * child_mask[..., None]
+    return g_child, d_gates, (h_prev,)
+
 
 def _treelstm_bwd(g_state, child, ext_rows, child_mask, weights):
     ui, uf, uo, uu, b = [w.float() for w in weights]
@@ -192,6 +331,46 @@ def _treelstm_bwd(g_state, child, ext_rows, child_mask, weights):
     return g_child, d_gates, (d_i, d_f, d_o, d_u, h_sum, h_k)
 
 
+def _gru_bwd(g_state, child, ext_rows, child_mask, weights):
+    wh, b = (w.float() for w in weights)
+    H = wh.shape[0]
+    h_prev = child[:, 0, :].float()                           # [N, H]
+    rec = h_prev @ wh + b
+    ext_rows = ext_rows.float()
+    z = torch.sigmoid(ext_rows[:, :H] + rec[:, :H])
+    r = torch.sigmoid(ext_rows[:, H:2 * H] + rec[:, H:2 * H])
+    hn = rec[:, 2 * H:]
+    n = torch.tanh(ext_rows[:, 2 * H:] + r * hn)
+    g_h = g_state.float()
+    d_n = g_h * (1.0 - z) * (1.0 - n * n)
+    d_z = g_h * (h_prev - n) * z * (1.0 - z)
+    d_r = d_n * hn * r * (1.0 - r)
+    # Pulled-row cotangent: the x lanes enter the pre-activations additively.
+    d_gates = torch.cat([d_z, d_r, d_n], dim=-1)
+    # Recurrent-product cotangent: the n lane is gated by r.
+    d_rec = torch.cat([d_z, d_r, d_n * r], dim=-1)
+    g_h_prev = g_h * z + d_rec @ wh.T
+    g_child = g_h_prev[:, None, :] * child_mask[..., None]
+    return g_child, d_gates, (h_prev, d_rec)
+
+
+def _treefc_bwd(g_state, child, ext_rows, child_mask, weights):
+    wc, b = (w.float() for w in weights)
+    H = wc.shape[1]
+    N, A = child.shape[:2]
+    mk = child_mask[..., None].float()
+    h_k = child.float() * mk                                  # [N, A, H]
+    pre = h_k.reshape(N, A * H) @ wc + ext_rows.float() + b
+    hy = torch.tanh(pre)
+    d_pre = g_state.float() * (1.0 - hy * hy)                 # [N, H]
+    g_child = (d_pre @ wc.T).reshape(N, A, H) * mk
+    return g_child, d_pre, (h_k,)
+
+
+_LEVEL_BWD = {"lstm": _lstm_bwd, "treelstm": _treelstm_bwd,
+              "gru": _gru_bwd, "treefc": _treefc_bwd}
+
+
 def level_bwd(kind: str, g_state: torch.Tensor, child: torch.Tensor,
               ext_rows: torch.Tensor, child_mask: torch.Tensor,
               weights: Tuple[torch.Tensor, ...]):
@@ -202,31 +381,42 @@ def level_bwd(kind: str, g_state: torch.Tensor, child: torch.Tensor,
     ``[N, A, S]`` gathered child rows; ``ext_rows``: ``[N, 4H]``;
     ``child_mask``: ``[N, A]``.  Returns ``(g_child, d_gates, aux)``:
     ``g_child`` ``[N, A, S]`` is the child-masked cotangent to scatter-ADD
-    into the buffer (∂gather = scatter-add, §3.4); ``d_gates`` ``[N, 4H]``
+    into the buffer (∂gather = scatter-add, §3.4); ``d_gates`` ``[N, G]``
     the pulled-row cotangent (∂pull = push); ``aux`` feeds
-    :func:`level_param_grads`.
+    :func:`level_param_grads`.  An unknown kind raises ``ValueError``.
     """
-    if kind != "treelstm":
-        raise NotImplementedError(
-            f"level_bwd: megastep kind {kind!r} is not ported yet "
-            f"(only 'treelstm')")
-    return _treelstm_bwd(g_state, child, ext_rows, child_mask, weights)
+    fn = _LEVEL_BWD.get(kind)
+    if fn is None:
+        raise ValueError(f"unknown megastep gate kind: {kind!r}")
+    return fn(g_state, child, ext_rows, child_mask, weights)
 
 
 def level_param_grads(kind: str, d_gates: torch.Tensor, aux,
                       weights: Tuple[torch.Tensor, ...]
                       ) -> Tuple[torch.Tensor, ...]:
     """Weight gradients from ONE flat batched pass over all slots (paper
-    §3.5 lazy batching), in ``GateSpec.weight_names`` order."""
-    if kind != "treelstm":
-        raise NotImplementedError(
-            f"level_param_grads: megastep kind {kind!r} is not ported yet "
-            f"(only 'treelstm')")
-    d_i, d_f, d_o, d_u, h_sum, h_k = aux
-    N, A, H = h_k.shape
-    return (h_sum.T @ d_i,
-            h_k.reshape(N * A, H).T @ d_f.reshape(N * A, H),
-            h_sum.T @ d_o,
-            h_sum.T @ d_u,
-            torch.cat([torch.sum(d_i, dim=0), torch.sum(d_f, dim=(0, 1)),
-                       torch.sum(d_o, dim=0), torch.sum(d_u, dim=0)]))
+    §3.5 lazy batching), in ``GateSpec.weight_names`` order.  An unknown
+    kind raises ``ValueError``."""
+    if kind == "lstm":
+        (h_prev,) = aux
+        return (h_prev.T @ d_gates).to(weights[0].dtype), \
+            torch.sum(d_gates, dim=0)
+    if kind == "treelstm":
+        d_i, d_f, d_o, d_u, h_sum, h_k = aux
+        N, A, H = h_k.shape
+        return (h_sum.T @ d_i,
+                h_k.reshape(N * A, H).T @ d_f.reshape(N * A, H),
+                h_sum.T @ d_o,
+                h_sum.T @ d_u,
+                torch.cat([torch.sum(d_i, dim=0), torch.sum(d_f, dim=(0, 1)),
+                           torch.sum(d_o, dim=0), torch.sum(d_u, dim=0)]))
+    if kind == "gru":
+        h_prev, d_rec = aux
+        return (h_prev.T @ d_rec).to(weights[0].dtype), \
+            torch.sum(d_rec, dim=0)
+    if kind == "treefc":
+        (h_k,) = aux
+        N, A, H = h_k.shape
+        return (h_k.reshape(N, A * H).T @ d_gates).to(weights[0].dtype), \
+            torch.sum(d_gates, dim=0)
+    raise ValueError(f"unknown megastep gate kind: {kind!r}")

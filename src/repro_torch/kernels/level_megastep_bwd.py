@@ -1,16 +1,18 @@
-"""The reverse level-megastep and the duplicate-safe row scatter-add: two
+"""The reverse level-megastep and the duplicate-safe row scatter-add: the
 hand-written CUDA kernels of the backward.
 
 Port of ``repro.kernels.level_megastep_bwd``:
 
-  :func:`bwd_megastep` (``csrc/treelstm_bwd_megastep.cu``) — one reverse
-    batching task of kind ``treelstm``: re-gather the child rows from the
-    residual node buffer, recompute the gates, run the cotangent math of
-    ``level_megastep.level_bwd`` and scatter-ADD the child-row cotangents
-    into the gradient buffer along the level's sorted runs (∂gather =
-    scatter-add, §3.4), IN PLACE — the counterpart of the Pallas kernel's
-    ``input_output_aliases``.  Three launches per level (see the source's
-    header); ``LAUNCHES["treelstm_bwd_megastep"]`` counts levels.
+  :func:`bwd_megastep` — one reverse batching task of any megastep kind:
+    re-gather the child rows from the residual node buffer, recompute the
+    gates, run the cotangent math of ``level_megastep.level_bwd`` and
+    scatter-ADD the child-row cotangents into the gradient buffer along
+    the level's sorted runs (∂gather = scatter-add, §3.4), IN PLACE — the
+    counterpart of the Pallas kernel's ``input_output_aliases``.  Kind
+    ``treelstm`` is ``csrc/treelstm_bwd_megastep.cu``; kinds ``lstm``,
+    ``gru`` and ``treefc`` are ``csrc/cell_bwd_megastep.cu``.  Three
+    launches per level (see the sources' headers);
+    ``LAUNCHES["<kind>_bwd_megastep"]`` counts levels.
   :func:`scatter_add_rows` (``csrc/scatter_add_rows.cu``) —
     ``dst[idx[i]] += rows[i]`` with repeats, in place, no float atomics.
 
@@ -26,10 +28,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.level_megastep import (MAX_ARITY, check_arg,
-                                                launch_kernel,
+from repro_torch.kernels.level_megastep import (MAX_ARITY, cell_hidden,
+                                                check_arg, launch_kernel,
                                                 packed_recurrent,
-                                                require_cuda)
+                                                require_cuda, widths)
 
 
 #: Destination rows per panel of the scatter-add kernel (``BR`` in
@@ -37,16 +39,30 @@ from repro_torch.kernels.level_megastep import (MAX_ARITY, check_arg,
 SCATTER_PANEL_ROWS = 32
 
 
-def workspace_numel(M: int, A: int, H: int) -> int:
+def workspace_numel(kind: str, M: int, A: int, H: int) -> int:
     """Floats of the reverse megastep's workspace for levels of ``M``
-    slots: ``d_i|d_o|d_u`` ``[M, 3H]``, each child's ``d_f`` ``[M·A, H]``
-    and the child cotangents ``[M·A, 2H]``."""
-    return M * (3 + 3 * A) * H
+    slots of kind ``kind``:
+
+      - ``treelstm``: ``d_i|d_o|d_u`` ``[M, 3H]``, each child's ``d_f``
+        ``[M·A, H]`` and the child cotangents ``[M·A, 2H]``;
+      - ``lstm``: ``d_gates`` ``[M, 4H]`` and the predecessor cotangent
+        ``[M, 2H]``;
+      - ``gru``: the recurrent cotangent ``[M, 3H]`` and the predecessor
+        cotangent ``[M, H]``;
+      - ``treefc``: ``d_pre`` ``[M, H]`` and the child cotangents
+        ``[M·A, H]``.
+    """
+    per_slot = {"treelstm": 3 + 3 * A, "lstm": 4 + 2, "gru": 3 + 1,
+                "treefc": 1 + A}
+    if kind not in per_slot:
+        raise ValueError(f"unknown megastep gate kind: {kind!r}")
+    return M * per_slot[kind] * H
 
 
-def bwd_workspace(M: int, A: int, H: int, device) -> torch.Tensor:
+def bwd_workspace(kind: str, M: int, A: int, H: int,
+                  device) -> torch.Tensor:
     """One workspace for every level of a backward (allocated once)."""
-    return torch.empty(workspace_numel(M, A, H), dtype=torch.float32,
+    return torch.empty(workspace_numel(kind, M, A, H), dtype=torch.float32,
                        device=device)
 
 
@@ -58,51 +74,58 @@ def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
                  sorted_child_ids: Optional[torch.Tensor],
                  run_head: Optional[torch.Tensor],
                  workspace: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One fused reverse batching task, in place.
+    """One fused reverse batching task of kind ``kind``, in place.
 
-    ``g``: ``[T*M+1, 2H]`` float32 gradient buffer; the child-row
+    ``g``: ``[T*M+1, S]`` float32 gradient buffer; the child-row
     cotangents of the level at ``offset`` are scatter-ADDED into it.
     ``buf``: the residual forward node buffer (read only); ``child_ids``
     ``[M, A]`` int32 (absent children at the sentinel row ``T*M``, from
-    which the child mask is derived); ``sort_perm`` / ``sorted_child_ids``
+    which the child mask is derived); ``ext``: ``[R+1, G]``; ``weights``:
+    the cell's ``GateSpec.weights``.  ``sort_perm`` / ``sorted_child_ids``
     / ``run_head``: the level's flat ``[M·A]`` sorted runs, which
     ``pack_batch(with_runs=True)`` precomputes (absent: raises).
     ``workspace``: see :func:`bwd_workspace`; allocated here when omitted.
     Rows ``[offset, offset+M)``, the sentinel and every row no child
     points at come out bit-unchanged.  Returns ``g``.
     """
-    op = "treelstm_bwd_megastep"
+    if kind not in ("treelstm", "lstm", "gru", "treefc"):
+        raise ValueError(f"unknown megastep gate kind: {kind!r}")
+    op = f"{kind}_bwd_megastep"
     require_cuda(op, g)
-    if kind != "treelstm":
-        raise NotImplementedError(
-            f"no CUDA reverse megastep for kind {kind!r} yet")
     if sort_perm is None or sorted_child_ids is None or run_head is None:
         raise ValueError(f"{op}: the level's sorted runs are missing; pack "
                          f"the schedule with pack_batch(with_runs=True)")
     M, A = child_ids.shape
-    ui, uf, uo, uu, b = weights
-    H = ui.shape[0]
+    if kind == "treelstm":
+        ui, uf, uo, uu, b = weights
+        H = ui.shape[0]
+        w = packed_recurrent(ui, uf, uo, uu)
+    else:
+        w, b = weights
+        H = cell_hidden(kind, w, A)
+    S, G = widths(kind, H)
+    w_shape = (A * H, H) if kind == "treefc" else (H, G)
     R = g.shape[0]
     dev = g.device
     check = functools.partial(check_arg, op)
-    check("g", g, torch.float32, (R, 2 * H), dev)
-    check("buf", buf, torch.float32, (R, 2 * H), dev)
+    check("g", g, torch.float32, (R, S), dev)
+    check("buf", buf, torch.float32, (R, S), dev)
     check("child_ids", child_ids, torch.int32, (M, A), dev)
     check("ext_ids", ext_ids, torch.int32, (M,), dev)
     check("node_mask", node_mask, torch.float32, (M,), dev)
-    check("ext", ext, torch.float32, (ext.shape[0], 4 * H), dev)
-    check("b", b, torch.float32, (4 * H,), dev)
+    check("ext", ext, torch.float32, (ext.shape[0], G), dev)
+    check("w", w, torch.float32, w_shape, dev)
+    check("b", b, torch.float32, (G,), dev)
     for name, t in (("sort_perm", sort_perm),
                     ("sorted_child_ids", sorted_child_ids),
                     ("run_head", run_head)):
         check(name, t, torch.int32, (M * A,), dev)
-    w = packed_recurrent(ui, uf, uo, uu)
-    check("packed recurrent weight", w, torch.float32, (H, 4 * H), dev)
+    need = workspace_numel(kind, M, A, H)
     if workspace is None:
-        workspace = bwd_workspace(M, A, H, dev)
-    if workspace.numel() < workspace_numel(M, A, H):
+        workspace = bwd_workspace(kind, M, A, H, dev)
+    if workspace.numel() < need:
         raise ValueError(f"{op}: workspace of {workspace.numel()} floats, "
-                         f"needs {workspace_numel(M, A, H)}")
+                         f"needs {need}")
     check("workspace", workspace, torch.float32, workspace.shape, dev)
     if not 1 <= A <= MAX_ARITY:
         raise NotImplementedError(f"{op}: arity {A} outside 1..{MAX_ARITY}")

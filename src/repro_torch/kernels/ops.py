@@ -8,8 +8,10 @@ Dispatch goes by the device of the tensors, never by a silent fallback:
     a kind or dtype with no kernel raises too.
 
 This is the only place that makes the choice: the kernels' wrappers
-(``level_megastep.treelstm_megastep``, ``level_megastep_bwd.bwd_megastep``
-and ``level_megastep_bwd.scatter_add_rows``) take CUDA tensors only.
+(``level_megastep.MEGASTEPS``, ``level_megastep_bwd.bwd_megastep`` and
+``level_megastep_bwd.scatter_add_rows``) take CUDA tensors only.  Every
+megastep kind (``treelstm``, ``lstm``, ``gru``, ``treefc``) has its
+kernels; an unknown kind raises ``ValueError`` on either device.
 """
 
 from __future__ import annotations
@@ -43,22 +45,20 @@ def level_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
         _tick("level_megastep", "ref")
         return ref.level_megastep(kind, buf, child_ids, child_mask, ext_ids,
                                   node_mask, offset, ext, weights)
-    if kind != "treelstm":
-        raise NotImplementedError(
-            f"no CUDA kernel for megastep kind {kind!r} yet")
+    kernel = lm.MEGASTEPS.get(kind)
+    if kernel is None:
+        raise ValueError(f"unknown megastep gate kind: {kind!r}")
     _tick("level_megastep", "cuda")
-    ui, uf, uo, uu, b = weights
-    return lm.treelstm_megastep(buf, child_ids, ext_ids, node_mask, offset,
-                                ext, ui, uf, uo, uu, b)
+    return kernel(buf, child_ids, ext_ids, node_mask, offset, ext, *weights)
 
 
-def bwd_workspace(g: torch.Tensor, M: int, A: int,
+def bwd_workspace(kind: str, g: torch.Tensor, M: int, A: int,
                   H: int) -> Optional[torch.Tensor]:
-    """The reverse megastep's workspace for a backward over levels of
-    ``M`` slots, allocated once and handed to every level's
-    :func:`bwd_megastep`; ``None`` for a CPU gradient buffer (the plain
-    version needs none)."""
-    return lmb.bwd_workspace(M, A, H, g.device) if g.is_cuda else None
+    """The reverse megastep's workspace for a backward of kind ``kind``
+    over levels of ``M`` slots, allocated once and handed to every
+    level's :func:`bwd_megastep`; ``None`` for a CPU gradient buffer (the
+    plain version needs none)."""
+    return lmb.bwd_workspace(kind, M, A, H, g.device) if g.is_cuda else None
 
 
 def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,

@@ -15,6 +15,16 @@ import torch
 from repro_torch.kernels import level_megastep as lm
 
 
+def lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LSTM gate math: ``gates`` ``[M, 4H]`` (i|f|o|u pre-activations),
+    ``c_prev`` ``[M, H]``; the forget gate adds +1.0."""
+    i, f, o, u = torch.chunk(gates, 4, dim=-1)
+    i, f, o = torch.sigmoid(i), torch.sigmoid(f + 1.0), torch.sigmoid(o)
+    c = f * c_prev + i * torch.tanh(u)
+    return c, o * torch.tanh(c)
+
+
 def treelstm_gates(i_pre: torch.Tensor, f_pre: torch.Tensor,
                    o_pre: torch.Tensor, u_pre: torch.Tensor,
                    c_k: torch.Tensor, child_mask: torch.Tensor
@@ -37,27 +47,49 @@ def megastep_cell_state(kind: str, child: torch.Tensor, rows: torch.Tensor,
                         weights: Tuple[torch.Tensor, ...]) -> torch.Tensor:
     """The megastep cell math alone: gathered child rows ``[M, A, S]``
     plus pulled (eagerly projected) rows ``[M, G]`` → state ``[M, S]``
-    (before node masking)."""
-    if kind != "treelstm":
-        raise NotImplementedError(
-            f"megastep kind {kind!r} is not ported yet (only 'treelstm')")
+    (before node masking).  ``lstm`` and ``gru`` read child 0 only and
+    rely on the zero sentinel rather than on ``child_mask``."""
     M, A = child.shape[:2]
-    ui, uf, uo, uu, b = weights
-    H = ui.shape[0]
-    mk = child_mask.to(child.dtype)[..., None]
-    cs = child * mk
-    c_k, h_k = cs[..., :H], cs[..., H:]
-    h_sum = torch.sum(h_k, dim=1)
-    xi, xf, xo, xu = torch.split(rows, H, dim=-1)
-    bi, bf, bo, bu = torch.split(b, H)
-    rec_f = (h_k.reshape(M * A, H) @ uf).reshape(M, A, H)
-    c, h = treelstm_gates(
-        xi + h_sum @ ui + bi,
-        xf[:, None, :] + rec_f + bf,
-        xo + h_sum @ uo + bo,
-        xu + h_sum @ uu + bu,
-        c_k, child_mask.to(child.dtype))
-    return torch.cat([c, h], dim=-1)
+    if kind == "lstm":
+        wh, b = weights
+        H = wh.shape[0]
+        prev = child[:, 0, :]
+        gates = rows + prev[:, H:] @ wh + b
+        c, h = lstm_gates(gates, prev[:, :H])
+        return torch.cat([c, h], dim=-1)
+    if kind == "treelstm":
+        ui, uf, uo, uu, b = weights
+        H = ui.shape[0]
+        mk = child_mask.to(child.dtype)[..., None]
+        cs = child * mk
+        c_k, h_k = cs[..., :H], cs[..., H:]
+        h_sum = torch.sum(h_k, dim=1)
+        xi, xf, xo, xu = torch.split(rows, H, dim=-1)
+        bi, bf, bo, bu = torch.split(b, H)
+        rec_f = (h_k.reshape(M * A, H) @ uf).reshape(M, A, H)
+        c, h = treelstm_gates(
+            xi + h_sum @ ui + bi,
+            xf[:, None, :] + rec_f + bf,
+            xo + h_sum @ uo + bo,
+            xu + h_sum @ uu + bu,
+            c_k, child_mask.to(child.dtype))
+        return torch.cat([c, h], dim=-1)
+    if kind == "gru":
+        wh, b = weights
+        H = wh.shape[0]
+        h_prev = child[:, 0, :]
+        rec = h_prev @ wh + b
+        z = torch.sigmoid(rows[:, :H] + rec[:, :H])
+        r = torch.sigmoid(rows[:, H:2 * H] + rec[:, H:2 * H])
+        # The reset gate multiplies the recurrent candidate with its bias.
+        n = torch.tanh(rows[:, 2 * H:] + r * rec[:, 2 * H:])
+        return (1.0 - z) * n + z * h_prev
+    if kind == "treefc":
+        wc, b = weights
+        mk = child_mask.to(child.dtype)[..., None]
+        cs = (child * mk).reshape(M, -1)                 # [M, A*H] concat
+        return torch.tanh(cs @ wc + rows + b)
+    raise ValueError(f"unknown megastep gate kind: {kind!r}")
 
 
 def level_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,

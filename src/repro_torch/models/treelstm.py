@@ -1,5 +1,7 @@
-"""N-ary child-sum Tree-LSTM vertex function (paper Fig. 4), PyTorch
-port of ``repro.models.treelstm.TreeLSTMVertex``.
+"""Tree-structured vertex functions, PyTorch port of
+``repro.models.treelstm``: the N-ary child-sum Tree-LSTM (paper Fig. 4)
+and the Tree-FC benchmark cell (paper §5, from the Fold loom
+benchmarks).
 
 The Tree-LSTM follows Tai et al. exactly as transcribed in the paper's
 Fig. 4: per-child forget gates against the *individual* child hidden
@@ -88,3 +90,54 @@ class TreeLSTMVertex:
         c = i * u + torch.sum(f * c_k * io.child_mask[..., None], dim=1)
         hy = o * torch.tanh(c)
         return VertexOutput(state=torch.cat([c, hy], dim=-1))
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeFCVertex:
+    """The Tree-FC benchmark cell (paper §5 'Models'): a single
+    fully-connected layer over the concatenated child states, plus the
+    leaf embedding path.  Binary trees (arity 2).  Param keys match the
+    JAX package: ``wx``, ``wc``, ``b``."""
+
+    input_dim: int
+    hidden: int
+    arity: int = 2
+
+    @property
+    def state_dim(self) -> int:
+        return self.hidden
+
+    @property
+    def ext_dim(self) -> int:
+        return self.hidden
+
+    def init(self, generator: torch.Generator,
+             device="cuda") -> Params:
+        """Random params from ``generator`` (drawn on the CPU, then moved
+        to ``device``); the bias is zero, as in the reference."""
+        params = {
+            "wx": dense_init(generator, self.input_dim, self.hidden),
+            "wc": dense_init(generator, self.arity * self.hidden,
+                             self.hidden),
+            "b": torch.zeros((self.hidden,), dtype=torch.float32),
+        }
+        return {k: v.to(device) for k, v in params.items()}
+
+    def project_inputs(self, params: Params,
+                       raw: torch.Tensor) -> torch.Tensor:
+        return raw @ params["wx"]
+
+    def gate_spec(self) -> GateSpec:
+        """Fusable-gate declaration (kind "treefc", K5).  The concat
+        weight fixes the gather arity, so the fused path only engages
+        when the packed schedule's ``A`` equals ``self.arity`` (the
+        scheduler keeps the op-by-op path otherwise under
+        ``fusion_mode="auto"`` and raises under ``"megastep"``)."""
+        return GateSpec(kind="treefc", hidden=self.hidden,
+                        weight_names=("wc", "b"), arity=self.arity)
+
+    def apply(self, params: Params, io: VertexIO) -> VertexOutput:
+        M = io.num_slots
+        cs = (io.child_states * io.child_mask[..., None]).reshape(M, -1)
+        hy = torch.tanh(cs @ params["wc"] + io.pull() + params["b"])
+        return VertexOutput(state=hy)

@@ -1,0 +1,242 @@
+"""The ``lstm``, ``gru`` and ``treefc`` megastep kernels on the card: the
+forward kernels (K3, K4, K5) and the reverse megastep (K2) of each kind
+against their plain versions, at small widths and at the paper's H = 512,
+with M = 1 and all-padding levels; rows a launch does not touch
+bit-unchanged; training gradients that repeat bit for bit and match the
+op-by-op leg; and the refusals: a wrong arity, a too-small workspace and
+a failed build raise instead of falling back to the plain version.
+Every test here is ``gpu``-marked and skips inside its body where there
+is no card; none needs JAX, which the GPU machine lacks.
+
+Tolerance: the kernels' error relative to max |plain| <= 1e-4, the
+reference's fused-vs-unfused bar (``repro/core/scheduler.py:305``)."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import scheduler as tsch
+from repro_torch.core.structure import (balanced_binary_tree, chain,
+                                        pack_batch, random_binary_tree)
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import level_megastep as lm
+from repro_torch.kernels import level_megastep_bwd as lmb
+from repro_torch.models.rnn import GRUVertex, LSTMVertex
+from repro_torch.models.treelstm import TreeFCVertex
+
+TOL = 1e-4
+SM = {"lstm": 2, "gru": 1, "treefc": 1}
+GM = {"lstm": 4, "gru": 3, "treefc": 1}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def _graphs(kind, family, rng):
+    if kind == "treefc":
+        if family == "balanced":
+            return [balanced_binary_tree(64) for _ in range(4)]
+        return [random_binary_tree(int(rng.integers(1, 40)), rng)
+                for _ in range(8)]
+    if family == "single":                        # M = 1
+        return [chain(5)]
+    return [chain(int(n)) for n in rng.integers(1, 30, size=70)]
+
+
+def _levels(kind, family, h, seed=0, dev="cuda", **pads):
+    """Every level of a packed schedule with its sorted runs, random
+    buffer, gradient and ext rows (sentinels zero) and weights with a
+    nonzero bias."""
+    rng = np.random.default_rng(seed)
+    if kind == "treefc":
+        pads = dict(pads, pad_arity=2)
+    s = pack_batch(_graphs(kind, family, rng), with_runs=True, **pads)
+    d = s.to_device(dev)
+    R, S, G = s.T * s.M + 1, SM[kind] * h, GM[kind] * h
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa
+    buf = rng.standard_normal((R, S)) * 0.5
+    buf[-1] = 0.0
+    ext = rng.standard_normal((s.K * s.N + 1, G)) * 0.5
+    ext[-1] = 0.0
+    rows = s.A * h if kind == "treefc" else h
+    w = rng.standard_normal((rows, h if kind == "treefc" else G)) \
+        * rows ** -0.5
+    b = rng.standard_normal(G) * 0.3
+    return (s, d, f32(buf), f32(rng.standard_normal((R, S))), f32(ext),
+            (f32(w), f32(b)))
+
+
+def _rel(got, want):
+    return float((got - want).abs().max()) \
+        / max(float(want.abs().max()), 1e-30)
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+CASES = [("lstm", "chains", 72, {}), ("lstm", "single", 16, {}),
+         ("lstm", "chains", 512, {"pad_levels": 40, "pad_width": 128}),
+         ("gru", "chains", 72, {}), ("gru", "single", 16, {}),
+         ("gru", "chains", 512, {"pad_levels": 40, "pad_width": 128}),
+         ("treefc", "random", 72, {"pad_levels": 12, "pad_width": 256}),
+         ("treefc", "balanced", 512, {})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,family,h,pads", CASES)
+def test_forward_and_reverse_kernels_match_plain_on_card(kind, family, h,
+                                                         pads):
+    _need_card()
+    s, d, buf, g, ext, w = _levels(kind, family, h, **pads)
+    ws = lmb.bwd_workspace(kind, s.M, s.A, h, "cuda")
+    lm.reset_launches()
+    for t in range(s.T):
+        lvl = (d.child_ids[t], d.child_mask[t], d.ext_ids[t], d.node_mask[t],
+               t * s.M, ext, w)
+        want = ref.level_megastep(kind, buf.clone(), *lvl)
+        got = lm.MEGASTEPS[kind](buf.clone(), d.child_ids[t], d.ext_ids[t],
+                                 d.node_mask[t], t * s.M, ext, *w)
+        wantb = ref.bwd_megastep(kind, g.clone(), buf, *lvl)
+        gotb = lmb.bwd_megastep(kind, g.clone(), buf, d.child_ids[t],
+                                d.ext_ids[t], d.node_mask[t], t * s.M, ext, w,
+                                sort_perm=d.sort_perm[t],
+                                sorted_child_ids=d.sorted_child_ids[t],
+                                run_head=d.run_head[t], workspace=ws)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= TOL, ("forward", t)
+        assert _rel(gotb, wantb) <= TOL, ("reverse", t)
+        keep = torch.ones(buf.shape[0], dtype=torch.bool, device="cuda")
+        keep[t * s.M:(t + 1) * s.M] = False
+        assert torch.equal(_bits(got[keep]), _bits(buf[keep])), t
+        touched = torch.zeros(g.shape[0], dtype=torch.bool, device="cuda")
+        touched[d.child_ids[t].reshape(-1).long()] = True
+        touched[-1] = False                       # the sentinel is kept
+        assert torch.equal(_bits(gotb[~touched]), _bits(g[~touched])), t
+        if not bool(d.node_mask[t].any()):        # an all-padding level
+            assert not bool(got[t * s.M:(t + 1) * s.M].any())
+    assert lm.LAUNCHES[f"{kind}_megastep"] == s.T
+    assert lm.LAUNCHES[f"{kind}_bwd_megastep"] == s.T
+
+
+def _cell(kind, x, h):
+    return {"lstm": LSTMVertex, "gru": GRUVertex,
+            "treefc": TreeFCVertex}[kind](input_dim=x, hidden=h)
+
+
+def _grads(fn, params, sched, ext, cot, fusion_mode):
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    e = ext.clone().requires_grad_()
+    buf = tsch.execute_lazy(fn, leaves, e, sched, fusion_mode=fusion_mode)
+    buf.backward(cot)
+    return {**{k: v.grad for k, v in leaves.items()}, "external": e.grad}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["lstm", "gru", "treefc"])
+def test_training_gradients_repeat_bitwise_and_match_opbyop(kind):
+    _need_card()
+    h, x = 72, 16
+    rng = np.random.default_rng(3)
+    fn = _cell(kind, x, h)
+    params = fn.init(torch.Generator().manual_seed(3), device="cuda")
+    params["b"] = torch.from_numpy((rng.standard_normal(params["b"].shape)
+                                    * 0.3).astype(np.float32)).cuda()
+    s = pack_batch(_graphs(kind, "random" if kind == "treefc" else "chains",
+                           rng), pad_width=256, with_runs=True,
+                   **({"pad_arity": 2} if kind == "treefc" else {}))
+    ext = np.zeros((s.K * s.N + 1, x), np.float32)
+    ext[:-1] = rng.standard_normal((s.K * s.N, x)) * 0.5
+    ext = torch.from_numpy(ext).cuda()
+    cot = torch.from_numpy(rng.standard_normal(
+        (s.T * s.M + 1, fn.state_dim)).astype(np.float32)).cuda()
+    d = s.to_device("cuda")
+    lm.reset_launches()
+    first = _grads(fn, params, d, ext, cot, "auto")
+    assert lm.LAUNCHES[f"{kind}_megastep"] == s.T
+    assert lm.LAUNCHES[f"{kind}_bwd_megastep"] == s.T
+    assert lm.LAUNCHES["scatter_add_rows"] == 1
+    second = _grads(fn, params, d, ext, cot, "auto")
+    oracle = _grads(fn, params, d, ext, cot, "none")
+    torch.cuda.synchronize()
+    for k, v in first.items():
+        assert torch.equal(_bits(v), _bits(second[k])), k
+        assert _rel(v, oracle[k]) <= TOL, k
+
+
+@pytest.mark.gpu
+def test_wrong_arity_and_small_workspace_raise():
+    _need_card()
+    s, d, buf, g, ext, (wc, b) = _levels("treefc", "random", 16)
+    t = 1
+    with pytest.raises(ValueError, match="A\\*H=3\\*16 rows, got 32"):
+        lm.treefc_megastep(buf, d.child_ids[t].repeat(1, 2)[:, :3]
+                           .contiguous(), d.ext_ids[t], d.node_mask[t],
+                           t * s.M, ext, wc, b)
+    wide = torch.zeros((s.M, 5), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="rows"):
+        lm.treefc_megastep(buf, wide, d.ext_ids[t], d.node_mask[t], t * s.M,
+                           ext, wc, b)
+    wc5 = torch.zeros((5 * 16, 16), device="cuda")
+    with pytest.raises(NotImplementedError, match="arity 5"):
+        lm.treefc_megastep(buf, wide, d.ext_ids[t], d.node_mask[t], t * s.M,
+                           ext, wc5, b)
+    runs = dict(sort_perm=d.sort_perm[t],
+                sorted_child_ids=d.sorted_child_ids[t],
+                run_head=d.run_head[t])
+    small = torch.empty(lmb.workspace_numel("treefc", s.M, s.A, 16) - 1,
+                        device="cuda")
+    before = g.clone()
+    lm.reset_launches()
+    with pytest.raises(ValueError, match="workspace"):
+        lmb.bwd_megastep("treefc", g, buf, d.child_ids[t], d.ext_ids[t],
+                         d.node_mask[t], t * s.M, ext, (wc, b),
+                         workspace=small, **runs)
+    # a gru-sized workspace is too small for an lstm level
+    s2, d2, buf2, g2, ext2, w2 = _levels("lstm", "chains", 16)
+    ws = torch.empty(lmb.workspace_numel("gru", s2.M, s2.A, 16),
+                     device="cuda")
+    with pytest.raises(ValueError, match="workspace"):
+        lmb.bwd_megastep("lstm", g2, buf2, d2.child_ids[1], d2.ext_ids[1],
+                         d2.node_mask[1], s2.M, ext2, w2, workspace=ws,
+                         sort_perm=d2.sort_perm[1],
+                         sorted_child_ids=d2.sorted_child_ids[1],
+                         run_head=d2.run_head[1])
+    torch.cuda.synchronize()
+    assert sum(lm.LAUNCHES.values()) == 0
+    assert torch.equal(g, before)
+
+
+@pytest.mark.gpu
+def test_failed_build_raises_without_fallback(tmp_path, monkeypatch):
+    """A kernel that does not build fails the call: ``ops`` does not fall
+    back to the plain version on a CUDA tensor, and nothing is written."""
+    _need_card()
+    s, d, buf, g, ext, w = _levels("gru", "chains", 16)
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    before = buf.clone()
+    lm.reset_launches()
+    with pytest.raises(RuntimeError, match="build failed"):
+        ops.level_megastep("gru", buf, d.child_ids[1], d.child_mask[1],
+                           d.ext_ids[1], d.node_mask[1], s.M, ext, w)
+    with pytest.raises(RuntimeError, match="build failed"):
+        ops.bwd_megastep("gru", g, buf, d.child_ids[1], d.child_mask[1],
+                         d.ext_ids[1], d.node_mask[1], s.M, ext, w,
+                         sort_perm=d.sort_perm[1],
+                         sorted_child_ids=d.sorted_child_ids[1],
+                         run_head=d.run_head[1])
+    torch.cuda.synchronize()
+    assert sum(lm.LAUNCHES.values()) == 0
+    assert torch.equal(buf, before)

@@ -162,8 +162,10 @@ def test_ops_dispatch_by_device_and_counts():
     assert torch.equal(got, want)
     assert reg.counter("kernel.dispatch", op="level_megastep",
                        impl="ref") == before + 1
-    with pytest.raises(NotImplementedError, match="lstm"):
-        tops.level_megastep("lstm", buf, cids, cmask, eids, nmask, off, ext,
+    # Every megastep kind is ported; an unknown kind raises on either
+    # device, as the reference does.
+    with pytest.raises(ValueError, match="bogus"):
+        tops.level_megastep("bogus", buf, cids, cmask, eids, nmask, off, ext,
                             w)
 
 

@@ -110,12 +110,17 @@ def test_level_bwd_matches_autodiff_oracle():
 
 
 def test_other_kinds_are_not_ported_yet():
+    """Every kind of the reference is ported now (their parity is in
+    ``tests/test_torch_megastep_kinds.py``); what is not a kind of the
+    reference raises ``ValueError``, as it does there."""
     g, child, rows, cmask, p = _level_case(4)
-    for kind in ("lstm", "gru", "treefc"):
-        with pytest.raises(NotImplementedError, match=kind):
+    for kind in ("bogus", "treelstm "):
+        with pytest.raises(ValueError, match="unknown megastep gate kind"):
             lm.level_bwd(kind, _t(g), _t(child), _t(rows), _t(cmask), _tw(p))
-        with pytest.raises(NotImplementedError, match=kind):
+        with pytest.raises(ValueError, match="unknown megastep gate kind"):
             lm.level_param_grads(kind, _t(rows), (), _tw(p))
+        with pytest.raises(ValueError, match="unknown megastep gate kind"):
+            lmb.workspace_numel(kind, 6, 2, 5)
 
 
 def _bwd_case(seed, h=5, a=2):
@@ -216,7 +221,7 @@ def test_ops_dispatch_by_device_and_wrappers_refuse_cpu():
     np.testing.assert_array_equal(got.numpy(), _plain_bwd(c))
     assert reg.counter("kernel.dispatch", op="bwd_megastep",
                        impl="ref") == before + 1
-    assert tops.bwd_workspace(got, 6, 2, 5) is None
+    assert tops.bwd_workspace("treelstm", got, 6, 2, 5) is None
     dst = torch.zeros(4, 3)
     tops.scatter_add_rows(dst, torch.tensor([1, 1, 3], dtype=torch.int32),
                           torch.ones(3, 3))

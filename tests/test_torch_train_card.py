@@ -81,7 +81,7 @@ def _levels(kind, seed, h=72, dev="cuda", **pads):
 def test_reverse_megastep_matches_plain_on_card(kind, pads):
     _need_card()
     s, d, buf, g, ext, w = _levels(kind, 1, **pads)
-    ws = lmb.bwd_workspace(s.M, s.A, w[0].shape[0], "cuda")
+    ws = lmb.bwd_workspace("treelstm", s.M, s.A, w[0].shape[0], "cuda")
     lm.reset_launches()
     for t in range(s.T):
         want = ref.bwd_megastep("treelstm", g.clone(), buf, d.child_ids[t],
@@ -187,8 +187,8 @@ def test_refused_launch_raises_without_fallback(monkeypatch):
     before = g.clone()
     with pytest.raises(ValueError, match="sorted runs"):
         ops.bwd_megastep(*args)
-    with pytest.raises(NotImplementedError):
-        ops.bwd_megastep("lstm", *args[1:], **runs)
+    with pytest.raises(ValueError, match="unknown megastep gate kind"):
+        ops.bwd_megastep("bogus", *args[1:], **runs)
     with pytest.raises(TypeError):
         ops.bwd_megastep("treelstm", g.double(), *args[2:], **runs)
     with pytest.raises(TypeError):
