@@ -65,7 +65,33 @@ Phases, each of which must pass (any failure exits non-zero):
      gradients against ``fusion_mode="none"`` within 1e-4 relative; two
      backward passes bitwise equal; a ``torch.profiler`` breakdown of one
      warm step;
-  9. report — one JSON line per the kernel table, then the device line.
+  9. K6 vs plain — the row gather/scatter kernels against their plain
+     versions on the card, bit for bit, at the serving phases' shapes, a
+     bf16 gather, rows not a multiple of 4 wide, n = 1 and pad lanes
+     with out-of-range ids (untouched rows bit-unchanged);
+  10. continuous Tree-LSTM serving — the serving phase's 512 parses
+     submitted at once to ``ContinuousBatchEngine`` (4,096 arena rows,
+     256 lanes, ``ClassificationHead(1024, 5)``, nonzero biases): a
+     tapped run re-runs every ``TAP_EVERY``-th tick's megastep and row
+     scatter and every root gather against their plain versions and
+     times them; the main path, launch counts set to 0 just before and
+     read just after, must launch one megastep and one row scatter a
+     tick and one row gather a retiring window; every request ``ok``, no
+     degradation; roots and logits within 1e-4 of solo scoring on the
+     card and of the plain path on the CPU (bitwise-equal roots
+     counted); requests/s, latency, occupancy; host spans and a profile;
+  11. the LSTM-chain trace of ``benchmarks/bench_serving.py --full`` at
+     the paper's width, replayed in real time against
+     ``StructureServeEngine(batch_size=16)`` and
+     ``ContinuousBatchEngine(1024 rows, 64 lanes)``: p50/p99 latency,
+     throughput and their ratios; roots within 1e-4 of solo scoring;
+     ``TokenReadout`` tokens independent of the order requests run in;
+     a tapped run for the K3 frontier and K6 checks and times;
+  12. decode — ``VertexServeEngine`` (LSTM, then GRU, 128 slots) over 256
+     Var-LSTM chains: one K3/K4 launch a tick, final states within 1e-4
+     of ``execute`` on the card and of the plain path on the CPU,
+     ticks/s, per-launch times at M = 128, a profile;
+  13. report — one JSON line per the kernel table, then the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -116,18 +142,26 @@ import torch  # noqa: E402
 
 import repro_torch  # noqa: E402,F401  (turns TF32 off)
 from repro_torch.configs.paper import get_paper_model  # noqa: E402
-from repro_torch.core.scheduler import execute_lazy, readout_roots  # noqa: E402
-from repro_torch.core.structure import (pack_batch, pack_external,  # noqa: E402
-                                        random_binary_tree, random_dag)
+from repro_torch.core.scheduler import (execute, execute_lazy,  # noqa: E402
+                                        readout_nodes, readout_roots)
+from repro_torch.core.structure import (chain, pack_batch,  # noqa: E402
+                                        pack_external, random_binary_tree,
+                                        random_dag)
 from repro_torch.data.trees import sst_like_dataset  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import gather_scatter as lmgs  # noqa: E402
 from repro_torch.kernels import level_megastep as lm  # noqa: E402
 from repro_torch.kernels import level_megastep_bwd as lmb  # noqa: E402
+from repro_torch.models.readout import (ClassificationHead,  # noqa: E402
+                                        TokenReadout)
 from repro_torch.models.rnn import GRUVertex  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.pipeline import BucketPolicy, SchedulePipeline  # noqa: E402
 from repro_torch.obs.registry import get_registry  # noqa: E402
-from repro_torch.serve import StructureRequest, StructureServeEngine  # noqa: E402
+from repro_torch.serve import (AdmissionPolicy,  # noqa: E402
+                               ContinuousBatchEngine, ContinuousRequest,
+                               StructureRequest, StructureServeEngine,
+                               VertexRequest, VertexServeEngine)
 
 
 # ---------------------------------------------------------------------------
@@ -243,19 +277,21 @@ def time_ms(fn, n: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / n
 
 
-def bound_ms(case) -> tuple:
+def bound_ms(case, sentinel=None) -> tuple:
     """Least time for the level on the card, from this level's data:
     FLOPs of the multiply-adds its live slots need (h_k·U_f for each
     child a slot has, and hsum·U_i/U_o/U_u for a slot with any child; a
     leaf needs none), and bytes of each input read once (distinct child
     rows and ext rows of live slots, the weights unless no slot needs
-    them, the indices) and the block written once.  Returns (bound_ms,
-    bound_by, flops, bytes)."""
+    them, the indices) and the block written once.  Absent children
+    point at ``sentinel`` (default: the buffer's last row).  Returns
+    (bound_ms, bound_by, flops, bytes)."""
     buf, cids, cmask, eids, nmask, off, ext, w = case
     M, A = cids.shape
     H = w[0].shape[0]
     live = nmask != 0
-    present = (cids != buf.shape[0] - 1) & live[:, None]
+    sentinel = buf.shape[0] - 1 if sentinel is None else sentinel
+    present = (cids != sentinel) & live[:, None]
     n_child = present.sum(dim=1)
     flops = float((n_child + 3 * (n_child > 0)).sum()) * H * H * 2
     rows = torch.unique(cids[present])
@@ -836,6 +872,7 @@ PROFILE_GROUPS = {
                             "scatter_runs_kernel"),
     "K7 scatter-add": ("panel_count_kernel", "panel_fill_kernel",
                        "panel_add_kernel"),
+    "K6 row gather/scatter": ("gather_rows_kernel", "scatter_rows_kernel"),
     "matmul": ("gemm", "Gemm", "cutlass", "xmma"),
     "copy and fill": ("Memcpy", "Memset", "copy", "fill")}
 
@@ -926,7 +963,7 @@ def cell_grads(fn, params, d, ext, h_lo, fusion_mode: str = "auto"):
     return loss.detach(), grads
 
 
-def cell_bound_ms(kind: str, case, reverse: bool) -> tuple:
+def cell_bound_ms(kind: str, case, reverse: bool, sentinel=None) -> tuple:
     """Least time for one level on the card, from this level's data: the
     multiply-adds its live slots need (an lstm/gru slot with a
     predecessor NG*H*H, a Tree-FC slot H*H per child it has; twice that
@@ -935,13 +972,15 @@ def cell_bound_ms(kind: str, case, reverse: bool) -> tuple:
     ext rows and, in reverse, their gradient rows; the weight unless no
     slot needs it; bias, indices and runs) and the block written once
     (in reverse: each touched row read and written once) at 3.35 TB/s.
+    Absent children point at ``sentinel`` (default: the last row).
     Returns (bound_ms, bound_by, flops, bytes)."""
     _k, lead, cids, _cmask, eids, nmask, _off, _ext, (w, _b) = case
     M, A = cids.shape
     H = w.shape[1] if kind == "treefc" else w.shape[0]
     S, G = lm.widths(kind, H)
     live = nmask != 0
-    present = (cids != lead.shape[0] - 1) & live[:, None]
+    sentinel = lead.shape[0] - 1 if sentinel is None else sentinel
+    present = (cids != sentinel) & live[:, None]
     if kind == "treefc":
         macs = float(present.sum()) * H * H
         read = present
@@ -1174,6 +1213,706 @@ def cell_train_phase(phase: str, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 9-12: continuous and decode serving (K6, K1/K3/K4 on new paths)
+# ---------------------------------------------------------------------------
+
+#: Continuous Tree-LSTM serving: arena rows and frontier lanes.
+CONT_ROWS, CONT_WIDTH = 4096, 256
+#: The LSTM-chain trace of ``benchmarks/bench_serving.py --full``: seed,
+#: requests, Poisson rate (1/s), chain lengths; the two engines' sizes.
+TRACE_SEED, TRACE_N, TRACE_RATE = 0, 400, 300.0
+TRACE_LENGTHS = (4, 6, 8, 12, 16, 24, 32)
+CHAIN_ROWS, CHAIN_WIDTH, CHAIN_BATCH = 1024, 64, 16
+#: Decode ticks: slots and chains.
+DECODE_SLOTS, DECODE_REQUESTS = 128, 256
+#: Every TAP_EVERY-th tick of a tapped run is re-run, compared and timed.
+TAP_EVERY = 8
+
+
+def k6_bound_ms(n: int, rows: int, D: int, elem: int) -> tuple:
+    """Least time for one row gather/scatter: ``n`` indices read, ``rows``
+    rows of ``D`` elements read once and written once, at 3.35 TB/s.
+    Returns (bound_ms, bytes)."""
+    nbytes = 4 * n + 2 * rows * D * elem
+    return nbytes / PEAK_BYTES * 1e3, nbytes
+
+
+def _gather_case(R, D, n, gen, dtype=torch.float32):
+    src = torch.randn(R, D, generator=gen).to(dtype).to(DEVICE)
+    idx = torch.randint(0, R, (n,), generator=gen, dtype=torch.int32)
+    return src, idx.to(DEVICE)
+
+
+def _scatter_case(R, D, n, pads, gen, dtype=torch.float32):
+    dst = torch.randn(R, D, generator=gen).to(dtype).to(DEVICE)
+    live = torch.randperm(R, generator=gen)[:min(n - pads, R)] \
+        .to(torch.int32)
+    ids = torch.cat([live, R + torch.arange(pads, dtype=torch.int32)])
+    rows = torch.randn(ids.numel(), D, generator=gen).to(dtype).to(DEVICE)
+    return dst, ids.to(DEVICE), rows
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def check_gather(src, idx, label: str) -> float:
+    """K6a against its plain version: bit for bit."""
+    got = lmgs.gather_rows(src, idx)
+    want = ref.gather_rows(src, idx)
+    torch.cuda.synchronize()
+    check(torch.equal(_bits(got), _bits(want)),
+          f"gather_rows differs from its plain version ({label})")
+    return float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+
+
+def check_scatter(dst, ids, rows, label: str) -> float:
+    """K6b against its plain version: bit for bit, and every row no live
+    id names keeps its bits."""
+    got = lmgs.scatter_rows(dst.clone(), ids, rows)
+    want = ref.scatter_rows(dst.clone(), ids, rows)
+    torch.cuda.synchronize()
+    check(torch.equal(_bits(got), _bits(want)),
+          f"scatter_rows differs from its plain version ({label})")
+    live = ids[(ids >= 0) & (ids < dst.shape[0])].long()
+    keep = torch.ones(dst.shape[0], dtype=torch.bool, device=dst.device)
+    keep[live] = False
+    check(torch.equal(_bits(got[keep]), _bits(dst[keep])),
+          f"scatter_rows changed rows no id names ({label})")
+    return float((got.float() - want.float()).abs().max())
+
+
+def device_ms_per_call(calls, reps: int = 5) -> float:
+    """Mean time the card spends per call over ``calls`` (functions that
+    launch work), summed from ``torch.profiler``'s device times.  A K6
+    launch takes less device time than its host launch cost, so CUDA
+    events around back-to-back launches would time the host instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    n = reps * len(calls)
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for c in calls:
+                    c()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        # Every call puts at least one operation on the card; a session
+        # that recorded fewer lost events and is taken again.
+        seen = sum(e.count for e in on_card)
+        if seen >= n:
+            return sum(e.self_device_time_total for e in on_card) / 1e3 / n
+    fail(f"torch.profiler recorded {seen} device operations for {n} calls "
+         f"in three sessions")
+
+
+def time_k6(op: str, cases) -> dict:
+    """K6a (``op`` "gather", cases ``(src, idx)``) or K6b ("scatter",
+    cases ``(dst, ids, rows)``): device ms per call of the kernel, its
+    plain version and the one PyTorch call (``index_select``; for the
+    scatter ``index_copy_`` on the live lanes, since it cannot drop), each
+    scatter on its own copy of ``dst``; the CUDA-event time of
+    back-to-back kernel launches (bound by the host's launch cost); the
+    mean data-aware bound."""
+    kern, plain, lib, bounds = [], [], [], []
+    for case in cases:
+        if op == "gather":
+            src, idx = case
+            kern.append(lambda s=src, i=idx: lmgs.gather_rows(s, i))
+            plain.append(lambda s=src, i=idx: ref.gather_rows(s, i))
+            lib.append(lambda s=src, i=idx: torch.index_select(s, 0, i))
+            bounds.append(k6_bound_ms(idx.numel(), idx.numel(),
+                                      src.shape[1], src.element_size()))
+            continue
+        dst, ids, rows = case
+        live = (ids >= 0) & (ids < dst.shape[0])
+        li, lr = ids[live].long(), rows[live]
+        dk, dp, dl = dst.clone(), dst.clone(), dst.clone()
+        kern.append(lambda d=dk, i=ids, r=rows: lmgs.scatter_rows(d, i, r))
+        plain.append(lambda d=dp, i=ids, r=rows: ref.scatter_rows(d, i, r))
+        lib.append(lambda d=dl, i=li, r=lr: d.index_copy_(0, i, r))
+        bounds.append(k6_bound_ms(ids.numel(), int(live.sum()),
+                                  dst.shape[1], dst.element_size()))
+    return {"ms": device_ms_per_call(kern),
+            "plain_ms": device_ms_per_call(plain),
+            "library_ms": device_ms_per_call(lib),
+            "issue_ms": float(np.mean([time_ms(k, 20, 3)
+                                       for k in kern[:4]])),
+            "bound_ms": float(np.mean([b[0] for b in bounds])),
+            "bytes": float(np.mean([b[1] for b in bounds])),
+            "launches_timed": len(cases), "bound_by": "bytes"}
+
+
+def k6_phase() -> float:
+    """K6a/K6b against their plain versions on the card, bit for bit: at
+    the shapes the serving phases launch, a bf16 gather, rows whose width
+    is not a multiple of 4, n = 1, and pad lanes with out-of-range ids."""
+    gen = torch.Generator().manual_seed(66)
+    S = 2 * HIDDEN
+    worst, rows = 0.0, []
+    gathers = [("roots, tree arena", (CONT_ROWS + 1, S, 37, gen)),
+               ("roots, chain arena", (CHAIN_ROWS + 1, S, 9, gen)),
+               ("bf16", (CONT_ROWS + 1, S, 256, gen, torch.bfloat16)),
+               ("D 1027", (300, 1027, 33, gen)),
+               ("bf16 D 129", (300, 129, 33, gen, torch.bfloat16)),
+               ("n 1", (CONT_ROWS + 1, S, 1, gen))]
+    for label, args in gathers:
+        src, idx = _gather_case(*args)
+        worst = max(worst, check_gather(src, idx, label))
+        rows.append(f"gather {label} (R {src.shape[0]}, D {src.shape[1]}, "
+                    f"n {idx.numel()}, {src.dtype})")
+    scatters = [("tree frontier", (CONT_ROWS + 1, S, CONT_WIDTH,
+                                   CONT_WIDTH // 6, gen)),
+                ("chain frontier", (CHAIN_ROWS + 1, S, CHAIN_WIDTH,
+                                    CHAIN_WIDTH // 9, gen)),
+                ("decode-width state", (2 * DECODE_SLOTS + 1, HIDDEN, 128, 3,
+                                        gen)),
+                ("D 1027 with pads", (300, 1027, 33, 5, gen)),
+                ("bf16 D 130 with pads", (300, 130, 33, 5, gen,
+                                          torch.bfloat16)),
+                ("n 1", (CONT_ROWS + 1, S, 1, 0, gen)),
+                ("n 1, a pad lane", (CONT_ROWS + 1, S, 1, 1, gen))]
+    for label, args in scatters:
+        dst, ids, src = _scatter_case(*args)
+        worst = max(worst, check_scatter(dst, ids, src, label))
+        rows.append(f"scatter {label} (R {dst.shape[0]}, D {dst.shape[1]}, "
+                    f"n {ids.numel()}, {dst.dtype})")
+    for r in rows:
+        print(f"K6 vs plain, bit for bit: {r}")
+    print(f"K6 vs plain: {len(rows)} cases bit-equal, untouched rows "
+          f"bit-unchanged, max_abs_err {worst:.1e}")
+    return worst
+
+
+def cont_setup():
+    """The continuous Tree-LSTM phase's model (the paper's tree_lstm at
+    full width, weights from seed 0 with a nonzero bias), its head
+    ``ClassificationHead(1024, 5)`` and the serving phase's traffic."""
+    cfg = get_paper_model("tree_lstm")
+    fn = cfg.make_vertex(hidden=HIDDEN, input_dim=cfg.input_dim)
+    gen = torch.Generator().manual_seed(0)
+    params = fn.init(gen, device=DEVICE)
+    params["b"] = (torch.randn(params["b"].shape, generator=gen) * 0.1) \
+        .to(DEVICE)
+    head = ClassificationHead(fn.state_dim, 5)
+    hp = head.init(gen, device=DEVICE)
+    hp["b"] = (torch.randn(5, generator=gen) * 0.1).to(DEVICE)
+    ds = sst_like_dataset(N_REQUESTS, input_dim=cfg.input_dim, seed=0)
+    return fn, params, head, hp, ds
+
+
+def cont_engine(fn, params, head, hp, rows, width, device=None, **kw):
+    return ContinuousBatchEngine(
+        fn, params, num_rows=rows, frontier_width=width, head=head,
+        head_params=hp, device=DEVICE if device is None else device,
+        policy=AdmissionPolicy(min_occupancy=0.0, max_window=8), **kw)
+
+
+def _cont_requests(graphs, inputs):
+    return [ContinuousRequest(i, g, x)
+            for i, (g, x) in enumerate(zip(graphs, inputs))]
+
+
+def tapped_frontier_run(kind, make_engine, reqs) -> dict:
+    """One run of a continuous engine with taps on ``ops.frontier_megastep``
+    and ``ops.gather_rows`` that keep, for every ``TAP_EVERY``-th tick, the
+    staging block and the pulled-row arena as they were before the tick,
+    and for every row gather its source.  Each kept tick is then re-run
+    through the megastep of ``kind`` and K6b, and each gather through
+    K6a, against their plain versions, and timed beside their bounds and
+    (K6) the library call."""
+    ticks, gathers = [], []
+    inner_f, inner_g = ops.frontier_megastep, ops.gather_rows
+
+    def tap_f(k, buf, cids, cmask, rows, nm, out, w, *, ext_ids=None,
+              staging=None):
+        snap = None
+        if len(ticks) % TAP_EVERY == 0:
+            snap = (staging.clone(), rows.clone())
+        ticks.append((snap, cids, cmask, nm, out, ext_ids, w))
+        return inner_f(k, buf, cids, cmask, rows, nm, out, w,
+                       ext_ids=ext_ids, staging=staging)
+
+    def tap_g(src, idx):
+        if len(gathers) < 24:
+            gathers.append((src.clone(), idx))
+        return inner_g(src, idx)
+
+    ops.frontier_megastep, ops.gather_rows = tap_f, tap_g
+    try:
+        eng = make_engine()
+        for r in reqs:
+            check(eng.submit(r), f"request {r.request_id} rejected: "
+                  f"{r.error}")
+        eng.run()
+    finally:
+        ops.frontier_megastep, ops.gather_rows = inner_f, inner_g
+    check(len(ticks) == eng.ticks, f"tapped {len(ticks)} frontier ticks, "
+          f"the engine ran {eng.ticks}")
+    check(all(r.status == "ok" for r in reqs), "a tapped request failed")
+    R = eng.num_rows + 1
+    k_rows, s_cases = [], []
+    worst_k, worst_s, worst_g = 0.0, 0.0, 0.0
+    for snap, cids, cmask, nm, out, eids, w in ticks:
+        if snap is None:
+            continue
+        stg, ext = snap
+        M = cids.shape[0]
+        kw = {} if kind == "treelstm" else {"sentinel": R - 1}
+        got = lm.MEGASTEPS[kind](stg.clone(), cids, eids, nm, R, ext, *w,
+                                 **kw)
+        want = ref.level_megastep(kind, stg.clone(), cids, cmask, eids, nm,
+                                  R, ext, w)
+        torch.cuda.synchronize()
+        worst_k = max(worst_k, float((got[R:R + M] - want[R:R + M])
+                                     .abs().max()))
+        check(bitwise_equal(got[:R], stg[:R]),
+              f"{kind} megastep changed rows outside its staging block")
+        kb, pb = stg.clone(), stg.clone()
+        case = (stg, cids, cmask, eids, nm, R, ext, w)
+        ms = time_ms(lambda: lm.MEGASTEPS[kind](kb, cids, eids, nm, R, ext,
+                                                *w, **kw), 10, 2)
+        plain_ms = time_ms(lambda: ref.level_megastep(
+            kind, pb, cids, cmask, eids, nm, R, ext, w), 10, 2)
+        if kind == "treelstm":
+            b = bound_ms(case, sentinel=R - 1)
+        else:
+            b = cell_bound_ms(kind, (kind,) + case, False, sentinel=R - 1)
+        k_rows.append((ms, plain_ms, b[0], b[1], int((nm > 0).sum())))
+        staged = got[R:R + M]
+        worst_s = max(worst_s, check_scatter(stg[:R], out, staged,
+                                             f"{kind} frontier tick"))
+        s_cases.append((stg[:R], out, staged))
+    for src, idx in gathers:
+        worst_g = max(worst_g, check_gather(src, idx, "retired roots"))
+    check(worst_k <= TOL, f"{kind} frontier megastep disagrees with its "
+          f"plain version: max_abs_err {worst_k:.3e} > {TOL}")
+    mean = lambda rs, k: float(np.mean([r[k] for r in rs]))  # noqa: E731
+    k = {"levels": len(k_rows), "max_abs_err": worst_k,
+         "ms": mean(k_rows, 0), "plain_ms": mean(k_rows, 1),
+         "bound_ms": mean(k_rows, 2),
+         "bound_by": max({r[3] for r in k_rows},
+                         key=lambda by: sum(r[2] for r in k_rows
+                                            if r[3] == by)),
+         "live_lanes": mean(k_rows, 4)}
+    sc = {**time_k6("scatter", s_cases), "max_abs_err": worst_s}
+    ga = {**time_k6("gather", gathers), "max_abs_err": worst_g,
+          "n_mean": float(np.mean([i.numel() for _s, i in gathers]))}
+    print(f"{kind} frontier ticks (every {TAP_EVERY}th of {len(ticks)}, "
+          f"{k['live_lanes']:.1f} live lanes of {ticks[0][1].shape[0]} on "
+          f"average): megastep {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} "
+          f"ms, bound {k['bound_ms']:.5f} ms by {k['bound_by']}, "
+          f"max_abs_err {worst_k:.3e}; device time per call: scatter_rows "
+          f"{sc['ms']:.4f} ms, plain {sc['plain_ms']:.4f} ms, index_copy_ "
+          f"{sc['library_ms']:.4f} ms, bound {sc['bound_ms']:.5f} ms "
+          f"({sc['bytes'] / 1e6:.2f} MB), back-to-back launches "
+          f"{sc['issue_ms']:.4f} ms apart; gather_rows of the retired roots "
+          f"({len(gathers)} launches, n {ga['n_mean']:.1f} on average) "
+          f"{ga['ms']:.4f} ms, plain {ga['plain_ms']:.4f} ms, index_select "
+          f"{ga['library_ms']:.4f} ms, bound {ga['bound_ms']:.5f} ms, "
+          f"back-to-back launches {ga['issue_ms']:.4f} ms apart")
+    return {"megastep": k, "scatter": sc, "gather": ga, "ticks": len(ticks)}
+
+
+def _latencies_ms(reqs) -> np.ndarray:
+    return np.asarray([(r._finished_at - r._enqueued_at) * 1e3
+                       for r in reqs])
+
+
+def continuous_tree_phase(card: str) -> dict:
+    """The continuous Tree-LSTM path: 512 SST-like parses submitted at
+    once to ``ContinuousBatchEngine`` with a classification head; first a
+    tapped run for the per-launch checks and times, then the main path
+    with the launch counts set to 0 just before and read just after;
+    roots against solo scoring on the card and the plain path on the CPU,
+    head logits likewise."""
+    fn, params, head, hp, ds = cont_setup()
+    tapped = tapped_frontier_run(
+        "treelstm",
+        lambda: cont_engine(fn, params, head, hp, CONT_ROWS, CONT_WIDTH),
+        _cont_requests(ds.graphs, ds.inputs))
+
+    eng = cont_engine(fn, params, head, hp, CONT_ROWS, CONT_WIDTH)
+    reqs = _cont_requests(ds.graphs, ds.inputs)
+    for r in reqs:
+        check(eng.submit(r), f"request {r.request_id} rejected: {r.error}")
+    torch.cuda.synchronize()
+    lm.reset_launches()
+    t0 = time.perf_counter()
+    eng.run()
+    wall = time.perf_counter() - t0
+    launches = dict(lm.LAUNCHES)
+    h = eng.health()
+    check(all(r.status == "ok" for r in reqs),
+          f"{sum(r.status != 'ok' for r in reqs)} request(s) not ok: "
+          f"{[r.error for r in reqs if r.status != 'ok'][:3]}")
+    check(h["degradations"] == 0 and not h["breaker_open"],
+          f"degradations {h['degradations']}, breaker {h['breaker_open']}")
+    want = {"treelstm_megastep": eng.ticks, "scatter_rows": eng.ticks,
+            "gather_rows": eng.readbacks}
+    check(launches == want, f"continuous launches {launches}, designed "
+          f"{want} (one megastep and one row scatter a tick, one row "
+          f"gather a retiring window)")
+    check(tapped["ticks"] == eng.ticks, f"tapped run {tapped['ticks']} "
+          f"ticks, main path {eng.ticks}")
+    roots = np.stack([r.root_state for r in reqs])
+    logits = np.stack([r.logits for r in reqs])
+    check(roots.shape == (N_REQUESTS, fn.state_dim)
+          and bool(np.isfinite(roots).all())
+          and bool(np.isfinite(logits).all()), "bad roots or logits")
+
+    solo = StructureServeEngine(fn, params, batch_size=1, compose=False,
+                                device=DEVICE)
+    sreqs = _requests(ds)
+    for r in sreqs:
+        solo.submit(r)
+    solo.run()
+    solo_roots = np.stack([r.root_state for r in sreqs])
+    err_solo = float(np.abs(roots - solo_roots).max())
+    bitwise = int(sum(np.array_equal(a.view(np.int32), b.view(np.int32))
+                      for a, b in zip(roots, solo_roots)))
+    with torch.no_grad():
+        solo_logits = head.logits(hp, torch.from_numpy(solo_roots)
+                                  .to(DEVICE)).cpu().numpy()
+    err_logits = float(np.abs(logits - solo_logits).max())
+    check(err_solo <= TOL, f"continuous roots vs solo scoring on the card: "
+          f"{err_solo:.3e} > {TOL}")
+    check(err_logits <= TOL, f"head logits vs the solo roots' logits: "
+          f"{err_logits:.3e} > {TOL}")
+
+    n_cpu = 64
+    cpu_p = {k: v.cpu() for k, v in params.items()}
+    cpu_h = {k: v.cpu() for k, v in hp.items()}
+    ceng = cont_engine(fn, cpu_p, head, cpu_h, CONT_ROWS, CONT_WIDTH,
+                       device="cpu")
+    creqs = _cont_requests(ds.graphs[:n_cpu], ds.inputs[:n_cpu])
+    for r in creqs:
+        ceng.submit(r)
+    ceng.run()
+    err_cpu = float(np.abs(roots[:n_cpu] - np.stack(
+        [r.root_state for r in creqs])).max())
+    err_cpu_logits = float(np.abs(logits[:n_cpu] - np.stack(
+        [r.logits for r in creqs])).max())
+    check(err_cpu <= TOL and err_cpu_logits <= TOL,
+          f"card vs CPU plain path: roots {err_cpu:.3e}, logits "
+          f"{err_cpu_logits:.3e} > {TOL}")
+
+    lat = _latencies_ms(reqs)
+    out = {"requests": len(reqs), "requests_per_s": len(reqs) / wall,
+           "wall_s": wall, "ticks": eng.ticks, "windows": eng.windows,
+           "mean_lanes_per_tick": eng.lanes / eng.ticks,
+           "lanes": CONT_WIDTH,
+           "latency_p50_ms": float(np.percentile(lat, 50)),
+           "latency_p99_ms": float(np.percentile(lat, 99)),
+           "plan_hits": h["plan_hits"], "plan_misses": h["plan_misses"],
+           "launches": launches, "err_vs_solo": err_solo,
+           "roots_bitwise_equal_to_solo": bitwise,
+           "err_logits": err_logits, "err_vs_cpu": err_cpu,
+           "err_logits_vs_cpu": err_cpu_logits, "card": card}
+    print(f"continuous tree_lstm: {json.dumps(out)}")
+    from repro_torch.obs import trace
+    eng_t = cont_engine(fn, params, head, hp, CONT_ROWS, CONT_WIDTH)
+    with trace.install_tracer(trace.Tracer()) as tracer:
+        t0 = time.perf_counter()
+        _drain(eng_t, _cont_requests(ds.graphs, ds.inputs))
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    spans = {}
+    for sp in tracer.snapshot():
+        if sp.ph == "X":
+            spans[sp.name] = spans.get(sp.name, 0.0) + sp.dur_ms
+    print(f"host spans of the same {len(ds.graphs)} parses, traced (the tracer "
+          f"synchronises each window), {traced_ms:.1f} ms in all (ms, nested "
+          f"spans inside cb.tick): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in sorted(spans.items(),
+                                                key=lambda kv: -kv[1])))
+    profile_step(f"continuous tree_lstm, 128 parses through a fresh engine",
+                 lambda: _drain(cont_engine(fn, params, head, hp, CONT_ROWS,
+                                            CONT_WIDTH),
+                                _cont_requests(ds.graphs[:128],
+                                               ds.inputs[:128])))
+    return {**out, **tapped}
+
+
+def _drain(eng, reqs) -> int:
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return sum(r.status == "ok" for r in reqs)
+
+
+def poisson_trace(seed: int, n: int, rate_hz: float, lengths):
+    """The seeded Poisson trace of ``benchmarks/bench_serving.py``:
+    arrival offsets (s) and chain lengths, from one generator."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate_hz, size=n))
+    lens = rng.choice(np.asarray(lengths), size=n)
+    return arrivals, lens
+
+
+def trace_requests(cls, lens, input_dim: int):
+    """One request per chain length, inputs ``0.3 * N(0, 1)`` from seed
+    ``TRACE_SEED + 1``, as the benchmark draws them."""
+    rng = np.random.default_rng(TRACE_SEED + 1)
+    return [cls(i, chain(int(L)), rng.standard_normal((int(L), input_dim))
+                .astype(np.float32) * 0.3) for i, L in enumerate(lens)]
+
+
+def replay(eng, reqs, arrivals, max_wall_s: float = 120.0):
+    """Replay the trace in real time: submit each request at its arrival
+    offset, stepping the engine in between.  Returns (latencies ms,
+    makespan s)."""
+    n, i = len(reqs), 0
+    t0 = time.monotonic()
+    while True:
+        now = time.monotonic() - t0
+        while i < n and arrivals[i] <= now:
+            eng.submit(reqs[i])
+            i += 1
+        live = eng.step()
+        if i >= n and live == 0:
+            break
+        if live == 0 and i < n:
+            time.sleep(min(0.001, max(0.0, arrivals[i]
+                                      - (time.monotonic() - t0))))
+        check(time.monotonic() - t0 <= max_wall_s, "trace replay exceeded "
+              f"{max_wall_s} s")
+    makespan = time.monotonic() - t0
+    check(all(r.status == "ok" for r in reqs),
+          f"{sum(r.status != 'ok' for r in reqs)} trace request(s) not ok")
+    return _latencies_ms(reqs), makespan
+
+
+def chain_setup():
+    cfg = get_paper_model("var_lstm")
+    fn = cfg.make_vertex(hidden=HIDDEN, input_dim=cfg.input_dim)
+    gen = torch.Generator().manual_seed(0)
+    params = fn.init(gen, device=DEVICE)
+    params["b"] = (torch.randn(params["b"].shape, generator=gen) * 0.1) \
+        .to(DEVICE)
+    return fn, params, gen
+
+
+def chain_serving_phase(card: str) -> dict:
+    """The LSTM-chain trace replayed in real time against
+    ``StructureServeEngine(batch_size=16)`` and
+    ``ContinuousBatchEngine(num_rows=1024, frontier_width=64)``, each
+    warmed on a short preamble; the continuous roots against solo scoring
+    on the card; the token readout's tokens against a replay of its
+    requests in another order; a tapped run of the same chains submitted
+    at once for the K3 frontier and K6 checks and times."""
+    fn, params, gen = chain_setup()
+    X = fn.input_dim
+    arrivals, lens = poisson_trace(TRACE_SEED, TRACE_N, TRACE_RATE,
+                                   TRACE_LENGTHS)
+
+    def warm(eng, cls):
+        g = np.random.default_rng(99)
+        for j, L in enumerate(TRACE_LENGTHS):
+            eng.submit(cls(1000 + j, chain(int(L)), g.standard_normal(
+                (int(L), X)).astype(np.float32)))
+        eng.run()
+
+    results = {}
+    for name, make, cls in (
+            ("structure", lambda: StructureServeEngine(
+                fn, params, batch_size=CHAIN_BATCH, device=DEVICE),
+             StructureRequest),
+            ("continuous", lambda: cont_engine(fn, params, None, None,
+                                               CHAIN_ROWS, CHAIN_WIDTH),
+             ContinuousRequest)):
+        eng = make()
+        warm(eng, cls)
+        reqs = trace_requests(cls, lens, X)
+        ticks0 = getattr(eng, "ticks", 0)
+        reads0 = getattr(eng, "readbacks", 0)
+        torch.cuda.synchronize()
+        lm.reset_launches()
+        lat, makespan = replay(eng, reqs, arrivals)
+        launches = dict(lm.LAUNCHES)
+        results[name] = {
+            "latency_p50_ms": float(np.percentile(lat, 50)),
+            "latency_p99_ms": float(np.percentile(lat, 99)),
+            "requests_per_s": len(reqs) / makespan, "makespan_s": makespan,
+            "launches": launches}
+        if name == "continuous":
+            ticks = eng.ticks - ticks0
+            want = {"lstm_megastep": ticks, "scatter_rows": ticks,
+                    "gather_rows": eng.readbacks - reads0}
+            check(launches == want, f"continuous chain launches "
+                  f"{launches}, designed {want}")
+            h = eng.health()
+            check(h["degradations"] == 0, "continuous chain degraded")
+            results[name].update(ticks=ticks, plan_hits=h["plan_hits"],
+                                 plan_misses=h["plan_misses"])
+            cont_reqs = reqs
+    s, c = results["structure"], results["continuous"]
+    ratios = {"throughput_gain": c["requests_per_s"] / s["requests_per_s"],
+              "p50_ratio": c["latency_p50_ms"] / s["latency_p50_ms"],
+              "p99_ratio": c["latency_p99_ms"] / s["latency_p99_ms"]}
+
+    solo = StructureServeEngine(fn, params, batch_size=1, compose=False,
+                                device=DEVICE)
+    sreqs = trace_requests(StructureRequest, lens, X)
+    for r in sreqs:
+        solo.submit(r)
+    solo.run()
+    roots = np.stack([r.root_state for r in cont_reqs])
+    solo_roots = np.stack([r.root_state for r in sreqs])
+    err_solo = float(np.abs(roots - solo_roots).max())
+    bitwise = int(sum(np.array_equal(a.view(np.int32), b.view(np.int32))
+                      for a, b in zip(roots, solo_roots)))
+    check(err_solo <= TOL, f"continuous chain roots vs solo scoring: "
+          f"{err_solo:.3e} > {TOL}")
+
+    tr = TokenReadout(fn, vocab=1000)
+    tp = tr.init(gen, device=DEVICE)
+
+    def tokens(order):
+        eng = cont_engine(fn, params, None, None, CHAIN_ROWS, CHAIN_WIDTH,
+                          token_readout=tr, token_params=tp,
+                          max_new_tokens=16, seed=0)
+        base = trace_requests(ContinuousRequest, lens[:8], X)
+        reqs = [base[i] for i in order]
+        _drain(eng, reqs)
+        check(all(r.status == "ok" for r in reqs), "token request failed")
+        return {r.request_id: r.tokens for r in reqs}
+
+    first = tokens(range(8))
+    second = tokens([5, 2, 7, 0, 3, 6, 1, 4])
+    check(first == second and all(len(t) == 16 for t in first.values()),
+          "token readout tokens depend on the order requests ran in")
+
+    tapped = tapped_frontier_run(
+        "lstm", lambda: cont_engine(fn, params, None, None, CHAIN_ROWS,
+                                    CHAIN_WIDTH),
+        trace_requests(ContinuousRequest, lens, X))
+    out = {"requests": TRACE_N, "rate_per_s": TRACE_RATE, **results,
+           **ratios, "err_vs_solo": err_solo,
+           "roots_bitwise_equal_to_solo": bitwise,
+           "tokens_order_independent": True, "card": card}
+    print(f"continuous lstm chains vs structure serving: {json.dumps(out)}")
+    return {**out, **tapped}
+
+
+def decode_phase(cell: str, card: str) -> dict:
+    """``VertexServeEngine`` decode ticks: 256 Var-LSTM chains (seed 0,
+    ``max_len=64``) with seeded normal inputs submitted at once to 128
+    slots; one K3/K4 launch per tick; final states against ``execute``
+    over the same chains on the card and the plain path on the CPU; then
+    a tapped run whose every ``TAP_EVERY``-th tick is re-run through the
+    kernel and its plain version and timed."""
+    cfg = get_paper_model("var_lstm")
+    kind = "lstm" if cell == "lstm" else "gru"
+    fn = (cfg.make_vertex(hidden=HIDDEN, input_dim=cfg.input_dim)
+          if cell == "lstm" else GRUVertex(input_dim=cfg.input_dim,
+                                           hidden=HIDDEN))
+    gen = torch.Generator().manual_seed(0)
+    params = fn.init(gen, device=DEVICE)
+    params["b"] = (torch.randn(params["b"].shape, generator=gen) * 0.1) \
+        .to(DEVICE)
+    rng = np.random.default_rng(0)
+    graphs = cfg.make_graphs(DECODE_REQUESTS, max_len=64, rng=rng)
+    xs = [rng.standard_normal((g.num_nodes, cfg.input_dim))
+          .astype(np.float32) for g in graphs]
+
+    def reqs_of(n):
+        return [VertexRequest(i, x) for i, x in enumerate(xs[:n])]
+
+    eng = VertexServeEngine(fn, params, num_slots=DECODE_SLOTS,
+                            device=DEVICE)
+    reqs = reqs_of(DECODE_REQUESTS)
+    for r in reqs:
+        check(eng.submit(r), f"decode request rejected: {r.error}")
+    torch.cuda.synchronize()
+    lm.reset_launches()
+    t0 = time.perf_counter()
+    eng.run()
+    wall = time.perf_counter() - t0
+    launches = dict(lm.LAUNCHES)
+    check(all(r.status == "ok" for r in reqs), "a decode request failed")
+    check(launches == {f"{kind}_megastep": eng.ticks},
+          f"decode launches {launches} for {eng.ticks} ticks")
+    finals = np.stack([r.final_state for r in reqs])
+
+    s = pack_batch(graphs, with_runs=False)
+    d = s.to_device(DEVICE)
+    ext = torch.from_numpy(pack_external(xs, s, cfg.input_dim)).to(DEVICE)
+    with torch.no_grad():
+        nodes = readout_nodes(execute(fn, params, d, ext).buf, d) \
+            .cpu().numpy()
+    want = np.stack([nodes[k, g.num_nodes - 1]
+                     for k, g in enumerate(graphs)])
+    err_exec = float(np.abs(finals - want).max())
+    n_cpu = 32
+    ceng = VertexServeEngine(fn, {k: v.cpu() for k, v in params.items()},
+                             num_slots=n_cpu, device="cpu")
+    creqs = reqs_of(n_cpu)
+    _drain(ceng, creqs)
+    err_cpu = float(np.abs(finals[:n_cpu] - np.stack(
+        [r.final_state for r in creqs])).max())
+    check(err_exec <= TOL and err_cpu <= TOL, f"decode final states vs "
+          f"execute {err_exec:.3e}, vs the CPU {err_cpu:.3e} > {TOL}")
+
+    taps, inner = [], ops.level_megastep
+
+    def tap(k, buf, *args):
+        if eng2.ticks % TAP_EVERY == 0:
+            taps.append((buf.clone(),) + args)
+        return inner(k, buf, *args)
+
+    ops.level_megastep = tap
+    try:
+        eng2 = VertexServeEngine(fn, params, num_slots=DECODE_SLOTS,
+                                 device=DEVICE)
+        _drain(eng2, reqs_of(DECODE_REQUESTS))
+    finally:
+        ops.level_megastep = inner
+    rows, worst = [], 0.0
+    for case in taps:
+        buf, cids, cmask, eids, nm, off, e, w = case
+        M = cids.shape[0]
+        got = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nm, off, e, *w)
+        ref_ = ref.level_megastep(kind, buf.clone(), cids, cmask, eids, nm,
+                                  off, e, w)
+        torch.cuda.synchronize()
+        worst = max(worst, float((got[off:off + M] - ref_[off:off + M])
+                                 .abs().max()))
+        kb, pb = buf.clone(), buf.clone()
+        ms = time_ms(lambda: lm.MEGASTEPS[kind](kb, cids, eids, nm, off, e,
+                                                *w), 10, 2)
+        plain_ms = time_ms(lambda: ref.level_megastep(
+            kind, pb, cids, cmask, eids, nm, off, e, w), 10, 2)
+        b = cell_bound_ms(kind, (kind,) + case, False)
+        rows.append((ms, plain_ms, b[0], b[1], int((nm > 0).sum())))
+    check(worst <= TOL, f"decode {kind} megastep vs plain: {worst:.3e}")
+    out = {"cell": cell, "kind": kind, "requests": DECODE_REQUESTS,
+           "slots": DECODE_SLOTS, "ticks": eng.ticks,
+           "ticks_per_s": eng.ticks / wall, "wall_s": wall,
+           "launches": launches, "err_vs_execute": err_exec,
+           "err_vs_cpu": err_cpu, "card": card,
+           "tick": {"timed": len(rows), "max_abs_err": worst,
+                    **_summary(rows),
+                    "live_slots": float(np.mean([r[4] for r in rows]))}}
+    t = out["tick"]
+    print(f"decode {cell}: {json.dumps(out)}")
+    print(f"decode {cell} ticks at M {DECODE_SLOTS} ({t['timed']} timed, "
+          f"{t['live_slots']:.1f} live slots on average): {kind}_megastep "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.5f} ms by {t['bound_by']}")
+    profile_step(f"decode {cell}, 256 chains through a fresh engine",
+                 lambda: _drain(VertexServeEngine(
+                     fn, params, num_slots=DECODE_SLOTS, device=DEVICE),
+                     reqs_of(DECODE_REQUESTS)))
+    return out
+
+
 def main() -> None:
     dev = device_phase()
     kern = kernel_phase()
@@ -1186,6 +1925,10 @@ def main() -> None:
     levels = train_levels_phase()
     train = train_phase(dev["smi"])
     cells = [cell_train_phase(p, dev["smi"]) for p in CELL_PHASES]
+    k6_err = k6_phase()
+    cont = continuous_tree_phase(dev["smi"])
+    chains = chain_serving_phase(dev["smi"])
+    decode = [decode_phase(c, dev["smi"]) for c in ("lstm", "gru")]
     row = {"name": "treelstm_megastep", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/treelstm_megastep.cu",
            "replaces": "src/repro/kernels/level_megastep.py:181",
@@ -1224,6 +1967,27 @@ def main() -> None:
                 "max_abs_err": part["max_abs_err"], "ms": part["ms"],
                 "plain_ms": part["plain_ms"], "bound_ms": part["bound_ms"],
                 "bound_by": part["bound_by"], "library_ms": None})
+    for name, part, replaces in (
+            ("gather_rows", cont["gather"],
+             "src/repro/kernels/gather_scatter.py:39"),
+            ("scatter_rows", cont["scatter"],
+             "src/repro/kernels/gather_scatter.py:70")):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gather_scatter.cu",
+            "replaces": replaces, "launches": cont["launches"][name],
+            "max_abs_err": max(part["max_abs_err"], k6_err),
+            "ms": part["ms"], "plain_ms": part["plain_ms"],
+            "bound_ms": part["bound_ms"], "bound_by": "bytes",
+            "library_ms": part["library_ms"]})
+    frontier = {"treelstm_megastep at the tree frontier": cont["megastep"],
+                "lstm_megastep at the chain frontier": chains["megastep"],
+                **{f"{d['kind']}_megastep at a decode tick": d["tick"]
+                   for d in decode}}
+    for label, part in frontier.items():
+        print(f"{label}: {part['ms']:.4f} ms a launch, plain "
+              f"{part['plain_ms']:.4f} ms, bound {part['bound_ms']:.5f} ms "
+              f"by {part['bound_by']}, max_abs_err {part['max_abs_err']:.3e}")
     print(dev["smi"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

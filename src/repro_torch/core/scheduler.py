@@ -30,6 +30,10 @@ reverse megastep per level (``kernels/level_megastep_bwd.py``) and the
 forward saves only the node buffer (remat).  The scatters of the
 backward (∂gather, ∂pull) go through ``ops.scatter_add_rows``, which on
 the card is a deterministic kernel: no float atomics.
+
+Continuous serving goes through :func:`frontier_step`: one batching task
+over a union frontier of many in-flight graphs at different depths,
+scattering each lane's state to its own arena row.
 """
 
 from __future__ import annotations
@@ -405,6 +409,55 @@ def execute_lazy(fn, params: Params, external: torch.Tensor,
     names = tuple(params)
     return _ExecuteLazyOpByOp.apply(fn, sched, names, ext,
                                     *(params[k] for k in names))
+
+
+# ---------------------------------------------------------------------------
+# Union-frontier execution (continuous cross-request batching)
+# ---------------------------------------------------------------------------
+
+def frontier_step(fn, params: Params, buf: torch.Tensor,
+                  child_ids: torch.Tensor, child_mask: torch.Tensor,
+                  ext_rows: torch.Tensor, node_mask: torch.Tensor,
+                  out_ids: torch.Tensor, *, spec: Optional[GateSpec] = None,
+                  ext_ids: Optional[torch.Tensor] = None,
+                  staging: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One batching task over a mixed-depth UNION frontier, IN PLACE on
+    ``buf``; returns it.
+
+    The continuous serving engine schedules ready vertices of MANY
+    in-flight graphs into one frontier: lane ``m`` gathers its children
+    from arbitrary arena rows (``child_ids``), pulls its external row
+    (``ext_rows[m]``, or ``ext_rows[ext_ids[m]]`` when ``ext_ids`` is
+    given — already eagerly projected for GateSpec cells), and scatters
+    its state to its own arena row ``out_ids[m]`` instead of a contiguous
+    level block.  Per-request level offsets are pure data resolved
+    host-side.
+
+    With ``spec`` the row math goes through the fused frontier megastep
+    (``ops.frontier_megastep``: on the card one level megastep into the
+    staging block, ``staging``, and one row scatter); without it the
+    op-by-op gather → ``fn.apply`` → ``ops.scatter_rows``.  Both legs
+    compute the rows :func:`execute` computes for the same vertex on the
+    matching leg.
+
+    Pad lanes: ``node_mask`` 0, ``child_ids`` at the buffer sentinel,
+    ``out_ids`` out of range (unique; the scatter drops them).
+    """
+    if spec is not None:
+        return kops.frontier_megastep(spec.kind, buf, child_ids, child_mask,
+                                      ext_rows, node_mask, out_ids,
+                                      spec.weights(params), ext_ids=ext_ids,
+                                      staging=staging)
+    M, A = child_ids.shape
+    S = buf.shape[1]
+    if ext_ids is not None:
+        ext_rows = ext_rows.index_select(0, ext_ids)
+    ch = buf.index_select(0, child_ids.reshape(-1)).reshape(M, A, S)
+    io = VertexIO(child_states=ch, child_mask=child_mask.to(buf.dtype),
+                  external=ext_rows, node_mask=node_mask.to(buf.dtype))
+    out = fn.apply(params, io)
+    state = (out.state * io.node_mask[:, None]).to(buf.dtype).contiguous()
+    return kops.scatter_rows(buf, out_ids, state)
 
 
 # ---------------------------------------------------------------------------

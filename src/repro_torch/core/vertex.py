@@ -11,12 +11,16 @@ declared once against four message-passing primitives — ``gather``,
     masks.  ``gather``/``pull`` are methods on it.
   - :class:`VertexOutput` is what the application *produces*: the
     scattered state and the (optional) pushed output.
+
+:class:`LambdaVertex` wraps plain functions as ``F``;
+:func:`apply_unbatched` evaluates ``F`` on one vertex (the serial path
+the token readout's generation loop steps through).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -133,6 +137,57 @@ def get_gate_spec(fn: Any) -> Optional[GateSpec]:
     return getter() if callable(getter) else None
 
 
+@dataclasses.dataclass(frozen=True)
+class LambdaVertex:
+    """Wrap plain functions as a vertex function: ``init_fn(generator)``
+    → params, ``apply_fn(params, io)`` → :class:`VertexOutput`, and an
+    optional eager prefix ``project_fn(params, raw)``."""
+
+    state_dim: int
+    ext_dim: int
+    arity: int
+    init_fn: Callable[[torch.Generator], Params]
+    apply_fn: Callable[[Params, VertexIO], VertexOutput]
+    project_fn: Optional[Callable[[Params, torch.Tensor],
+                                  torch.Tensor]] = None
+
+    def init(self, generator: torch.Generator) -> Params:
+        return self.init_fn(generator)
+
+    def apply(self, params: Params, io: VertexIO) -> VertexOutput:
+        return self.apply_fn(params, io)
+
+    def project_inputs(self, params: Params,
+                       raw: torch.Tensor) -> torch.Tensor:
+        if self.project_fn is None:
+            raise AttributeError("no eager projection declared")
+        return self.project_fn(params, raw)
+
+    @property
+    def has_projection(self) -> bool:
+        return self.project_fn is not None
+
+
 def has_eager_projection(fn: Any) -> bool:
     """True if ``fn`` declares an eager input projection (streaming hook)."""
+    if isinstance(fn, LambdaVertex):
+        return fn.has_projection
     return callable(getattr(fn, "project_inputs", None))
+
+
+def apply_unbatched(fn: Any, params: Params, child_states: torch.Tensor,
+                    child_mask: torch.Tensor,
+                    external: torch.Tensor) -> VertexOutput:
+    """Evaluate ``F`` on a single vertex (M = 1) — the serial reference
+    path.  ``child_states``: ``[A, S]``; ``child_mask``: ``[A]``;
+    ``external``: ``[X]``."""
+    io = VertexIO(
+        child_states=child_states[None],
+        child_mask=child_mask[None].to(child_states.dtype),
+        external=external[None],
+        node_mask=torch.ones((1,), dtype=child_states.dtype,
+                             device=child_states.device),
+    )
+    out = fn.apply(params, io)
+    return VertexOutput(state=out.state[0],
+                        push=None if out.push is None else out.push[0])

@@ -48,6 +48,9 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     **{f"{kind}_bwd_megastep": ("cell_bwd_megastep.cu",
                                 f"{kind}_bwd_megastep_launch", _BWD)
        for kind in ("lstm", "gru", "treefc")},
+    **{name: ("gather_scatter.cu", f"{name}_launch",
+              [_P, _P, _P] + [_I] * 6 + [_P])
+       for name in ("gather_rows", "scatter_rows")},
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

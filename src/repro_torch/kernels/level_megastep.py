@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import collections
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -184,7 +184,7 @@ def treelstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
 def _cell_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
                    ext_ids: torch.Tensor, node_mask: torch.Tensor,
                    offset: int, ext: torch.Tensor, w: torch.Tensor,
-                   b: torch.Tensor) -> torch.Tensor:
+                   b: torch.Tensor, sentinel: Optional[int]) -> torch.Tensor:
     op = f"{kind}_megastep"
     require_cuda(op, buf)
     M, A = child_ids.shape
@@ -204,12 +204,17 @@ def _cell_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
     if not 1 <= A <= MAX_ARITY:
         raise NotImplementedError(f"{op}: arity {A} outside 1..{MAX_ARITY}")
     offset = int(offset)
-    if offset < 0 or offset + M > R - 1:
+    sentinel = R - 1 if sentinel is None else int(sentinel)
+    if not 0 <= sentinel < R:
+        raise ValueError(f"{op}: sentinel row {sentinel} outside a buffer "
+                         f"of {R} rows")
+    if offset < 0 or offset + M > R or offset <= sentinel < offset + M:
         raise ValueError(f"{op}: rows [{offset}, {offset + M}) outside a "
-                         f"buffer of {R} rows with its sentinel")
+                         f"buffer of {R} rows or over its sentinel row "
+                         f"{sentinel}")
     launch_kernel(op, dev, buf.data_ptr(), child_ids.data_ptr(),
                   ext_ids.data_ptr(), node_mask.data_ptr(), ext.data_ptr(),
-                  w.data_ptr(), b.data_ptr(), M, A, H, offset, R - 1,
+                  w.data_ptr(), b.data_ptr(), M, A, H, offset, sentinel,
                   buf.stride(0), ext.stride(0))
     return buf
 
@@ -217,43 +222,53 @@ def _cell_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
 def lstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
                   ext_ids: torch.Tensor, node_mask: torch.Tensor,
                   offset: int, ext: torch.Tensor, wh: torch.Tensor,
-                  b: torch.Tensor) -> torch.Tensor:
+                  b: torch.Tensor, *,
+                  sentinel: Optional[int] = None) -> torch.Tensor:
     """One fused LSTM batching task, in place (K3).
 
     ``buf``: ``[T*M+1, 2H]`` float32 node-state buffer ``[c|h]``, its last
     row the zero sentinel; ``child_ids``: ``[M, A]`` int32, column 0 the
     predecessor; ``ext``: ``[R+1, 4H]``; ``wh``: ``[H, 4H]``; ``b``:
-    ``[4H]``.  The forget gate adds +1.0.  Returns ``buf``."""
+    ``[4H]``.  The forget gate adds +1.0.  ``sentinel`` is the zero row
+    absent children point at (default: the last row); the block written
+    must not cover it, and may lie past it (the continuous engine's
+    staging block).  Returns ``buf``."""
     return _cell_megastep("lstm", buf, child_ids, ext_ids, node_mask,
-                          offset, ext, wh, b)
+                          offset, ext, wh, b, sentinel)
 
 
 def gru_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
                  ext_ids: torch.Tensor, node_mask: torch.Tensor,
                  offset: int, ext: torch.Tensor, wh: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
+                 b: torch.Tensor, *,
+                 sentinel: Optional[int] = None) -> torch.Tensor:
     """One fused GRU batching task, in place (K4): state ``h`` (``buf``
     ``[T*M+1, H]``), ``ext`` ``[R+1, 3H]`` (``z|r|n``), ``wh`` ``[H, 3H]``,
     ``b`` ``[3H]``; the reset gate multiplies the recurrent candidate
-    with its bias.  Returns ``buf``."""
+    with its bias.  ``sentinel`` as for :func:`lstm_megastep`.  Returns
+    ``buf``."""
     return _cell_megastep("gru", buf, child_ids, ext_ids, node_mask,
-                          offset, ext, wh, b)
+                          offset, ext, wh, b, sentinel)
 
 
 def treefc_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
                     ext_ids: torch.Tensor, node_mask: torch.Tensor,
                     offset: int, ext: torch.Tensor, wc: torch.Tensor,
-                    b: torch.Tensor) -> torch.Tensor:
+                    b: torch.Tensor, *,
+                    sentinel: Optional[int] = None) -> torch.Tensor:
     """One fused Tree-FC batching task, in place (K5): state ``h``
     (``buf`` ``[T*M+1, H]``), ``ext`` ``[R+1, H]``, the concat weight
     ``wc`` ``[A*H, H]`` (raises unless it has ``A*H`` rows), ``b``
-    ``[H]``.  Returns ``buf``."""
+    ``[H]``.  ``sentinel`` as for :func:`lstm_megastep`.  Returns
+    ``buf``."""
     return _cell_megastep("treefc", buf, child_ids, ext_ids, node_mask,
-                          offset, ext, wc, b)
+                          offset, ext, wc, b, sentinel)
 
 
 #: megastep kind → its kernel's wrapper, all called as
-#: ``fn(buf, child_ids, ext_ids, node_mask, offset, ext, *weights)``.
+#: ``fn(buf, child_ids, ext_ids, node_mask, offset, ext, *weights)``; the
+#: ``lstm``/``gru``/``treefc`` ones also take ``sentinel=`` (K1 reads the
+#: sentinel's zeros and needs none).
 MEGASTEPS = {"treelstm": treelstm_megastep, "lstm": lstm_megastep,
              "gru": gru_megastep, "treefc": treefc_megastep}
 

@@ -8,8 +8,9 @@ Dispatch goes by the device of the tensors, never by a silent fallback:
     a kind or dtype with no kernel raises too.
 
 This is the only place that makes the choice: the kernels' wrappers
-(``level_megastep.MEGASTEPS``, ``level_megastep_bwd.bwd_megastep`` and
-``level_megastep_bwd.scatter_add_rows``) take CUDA tensors only.  Every
+(``level_megastep.MEGASTEPS``, ``level_megastep_bwd.bwd_megastep``,
+``level_megastep_bwd.scatter_add_rows`` and ``gather_scatter``'s
+``gather_rows``/``scatter_rows``) take CUDA tensors only.  Every
 megastep kind (``treelstm``, ``lstm``, ``gru``, ``treefc``) has its
 kernels; an unknown kind raises ``ValueError`` on either device.
 """
@@ -20,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import gather_scatter as gsc
 from repro_torch.kernels import level_megastep as lm
 from repro_torch.kernels import level_megastep_bwd as lmb
 from repro_torch.kernels import ref
@@ -50,6 +52,80 @@ def level_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
         raise ValueError(f"unknown megastep gate kind: {kind!r}")
     _tick("level_megastep", "cuda")
     return kernel(buf, child_ids, ext_ids, node_mask, offset, ext, *weights)
+
+
+def frontier_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
+                      child_mask: torch.Tensor, rows: torch.Tensor,
+                      node_mask: torch.Tensor, out_ids: torch.Tensor,
+                      weights: Tuple[torch.Tensor, ...], *,
+                      ext_ids: Optional[torch.Tensor] = None,
+                      staging: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """One batching task over a mixed-depth UNION frontier (continuous
+    serving): gather child rows from arbitrary rows of ``buf``
+    (``[R, S]``, its last row the zero sentinel), run the declared gate
+    math, scatter the masked states to the per-lane rows ``out_ids``
+    (unique; an id outside ``[0, R)`` is a pad lane, dropped).  ``rows``
+    are the pulled rows ``[M, G]``; with ``ext_ids`` (``[M]`` int32) they
+    are a matrix of pulled rows that ``ext_ids`` index.  Writes ``buf`` IN
+    PLACE and returns it.
+
+    On the card it is the JAX pallas leg's composition, two launches: the
+    level megastep of ``kind`` (K1/K3/K4/K5) writes the frontier's ``M``
+    states into a staging block past the arena (rows ``[R, R+M)``, the
+    sentinel still row ``R-1``), then K6b routes them to ``out_ids``.
+    ``staging`` is that block's backing tensor, ``[R + M', S]`` with
+    ``M' >= M``, whose first ``R`` rows ARE ``buf`` (the continuous
+    engine allocates it once); without it the block is made by a
+    concatenation, a copy of the whole arena per call."""
+    if not buf.is_cuda:
+        _tick("frontier_megastep", "ref")
+        if ext_ids is not None:
+            rows = rows.index_select(0, ext_ids)
+        return ref.frontier_megastep(kind, buf, child_ids, child_mask, rows,
+                                     node_mask, out_ids, weights)
+    kernel = lm.MEGASTEPS.get(kind)
+    if kernel is None:
+        raise ValueError(f"unknown megastep gate kind: {kind!r}")
+    M = child_ids.shape[0]
+    R, S = buf.shape
+    if staging is None:
+        staging = torch.cat([buf, buf.new_zeros((M, S))])
+    elif (staging.dim() != 2 or staging.shape[0] < R + M
+          or staging.shape[1] != S or staging.stride() != buf.stride()
+          or staging.dtype != buf.dtype
+          or staging.data_ptr() != buf.data_ptr()):
+        raise ValueError(f"frontier_megastep: staging must be an [R + M, S]"
+                         f" = [{R} + {M}, {S}] tensor whose first {R} rows "
+                         f"are buf")
+    if ext_ids is None:
+        ext_ids = torch.arange(M, dtype=torch.int32, device=buf.device)
+    sentinel = {} if kind == "treelstm" else {"sentinel": R - 1}
+    _tick("frontier_megastep", "cuda")
+    kernel(staging, child_ids, ext_ids, node_mask, R, rows, *weights,
+           **sentinel)
+    return gsc.scatter_rows(buf, out_ids, staging[R:R + M])
+
+
+def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[i] = src[idx[i]]`` (Cavs ``gather``/``pull``), a new
+    ``[n, D]`` tensor; indices in ``[0, R)``."""
+    if not src.is_cuda:
+        _tick("gather_rows", "ref")
+        return ref.gather_rows(src, idx)
+    _tick("gather_rows", "cuda")
+    return gsc.gather_rows(src, idx)
+
+
+def scatter_rows(dst: torch.Tensor, idx: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+    """``dst[idx[i]] = rows[i]`` (Cavs ``scatter``/``push``) in place;
+    unique ids, an id outside ``[0, R)`` dropped.  Returns ``dst``."""
+    if not dst.is_cuda:
+        _tick("scatter_rows", "ref")
+        return ref.scatter_rows(dst, idx, rows)
+    _tick("scatter_rows", "cuda")
+    return gsc.scatter_rows(dst, idx, rows)
 
 
 def bwd_workspace(kind: str, g: torch.Tensor, M: int, A: int,

@@ -110,6 +110,43 @@ def level_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
     return buf
 
 
+def frontier_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
+                      child_mask: torch.Tensor, rows: torch.Tensor,
+                      node_mask: torch.Tensor, out_ids: torch.Tensor,
+                      weights: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """One batching task over a mixed-depth UNION frontier (continuous
+    serving): gather child rows from arbitrary rows of ``buf``, run the
+    cell math on the pre-gathered pulled rows ``rows`` ``[M, G]``, mask
+    by ``node_mask`` and scatter the states to the per-lane rows
+    ``out_ids`` (unique; an id outside ``[0, R)`` is a pad lane, dropped).
+    Writes ``buf`` IN PLACE, like the kernels it stands beside, and
+    returns it.  The row math is exactly :func:`megastep_cell_state`."""
+    M, A = child_ids.shape
+    S = buf.shape[1]
+    child = buf.index_select(0, child_ids.reshape(-1)).reshape(M, A, S)
+    nm = node_mask.to(buf.dtype)[:, None]
+    state = megastep_cell_state(kind, child, rows,
+                                child_mask.to(buf.dtype), weights)
+    return scatter_rows(buf, out_ids, (state * nm).to(buf.dtype))
+
+
+def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[i] = src[idx[i]]`` — the Cavs ``gather``/``pull`` memcpy.
+    Indices must lie in ``[0, R)``."""
+    return src.index_select(0, idx.long())
+
+
+def scatter_rows(dst: torch.Tensor, idx: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+    """``dst[idx[i]] = rows[i]`` — the Cavs ``scatter``/``push`` memcpy,
+    with the reference's ``mode="drop"``: ids are unique and an id
+    outside ``[0, R)`` is dropped.  Writes ``dst`` IN PLACE, like the
+    kernel it stands beside, and returns it."""
+    keep = (idx >= 0) & (idx < dst.shape[0])
+    dst[idx[keep].long()] = rows[keep].to(dst.dtype)
+    return dst
+
+
 def scatter_add_rows(dst: torch.Tensor, idx: torch.Tensor,
                      rows: torch.Tensor) -> torch.Tensor:
     """``dst[idx[i]] += rows[i]``, duplicates accumulate — the transpose

@@ -16,9 +16,16 @@ stays a single ``pack_batch`` even with the cache disabled.
 Cached schedules are returned BY REFERENCE: every consumer treats the
 schedule as read-only data (the paper's per-sample input ``G``).
 
+A second, per-GRAPH tier (:meth:`ScheduleCache.get_or_pack_graph`)
+keeps one graph's solo schedule per ``(topology, pads)``: the continuous
+serving engine admits a recurring topology with no packing work, and
+memoizes its frontier plan in the entry's ``extras``.  A miss packs the
+graph alone.
+
 Set ``REPRO_SCHED_CACHE=0`` to disable caching (every lookup
-cold-packs).  The JAX package's per-graph splice tier and on-disk
-persist tier are not ported yet.
+cold-packs).  The JAX package's splice (a solo schedule re-padded or
+harvested from a batch pack) and its on-disk persist tier are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from collections import OrderedDict
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,7 +42,8 @@ from repro_torch.core.structure import (DeviceSchedule, InputGraph,
                                         pack_batch)
 from repro_torch.dist.fault import chaos_fire
 from repro_torch.obs import trace
-from repro_torch.pipeline.fingerprint import batch_fingerprint
+from repro_torch.pipeline.fingerprint import (batch_fingerprint,
+                                              graph_schedule_key)
 
 Pads = Tuple[Optional[int], Optional[int], Optional[int], Optional[int]]
 
@@ -53,6 +61,15 @@ class _Entry:
     dev: Optional[DeviceSchedule] = None
 
 
+@dataclasses.dataclass
+class _GraphEntry:
+    """Graph-tier entry: one graph's solo schedule at some pads, plus
+    derived artifacts consumers memoize against the entry's lifetime
+    (the continuous engine's frontier plan)."""
+    sched: LevelSchedule
+    extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
 def _on(dev: DeviceSchedule, device: torch.device) -> bool:
     have = dev.device
     return have.type == device.type and (device.index is None
@@ -61,7 +78,8 @@ def _on(dev: DeviceSchedule, device: torch.device) -> bool:
 
 class ScheduleCache:
     """Batch-LRU cache over packed schedules, keyed by batch topology
-    fingerprint.
+    fingerprint, plus the per-graph LRU tier of solo schedules
+    (``graph_capacity`` entries).
 
     ``enabled=None`` (default) reads ``REPRO_SCHED_CACHE`` at
     construction; ``False`` forces every lookup to cold-pack (stats
@@ -69,10 +87,14 @@ class ScheduleCache:
     """
 
     def __init__(self, capacity: int = 128,
-                 enabled: Optional[bool] = None) -> None:
+                 enabled: Optional[bool] = None,
+                 graph_capacity: int = 1024) -> None:
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
+        if graph_capacity < 1:
+            raise ValueError("graph_capacity must be >= 1")
         self.capacity = capacity
+        self.graph_capacity = graph_capacity
         self.enabled = (cache_enabled_default()
                         if enabled is None else bool(enabled))
         self._entries: "OrderedDict[bytes, _Entry]" = OrderedDict()
@@ -89,6 +111,11 @@ class ScheduleCache:
         self.misses = 0
         self.packs = 0          # pack_batch executions
         self.evictions = 0
+        self._graphs: "OrderedDict[bytes, _GraphEntry]" = OrderedDict()
+        self.graph_hits = 0     # graph-tier memory hits
+        self.graph_misses = 0   # graph-tier memory misses
+        self.graph_packs = 0    # solo pack_batch executions
+        self.graph_evictions = 0
 
     # -- lookup -----------------------------------------------------------
     def get_or_pack(self, graphs: Sequence[InputGraph],
@@ -188,6 +215,57 @@ class ScheduleCache:
             self.evictions += 1
         return e, key
 
+    # -- graph tier -------------------------------------------------------
+    def get_or_pack_graph(self, g: InputGraph,
+                          pads: Optional[Pads] = None, *,
+                          with_runs: bool = False,
+                          with_extras: bool = False):
+        """One graph's solo schedule at ``pads``, via the per-graph tier
+        (memory, then a solo ``pack_batch``) — the serving admission
+        path: a topology seen once never pays its solo pack again.
+
+        ``with_extras=True`` also returns the entry's mutable ``extras``
+        dict, which lives exactly as long as the cached entry: consumers
+        memoize derived artifacts there (the continuous engine keeps its
+        frontier plan in ``extras["frontier_plan"]``), so artifact
+        lifetime tracks schedule lifetime with no second LRU to tune."""
+        e = self._graph_lookup(g, pads, with_runs=with_runs)
+        return (e.sched, e.extras) if with_extras else e.sched
+
+    def _graph_lookup(self, g: InputGraph, pads: Optional[Pads], *,
+                      with_runs: bool) -> _GraphEntry:
+        p = tuple(pads) if pads is not None else _TIGHT_PADS
+        if not self.enabled:
+            chaos_fire("pack")
+            self.graph_misses += 1
+            self.graph_packs += 1
+            with trace.span("sched.pack_batch", graphs=1):
+                return _GraphEntry(sched=pack_batch([g], *p,
+                                                    with_runs=with_runs))
+        key = graph_schedule_key(g, p)
+        e = self._graphs.get(key)
+        if e is not None:
+            self.graph_hits += 1
+            trace.instant("sched.cache_hit", tier="graph")
+            self._graphs.move_to_end(key)
+            if with_runs and e.sched.sort_perm is None:
+                e.sched = attach_sorted_runs(e.sched)
+            return e
+        self.graph_misses += 1
+        chaos_fire("pack")
+        with trace.span("sched.pack_batch", graphs=1):
+            sched = pack_batch([g], *p, with_runs=with_runs)
+        self.graph_packs += 1
+        e = _GraphEntry(sched=sched)
+        self._graph_insert(key, e)
+        return e
+
+    def _graph_insert(self, key: bytes, e: _GraphEntry) -> None:
+        self._graphs[key] = e
+        while len(self._graphs) > self.graph_capacity:
+            self._graphs.popitem(last=False)
+            self.graph_evictions += 1
+
     # -- accounting -------------------------------------------------------
     @property
     def hit_rate(self) -> float:
@@ -200,4 +278,9 @@ class ScheduleCache:
     def stats(self) -> Dict[str, float]:
         return {"hits": self.hits, "misses": self.misses,
                 "evictions": self.evictions, "entries": len(self),
-                "hit_rate": self.hit_rate, "packs": self.packs}
+                "hit_rate": self.hit_rate, "packs": self.packs,
+                "graph_hits": self.graph_hits,
+                "graph_misses": self.graph_misses,
+                "graph_packs": self.graph_packs,
+                "graph_evictions": self.graph_evictions,
+                "graph_entries": len(self._graphs)}

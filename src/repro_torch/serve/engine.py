@@ -1,5 +1,13 @@
-"""Whole-structure serving: :class:`StructureServeEngine`, the port of
-the request/response engine of ``repro.serve.engine``.
+"""Serving engines, port of ``repro.serve.engine`` (less the
+transformer ``ServeEngine``):
+
+  - :class:`VertexServeEngine` — the Cavs-native decode path for
+    vertex-function sequence cells (LSTM/GRU): every engine tick is ONE
+    batching task ``V_t`` over the slot pool, one megastep launch on the
+    card (K3 for the LSTM, K4 for the GRU).  Slot occupancy, per-slot
+    positions and retirement are pure data;
+  - :class:`StructureServeEngine` — request/response serving of whole
+    structures, below.
 
 Request/response serving of WHOLE structures (trees/DAGs, e.g. a
 sentiment service scoring parsed sentences), routed through the
@@ -22,28 +30,36 @@ the oracle after ``breaker_threshold`` consecutive failures); every such
 degradation is counted in ``health()["degradations"]`` and its cause
 kept in ``last_degradation``.  On the card there is no such ladder: a
 kernel that fails to build or launch fails the batch, so the plain
-version never stands in for the kernel there.  Poisoned batches are quarantined by bisection so one bad
-request never takes down its co-batched peers.
+version never stands in for the kernel there.  Poisoned batches are
+quarantined by bisection so one bad request never takes down its
+co-batched peers.  :class:`VertexServeEngine` shares the lifecycle and,
+on CPU tensors, the ladder; on the card a failed tick fails its
+in-flight requests.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.scheduler import execute, readout_roots
+from repro_torch.core.scheduler import (execute, readout_roots,
+                                        resolve_fusion)
 from repro_torch.core.structure import DeviceSchedule, InputGraph
+from repro_torch.core.vertex import VertexIO
 from repro_torch.dist.fault import chaos_fire
+from repro_torch.kernels import ops as kops
 from repro_torch.obs import trace
 from repro_torch.pipeline import (BucketPolicy, SchedulePipeline,
                                   graph_fingerprint)
 from repro_torch.serve.robustness import (ACTIVE, CircuitBreaker,
                                           RequestLifecycle,
                                           quarantine_bisect,
+                                          validate_sequence,
                                           validate_structure)
 
 Params = Any
@@ -53,11 +69,11 @@ class _EngineBase:
     """Lifecycle plumbing: ``queue`` and ``finished`` are views onto the
     :class:`RequestLifecycle` (so the bounded-queue/terminal-status
     invariants cannot be bypassed), and ``health()`` is the lifecycle's
-    counters plus engine extras, the pipeline's schedule-cache stats,
-    and — when tracing is on — a summary of the most recent spans."""
+    counters plus engine extras, the schedule-cache stats of an engine
+    that owns a cache or a pipeline, and — when tracing is on — a
+    summary of the most recent spans."""
 
     lifecycle: RequestLifecycle
-    pipeline: SchedulePipeline
 
     @property
     def queue(self) -> List[Any]:
@@ -73,7 +89,11 @@ class _EngineBase:
 
     def health(self) -> Dict[str, Any]:
         h = self.lifecycle.health(**self._health_extra())
-        h["schedule_cache"] = self.pipeline.stats()
+        tiers = getattr(self, "cache", None)
+        if tiers is None:       # not `or`: an empty cache is len()==0-falsy
+            tiers = getattr(self, "pipeline", None)
+        if tiers is not None:
+            h["schedule_cache"] = tiers.stats()
         t = trace.get_tracer()
         if t is not None:
             h["recent_spans"] = t.summary(10)
@@ -82,6 +102,247 @@ class _EngineBase:
     def _health_extra(self) -> Dict[str, Any]:
         return {}
 
+    def _ladder(self, fused: Callable[[], Any], oracle: Callable[[], Any],
+                on_card: bool, device: torch.device) -> Any:
+        """One unit of work (a batch, a tick, a window) through the
+        degradation ladder; returns what the rung that ran returns.
+
+        On the card: the fused work (the op-by-op work when the engine
+        does not fuse), synchronised so a fault surfaces here; a failure
+        propagates, and the plain version never stands in for a kernel.
+        On CPU tensors: the fused work first; on failure the op-by-op
+        work for THIS unit (counted in ``degradations``, its cause kept
+        in ``last_degradation``), and once the breaker trips, the
+        op-by-op work without re-trying the fused one."""
+        if on_card:
+            if self.fused:
+                chaos_fire("kernel")
+                out = fused()
+            else:
+                out = oracle()
+            torch.cuda.synchronize(device)
+            return out
+        if self.fused:
+            try:
+                chaos_fire("kernel")
+                out = fused()
+                self._breaker.record_success()
+                return out
+            except Exception as e:       # noqa: BLE001 — degrade, counted
+                self._breaker.record_failure()
+                self.lifecycle.degradations += 1
+                self.last_degradation = repr(e)
+        return oracle()
+
+
+# ---------------------------------------------------------------------------
+# Vertex-function serving (the Cavs decode path, fusion_mode-aware)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class VertexRequest:
+    """One streaming sequence for :class:`VertexServeEngine`.
+
+    ``inputs``: ``[L, X_raw]`` external rows (tokens' embeddings,
+    features, ...), consumed one per engine tick.  The engine fills
+    ``final_state`` (``[S]``) when the sequence is exhausted.
+    """
+
+    request_id: int
+    inputs: np.ndarray
+    ttl: Optional[float] = None      # seconds from submit to deadline
+    # -- filled by the engine ------------------------------------------
+    final_state: Optional[np.ndarray] = None
+    done: bool = False
+    status: str = "new"              # lifecycle: serve/robustness.py
+    error: Optional[str] = None
+
+    @property
+    def length(self) -> int:
+        return int(self.inputs.shape[0])
+
+
+class VertexServeEngine(_EngineBase):
+    """Continuous batching for arity-1 vertex functions (LSTM/GRU).
+
+    Each tick advances every active slot by one vertex: slot ``m``
+    gathers its previous state, pulls its next external row, and writes
+    the new state — one batching task ``V_t`` of width ``num_slots``.
+    The state pool on ``device`` (default the card) is a ping-pong buffer
+    ``[2*num_slots + 1, S]`` (last row = zero sentinel): tick parity
+    ``p`` reads block ``p`` and writes block ``1-p``, so reads and writes
+    never overlap — the non-overlap invariant that makes the megastep's
+    in-place write sound.  Fresh slots point their gather at the
+    sentinel (zero initial state), so admission and retirement are pure
+    data.
+
+    ``fusion_mode`` is resolved like the scheduler's (``REPRO_FUSION``
+    included): when the cell declares a ``GateSpec`` the tick is ONE
+    megastep (``ops.level_megastep``: K3 or K4 on the card); ``"none"``
+    keeps the op-by-op gather → apply → write tick.  On CPU tensors a
+    failed fused tick degrades to the op-by-op tick (counted; the breaker
+    pins it after ``breaker_threshold`` consecutive failures).  On the
+    card there is no such ladder: a failed tick fails its in-flight
+    requests, and their slots' rows are zeroed.
+    """
+
+    def __init__(self, fn, params: Params, *, num_slots: int,
+                 fusion_mode: str = "auto",
+                 max_queue: Optional[int] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 breaker_threshold: int = 3, device="cuda"):
+        if getattr(fn, "arity", None) != 1:
+            raise ValueError(
+                f"VertexServeEngine decodes chains (arity-1 cells); "
+                f"{type(fn).__name__} has arity {getattr(fn, 'arity', None)}")
+        self.fn = fn
+        self.params = params
+        self.num_slots = num_slots
+        self.device = torch.device(device)
+        self.spec = resolve_fusion(fn, fusion_mode, sched_arity=1)
+        self._buf = torch.zeros((2 * num_slots + 1, fn.state_dim),
+                                dtype=torch.float32, device=self.device)
+        #: slot m pulls row m of the tick's projected rows
+        self._ext_ids = torch.arange(num_slots, dtype=torch.int32,
+                                     device=self.device)
+        self._parity = 0
+        self._pos = np.zeros(num_slots, np.int64)
+        self._slot_req: List[Optional[VertexRequest]] = [None] * num_slots
+        self.lifecycle = RequestLifecycle(max_queue=max_queue, clock=clock)
+        self._breaker = CircuitBreaker(breaker_threshold)
+        self.ticks = 0
+        self.last_degradation: Optional[str] = None
+        self._tick = functools.partial(_vertex_tick, fn, self.spec)
+        # The degradation rung: the same tick with spec=None is the
+        # op-by-op tick (gather → apply → write, no megastep).
+        self._tick_oracle = functools.partial(_vertex_tick, fn, None)
+
+    @property
+    def fused(self) -> bool:
+        """True when ticks run as single megastep launches (False once
+        the circuit breaker has pinned the op-by-op tick)."""
+        return self.spec is not None and not self._breaker.open
+
+    @property
+    def num_active(self) -> int:
+        return sum(r is not None for r in self._slot_req)
+
+    # -- ingress ------------------------------------------------------------
+    def submit(self, req: VertexRequest) -> bool:
+        """Validate + enqueue; returns False (and routes ``req`` to the
+        ``rejected`` terminal) on garbage input or a full queue."""
+        err = validate_sequence(req.inputs, self.fn.input_dim)
+        return self.lifecycle.submit(req, err)
+
+    # -- one engine tick -----------------------------------------------------
+    def step(self) -> int:
+        """Admit + advance every active slot one vertex.  Returns live
+        requests (active + queued) after the tick."""
+        self.lifecycle.sweep_deadlines()
+        expired_slots = []
+        for m, req in enumerate(self._slot_req):
+            if req is not None and self.lifecycle.expired(req):
+                self.lifecycle.finish_timeout(req)
+                self._slot_req[m] = None
+                expired_slots.append(m)
+        self._zero_slot_rows(expired_slots)
+        for m in range(self.num_slots):
+            if self._slot_req[m] is None and self.queue:
+                req = self.queue.pop(0)
+                req.status = ACTIVE
+                self._slot_req[m] = req
+                self._pos[m] = 0
+        if self.num_active == 0:
+            return len(self.queue)
+
+        M = self.num_slots
+        base, out_base = self._parity * M, (1 - self._parity) * M
+        X = self.fn.input_dim
+        child_ids = np.full((M, 1), 2 * M, np.int32)       # sentinel
+        # One host buffer, one copy: ext rows | child mask | node mask.
+        f = np.zeros(M * X + 2 * M, np.float32)
+        ext_rows = f[:M * X].reshape(M, X)
+        child_mask = f[M * X:M * X + M].reshape(M, 1)
+        node_mask = f[M * X + M:]
+        for m, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            node_mask[m] = 1.0
+            ext_rows[m] = req.inputs[self._pos[m]]
+            if self._pos[m] > 0:
+                child_ids[m, 0] = base + m
+                child_mask[m, 0] = 1.0
+        fd = torch.from_numpy(f).to(self.device)
+        args = (self.params, self._buf,
+                torch.from_numpy(child_ids).to(self.device),
+                fd[M * X:M * X + M].view(M, 1), fd[:M * X].view(M, X),
+                fd[M * X + M:], out_base, self._ext_ids)
+        try:
+            with trace.span("serve.tick", active=self.num_active,
+                            fused=self.fused):
+                self._run_tick(args)
+        except Exception as e:           # noqa: BLE001 — the tick is lost
+            # Every in-flight request reaches the ``failed`` terminal;
+            # queued requests are untouched and admit next tick.
+            failed_slots = []
+            for m, req in enumerate(self._slot_req):
+                if req is not None:
+                    self.lifecycle.finish_failed(req, f"tick failed: {e}")
+                    self._slot_req[m] = None
+                    failed_slots.append(m)
+            self._zero_slot_rows(failed_slots)
+            return self.num_active + len(self.queue)
+        self._parity = 1 - self._parity
+        self.ticks += 1
+
+        done_rows = None
+        for m, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            self._pos[m] += 1
+            if self._pos[m] >= req.length:
+                if done_rows is None:
+                    done_rows = self._buf[out_base:out_base + M].cpu() \
+                        .numpy()
+                req.final_state = done_rows[m].copy()
+                self.lifecycle.finish_ok(req)
+                self._slot_req[m] = None
+        return self.num_active + len(self.queue)
+
+    def _zero_slot_rows(self, slots: List[int]) -> None:
+        """Re-zero BOTH ping-pong rows of slots freed by a timeout or a
+        failed tick.  A fresh admission gathers the zero sentinel at
+        position 0, so correctness never reads the stale rows — but a
+        dead request's states must not linger in the pool."""
+        if not slots:
+            return
+        M = self.num_slots
+        rows = torch.tensor([r for s in slots for r in (s, M + s)],
+                            dtype=torch.int64, device=self.device)
+        self._buf.index_fill_(0, rows, 0.0)
+
+    def _run_tick(self, args: Tuple) -> None:
+        """One tick through :meth:`_EngineBase._ladder`."""
+        self._ladder(lambda: self._tick(*args),
+                     lambda: self._tick_oracle(*args), self._buf.is_cuda,
+                     self.device)
+
+    def run(self, max_ticks: int = 100_000) -> List[VertexRequest]:
+        """Drain the queue; returns finished requests."""
+        for _ in range(max_ticks):
+            if self.step() == 0:
+                break
+        return self.finished
+
+    def _health_extra(self) -> Dict[str, Any]:
+        return {"active_slots": self.num_active, "ticks": self.ticks,
+                "breaker_open": self._breaker.open,
+                "breaker_trips": self._breaker.trips}
+
+
+# ---------------------------------------------------------------------------
+# Whole-structure serving (the schedule pipeline on the request path)
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class StructureRequest:
@@ -241,31 +502,14 @@ class StructureServeEngine(_EngineBase):
         return [roots[k] for k in range(len(reqs))]
 
     def _score(self, dev: DeviceSchedule, ext: torch.Tensor) -> torch.Tensor:
-        """The fused forward.  On the card a failure propagates (the
-        quarantine bisect then fails the batch).  On CPU tensors, the
-        degradation ladder: on failure fall back to the op-by-op oracle
-        for THIS batch (counted), and once the breaker trips, pin the
-        oracle without re-trying the fused path."""
-        if not self.fused:
-            return _structure_batch(self.fn, "none", self.params, dev, ext)
-        if ext.is_cuda:
-            chaos_fire("kernel")
-            out = _structure_batch(self.fn, self._fusion, self.params,
-                                   dev, ext)
-            # Surface an asynchronous kernel fault here, where it happened.
-            torch.cuda.synchronize(out.device)
-            return out
-        try:
-            chaos_fire("kernel")
-            out = _structure_batch(self.fn, self._fusion, self.params,
-                                   dev, ext)
-            self._breaker.record_success()
-            return out
-        except Exception as e:           # noqa: BLE001 — degrade, counted
-            self._breaker.record_failure()
-            self.lifecycle.degradations += 1
-            self.last_degradation = repr(e)
-        return _structure_batch(self.fn, "none", self.params, dev, ext)
+        """The fused forward through :meth:`_EngineBase._ladder`: on the
+        card a failure propagates (the quarantine bisect then fails the
+        batch); on CPU tensors it degrades to the op-by-op oracle."""
+        return self._ladder(
+            lambda: _structure_batch(self.fn, self._fusion, self.params,
+                                     dev, ext),
+            lambda: _structure_batch(self.fn, "none", self.params, dev, ext),
+            ext.is_cuda, ext.device)
 
     def _health_extra(self) -> Dict[str, Any]:
         return {"batches": self.batches,
@@ -280,3 +524,28 @@ def _structure_batch(fn, fusion_mode: str, params: Params,
     with torch.inference_mode():
         buf = execute(fn, params, dev, ext, fusion_mode=fusion_mode).buf
         return readout_roots(buf, dev)
+
+
+def _vertex_tick(fn, spec, params: Params, buf: torch.Tensor,
+                 child_ids: torch.Tensor, child_mask: torch.Tensor,
+                 ext_rows: torch.Tensor, node_mask: torch.Tensor,
+                 offset: int, ext_ids: torch.Tensor) -> torch.Tensor:
+    """One decode batching task over the slot pool, IN PLACE on ``buf``
+    (slot occupancy, positions and the ping-pong offset are all data).
+    Slot ``m`` pulls row ``m`` of the projected rows (``ext_ids`` is
+    ``arange(M)``; inactive slots carry zero rows)."""
+    M = child_ids.shape[0]
+    with torch.no_grad():
+        ext = fn.project_inputs(params, ext_rows)      # hoisted eager prefix
+        if spec is not None:
+            return kops.level_megastep(spec.kind, buf, child_ids, child_mask,
+                                       ext_ids, node_mask, offset, ext,
+                                       spec.weights(params))
+        S = buf.shape[1]
+        ch = buf.index_select(0, child_ids.reshape(-1)).reshape(M, 1, S)
+        io = VertexIO(child_states=ch, child_mask=child_mask,
+                      external=ext.index_select(0, ext_ids),
+                      node_mask=node_mask)
+        out = fn.apply(params, io)
+        buf[offset:offset + M] = out.state * node_mask[:, None]
+        return buf

@@ -1,6 +1,6 @@
 """Request-lifecycle guards for the serve engines (the robustness layer),
-a port of ``repro.serve.robustness`` (NumPy only; the sequence and prompt
-validators wait for the engines that use them).
+a port of ``repro.serve.robustness`` (NumPy only; the prompt validator
+waits for the token engine that uses it).
 
 Production serving means adversarial per-example structure: malformed
 graphs, NaN payloads, unbounded queues, requests whose callers stopped
@@ -244,6 +244,19 @@ def validate_structure(graph, inputs: np.ndarray,
         graph.levels()                   # raises on cycles
     except ValueError as e:
         return str(e)
+    return validate_finite(inputs)
+
+
+def validate_sequence(inputs: np.ndarray,
+                      input_dim: Optional[int] = None) -> Optional[str]:
+    """Submit-time validation of a streaming-sequence request: ``[L >= 1,
+    X]`` rows of the cell's input width, finite."""
+    inputs = np.asarray(inputs)
+    if inputs.ndim != 2 or inputs.shape[0] < 1:
+        return f"inputs must be [L >= 1, X], got shape {inputs.shape}"
+    if input_dim is not None and inputs.shape[1] != input_dim:
+        return (f"input dim {inputs.shape[1]} != vertex input_dim "
+                f"{input_dim}")
     return validate_finite(inputs)
 
 

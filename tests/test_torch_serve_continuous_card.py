@@ -1,0 +1,292 @@
+"""Continuous and decode serving on the card: the K6 row gather/scatter
+kernels against their plain versions (bit for bit), the staged frontier
+megastep against the plain frontier (1e-4), the designed launches of a
+continuous tick (one megastep, one row scatter) and of a decode tick (one
+megastep), and a kernel fault failing the in-flight requests of both
+engines with no fallback to the plain versions.  Every test is
+``gpu``-marked and skips inside its body where there is no card; none
+needs JAX, which the GPU machine lacks."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.scheduler import resolve_fusion
+from repro_torch.core.structure import chain, random_binary_tree
+from repro_torch.dist.fault import ScriptedChaos, install_chaos
+from repro_torch.kernels import gather_scatter as gsc
+from repro_torch.kernels import level_megastep as lm
+from repro_torch.kernels import ops, ref
+from repro_torch.models.readout import ClassificationHead
+from repro_torch.models.rnn import GRUVertex, LSTMVertex
+from repro_torch.models.treelstm import TreeLSTMVertex
+from repro_torch.serve import (AdmissionPolicy, ContinuousBatchEngine,
+                               ContinuousRequest, StructureRequest,
+                               StructureServeEngine, VertexRequest,
+                               VertexServeEngine)
+from repro_torch.serve.robustness import FAILED, OK
+
+TOL = 1e-4
+X = 8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D,n", [(4097, 1024, 256), (1025, 512, 64),
+                                   (100, 130, 33), (9, 3, 1), (50, 1025, 17)])
+def test_k6_kernels_equal_plain_bit_for_bit(R, D, n, dtype):
+    _need_card()
+    gen = torch.Generator().manual_seed(R + D + n)
+    src = torch.randn(R, D, generator=gen).to(dtype).cuda()
+    idx = torch.randint(0, R, (n,), generator=gen,
+                        dtype=torch.int32).cuda()
+    got = gsc.gather_rows(src, idx)
+    assert torch.equal(_bits(got), _bits(ref.gather_rows(src, idx)))
+    live = torch.randperm(R, generator=gen)[:n].to(torch.int32)
+    pads = torch.tensor([R, R + 1, R + 7], dtype=torch.int32)
+    ids = torch.cat([live, pads]).cuda()
+    rows = torch.randn(ids.numel(), D, generator=gen).to(dtype).cuda()
+    dst = torch.randn(R, D, generator=gen).to(dtype).cuda()
+    k = gsc.scatter_rows(dst.clone(), ids, rows)
+    p = ref.scatter_rows(dst.clone(), ids, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(k), _bits(p))
+    keep = torch.ones(R, dtype=torch.bool, device="cuda")
+    keep[live.long().cuda()] = False
+    assert torch.equal(_bits(k[keep]), _bits(dst[keep]))
+
+
+@pytest.mark.gpu
+def test_k6_wrappers_count_launches_and_refuse():
+    _need_card()
+    lm.reset_launches()
+    src = torch.randn(10, 4, device="cuda")
+    ops.gather_rows(src, torch.tensor([1, 2], dtype=torch.int32,
+                                      device="cuda"))
+    ops.scatter_rows(src, torch.tensor([3], dtype=torch.int32,
+                                       device="cuda"),
+                     torch.zeros(1, 4, device="cuda"))
+    assert lm.LAUNCHES == {"gather_rows": 1, "scatter_rows": 1}
+    with pytest.raises(TypeError):
+        gsc.gather_rows(src.double(), torch.zeros(1, dtype=torch.int32,
+                                                  device="cuda"))
+    with pytest.raises(ValueError):
+        gsc.scatter_rows(src, torch.zeros(1, dtype=torch.int32,
+                                          device="cuda"),
+                         torch.zeros(2, 4, device="cuda"))
+
+
+def _frontier_case(kind, H, M, R, gen):
+    fn = (TreeLSTMVertex(X, H, 2) if kind == "treelstm"
+          else LSTMVertex(X, H))
+    A = 2 if kind == "treelstm" else 1
+    params = fn.init(gen, device="cuda")
+    params["b"] = (torch.randn(params["b"].shape, generator=gen) * 0.1) \
+        .cuda()
+    spec = resolve_fusion(fn, "megastep", sched_arity=A)
+    buf = torch.randn(R + 1, fn.state_dim, generator=gen) * 0.5
+    buf[R] = 0.0
+    cmask = (torch.rand(M, A, generator=gen) > 0.3).float()
+    cids = torch.where(cmask > 0, torch.randint(0, R, (M, A), generator=gen),
+                       torch.full((M, A), R)).to(torch.int32)
+    nm = torch.ones(M)
+    nm[M // 3::4] = 0.0
+    out = R + 1 + torch.arange(M, dtype=torch.int32)
+    live = (nm > 0).nonzero()[:, 0]
+    out[live] = torch.randperm(R, generator=gen)[:live.numel()] \
+        .to(torch.int32)
+    cids[nm == 0] = R
+    cmask[nm == 0] = 0.0
+    rows = torch.randn(M, fn.ext_dim, generator=gen) * 0.5
+    return (spec, *(t.cuda() for t in (buf, cids, cmask, rows, nm, out)),
+            spec.weights(params))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["treelstm", "lstm"])
+@pytest.mark.parametrize("H,M,R", [(16, 5, 40), (72, 64, 300),
+                                   (512, 256, 4096)])
+def test_frontier_megastep_matches_plain_on_card(kind, H, M, R):
+    """The staged composition (megastep into a staging block past the
+    arena, then K6b) against the plain frontier, with and without a
+    persistent staging block: within 1e-4; untouched rows and the
+    sentinel bit-unchanged; two launches per call."""
+    _need_card()
+    gen = torch.Generator().manual_seed(H + M)
+    spec, buf, cids, cmask, rows, nm, out, w = _frontier_case(kind, H, M, R,
+                                                              gen)
+    want = ref.frontier_megastep(kind, buf.clone(), cids, cmask, rows, nm,
+                                 out, w)
+    staging = torch.zeros(R + 1 + M, buf.shape[1], device="cuda")
+    arena = staging[:R + 1]
+    arena.copy_(buf)
+    lm.reset_launches()
+    got = ops.frontier_megastep(kind, arena, cids, cmask, rows, nm, out, w,
+                                staging=staging)
+    assert lm.LAUNCHES == {f"{kind}_megastep": 1, "scatter_rows": 1}
+    got2 = ops.frontier_megastep(kind, buf.clone(), cids, cmask, rows, nm,
+                                 out, w)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= TOL
+    assert torch.equal(got, got2)
+    untouched = torch.ones(R + 1, dtype=torch.bool, device="cuda")
+    untouched[out[nm > 0].long()] = False
+    assert torch.equal(_bits(got[untouched]), _bits(buf[untouched]))
+    assert not got[R].any()
+
+
+def _chains(seed, n, lo=1, hi=9):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        g = chain(int(rng.integers(lo, hi)))
+        out.append((g, (rng.standard_normal((g.num_nodes, X)) * 0.4)
+                    .astype(np.float32)))
+    return out
+
+
+def _trees(seed, n):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        g = random_binary_tree(int(rng.integers(1, 12)), rng)
+        out.append((g, (rng.standard_normal((g.num_nodes, X)) * 0.4)
+                    .astype(np.float32)))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["lstm", "treelstm"])
+def test_continuous_engine_launches_per_tick_and_roots(cell):
+    """Each tick is one megastep and one row scatter; each retiring window
+    one row gather; the roots and head logits within 1e-4 of solo scoring
+    on the card and of the plain path on the CPU."""
+    _need_card()
+    fn = TreeLSTMVertex(X, 72, 2) if cell == "treelstm" else LSTMVertex(X, 72)
+    gen = torch.Generator().manual_seed(0)
+    params = fn.init(gen, device="cuda")
+    params["b"] = (torch.randn(params["b"].shape, generator=gen) * 0.1) \
+        .cuda()
+    head = ClassificationHead(fn.state_dim, 5)
+    hp = head.init(gen, device="cuda")
+    data = _trees(1, 12) if cell == "treelstm" else _chains(1, 12)
+
+    def run(device, p, h):
+        eng = ContinuousBatchEngine(
+            fn, p, num_rows=256, frontier_width=16, head=head,
+            head_params=h, device=device,
+            policy=AdmissionPolicy(min_occupancy=0.0, max_window=4))
+        reqs = [ContinuousRequest(i, g, x) for i, (g, x) in enumerate(data)]
+        for r in reqs:
+            assert eng.submit(r), r.error
+        eng.run()
+        return eng, reqs
+
+    lm.reset_launches()
+    eng, reqs = run("cuda", params, hp)
+    kind = "treelstm" if cell == "treelstm" else "lstm"
+    assert lm.LAUNCHES[f"{kind}_megastep"] == eng.ticks > 0
+    assert lm.LAUNCHES["scatter_rows"] == eng.ticks
+    assert 0 < lm.LAUNCHES["gather_rows"] <= eng.windows
+    h = eng.health()
+    assert h["degradations"] == 0 and not h["breaker_open"]
+    assert all(r.status == OK for r in reqs)
+    assert not eng._buf.any()
+    cpu = {k: v.cpu() for k, v in params.items()}
+    _, creqs = run("cpu", cpu, {k: v.cpu() for k, v in hp.items()})
+    for r, c in zip(reqs, creqs):
+        np.testing.assert_allclose(r.root_state, c.root_state, rtol=0,
+                                   atol=TOL)
+        np.testing.assert_allclose(r.logits, c.logits, rtol=0, atol=TOL)
+        solo = StructureServeEngine(fn, params, batch_size=1, device="cuda")
+        s = StructureRequest(0, r.graph, r.inputs)
+        solo.submit(s)
+        solo.run()
+        np.testing.assert_allclose(r.root_state, s.root_state, rtol=0,
+                                   atol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", [LSTMVertex, GRUVertex])
+def test_decode_engine_one_launch_per_tick(cell):
+    _need_card()
+    fn = cell(input_dim=X, hidden=72)
+    gen = torch.Generator().manual_seed(1)
+    params = fn.init(gen, device="cuda")
+    params["b"] = (torch.randn(params["b"].shape, generator=gen) * 0.1) \
+        .cuda()
+    rng = np.random.default_rng(2)
+    xs = [(rng.standard_normal((int(rng.integers(1, 12)), X)) * 0.3)
+          .astype(np.float32) for _ in range(9)]
+
+    def run(device, p):
+        eng = VertexServeEngine(fn, p, num_slots=4, device=device)
+        reqs = [VertexRequest(i, x) for i, x in enumerate(xs)]
+        for r in reqs:
+            assert eng.submit(r)
+        eng.run()
+        return eng, reqs
+
+    lm.reset_launches()
+    eng, reqs = run("cuda", params)
+    kind = "lstm" if cell is LSTMVertex else "gru"
+    assert lm.LAUNCHES == {f"{kind}_megastep": eng.ticks}
+    assert all(r.status == OK for r in reqs)
+    _, creqs = run("cpu", {k: v.cpu() for k, v in params.items()})
+    for r, c in zip(reqs, creqs):
+        np.testing.assert_allclose(r.final_state, c.final_state, rtol=0,
+                                   atol=TOL)
+
+
+@pytest.mark.gpu
+def test_kernel_fault_fails_inflight_without_fallback():
+    """A kernel fault on the card fails the in-flight requests of both
+    engines: no degradation, no launch, the breaker closed, freed rows
+    zeroed."""
+    _need_card()
+    fn = LSTMVertex(X, 16)
+    params = fn.init(torch.Generator().manual_seed(3), device="cuda")
+    hook = ScriptedChaos(fail={"kernel": list(range(100))})
+    lm.reset_launches()
+    with install_chaos(hook):
+        ceng = ContinuousBatchEngine(fn, params, num_rows=64,
+                                     frontier_width=8, breaker_threshold=1,
+                                     device="cuda")
+        creqs = [ContinuousRequest(i, g, x)
+                 for i, (g, x) in enumerate(_chains(4, 5))]
+        for r in creqs:
+            ceng.submit(r)
+        ceng.run()
+        veng = VertexServeEngine(fn, params, num_slots=2,
+                                 breaker_threshold=1, device="cuda")
+        vreqs = [VertexRequest(i, x) for i, (_g, x)
+                 in enumerate(_chains(5, 3))]
+        for r in vreqs:
+            veng.submit(r)
+        veng.run()
+    assert hook.calls["kernel"] > 0
+    assert not lm.LAUNCHES.get("lstm_megastep")
+    for eng, reqs in ((ceng, creqs), (veng, vreqs)):
+        assert all(r.status == FAILED for r in reqs)
+        assert all("injected kernel failure" in r.error for r in reqs)
+        h = eng.health()
+        assert h["degradations"] == 0 and not h["breaker_open"]
+        assert eng.fused and eng.last_degradation is None
+        assert not eng._buf.any()
