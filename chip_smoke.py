@@ -91,13 +91,29 @@ Phases, each of which must pass (any failure exits non-zero):
      Var-LSTM chains: one K3/K4 launch a tick, final states within 1e-4
      of ``execute`` on the card and of the plain path on the CPU,
      ticks/s, per-launch times at M = 128, a profile;
-  13. report — one JSON line per the kernel table, then the device line.
+  13. the op-by-op leg (the paper's kernel-fusion ablation and serial
+     baseline) — the gate kernels K8a ``lstm_gates``, K8b
+     ``treelstm_gates`` and K9 ``lstm_level_fused`` against their plain
+     versions at edge and full-width shapes (strided state halves, bf16
+     states, random masks; two launches bitwise equal; a backward through
+     each raises); the Var-LSTM batch through ``execute(fusion_mode=
+     "none")`` with ``cell_impl`` "pallas" and "fused" (one K8a / K9 a
+     level, buffers within 1e-4 of the K3 buffer, bf16 within 3e-2 of the
+     CPU); the serving phase's 512 parses through the unfused engine with
+     the "pallas" Tree-LSTM (one K8b a padded level, roots within 1e-4 of
+     the fused engine's, throughput and latency beside it); unfused decode
+     with the "fused" LSTM (one K9 a tick, finals within 1e-4 of
+     ``execute``); ``execute_serial`` on 8 parses beside the batched
+     engine; each gate kernel re-run on its main path's own launches and
+     timed beside its bound;
+  14. report — one JSON line per the kernel table, then the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -143,15 +159,18 @@ import torch  # noqa: E402
 import repro_torch  # noqa: E402,F401  (turns TF32 off)
 from repro_torch.configs.paper import get_paper_model  # noqa: E402
 from repro_torch.core.scheduler import (execute, execute_lazy,  # noqa: E402
-                                        readout_nodes, readout_roots)
+                                        execute_serial, readout_nodes,
+                                        readout_roots)
 from repro_torch.core.structure import (chain, pack_batch,  # noqa: E402
                                         pack_external, random_binary_tree,
                                         random_dag)
 from repro_torch.data.trees import sst_like_dataset  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import cell_kernels as ck  # noqa: E402
 from repro_torch.kernels import gather_scatter as lmgs  # noqa: E402
 from repro_torch.kernels import level_megastep as lm  # noqa: E402
 from repro_torch.kernels import level_megastep_bwd as lmb  # noqa: E402
+from repro_torch.kernels import level_step as ls  # noqa: E402
 from repro_torch.models.readout import (ClassificationHead,  # noqa: E402
                                         TokenReadout)
 from repro_torch.models.rnn import GRUVertex  # noqa: E402
@@ -512,6 +531,7 @@ def serve_phase(card: str) -> dict:
            "shapes": shapes, "err_vs_opbyop": err_op,
            "err_vs_cpu": err_cpu, "card": card}
     print(f"serve: {json.dumps(out)}")
+    out["roots"] = roots                 # for the unfused engine's check
     return out
 
 
@@ -1801,16 +1821,13 @@ def chain_serving_phase(card: str) -> dict:
     return {**out, **tapped}
 
 
-def decode_phase(cell: str, card: str) -> dict:
-    """``VertexServeEngine`` decode ticks: 256 Var-LSTM chains (seed 0,
-    ``max_len=64``) with seeded normal inputs submitted at once to 128
-    slots; one K3/K4 launch per tick; final states against ``execute``
-    over the same chains on the card and the plain path on the CPU; then
-    a tapped run whose every ``TAP_EVERY``-th tick is re-run through the
-    kernel and its plain version and timed."""
+def decode_setup(cell: str, impl: str = "jnp"):
+    """The decode phases' cell (``LSTMVertex`` with ``cell_impl`` ``impl``,
+    or ``GRUVertex``) at full width, its params (seed 0, the bias drawn
+    nonzero) and its 256 Var-LSTM chains (seed 0, ``max_len=64``) with
+    seeded normal inputs."""
     cfg = get_paper_model("var_lstm")
-    kind = "lstm" if cell == "lstm" else "gru"
-    fn = (cfg.make_vertex(hidden=HIDDEN, input_dim=cfg.input_dim)
+    fn = (cfg.make_vertex(hidden=HIDDEN, input_dim=cfg.input_dim, impl=impl)
           if cell == "lstm" else GRUVertex(input_dim=cfg.input_dim,
                                            hidden=HIDDEN))
     gen = torch.Generator().manual_seed(0)
@@ -1821,6 +1838,30 @@ def decode_phase(cell: str, card: str) -> dict:
     graphs = cfg.make_graphs(DECODE_REQUESTS, max_len=64, rng=rng)
     xs = [rng.standard_normal((g.num_nodes, cfg.input_dim))
           .astype(np.float32) for g in graphs]
+    return fn, params, graphs, xs
+
+
+def decode_finals(fn, params, graphs, xs) -> np.ndarray:
+    """Each chain's final state from ``execute`` over all the chains on
+    the card (the fused leg unless ``REPRO_FUSION`` says otherwise)."""
+    s = pack_batch(graphs, with_runs=False)
+    d = s.to_device(DEVICE)
+    ext = torch.from_numpy(pack_external(xs, s, fn.input_dim)).to(DEVICE)
+    with torch.no_grad():
+        nodes = readout_nodes(execute(fn, params, d, ext).buf, d) \
+            .cpu().numpy()
+    return np.stack([nodes[k, g.num_nodes - 1] for k, g in enumerate(graphs)])
+
+
+def decode_phase(cell: str, card: str) -> dict:
+    """``VertexServeEngine`` decode ticks: 256 Var-LSTM chains (seed 0,
+    ``max_len=64``) with seeded normal inputs submitted at once to 128
+    slots; one K3/K4 launch per tick; final states against ``execute``
+    over the same chains on the card and the plain path on the CPU; then
+    a tapped run whose every ``TAP_EVERY``-th tick is re-run through the
+    kernel and its plain version and timed."""
+    kind = "lstm" if cell == "lstm" else "gru"
+    fn, params, graphs, xs = decode_setup(cell)
 
     def reqs_of(n):
         return [VertexRequest(i, x) for i, x in enumerate(xs[:n])]
@@ -1841,15 +1882,8 @@ def decode_phase(cell: str, card: str) -> dict:
           f"decode launches {launches} for {eng.ticks} ticks")
     finals = np.stack([r.final_state for r in reqs])
 
-    s = pack_batch(graphs, with_runs=False)
-    d = s.to_device(DEVICE)
-    ext = torch.from_numpy(pack_external(xs, s, cfg.input_dim)).to(DEVICE)
-    with torch.no_grad():
-        nodes = readout_nodes(execute(fn, params, d, ext).buf, d) \
-            .cpu().numpy()
-    want = np.stack([nodes[k, g.num_nodes - 1]
-                     for k, g in enumerate(graphs)])
-    err_exec = float(np.abs(finals - want).max())
+    err_exec = float(np.abs(finals - decode_finals(fn, params, graphs, xs))
+                     .max())
     n_cpu = 32
     ceng = VertexServeEngine(fn, {k: v.cpu() for k, v in params.items()},
                              num_slots=n_cpu, device="cpu")
@@ -1913,6 +1947,452 @@ def decode_phase(cell: str, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the op-by-op leg (K8a/K8b/K9): the kernel-fusion ablation and
+# the serial baseline
+# ---------------------------------------------------------------------------
+
+#: Kernel-vs-plain shapes: K8a (M, H), K8b (M, A, H), K9 (M, H).
+K8A_SHAPES = ((1, 8), (37, 50), (200, 130), (128, 512))
+K8B_SHAPES = ((5, 2, 16), (64, 3, 40), (130, 2, 128), (256, 2, 512))
+K9_SHAPES = ((3, 16), (64, 64), (130, 128), (128, 512))
+#: Parses of the serving traffic scored by the serial baseline.
+SERIAL_GRAPHS = 8
+GATE_TOL, BF16_TOL = 1e-5, 3e-2
+#: The TPU kernel each gate kernel replaces, and its source here.
+GATE_KERNELS = {
+    "lstm_gates": ("src/repro/kernels/cell_kernels.py:46", "cell_gates.cu"),
+    "treelstm_gates": ("src/repro/kernels/cell_kernels.py:86",
+                       "cell_gates.cu"),
+    "lstm_level_fused": ("src/repro/kernels/level_step.py:53",
+                         "lstm_level_fused.cu"),
+}
+GATE_WRAPPERS = {"lstm_gates": ck, "treelstm_gates": ck,
+                 "lstm_level_fused": ls}
+
+
+@contextlib.contextmanager
+def tapped(name: str):
+    """Within the block, every call of the kernel wrapper ``name`` keeps
+    its arguments (in the yielded list) and then calls the wrapper: the
+    tap launches nothing of its own."""
+    module = GATE_WRAPPERS[name]
+    inner, calls = getattr(module, name), []
+
+    def tap(*args):
+        calls.append(args)
+        return inner(*args)
+
+    setattr(module, name, tap)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, inner)
+
+
+def gate_kernel(name: str):
+    return getattr(GATE_WRAPPERS[name], name)
+
+
+def gate_check(name: str, args, bf16_out: bool = False) -> float:
+    """Kernel ``name`` against its plain version on ``args``: two launches
+    bitwise equal, every output finite, and the error within its bar --
+    K8 1e-5 absolute, K9 1e-4 of max |plain|, a bf16 output 3e-2 absolute
+    plus 3e-2 relative (one bf16 rounding).  Returns the max abs error."""
+    got, again = gate_kernel(name)(*args), gate_kernel(name)(*args)
+    want = getattr(ref, name)(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, again)),
+          f"{name}: two launches on the same inputs differ")
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+        diff = (g - w).abs()
+        err = max(err, float(diff.max()))
+        if bf16_out:
+            ok = bool((diff <= BF16_TOL + BF16_TOL * w.abs()).all())
+        elif name == "lstm_level_fused":
+            ok = float(diff.max()) <= TOL * float(w.abs().max())
+        else:
+            ok = float(diff.max()) <= GATE_TOL
+        check(ok, f"{name} disagrees with its plain version: max abs err "
+              f"{float(diff.max()):.3e} at shapes "
+              f"{[tuple(a.shape) for a in args]}")
+    return err
+
+
+def gate_bound_ms(name: str, args) -> tuple:
+    """Least time for one launch of K8a/K8b/K9 on ``args``: each operand
+    read once and each output written once at 3.35 TB/s, against the
+    arithmetic at 67 TFLOP/s fp32 -- K9's product 2*M*H*4H, and the gate
+    arithmetic (5 FLOPs an element for K8a and K9's epilogue, 3A + 2 for
+    K8b; transcendentals not counted).  Returns (bound_ms, bound_by,
+    flops, bytes)."""
+    if name == "lstm_gates":
+        gates, c_prev = args
+        M, H = c_prev.shape
+        eg = gates.element_size()
+        nbytes = M * H * (6 * eg + c_prev.element_size())
+        flops = 5.0 * M * H
+    elif name == "treelstm_gates":
+        i_pre, f_pre, _o, _u, c_k, mask = args
+        M, A, H = f_pre.shape
+        ep = i_pre.element_size()
+        nbytes = (M * H * ((5 + A) * ep + A * c_k.element_size())
+                  + M * A * mask.element_size())
+        flops = (3.0 * A + 2) * M * H
+    else:
+        h_prev, _c, ext, wh, b = args
+        M, H = h_prev.shape
+        e = h_prev.element_size()
+        nbytes = M * H * 4 * e + (ext.numel() + wh.numel() + b.numel()) * 4
+        flops = 2.0 * M * H * 4 * H + 5.0 * M * H
+    t_op, t_by = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
+            else "bytes", flops, nbytes)
+
+
+def gate_timings(name: str, calls) -> dict:
+    """Kernel ``name`` re-run on the main path's own launches (``calls``),
+    each against its plain version: the worst error, the mean time a
+    launch and the plain version's, the mean data-aware bound.  K8a/K8b
+    do a few microseconds of work behind ~20-50 us of host launch cost, so
+    their times are the card's own (``torch.profiler`` device time, as for
+    K6) and the CUDA-event time of back-to-back launches is kept beside
+    them as ``issue_ms``; K9 does enough work for CUDA events to time the
+    card."""
+    worst = max(gate_check(name, a) for a in calls)
+    kern = [lambda a=a: gate_kernel(name)(*a) for a in calls]
+    plain = [lambda a=a: getattr(ref, name)(*a) for a in calls]
+    bounds = [gate_bound_ms(name, a) for a in calls]
+    out = {"timed": len(calls), "max_abs_err": worst,
+           "bound_ms": float(np.mean([b[0] for b in bounds])),
+           "flops": float(np.mean([b[2] for b in bounds])),
+           "bytes": float(np.mean([b[3] for b in bounds]))}
+    by_ops = sum(b[0] for b in bounds if b[1] == "operations")
+    out["bound_by"] = ("operations" if by_ops >= sum(b[0] for b in bounds) / 2
+                       else "bytes")
+    if name == "lstm_level_fused":
+        out["ms"] = float(np.mean([time_ms(k, 10, 2) for k in kern]))
+        out["plain_ms"] = float(np.mean([time_ms(p, 10, 2) for p in plain]))
+    else:
+        out["ms"] = device_ms_per_call(kern)
+        out["plain_ms"] = device_ms_per_call(plain)
+        out["issue_ms"] = float(np.mean([time_ms(k, 20, 3)
+                                         for k in kern[:4]]))
+    return out
+
+
+def gate_kernels_check() -> dict:
+    """K8a/K8b/K9 against their plain versions on the card at the shapes
+    above, the state halves taken as strided views of ``[M, 2H]`` (K8b's
+    children of ``[M, A, 2H]``), K8a with a float32 and a bf16 ``c_prev``,
+    K8b with random masks, K9 at float32 and bf16; then a backward
+    through each must raise."""
+    gen = torch.Generator().manual_seed(88)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(DEVICE, dtype)
+
+    errs = {"lstm_gates": 0.0, "treelstm_gates": 0.0,
+            "lstm_level_fused": 0.0}
+    for M, H in K8A_SHAPES:
+        for sd in (torch.float32, torch.bfloat16):
+            state = randn(M, 2 * H, dtype=sd)
+            errs["lstm_gates"] = max(errs["lstm_gates"], gate_check(
+                "lstm_gates", (randn(M, 4 * H), state[:, :H])))
+    for M, A, H in K8B_SHAPES:
+        mask = (torch.rand(M, A, generator=gen) > 0.3).float().to(DEVICE)
+        args = (randn(M, H), randn(M, A, H), randn(M, H), randn(M, H),
+                randn(M, A, 2 * H)[..., :H], mask)
+        errs["treelstm_gates"] = max(errs["treelstm_gates"],
+                                     gate_check("treelstm_gates", args))
+    bf16_err = 0.0
+    for M, H in K9_SHAPES:
+        for sd in (torch.float32, torch.bfloat16):
+            state = randn(M, 2 * H, dtype=sd)
+            args = (state[:, H:], state[:, :H], randn(M, 4 * H, scale=0.5),
+                    randn(H, 4 * H, scale=H ** -0.5), randn(4 * H, scale=0.1))
+            err = gate_check("lstm_level_fused", args,
+                             bf16_out=sd == torch.bfloat16)
+            if sd == torch.float32:
+                errs["lstm_level_fused"] = max(errs["lstm_level_fused"], err)
+            else:
+                bf16_err = max(bf16_err, err)
+    m, h = 3, 8
+    g = randn(m, 4 * h).requires_grad_()
+    c = randn(m, h).requires_grad_()
+    for out in (ops.lstm_gates(g, c),
+                ops.treelstm_gates(c, randn(m, 2, h), c, c, randn(m, 2, h),
+                                   torch.ones(m, 2, device=DEVICE)),
+                ops.lstm_level_fused(c, c, g, randn(h, 4 * h),
+                                     randn(4 * h))):
+        try:
+            out[1].sum().backward()
+        except NotImplementedError:
+            continue
+        fail("a backward through a gate kernel did not raise")
+    print("gate kernels vs plain: " + ", ".join(
+        f"{k} max_abs_err {v:.3e}" for k, v in errs.items())
+        + f"; lstm_level_fused bf16 {bf16_err:.3e}; backwards raise")
+    return errs
+
+
+def _schedule_on(d, device):
+    """A copy of the device schedule ``d`` on ``device``."""
+    return dataclasses.replace(d, **{
+        f.name: getattr(d, f.name).to(device)
+        for f in dataclasses.fields(d)
+        if isinstance(getattr(d, f.name), torch.Tensor)})
+
+
+def var_lstm_opbyop(card: str) -> dict:
+    """The Var-LSTM batch (T54xM128) through ``execute(fusion_mode="none")``
+    with ``cell_impl`` "pallas" (K8a a level) and "fused" (K9 a level),
+    launch counts set to 0 just before and read just after: buffers within
+    1e-4 of max |the K3 megastep buffer|; at bf16 within 3e-2 of the plain
+    path's bf16 buffer on the CPU; the forward's time (median of three)
+    beside the fused leg's.  A tapped run before the main path keeps each
+    level's kernel arguments for the kernel's checks and times (taps keep
+    tensors alive, so the timed runs are untapped)."""
+    _kind, fn, params, d, ext, _h = cell_setup("var_lstm")
+    cpu_args = ({k: v.cpu() for k, v in params.items()},
+                _schedule_on(d, "cpu"), ext.cpu())
+
+    def forward(f, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            buf = execute(f, params, d, ext, **kw).buf
+        torch.cuda.synchronize()
+        return buf, (time.perf_counter() - t0) * 1e3
+
+    forward(fn)                                            # warm
+    k3, k3_ms = forward(fn)                                # the fused leg
+    k3_ms = float(np.median([k3_ms] + [forward(fn)[1] for _ in range(2)]))
+    out = {"T": d.T, "M": d.M, "fused_forward_ms": k3_ms, "card": card}
+    for impl, name in (("pallas", "lstm_gates"),
+                       ("fused", "lstm_level_fused")):
+        f = dataclasses.replace(fn, cell_impl=impl)
+        with tapped(name) as calls:                        # and warm
+            forward(f, fusion_mode="none")
+        lm.reset_launches()
+        buf, ms = forward(f, fusion_mode="none")
+        launches = dict(lm.LAUNCHES)
+        ms = float(np.median([ms] + [forward(f, fusion_mode="none")[1]
+                                     for _ in range(2)]))
+        check(launches == {name: d.T}, f"var_lstm {impl}: launches "
+              f"{launches}, designed {{{name!r}: {d.T}}}")
+        err = rel_err(buf, k3)
+        check(err <= TOL, f"var_lstm {impl} vs the K3 buffer: {err:.3e}")
+        with torch.no_grad():
+            bf = execute(f, params, d, ext, fusion_mode="none",
+                         dtype=torch.bfloat16).buf
+            cpu = execute(f, *cpu_args, fusion_mode="none",
+                          dtype=torch.bfloat16).buf
+        diff = (bf.float().cpu() - cpu.float()).abs()
+        check(bool((diff <= BF16_TOL + BF16_TOL * cpu.float().abs()).all()),
+              f"var_lstm {impl} bf16 vs the CPU: {float(diff.max()):.3e}")
+        out[impl] = {"launches": launches[name], "forward_ms": ms,
+                     "err_vs_k3": err, "bf16_err_vs_cpu": float(diff.max()),
+                     name: gate_timings(name, calls)}
+    print(f"var_lstm op by op: {json.dumps(out)}")
+    print(f"var_lstm forward T{d.T}xM{d.M}: fused leg (K3) {k3_ms:.3f} ms, "
+          f"op by op with K8a {out['pallas']['forward_ms']:.3f} ms, with K9 "
+          f"{out['fused']['forward_ms']:.3f} ms")
+    return out
+
+
+def unfused_serve(card: str, serve: dict) -> dict:
+    """The fusion ablation: the serving phase's 512 parses through
+    ``StructureServeEngine`` on the op-by-op leg with the K8b gate cell:
+    one K8b a padded level, every request ok, no degradation, roots within
+    1e-4 of the fused (K1) engine's; throughput and batch latency beside
+    the fused engine's.  A tapped run of the same traffic through another
+    engine comes first: it keeps every level's K8b arguments for the
+    kernel's checks and times, and warms the path."""
+    _fn, params, ds = served_traffic()
+    cfg = get_paper_model("tree_lstm")
+    fn = cfg.make_vertex(hidden=HIDDEN, input_dim=cfg.input_dim,
+                         impl="pallas")
+
+    def engine():
+        return StructureServeEngine(fn, params, batch_size=BATCH,
+                                    fusion_mode="none", device=DEVICE)
+
+    with tapped("treelstm_gates") as calls:
+        _drain(engine(), _requests(ds))
+    eng, reqs = engine(), _requests(ds)
+    for r in reqs:
+        check(eng.submit(r), f"request {r.request_id} rejected: {r.error}")
+    torch.cuda.synchronize()
+    lm.reset_launches()
+    lat = []
+    t_all = time.perf_counter()
+    while eng.queue:
+        t0 = time.perf_counter()
+        eng.step()                 # ends in a device→host copy of roots
+        lat.append(time.perf_counter() - t0)
+    wall = time.perf_counter() - t_all
+    launches = dict(lm.LAUNCHES)
+    levels = sum(shape[0] * n
+                 for shape, n in eng.pipeline.census.counts().items())
+    h = eng.health()
+    check(all(r.status == "ok" for r in reqs),
+          f"unfused serving: {sum(r.status != 'ok' for r in reqs)} "
+          f"request(s) not ok")
+    check(h["degradations"] == 0, f"unfused serving degraded: "
+          f"{eng.last_degradation}")
+    check(launches == {"treelstm_gates": levels}, f"unfused serving: "
+          f"launches {launches} for {levels} padded levels")
+    roots = np.stack([r.root_state for r in reqs])
+    err = float(np.abs(roots - serve["roots"]).max())
+    check(err <= TOL, f"unfused roots vs the fused engine's: {err:.3e}")
+    lat_ms = np.asarray(lat) * 1e3
+    out = {"requests": len(reqs), "launches": launches["treelstm_gates"],
+           "padded_levels": levels, "requests_per_s": len(reqs) / wall,
+           "batch_p50_ms": float(np.percentile(lat_ms, 50)),
+           "batch_p99_ms": float(np.percentile(lat_ms, 99)),
+           "err_vs_fused": err, "card": card}
+    for k in ("requests_per_s", "batch_p50_ms", "batch_p99_ms"):
+        out[f"fused_{k}"] = serve[k]
+        out[f"{k}_unfused_over_fused"] = out[k] / serve[k]
+    out["treelstm_gates"] = gate_timings("treelstm_gates", calls)
+    print(f"unfused tree_lstm serving: {json.dumps(out)}")
+    return out
+
+
+def unfused_decode(card: str, decode: dict) -> dict:
+    """``VertexServeEngine`` on the op-by-op leg with the K9 LSTM cell over
+    the decode phase's 256 chains: one K9 a tick, final states within 1e-4
+    of ``execute``; ticks/s beside the K3 decode's.  A tapped run through
+    another engine first keeps every tick's K9 arguments."""
+    fn, params, graphs, xs = decode_setup("lstm", impl="fused")
+
+    def engine():
+        return VertexServeEngine(fn, params, num_slots=DECODE_SLOTS,
+                                 fusion_mode="none", device=DEVICE)
+
+    with tapped("lstm_level_fused") as calls:
+        _drain(engine(), [VertexRequest(i, x) for i, x in enumerate(xs)])
+    eng = engine()
+    reqs = [VertexRequest(i, x) for i, x in enumerate(xs)]
+    for r in reqs:
+        check(eng.submit(r), f"decode request rejected: {r.error}")
+    torch.cuda.synchronize()
+    lm.reset_launches()
+    t0 = time.perf_counter()
+    eng.run()
+    wall = time.perf_counter() - t0
+    launches = dict(lm.LAUNCHES)
+    check(all(r.status == "ok" for r in reqs), "an unfused decode request "
+          "failed")
+    check(launches == {"lstm_level_fused": eng.ticks}, f"unfused decode: "
+          f"launches {launches} for {eng.ticks} ticks")
+    finals = np.stack([r.final_state for r in reqs])
+    err = float(np.abs(finals - decode_finals(fn, params, graphs, xs)).max())
+    check(err <= TOL, f"unfused decode finals vs execute: {err:.3e}")
+    out = {"ticks": eng.ticks, "ticks_per_s": eng.ticks / wall,
+           "k3_ticks_per_s": decode["ticks_per_s"],
+           "launches": launches["lstm_level_fused"], "err_vs_execute": err,
+           "card": card,
+           "lstm_level_fused": gate_timings("lstm_level_fused", calls)}
+    print(f"unfused decode: {json.dumps(out)}")
+    return out
+
+
+def serial_baseline(card: str, serve: dict) -> dict:
+    """The DyNet-style baseline (paper Fig. 8): ``execute_serial`` with the
+    K8b gate cell over the first parses of the serving traffic, a K8b
+    launch a vertex; states within 1e-4 of ``execute``'s rows; ms a graph
+    beside the batched engine's ms a request."""
+    _fn, params, ds = served_traffic()
+    cfg = get_paper_model("tree_lstm")
+    fn = cfg.make_vertex(hidden=HIDDEN, input_dim=cfg.input_dim,
+                         impl="pallas")
+    graphs = ds.graphs[:SERIAL_GRAPHS]
+    xs = ds.inputs[:SERIAL_GRAPHS]
+    execute_serial(fn, params, graphs[:1], xs[:1])             # warm
+    torch.cuda.synchronize()
+    lm.reset_launches()
+    t0 = time.perf_counter()
+    states = execute_serial(fn, params, graphs, xs)
+    wall = time.perf_counter() - t0
+    launches = dict(lm.LAUNCHES)
+    vertices = sum(g.num_nodes for g in graphs)
+    check(launches == {"treelstm_gates": vertices}, f"serial baseline: "
+          f"launches {launches} for {vertices} vertices")
+    s = pack_batch(graphs, with_runs=False)
+    d = s.to_device(DEVICE)
+    ext = torch.from_numpy(pack_external(xs, s, cfg.input_dim)).to(DEVICE)
+    with torch.no_grad():
+        nodes = readout_nodes(execute(fn, params, d, ext).buf, d).cpu() \
+            .numpy()
+    err = max(float(np.abs(st - nodes[k, :g.num_nodes]).max())
+              for k, (st, g) in enumerate(zip(states, graphs)))
+    check(err <= TOL, f"serial states vs execute: {err:.3e}")
+    out = {"graphs": len(graphs), "vertices": vertices,
+           "ms_per_graph": wall * 1e3 / len(graphs),
+           "batched_ms_per_request": 1e3 / serve["requests_per_s"],
+           "err_vs_execute": err, "card": card}
+    out["serial_over_batched"] = (out["ms_per_graph"]
+                                  / out["batched_ms_per_request"])
+    print(f"serial baseline: {json.dumps(out)}")
+    return out
+
+
+def op_by_op_phase(card: str, serve: dict, decode: dict) -> dict:
+    errs = gate_kernels_check()
+    chains = var_lstm_opbyop(card)
+    served = unfused_serve(card, serve)
+    dec = unfused_decode(card, decode)
+    serial = serial_baseline(card, serve)
+    k9 = chains["fused"]["lstm_level_fused"]
+    rows = []
+    for name, part, launches in (
+            ("lstm_gates", chains["pallas"]["lstm_gates"],
+             chains["pallas"]["launches"]),
+            ("treelstm_gates", served["treelstm_gates"],
+             served["launches"]),
+            ("lstm_level_fused", k9,
+             chains["fused"]["launches"] + dec["launches"])):
+        replaces, source = GATE_KERNELS[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(errs[name], part["max_abs_err"]),
+            "ms": part["ms"], "plain_ms": part["plain_ms"],
+            "bound_ms": part["bound_ms"], "bound_by": part["bound_by"],
+            "library_ms": None})
+    for label, part in (("lstm_gates at a Var-LSTM level",
+                         chains["pallas"]["lstm_gates"]),
+                        ("treelstm_gates at a served level",
+                         served["treelstm_gates"]),
+                        ("lstm_level_fused at a Var-LSTM level", k9),
+                        ("lstm_level_fused at a decode tick",
+                         dec["lstm_level_fused"])):
+        issue = (f", back-to-back launches {part['issue_ms']:.4f} ms apart"
+                 if "issue_ms" in part else "")
+        print(f"{label}: {part['ms']:.4f} ms a launch, plain "
+              f"{part['plain_ms']:.4f} ms, bound {part['bound_ms']:.5f} ms "
+              f"by {part['bound_by']} ({part['timed']} launches){issue}")
+    print(f"fusion ablation: unfused serving {served['requests_per_s']:.1f} "
+          f"requests/s vs fused {served['fused_requests_per_s']:.1f} (x"
+          f"{served['requests_per_s_unfused_over_fused']:.3f}); batch p50 "
+          f"{served['batch_p50_ms']:.3f} vs {served['fused_batch_p50_ms']:.3f}"
+          f" ms, p99 {served['batch_p99_ms']:.3f} vs "
+          f"{served['fused_batch_p99_ms']:.3f} ms; decode "
+          f"{dec['ticks_per_s']:.1f} ticks/s (K9) vs "
+          f"{dec['k3_ticks_per_s']:.1f} (K3); serial "
+          f"{serial['ms_per_graph']:.3f} ms a graph vs batched "
+          f"{serial['batched_ms_per_request']:.4f} ms a request (x"
+          f"{serial['serial_over_batched']:.1f})")
+    return {"rows": rows, "chains": chains, "served": served,
+            "decode": dec, "serial": serial}
+
+
 def main() -> None:
     dev = device_phase()
     kern = kernel_phase()
@@ -1929,6 +2409,7 @@ def main() -> None:
     cont = continuous_tree_phase(dev["smi"])
     chains = chain_serving_phase(dev["smi"])
     decode = [decode_phase(c, dev["smi"]) for c in ("lstm", "gru")]
+    opbyop = op_by_op_phase(dev["smi"], serve, decode[0])
     row = {"name": "treelstm_megastep", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/treelstm_megastep.cu",
            "replaces": "src/repro/kernels/level_megastep.py:181",
@@ -1980,6 +2461,7 @@ def main() -> None:
             "ms": part["ms"], "plain_ms": part["plain_ms"],
             "bound_ms": part["bound_ms"], "bound_by": "bytes",
             "library_ms": part["library_ms"]})
+    rows += opbyop["rows"]
     frontier = {"treelstm_megastep at the tree frontier": cont["megastep"],
                 "lstm_megastep at the chain frontier": chains["megastep"],
                 **{f"{d['kind']}_megastep at a decode tick": d["tick"]

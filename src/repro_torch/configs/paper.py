@@ -94,21 +94,25 @@ PAPER_MODELS: Dict[str, PaperModelCfg] = {
         notes="paper §5.1 Var-LSTM LM, variable-length chains"),
     "tree_fc": PaperModelCfg(
         name="tree_fc",
-        make_vertex=lambda hidden=512, input_dim=256:
+        # Tree-FC has no gate chain: ``impl`` is taken and ignored, as in
+        # the reference.
+        make_vertex=lambda hidden=512, input_dim=256, impl="jnp":
             TreeFCVertex(input_dim=input_dim, hidden=hidden),
         make_graphs=_tree_fc_graphs,
         notes="paper §5.1 Tree-FC (Fold loom benchmark), 256-leaf trees"),
     "graph_rnn": PaperModelCfg(
         name="graph_rnn",
-        make_vertex=lambda hidden=512, input_dim=256:
-            TreeLSTMVertex(input_dim=input_dim, hidden=hidden, arity=3),
+        make_vertex=lambda hidden=512, input_dim=256, impl="jnp":
+            TreeLSTMVertex(input_dim=input_dim, hidden=hidden, arity=3,
+                           cell_impl=impl),
         make_graphs=_graph_rnn_graphs,
         notes="paper Fig. 2(d): N-ary child-sum cell over random DAGs "
               "with multi-parent fan-out"),
     "tree_lstm": PaperModelCfg(
         name="tree_lstm",
-        make_vertex=lambda hidden=512, input_dim=256:
-            TreeLSTMVertex(input_dim=input_dim, hidden=hidden, arity=2),
+        make_vertex=lambda hidden=512, input_dim=256, impl="jnp":
+            TreeLSTMVertex(input_dim=input_dim, hidden=hidden, arity=2,
+                           cell_impl=impl),
         make_graphs=_tree_lstm_graphs,
         notes="paper §5.1 binary child-sum Tree-LSTM on SST-like parses"),
 }

@@ -34,19 +34,23 @@ the card is a deterministic kernel: no float atomics.
 Continuous serving goes through :func:`frontier_step`: one batching task
 over a union frontier of many in-flight graphs at different depths,
 scattering each lane's state to its own arena row.
+
+:func:`execute_serial` is the DyNet-style baseline the paper measures
+against (Fig. 8): per sample and per vertex, no batching at all.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.structure import DeviceSchedule
-from repro_torch.core.vertex import (GateSpec, VertexIO, get_gate_spec,
-                                     has_eager_projection)
+from repro_torch.core.structure import DeviceSchedule, InputGraph
+from repro_torch.core.vertex import (GateSpec, VertexIO, apply_unbatched,
+                                     get_gate_spec, has_eager_projection)
 from repro_torch.kernels import level_megastep as lm
 from repro_torch.kernels import ops as kops
 
@@ -458,6 +462,51 @@ def frontier_step(fn, params: Params, buf: torch.Tensor,
     out = fn.apply(params, io)
     state = (out.state * io.node_mask[:, None]).to(buf.dtype).contiguous()
     return kops.scatter_rows(buf, out_ids, state)
+
+
+# ---------------------------------------------------------------------------
+# Serial reference policy (the dynamic-declaration baseline)
+# ---------------------------------------------------------------------------
+
+def execute_serial(fn, params: Params, graphs: Sequence[InputGraph],
+                   inputs: Sequence[np.ndarray]) -> List[np.ndarray]:
+    """Per-vertex, per-sample execution -- the DyNet-style baseline the
+    paper compares against (no cross-sample batching, a few small
+    launches per vertex; Fig. 8's serial-vs-batched comparison).  Returns,
+    per sample, a ``[num_nodes, S]`` float32 state matrix.
+
+    Vertices run in the stable order of their levels, each through
+    :func:`~repro_torch.core.vertex.apply_unbatched` with its own
+    projection of its external row.  Tensors live on the params' device:
+    on the card every vertex is its own launches (the gate kernel of a
+    ``cell_impl="pallas"`` cell included), which is exactly the
+    inefficiency the paper measures."""
+    dev = next(iter(params.values())).device
+    A = max(max(g.max_arity for g in graphs), 1,
+            getattr(fn, "arity", 1))     # fixed-arity cells (e.g. Tree-FC)
+    S = fn.state_dim
+    results = []
+    with torch.no_grad():
+        for g, x in zip(graphs, inputs):
+            x = torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+            states = torch.zeros((g.num_nodes, S), device=dev)
+            for v in np.argsort(g.levels(), kind="stable"):
+                ch = g.children[v]
+                cs = torch.zeros((A, S), device=dev)
+                cm = torch.zeros((A,), device=dev)
+                if ch:
+                    cs[:len(ch)] = states[list(ch)]
+                    cm[:len(ch)] = 1.0
+                er = g.ext_row[v]
+                ext = x[er] if er >= 0 else x.new_zeros(x.shape[1])
+                if has_eager_projection(fn):
+                    # One tiny projection per vertex (the serial baseline
+                    # hoists nothing).
+                    ext = fn.project_inputs(params, ext[None])[0]
+                out = apply_unbatched(fn, params, cs, cm, ext)
+                states[v] = out.state
+            results.append(states.cpu().numpy())
+    return results
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,12 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     **{name: ("gather_scatter.cu", f"{name}_launch",
               [_P, _P, _P] + [_I] * 6 + [_P])
        for name in ("gather_rows", "scatter_rows")},
+    "lstm_gates": ("cell_gates.cu", "lstm_gates_launch",
+                   [_P] * 4 + [_I] * 6 + [_P]),
+    "treelstm_gates": ("cell_gates.cu", "treelstm_gates_launch",
+                       [_P] * 8 + [_I] * 14 + [_P]),
+    "lstm_level_fused": ("lstm_level_fused.cu", "lstm_level_fused_launch",
+                         [_P] * 7 + [_I] * 6 + [_P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

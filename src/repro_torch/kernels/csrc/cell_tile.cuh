@@ -1,7 +1,9 @@
 // The register-tiled fp32 gate product shared by the forward megasteps of
-// kinds lstm, gru and treefc (cell_megastep.cu) and by the gate recompute
-// of their reverse megasteps (cell_bwd_megastep.cu).  Hopper (sm_90a),
-// CUDA cores, no TF32 (the 1e-4 fp32 bar).
+// kinds lstm, gru and treefc (cell_megastep.cu), by the gate recompute of
+// their reverse megasteps (cell_bwd_megastep.cu) and by the fused LSTM
+// level step (lstm_level_fused.cu); the gate kernels (cell_gates.cu) use
+// its sigmoid and type conversions.  Hopper (sm_90a), CUDA cores, no TF32
+// (the 1e-4 fp32 bar).
 //
 // A block owns a tile of BM slots x BN hidden columns.  For hidden column
 // j it accumulates the NG gate lanes j, H+j, ..., (NG-1)H+j of
@@ -14,10 +16,12 @@
 // side; the concatenation never exists in memory).  Every lane of a column
 // lands in the same thread, so the gate epilogues stay column-local.  An
 // absent child points at the zero sentinel row; it is read as zeros
-// without a load.
+// without a load.  The rows of X may be float or bf16 (TX); they are
+// widened to fp32 as they are staged, and the product stays fp32.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cell {
@@ -43,6 +47,20 @@ template <> struct Traits<TREEFC> { static constexpr int NG = 1, SM = 1; };
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// Widening loads and narrowing stores for the two element types.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);   // round to nearest even, as .to(bf16)
 }
 
 // Loads the tile's child rows (-1 for an absent child or a slot past M)
@@ -81,11 +99,11 @@ struct alignas(16) GemmSmem {
 
 // acc[q][tm][tn] += sum_k X[ty*TM + tm, k] * W[k, q*H + n0 + tx*TN + tn].
 // Every thread of the block must call it (it synchronises).
-template <int NG>
+template <int NG, typename TX = float>
 __device__ __forceinline__ void tile_gemm(float (&acc)[NG][TM][TN],
                                           GemmSmem<NG>& sm,
                                           int (*cid)[BM],
-                                          const float* __restrict__ buf,
+                                          const TX* __restrict__ buf,
                                           int buf_stride, int h_off,
                                           const float* __restrict__ w,
                                           int H, int KA, int n0) {
@@ -104,7 +122,8 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[NG][TM][TN],
         const int gk = k0 + k;
         const int row = cid[a][m];
         sm.x[k][m] = (row >= 0 && gk < H)
-                         ? buf[(size_t)row * buf_stride + h_off + gk] : 0.0f;
+                         ? to_f32(buf[(size_t)row * buf_stride + h_off + gk])
+                         : 0.0f;
       }
       // Stage the chunk of the NG lanes of W for this block's columns.
 #pragma unroll

@@ -9,10 +9,12 @@ Dispatch goes by the device of the tensors, never by a silent fallback:
 
 This is the only place that makes the choice: the kernels' wrappers
 (``level_megastep.MEGASTEPS``, ``level_megastep_bwd.bwd_megastep``,
-``level_megastep_bwd.scatter_add_rows`` and ``gather_scatter``'s
-``gather_rows``/``scatter_rows``) take CUDA tensors only.  Every
-megastep kind (``treelstm``, ``lstm``, ``gru``, ``treefc``) has its
-kernels; an unknown kind raises ``ValueError`` on either device.
+``level_megastep_bwd.scatter_add_rows``, ``gather_scatter``'s
+``gather_rows``/``scatter_rows``, ``cell_kernels``' ``lstm_gates``/
+``treelstm_gates`` and ``level_step.lstm_level_fused``) take CUDA tensors
+only.  Every megastep kind (``treelstm``, ``lstm``, ``gru``, ``treefc``)
+has its kernels; an unknown kind raises ``ValueError`` on either device.
+The reference's ``impl=`` override is not ported.
 """
 
 from __future__ import annotations
@@ -21,9 +23,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import cell_kernels as ck
 from repro_torch.kernels import gather_scatter as gsc
 from repro_torch.kernels import level_megastep as lm
 from repro_torch.kernels import level_megastep_bwd as lmb
+from repro_torch.kernels import level_step as ls
 from repro_torch.kernels import ref
 from repro_torch.obs.registry import get_registry
 
@@ -33,6 +37,47 @@ def _tick(op: str, impl: str) -> None:
     (``kernel.dispatch{op=...,impl=...}``).  PyTorch runs eagerly, so
     this counts calls, one per level."""
     get_registry().inc("kernel.dispatch", op=op, impl=impl)
+
+
+def lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LSTM gate chain in one pass (K8a): ``gates`` ``[M, 4H]``
+    (``i|f|o|u``), ``c_prev`` ``[M, H]`` → ``(c, h)`` at ``gates.dtype``.
+    Forward only on the card."""
+    if not gates.is_cuda:
+        _tick("lstm_gates", "ref")
+        return ref.lstm_gates(gates, c_prev)
+    _tick("lstm_gates", "cuda")
+    return ck.lstm_gates(gates, c_prev)
+
+
+def treelstm_gates(i_pre: torch.Tensor, f_pre: torch.Tensor,
+                   o_pre: torch.Tensor, u_pre: torch.Tensor,
+                   c_k: torch.Tensor, child_mask: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The child-sum Tree-LSTM gate chain in one pass (K8b):
+    ``i/o/u_pre`` ``[M, H]``, ``f_pre``/``c_k`` ``[M, A, H]``,
+    ``child_mask`` ``[M, A]`` → ``(c, h)`` at ``i_pre.dtype``.  Forward
+    only on the card."""
+    if not i_pre.is_cuda:
+        _tick("treelstm_gates", "ref")
+        return ref.treelstm_gates(i_pre, f_pre, o_pre, u_pre, c_k,
+                                  child_mask)
+    _tick("treelstm_gates", "cuda")
+    return ck.treelstm_gates(i_pre, f_pre, o_pre, u_pre, c_k, child_mask)
+
+
+def lstm_level_fused(h_prev: torch.Tensor, c_prev: torch.Tensor,
+                     ext_proj: torch.Tensor, wh: torch.Tensor,
+                     b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One fused LSTM batching task (K9): ``h_prev · W_h`` + ``ext_proj``
+    + ``b``, then the gate chain, the gates never written out → ``(c, h)``
+    at ``h_prev.dtype``.  Forward only on the card."""
+    if not h_prev.is_cuda:
+        _tick("lstm_level_fused", "ref")
+        return ref.lstm_level_fused(h_prev, c_prev, ext_proj, wh, b)
+    _tick("lstm_level_fused", "cuda")
+    return ls.lstm_level_fused(h_prev, c_prev, ext_proj, wh, b)
 
 
 def level_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,

@@ -17,29 +17,46 @@ from repro_torch.kernels import level_megastep as lm
 
 def lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """LSTM gate math: ``gates`` ``[M, 4H]`` (i|f|o|u pre-activations),
-    ``c_prev`` ``[M, H]``; the forget gate adds +1.0."""
-    i, f, o, u = torch.chunk(gates, 4, dim=-1)
+    """LSTM gate math (K8a): ``gates`` ``[M, 4H]`` (i|f|o|u
+    pre-activations), ``c_prev`` ``[M, H]``; the forget gate adds +1.0.
+    Computed in float32 whatever the inputs' types, as the Pallas kernel
+    does; ``(c, h)`` come back at ``gates.dtype``."""
+    i, f, o, u = torch.chunk(gates.float(), 4, dim=-1)
     i, f, o = torch.sigmoid(i), torch.sigmoid(f + 1.0), torch.sigmoid(o)
-    c = f * c_prev + i * torch.tanh(u)
-    return c, o * torch.tanh(c)
+    c = f * c_prev.float() + i * torch.tanh(u)
+    return c.to(gates.dtype), (o * torch.tanh(c)).to(gates.dtype)
 
 
 def treelstm_gates(i_pre: torch.Tensor, f_pre: torch.Tensor,
                    o_pre: torch.Tensor, u_pre: torch.Tensor,
                    c_k: torch.Tensor, child_mask: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Child-sum Tree-LSTM gate math (paper Fig. 4 L7-17).
+    """Child-sum Tree-LSTM gate math (paper Fig. 4 L7-17; K8b).
 
     ``i_pre/o_pre/u_pre``: ``[M, H]``; ``f_pre/c_k``: ``[M, A, H]``;
-    ``child_mask``: ``[M, A]``.
+    ``child_mask``: ``[M, A]``.  Computed in float32, as the Pallas
+    kernel does; ``(c, h)`` come back at ``i_pre.dtype``.
     """
-    i = torch.sigmoid(i_pre)
-    f = torch.sigmoid(f_pre)
-    o = torch.sigmoid(o_pre)
-    u = torch.tanh(u_pre)
-    c = i * u + torch.sum(f * c_k * child_mask[..., None], dim=1)
-    return c, o * torch.tanh(c)
+    i = torch.sigmoid(i_pre.float())
+    f = torch.sigmoid(f_pre.float())
+    o = torch.sigmoid(o_pre.float())
+    u = torch.tanh(u_pre.float())
+    c = i * u + torch.sum(f * c_k.float() * child_mask.float()[..., None],
+                          dim=1)
+    return c.to(i_pre.dtype), (o * torch.tanh(c)).to(i_pre.dtype)
+
+
+def lstm_level_fused(h_prev: torch.Tensor, c_prev: torch.Tensor,
+                     ext_proj: torch.Tensor, wh: torch.Tensor,
+                     b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM level, recurrent product and gates (K9): ``gates =
+    ext_proj + h_prev · W_h + b`` in float32 (``h_prev``/``c_prev``
+    ``[M, H]``, ``ext_proj`` ``[M, 4H]``, ``wh`` ``[H, 4H]``, ``b``
+    ``[4H]``), then :func:`lstm_gates`' math; ``(c, h)`` come back at
+    ``h_prev.dtype``."""
+    gates = ext_proj.float() + h_prev.float() @ wh.float() + b.float()
+    c, h = lstm_gates(gates, c_prev)
+    return c.to(h_prev.dtype), h.to(h_prev.dtype)
 
 
 def megastep_cell_state(kind: str, child: torch.Tensor, rows: torch.Tensor,

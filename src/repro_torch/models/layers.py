@@ -1,5 +1,5 @@
-"""Parameter initialisers shared by the cells (the part of
-``repro.models.layers`` the ported cells use)."""
+"""Parameter initialisers and the type-promoting product shared by the
+cells (the part of ``repro.models.layers`` the ported cells use)."""
 
 from __future__ import annotations
 
@@ -13,3 +13,12 @@ def dense_init(generator: torch.Generator, in_dim: int,
     on every device)."""
     return torch.randn((in_dim, out_dim), generator=generator,
                        dtype=torch.float32) * in_dim ** -0.5
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with JAX's type promotion: a bf16 operand meeting a
+    float32 one is taken to float32 first (``torch.matmul`` refuses mixed
+    types; ``jnp.matmul`` promotes).  Same-typed operands go through
+    unchanged, so a float32 product is bit for bit ``a @ b``."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)

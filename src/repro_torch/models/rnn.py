@@ -12,11 +12,20 @@ the streaming optimization of §3.5.  Both declare a ``GateSpec``, so the
 scheduler's fused path runs each level as one megastep kernel
 (``kernels/level_megastep.py``: K3 for the LSTM, K4 for the GRU).
 
-``cell_impl`` selects the LSTM's gate math in :meth:`LSTMVertex.apply`:
-``"jnp"`` (the reference's name for its plain gate math, here plain
-PyTorch).  The reference's ``"pallas"`` (the fused gate-chain kernel K8)
-and ``"fused"`` (the fused level-step kernel K9) are not ported yet and
-raise.
+``cell_impl`` selects the LSTM's gate math in :meth:`LSTMVertex.apply`,
+the kernel-fusion axis of the paper's Fig. 10 ablation: ``"jnp"`` (the
+reference's name for its plain gate math, here plain PyTorch),
+``"pallas"`` (the recurrent product in PyTorch, then the gate chain in
+one kernel, ``ops.lstm_gates``: K8a) or ``"fused"`` (product and gates in
+one kernel, ``ops.lstm_level_fused``: K9).  They matter on the op-by-op
+leg only (``fusion_mode="none"``, ``hoist=False``, ``collect_push=True``
+or a non-f32 buffer); the fused leg runs the K3 megastep whatever the
+``cell_impl``.  On the card K8a and K9 run forward only, as in the
+reference, whose Pallas kernels have no VJP.
+
+A bf16 node buffer meets float32 params as in the JAX package: the
+products promote to float32 (:func:`~repro_torch.models.layers.matmul`),
+the gate math runs in float32, and the scheduler casts the state back.
 """
 
 from __future__ import annotations
@@ -26,13 +35,8 @@ import dataclasses
 import torch
 
 from repro_torch.core.vertex import GateSpec, Params, VertexIO, VertexOutput
-from repro_torch.models.layers import dense_init
-
-#: ``cell_impl`` values whose kernels are still to port (ROADMAP queue 2).
-_QUEUED_IMPLS = {
-    "pallas": "K8 lstm_gates (repro/kernels/cell_kernels.py)",
-    "fused": "K9 lstm_level_fused (repro/kernels/level_step.py)",
-}
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import dense_init, matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,19 +85,24 @@ class LSTMVertex:
                         weight_names=("wh", "b"))
 
     def apply(self, params: Params, io: VertexIO) -> VertexOutput:
-        if self.cell_impl in _QUEUED_IMPLS:
-            raise NotImplementedError(
-                f"LSTMVertex(cell_impl={self.cell_impl!r}) needs "
-                f"{_QUEUED_IMPLS[self.cell_impl]}, not ported yet; use "
-                f"cell_impl='jnp'")
         h = self.hidden
         prev = io.gather(0)                      # [M, 2H] (zeros at t=0)
         c_prev, h_prev = prev[:, :h], prev[:, h:]
-        gates = io.pull() + h_prev @ params["wh"] + params["b"]
-        i, f, o, u = torch.split(gates, h, dim=-1)
-        i, f, o = torch.sigmoid(i), torch.sigmoid(f + 1.0), torch.sigmoid(o)
-        c = f * c_prev + i * torch.tanh(u)
-        hy = o * torch.tanh(c)
+        if self.cell_impl == "fused":
+            # The fully fused level step: recurrent product + gates in one
+            # launch (K9).
+            c, hy = kops.lstm_level_fused(h_prev, c_prev, io.pull(),
+                                          params["wh"], params["b"])
+            return VertexOutput(state=torch.cat([c, hy], dim=-1))
+        gates = io.pull() + matmul(h_prev, params["wh"]) + params["b"]
+        if self.cell_impl == "pallas":
+            c, hy = kops.lstm_gates(gates, c_prev)           # K8a
+        else:
+            i, f, o, u = torch.split(gates, h, dim=-1)
+            i, f, o = (torch.sigmoid(i), torch.sigmoid(f + 1.0),
+                       torch.sigmoid(o))
+            c = f * c_prev + i * torch.tanh(u)
+            hy = o * torch.tanh(c)
         return VertexOutput(state=torch.cat([c, hy], dim=-1))
 
 
@@ -141,8 +150,8 @@ class GRUVertex:
         h = self.hidden
         h_prev = io.gather(0)
         xz, xr, xn = torch.split(io.pull(), h, dim=-1)
-        hz, hr, hn = torch.split(h_prev @ params["wh"] + params["b"], h,
-                                 dim=-1)
+        hz, hr, hn = torch.split(matmul(h_prev, params["wh"]) + params["b"],
+                                 h, dim=-1)
         z = torch.sigmoid(xz + hz)
         r = torch.sigmoid(xr + hr)
         n = torch.tanh(xn + r * hn)

@@ -6,7 +6,15 @@ benchmarks).
 The Tree-LSTM follows Tai et al. exactly as transcribed in the paper's
 Fig. 4: per-child forget gates against the *individual* child hidden
 states, remaining gates against the child-sum.  The scattered state is
-``concat([c, h])`` (Fig. 4 L18).
+``concat([c, h])`` (Fig. 4 L18).  ``cell_impl="pallas"`` runs its gate
+chain in one kernel (``ops.treelstm_gates``: K8b, forward only on the
+card, as in the reference) on the op-by-op leg; the fused leg runs the K1
+megastep whatever the ``cell_impl``.
+
+A bf16 node buffer meets float32 params as in the JAX package: the
+masked child states and their sum stay bf16, each product promotes to
+float32 (:func:`~repro_torch.models.layers.matmul`), and the gate math
+runs in float32.
 """
 
 from __future__ import annotations
@@ -17,7 +25,8 @@ import torch
 
 from repro_torch.core.vertex import GateSpec, Params, VertexIO, VertexOutput
 from repro_torch.interop import pack_recurrent
-from repro_torch.models.layers import dense_init
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import dense_init, matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,12 +36,14 @@ class TreeLSTMVertex:
     State: ``[c | h]`` (width ``2*hidden``); external: token embedding
     rows of width ``input_dim``, eagerly projected to the 4 gate lanes.
     Param keys match the JAX package: ``wx``, ``ui``, ``uf``, ``uo``,
-    ``uu``, ``b``.
+    ``uu``, ``b``.  ``cell_impl``: ``"jnp"`` (plain gate math) or
+    ``"pallas"`` (the K8b gate kernel).
     """
 
     input_dim: int
     hidden: int
     arity: int = 2
+    cell_impl: str = "jnp"
 
     @property
     def state_dim(self) -> int:
@@ -80,13 +91,22 @@ class TreeLSTMVertex:
         cs = io.child_states * io.child_mask[..., None]       # [M, A, 2H]
         c_k, h_k = cs[..., :h], cs[..., h:]
         h_sum = torch.sum(h_k, dim=1)                         # Σ_k h_k
-        rec_f = (h_k.reshape(M * A, h) @ params["uf"]).reshape(M, A, h)
+        rec_f = matmul(h_k.reshape(M * A, h), params["uf"]).reshape(M, A, h)
 
-        i = torch.sigmoid(xi + h_sum @ params["ui"] + bi)
+        if self.cell_impl == "pallas":
+            c, hy = kops.treelstm_gates(                       # K8b
+                xi + matmul(h_sum, params["ui"]) + bi,
+                # per-child forget pre-activations [M, A, H]:
+                xf[:, None, :] + rec_f + bf,
+                xo + matmul(h_sum, params["uo"]) + bo,
+                xu + matmul(h_sum, params["uu"]) + bu,
+                c_k, io.child_mask)
+            return VertexOutput(state=torch.cat([c, hy], dim=-1))
+        i = torch.sigmoid(xi + matmul(h_sum, params["ui"]) + bi)
         # Fig. 4 L9-11: one forget gate per child against h_k.
         f = torch.sigmoid(xf[:, None, :] + rec_f + bf)
-        o = torch.sigmoid(xo + h_sum @ params["uo"] + bo)
-        u = torch.tanh(xu + h_sum @ params["uu"] + bu)
+        o = torch.sigmoid(xo + matmul(h_sum, params["uo"]) + bo)
+        u = torch.tanh(xu + matmul(h_sum, params["uu"]) + bu)
         c = i * u + torch.sum(f * c_k * io.child_mask[..., None], dim=1)
         hy = o * torch.tanh(c)
         return VertexOutput(state=torch.cat([c, hy], dim=-1))
@@ -139,5 +159,5 @@ class TreeFCVertex:
     def apply(self, params: Params, io: VertexIO) -> VertexOutput:
         M = io.num_slots
         cs = (io.child_states * io.child_mask[..., None]).reshape(M, -1)
-        hy = torch.tanh(cs @ params["wc"] + io.pull() + params["b"])
+        hy = torch.tanh(matmul(cs, params["wc"]) + io.pull() + params["b"])
         return VertexOutput(state=hy)

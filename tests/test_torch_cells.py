@@ -6,8 +6,9 @@ JAX-initialised params; ``execute`` on both fusion legs and
 M = 1, single-level batches, padded levels and ``pad_arity=2`` trees; a
 5-step AdamW loss trajectory for the paper's ``var_lstm`` and ``tree_fc``
 against a JAX loop from the same init; the paper configs' graphs packing
-byte-identically; the fixed-arity refusal; the queued ``cell_impl``
-values raising; and ``params_from_jax`` carrying ``wh``/``wc``/``b``.
+byte-identically; the fixed-arity refusal; and ``params_from_jax``
+carrying ``wh``/``wc``/``b``.  The ``cell_impl`` kernels (K8/K9) are
+tested in ``tests/test_torch_cell_kernels.py``.
 
 Every case replaces the reference init's zero bias with a seeded nonzero
 draw (a zero bias hides a bias in the wrong place).  Tolerance: 1e-5 on
@@ -353,20 +354,3 @@ def test_treefc_refuses_a_schedule_of_another_arity():
         assert t_spec is None and j_spec is None
     assert tsch.resolve_fusion(tfn, "auto", sched_arity=2).kind == "treefc"
     assert jsch.resolve_fusion(jfn, "auto", sched_arity=2).kind == "treefc"
-
-
-@pytest.mark.parametrize("impl,queued", [("pallas", "K8"), ("fused", "K9")])
-def test_lstm_cell_impls_still_to_port_raise(impl, queued):
-    fn = trnn.LSTMVertex(INPUT_DIM, HIDDEN, cell_impl=impl)
-    p = fn.init(torch.Generator().manual_seed(0), device="cpu")
-    io = TVertexIO(child_states=torch.zeros(3, 1, 2 * HIDDEN),
-                   child_mask=torch.ones(3, 1),
-                   external=torch.zeros(3, 4 * HIDDEN),
-                   node_mask=torch.ones(3))
-    with pytest.raises(NotImplementedError, match=queued):
-        fn.apply(p, io)
-    default = trnn.LSTMVertex(INPUT_DIM, HIDDEN)
-    assert default.cell_impl == "jnp"
-    assert default.apply(p, io).state.shape == (3, 2 * HIDDEN)
-    assert tpaper.get_paper_model("var_lstm").make_vertex(
-        impl=impl).cell_impl == impl
