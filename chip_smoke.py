@@ -106,7 +106,35 @@ Phases, each of which must pass (any failure exits non-zero):
      ``execute``); ``execute_serial`` on 8 parses beside the batched
      engine; each gate kernel re-run on its main path's own launches and
      timed beside its bound;
-  14. report — one JSON line per the kernel table, then the device line.
+  15. LM serving — K10 ``flash_attention`` and K11 ``decode_attention``
+     against their plain versions on the card (f32 and bf16; Sq 1, Sq !=
+     Sk without ``causal``, a window of 24, Hq = Hkv and GQA groups 4, 8
+     and 12, head dims 64/80/128, ragged lengths, ``kv_len`` 1 and
+     ragged: within 1e-5 of max |plain| at f32 and 1e-2 at bf16, the
+     plain version computing in f32; two launches bitwise equal); then
+     granite-3-8b at full width and depth (40 layers, d_model 4,096,
+     GQA 32/8, head 128, d_ff 12,800, vocab 49,155 padded to 49,408;
+     bf16 weights from a CUDA ``torch.Generator`` seed 0) served by
+     ``ServeEngine`` (8 slots, ``max_len`` 1,024, greedy): 16 requests
+     of 16-600 prompt tokens (``default_rng(0)``) and 32 new tokens, the
+     second half submitted after 4 ticks.  Launch counts set to 0 just
+     before and read just after: exactly 40 K10 launches a prompt and 40
+     K11 a tick; every request ``ok``; tokens/s, decode tick p50/p99,
+     prefill ms a bucket, peak memory.  A tapped re-run of the same
+     traffic keeps every ``TAP_EVERY``-th K10/K11 launch (re-run against
+     the plain version and timed by ``torch.profiler`` beside the bound
+     -- bf16 at 989 TFLOP/s against bytes at 3.35 TB/s -- and beside
+     ``scaled_dot_product_attention``) and every row of logits a token
+     was drawn from: each request teacher-forced through ``trunk`` in
+     "train" mode must give logits within 3e-2 of max |logit| (the bf16
+     model's own noise is ~2e-2, see ``LM_LOGIT_TOL``), the same token
+     wherever its top-2 margin exceeds 4e-2 of max |logit|, and logits no
+     farther from an f32 recompute of the same weights than 1.25 x the
+     bf16 recompute's distance from it.
+     A profile of one warm decode tick; and ``reduced(granite-3-8b)`` at
+     f32 served on the card must give a full recompute's greedy tokens
+     exactly;
+  16. report — one JSON line per the kernel table, then the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -133,8 +161,9 @@ TRAIN_STEPS, TRAIN_DATA = 30, 512
 #: AdamW steps of each of the Var-LSTM, GRU and Tree-FC phases.
 TRAIN_CELL_STEPS = 10
 #: Published H100 SXM peaks (NVIDIA data sheet): fp32 without tensor
-#: cores, and HBM3 bandwidth.
+#: cores, dense bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 
@@ -165,8 +194,12 @@ from repro_torch.core.structure import (chain, pack_batch,  # noqa: E402
                                         pack_external, random_binary_tree,
                                         random_dag)
 from repro_torch.data.trees import sst_like_dataset  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.archs import reduced  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cell_kernels as ck  # noqa: E402
+from repro_torch.kernels import decode_attention as decattn  # noqa: E402
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import gather_scatter as lmgs  # noqa: E402
 from repro_torch.kernels import level_megastep as lm  # noqa: E402
 from repro_torch.kernels import level_megastep_bwd as lmb  # noqa: E402
@@ -174,13 +207,15 @@ from repro_torch.kernels import level_step as ls  # noqa: E402
 from repro_torch.models.readout import (ClassificationHead,  # noqa: E402
                                         TokenReadout)
 from repro_torch.models.rnn import GRUVertex  # noqa: E402
+from repro_torch.models.transformer import TransformerLM  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.pipeline import BucketPolicy, SchedulePipeline  # noqa: E402
 from repro_torch.obs.registry import get_registry  # noqa: E402
 from repro_torch.serve import (AdmissionPolicy,  # noqa: E402
                                ContinuousBatchEngine, ContinuousRequest,
-                               StructureRequest, StructureServeEngine,
-                               VertexRequest, VertexServeEngine)
+                               Request, ServeEngine, StructureRequest,
+                               StructureServeEngine, VertexRequest,
+                               VertexServeEngine)
 
 
 # ---------------------------------------------------------------------------
@@ -893,7 +928,9 @@ PROFILE_GROUPS = {
     "K7 scatter-add": ("panel_count_kernel", "panel_fill_kernel",
                        "panel_add_kernel"),
     "K6 row gather/scatter": ("gather_rows_kernel", "scatter_rows_kernel"),
-    "matmul": ("gemm", "Gemm", "cutlass", "xmma"),
+    "K10/K11 attention": ("flash_attention_kernel",
+                          "decode_attention_kernel"),
+    "matmul": ("gemm", "Gemm", "cutlass", "xmma", "nvjet"),
     "copy and fill": ("Memcpy", "Memset", "copy", "fill")}
 
 
@@ -1325,9 +1362,11 @@ def device_ms_per_call(calls, reps: int = 5) -> float:
         on_card = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA]
         # Every call puts at least one operation on the card; a session
-        # that recorded fewer lost events and is taken again.
+        # that recorded fewer lost events and is taken again, unless it
+        # lost at most 1 % of them (CUPTI can drop the first few of a
+        # session), which biases the mean low by as much.
         seen = sum(e.count for e in on_card)
-        if seen >= n:
+        if seen >= n - n // 100:
             return sum(e.self_device_time_total for e in on_card) / 1e3 / n
     fail(f"torch.profiler recorded {seen} device operations for {n} calls "
          f"in three sessions")
@@ -2393,6 +2432,558 @@ def op_by_op_phase(card: str, serve: dict, decode: dict) -> dict:
             "decode": dec, "serial": serial}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: LM serving (K10 flash attention, K11 decode attention)
+# ---------------------------------------------------------------------------
+
+#: The served LM at full width and depth, its slot pool and its traffic:
+#: prompt lengths from ``default_rng(0)`` in ``LM_PROMPT_RANGE``, the
+#: second half submitted after ``LM_STAGGER`` ticks.
+LM_ARCH, LM_SLOTS, LM_MAX_LEN = "granite-3-8b", 8, 1024
+LM_REQUESTS, LM_NEW, LM_PROMPT_RANGE, LM_STAGGER = 16, 32, (16, 600), 4
+#: Kernel against plain: bar relative to max |plain| by type, the plain
+#: version computing in f32 on f32 copies of the inputs.
+ATTN_BARS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+#: Served logits against a full recompute, relative to max |logit|; a
+#: token whose recompute top-2 margin is wider than LM_MARGIN must match.
+#: The logit bar sits above the bf16 model's own noise: on the H100 the
+#: bf16 recompute is 2.19e-2 of max |logit| from an f32 recompute of the
+#: same weights, and the served path 2.36e-2 from the bf16 recompute (p50
+#: 1.62e-2); a serving fault (a cache row, a position, a mask) is O(1).
+#: LM_FLOOR_RATIO: the served path may be at most that much farther from
+#: the f32 recompute than the bf16 recompute is.
+LM_LOGIT_TOL, LM_MARGIN, LM_FLOOR_RATIO = 3e-2, 4e-2, 1.25
+#: K10 (B, Hq, Hkv, Sq, Sk, D, causal, window) and K11 (B, Hq, Hkv, S, D,
+#: kv_len, window) edge cases, each at f32 and bf16.
+K10_EDGES = ((1, 32, 8, 1, 1, 128, True, None),
+             (2, 4, 4, 40, 72, 64, False, None),
+             (1, 8, 2, 96, 96, 64, True, 24),
+             (2, 32, 8, 100, 100, 128, True, None),
+             (1, 16, 2, 33, 65, 80, True, None),
+             (1, 32, 8, 1024, 1024, 128, True, None))
+K11_EDGES = ((8, 32, 8, 1024, 128, (1, 17, 600, 1024, 2, 333, 64, 1000),
+              None),
+             (3, 4, 4, 33, 64, (33, 16, 1), None),
+             (2, 8, 2, 100, 64, (100, 41), 24),
+             (2, 24, 2, 50, 80, (50, 7), None))
+ATTN_REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:88",
+    "decode_attention": "src/repro/kernels/decode_attention.py:70"}
+
+
+def attn_plain(name: str, args, kw) -> torch.Tensor:
+    """The plain version of K10/K11 on f32 copies of the inputs."""
+    q, k, v = (t.float() for t in args)
+    if name == "flash_attention":
+        return ref.mha(q, k, v, **kw)
+    return ref.decode_attention(q, k, v, **kw)
+
+
+def attn_kernel(name: str):
+    return flash.flash_attention if name == "flash_attention" \
+        else decattn.decode_attention
+
+
+def attn_check(name: str, args, kw, twice: bool = True) -> tuple:
+    """Kernel ``name`` against its plain version on ``args``: finite, two
+    launches bitwise equal (``twice``), error within the type's bar.
+    Returns (max abs err, err / max |plain|)."""
+    got = attn_kernel(name)(*args, **kw)
+    again = attn_kernel(name)(*args, **kw) if twice else got
+    want = attn_plain(name, args, kw)
+    torch.cuda.synchronize()
+    check(torch.equal(_bits(got), _bits(again)),
+          f"{name}: two launches on the same inputs differ")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    err = float((got.float() - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    check(rel <= ATTN_BARS[args[0].dtype], f"{name} disagrees with its "
+          f"plain version: {rel:.3e} of max |plain| at "
+          f"{[tuple(a.shape) for a in args]} {args[0].dtype} {kw}")
+    return err, rel
+
+
+def attn_edges_check() -> dict:
+    """Both kernels on the edge cases of ``K10_EDGES``/``K11_EDGES``."""
+    gen = torch.Generator().manual_seed(1010)
+    out = {"flash_attention": (0.0, 0.0), "decode_attention": (0.0, 0.0)}
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen).to(DEVICE, dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Hq, Hkv, Sq, Sk, D, causal, window in K10_EDGES:
+            q = randn(B, Sq, Hq, D, dtype=dtype).transpose(1, 2)
+            k, v = randn(B, Hkv, Sk, D, dtype=dtype), \
+                randn(B, Hkv, Sk, D, dtype=dtype)
+            e = attn_check("flash_attention", (q, k, v),
+                           {"causal": causal, "window": window})
+            out["flash_attention"] = tuple(map(max, out["flash_attention"],
+                                               e))
+        for B, Hq, Hkv, S, D, kvl, window in K11_EDGES:
+            q = randn(B, Hq, D, dtype=dtype)
+            k, v = randn(B, Hkv, S, D, dtype=dtype), \
+                randn(B, Hkv, S, D, dtype=dtype)
+            kv_len = torch.tensor(kvl, dtype=torch.int32, device=DEVICE)
+            e = attn_check("decode_attention", (q, k, v),
+                           {"kv_len": kv_len, "window": window})
+            out["decode_attention"] = tuple(map(max, out["decode_attention"],
+                                                e))
+    for name, (err, rel) in out.items():
+        print(f"{name} vs plain, edge cases (f32 and bf16): max_abs_err "
+              f"{err:.3e}, {rel:.3e} of max |plain|")
+    return out
+
+
+def attn_bound_ms(name: str, args, kw) -> tuple:
+    """Least time of one K10/K11 launch on ``args``: QK^T and PV over the
+    pairs of query and valid key this launch's data has (4 * D FLOPs a
+    pair a head) at 989 TFLOP/s bf16, against q, the valid K/V rows and
+    the output moved once at 3.35 TB/s.  Returns (bound_ms, bound_by,
+    flops, bytes)."""
+    q, k, v = args
+    e = q.element_size()
+    if name == "flash_attention":
+        B, Hq, Sq, D = q.shape
+        Hkv, Sk = k.shape[1], k.shape[2]
+        qpos = torch.arange(Sq)[:, None] + (Sk - Sq)
+        kpos = torch.arange(Sk)[None, :]
+        valid = torch.ones(Sq, Sk, dtype=torch.bool)
+        if kw.get("causal", True):
+            valid &= kpos <= qpos
+        if kw.get("window"):
+            valid &= kpos > qpos - kw["window"]
+        pairs = float(valid.sum()) * B * Hq
+        nbytes = e * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)
+    else:
+        B, Hq, D = q.shape
+        Hkv, S = k.shape[1], k.shape[2]
+        lens = kw["kv_len"].clamp(max=S).long().cpu()
+        if kw.get("window"):
+            lens = lens.clamp(max=kw["window"])
+        rows = float(lens.sum())
+        pairs = rows * Hq
+        nbytes = e * (2 * B * Hq * D + 2 * rows * Hkv * D) + 4 * B
+    flops = 4.0 * D * pairs
+    t_op, t_by = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
+            else "bytes", flops, nbytes)
+
+
+def sdpa_call(name: str, args, kw):
+    """One ``scaled_dot_product_attention`` computing what K10/K11 compute
+    on ``args`` (timed only; the port never calls it).  GQA by
+    ``enable_gqa`` where the installed torch has it, else by repeating
+    K/V; K11's ``kv_len`` as a boolean mask."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = "enable_gqa" in (sdpa.__doc__ or "")
+    q, k, v = args
+    g = q.shape[1] // k.shape[1]
+    if not gqa and g > 1:
+        k, v = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    extra = {"enable_gqa": True} if gqa else {}
+    if name == "flash_attention":
+        check(kw.get("window") is None and q.shape[2] == k.shape[2],
+              "the SDPA yardstick times square causal prefills only")
+        return lambda: sdpa(q, k, v, is_causal=kw.get("causal", True),
+                            **extra)
+    S = k.shape[2]
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < kw["kv_len"][:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    return lambda: sdpa(q4, k, v, attn_mask=mask, **extra)
+
+
+def lm_traffic(vocab: int):
+    rng = np.random.default_rng(0)
+    lo, hi = LM_PROMPT_RANGE
+    lens = rng.integers(lo, hi + 1, LM_REQUESTS)
+    return [Request(i, rng.integers(0, vocab, int(n)),
+                    max_new_tokens=LM_NEW) for i, n in enumerate(lens)]
+
+
+def lm_serve(model, params, reqs, ticks_out=None, engine=ServeEngine):
+    """The traffic through a fresh ``engine``: the first half at once, the
+    rest after ``LM_STAGGER`` ticks; returns the engine.  ``ticks_out``
+    collects (seconds, admitted a prompt) a tick."""
+    eng = engine(model, params, num_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    half, live = (len(reqs) + 1) // 2, 1
+    for r in reqs[:half]:
+        check(eng.submit(r), f"LM request rejected: {r.error}")
+    while True:
+        if half < len(reqs) and (eng.ticks >= LM_STAGGER or live == 0):
+            for r in reqs[half:]:
+                check(eng.submit(r), f"LM request rejected: {r.error}")
+            half = len(reqs)
+        n0 = lm.LAUNCHES["flash_attention"]
+        t0 = time.perf_counter()
+        live = eng.step()
+        if ticks_out is not None:
+            ticks_out.append((time.perf_counter() - t0,
+                              lm.LAUNCHES["flash_attention"] > n0))
+        if live == 0 and half == len(reqs):
+            return eng
+
+
+class KeepRows(ServeEngine):
+    """A ``ServeEngine`` that keeps every row of logits a token was drawn
+    from (``rows``: request id → one ``[vocab]`` f32 row a token)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.rows = {}
+
+    def _sample(self, logits, rids):
+        V = self.model.cfg.vocab
+        for i, rid in enumerate(rids):
+            if rid is not None:
+                self.rows.setdefault(rid, []).append(
+                    logits[i, :V].float().clone())
+        return super()._sample(logits, rids)
+
+
+def lm_recompute(model, params, reqs) -> dict:
+    """Each request's tokens teacher-forced through one ``trunk`` pass in
+    "train" mode over prompt + output: request id → the ``[n_out, vocab]``
+    f32 logits that predict its output tokens."""
+    V = model.cfg.vocab
+    out = {}
+    with torch.no_grad():
+        for r in reqs:
+            toks = list(map(int, r.prompt)) + r.output[:-1]
+            x = model.embed(params, torch.tensor([toks], device=DEVICE))
+            h, _ = model.trunk(params, x, mode="train",
+                               positions=torch.arange(len(toks),
+                                                      device=DEVICE))
+            out[r.request_id] = model.logits(
+                params, h)[0, len(r.prompt) - 1:, :V].float()
+    return out
+
+
+def logit_agreement(reqs, served: dict, want: dict) -> dict:
+    """Served rows against recomputed ones, request by request: each
+    row's max error relative to the request's max |logit| (worst, p50,
+    p99, and the step of the worst), the share of tokens equal to the
+    recompute's argmax, and whether every token whose recompute top-2
+    margin exceeds LM_MARGIN of max |logit| equals it."""
+    rel, agree, total, clear, clear_ok, worst_at = [], 0, 0, 0, True, None
+    for r in reqs:
+        got = torch.stack(served[r.request_id])
+        w = want[r.request_id]
+        check(got.shape == w.shape, f"request {r.request_id}: "
+              f"{tuple(got.shape)} served logits, {tuple(w.shape)} "
+              f"recomputed")
+        scale = float(w.abs().max())
+        row = ((got - w).abs().amax(dim=-1) / scale).cpu().numpy()
+        if not rel or row.max() > max(max(x) for x in rel):
+            worst_at = (r.request_id, int(row.argmax()), len(r.prompt))
+        rel.append(row)
+        top = w.topk(2, dim=-1)
+        sure = (top.values[:, 0] - top.values[:, 1]) > LM_MARGIN * scale
+        out = torch.tensor(r.output, device=w.device)
+        arg = top.indices[:, 0]
+        clear_ok &= bool((out[sure] == arg[sure]).all())
+        agree += int((out == arg).sum())
+        total += len(r.output)
+        clear += int(sure.sum())
+    rows = np.concatenate(rel)
+    return {"logit_err_rel": float(rows.max()),
+            "logit_err_rel_p50": float(np.percentile(rows, 50)),
+            "logit_err_rel_p99": float(np.percentile(rows, 99)),
+            "worst_at": worst_at, "tokens_agree": agree / total,
+            "tokens": total, "tokens_clear_margin": clear,
+            "clear_margin_tokens_agree": clear_ok}
+
+
+def lm_exact_f32_check() -> dict:
+    """``reduced(granite-3-8b)`` at f32 on the card: the engine's greedy
+    tokens equal a full recompute's exactly (``tests/test_serve.py``'s
+    assertion for the reference), with staggered admission."""
+    cfg = reduced(get_config(LM_ARCH))
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)), max_new_tokens=6)
+            for i, n in enumerate((3, 5, 4, 8, 13, 2))]
+    eng = ServeEngine(model, params, num_slots=2, max_len=32)
+    for r in reqs[:3]:
+        eng.submit(r)
+    eng.step()
+    for r in reqs[3:]:
+        eng.submit(r)
+    eng.run()
+    check(all(r.status == "ok" for r in reqs), "an f32 LM request failed")
+    with torch.no_grad():
+        for r in reqs:
+            toks, want = list(map(int, r.prompt)), []
+            for _ in range(len(r.output)):
+                x = model.embed(params, torch.tensor([toks], device=DEVICE))
+                h, _ = model.trunk(params, x, mode="train",
+                                   positions=torch.arange(len(toks),
+                                                          device=DEVICE))
+                want.append(int(torch.argmax(model.logits(params,
+                                                          h)[0, -1])))
+                toks.append(want[-1])
+            check(r.output == want, f"f32 request {r.request_id}: served "
+                  f"{r.output}, recompute {want}")
+    print(f"LM f32 ({cfg.name}): {len(reqs)} requests' greedy tokens equal "
+          f"a full recompute on the card")
+    return {"requests": len(reqs)}
+
+
+def attn_timings(name: str, calls) -> dict:
+    """K10/K11 re-run on the kept launches ``calls`` ((args, kw) pairs):
+    the worst error against the plain version, then the mean device time
+    a launch (``torch.profiler``) of the kernel, the plain version and
+    SDPA, and the mean data-aware bound."""
+    errs = [attn_check(name, a, kw, twice=False) for a, kw in calls]
+    bounds = [attn_bound_ms(name, a, kw) for a, kw in calls]
+    kern = [lambda a=a, kw=kw: attn_kernel(name)(*a, **kw) for a, kw in calls]
+    plain = [lambda a=a, kw=kw: attn_plain(name, a, kw) for a, kw in calls]
+    lib = [sdpa_call(name, a, kw) for a, kw in calls]
+    out = {"timed": len(calls),
+           "max_abs_err": max(e[0] for e in errs),
+           "max_rel_err": max(e[1] for e in errs),
+           "bound_ms": float(np.mean([b[0] for b in bounds])),
+           "flops": float(np.mean([b[2] for b in bounds])),
+           "bytes": float(np.mean([b[3] for b in bounds])),
+           "ms": device_ms_per_call(kern, reps=3),
+           "plain_ms": device_ms_per_call(plain, reps=1),
+           "library_ms": device_ms_per_call(lib, reps=3),
+           "issue_ms": float(np.mean([time_ms(k, 5, 1) for k in kern[:8]]))}
+    by_ops = sum(b[0] for b in bounds if b[1] == "operations")
+    out["bound_by"] = ("operations" if by_ops >= sum(b[0] for b in bounds) / 2
+                       else "bytes")
+    return out
+
+
+def lm_serving_phase(card: str) -> dict:
+    """granite-3-8b at full width and depth (bf16, weights from a CUDA
+    ``torch.Generator`` seed) served through ``ServeEngine``: the kernel
+    edge cases, the main path with its launch counts, a tapped re-run
+    (every ``TAP_EVERY``-th K10/K11 launch kept, checked and timed; every
+    sampled row of logits kept for the recompute), a profile of one warm
+    tick, and the f32 exactness check."""
+    edges = attn_edges_check()
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    model = TransformerLM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    L = len(model.descs)
+    # Warm the kernels, cuBLAS and the allocator on one short request.
+    lm_serve(model, params, [Request(i, np.arange(1, 20), max_new_tokens=2)
+                             for i in range(2)])
+
+    reqs = lm_traffic(cfg.vocab)
+    ticks = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm.reset_launches()
+    t0 = time.perf_counter()
+    eng = lm_serve(model, params, reqs, ticks)
+    wall = time.perf_counter() - t0
+    launches = dict(lm.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(r.status == "ok" for r in reqs), "an LM request did not end ok: "
+          + ", ".join(f"{r.request_id}:{r.status}:{r.error}" for r in reqs
+                      if r.status != "ok"))
+    check(launches == {"flash_attention": L * len(reqs),
+                       "decode_attention": L * eng.ticks},
+          f"LM launches {launches}: expected {L} K10 a prompt "
+          f"({len(reqs)} prompts) and {L} K11 a tick ({eng.ticks} ticks)")
+    tokens = sum(len(r.output) for r in reqs)
+    check(all(len(r.output) == LM_NEW for r in reqs),
+          "an LM request stopped short of its max_new_tokens")
+    decode_s = np.asarray([s for s, admitted in ticks if not admitted])
+    buckets = sorted({eng.bucket(len(r.prompt)) for r in reqs})
+
+    # Prefill time a bucket, outside the main path (host clock, synced).
+    prefill_ms = {}
+    with torch.no_grad():
+        for b in buckets:
+            toks = torch.ones((1, b), dtype=torch.long, device=DEVICE)
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                model.prefill(params, toks)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t1) * 1e3)
+            prefill_ms[b] = float(np.median(runs))
+
+    # The tapped re-run: the same traffic through a fresh engine.
+    kept = {"flash_attention": [], "decode_attention": []}
+    seen = {"flash_attention": 0, "decode_attention": 0}
+    inner = {"flash_attention": flash.flash_attention,
+             "decode_attention": decattn.decode_attention}
+
+    def tapper(name):
+        def tap(q, k, v, **kw):
+            if seen[name] % TAP_EVERY == 0:
+                if name == "decode_attention":
+                    m = int(kw["kv_len"].max())
+                    k, v = k[:, :, :m], v[:, :, :m]
+                    kw = dict(kw, kv_len=kw["kv_len"].clone())
+                kept[name].append(((q.clone(), k.clone(), v.clone()), kw))
+            seen[name] += 1
+            return inner[name](q, k, v, **kw)
+        return tap
+
+    flash.flash_attention = tapper("flash_attention")
+    decattn.decode_attention = tapper("decode_attention")
+    try:
+        reqs2 = lm_traffic(cfg.vocab)
+        served = lm_serve(model, params, reqs2, engine=KeepRows).rows
+    finally:
+        flash.flash_attention = inner["flash_attention"]
+        decattn.decode_attention = inner["decode_attention"]
+    check([r.output for r in reqs2] == [r.output for r in reqs],
+          "the tapped re-run served other tokens than the main path")
+    want = lm_recompute(model, params, reqs2)
+    recompute = logit_agreement(reqs2, served, want)
+    # The same weights in f32, one layer upcast at a time: how far the
+    # served path and the bf16 recompute each are from the f32 model.
+    m32 = TransformerLM(dataclasses.replace(cfg, param_dtype="float32",
+                                            compute_dtype="float32"))
+    p32 = {k: F32Layers(v) if k == "layers" else _f32(v)
+           for k, v in params.items()}
+    truth = lm_recompute(m32, p32, reqs2)
+    del p32
+    recompute["vs_f32"] = logit_agreement(reqs2, served, truth)
+    recompute["bf16_floor"] = logit_agreement(
+        reqs2, {rid: list(w) for rid, w in want.items()}, truth)
+    del served, want, truth
+    served_f32 = recompute["vs_f32"]["logit_err_rel"]
+    floor = recompute["bf16_floor"]["logit_err_rel"]
+    check(served_f32 <= LM_FLOOR_RATIO * floor, f"served logits are "
+          f"{served_f32:.3e} of max |logit| from an f32 recompute, more "
+          f"than {LM_FLOOR_RATIO} x the bf16 recompute's {floor:.3e}")
+    check(recompute["logit_err_rel"] <= LM_LOGIT_TOL, f"served logits vs "
+          f"full recompute: {recompute['logit_err_rel']:.3e} of max |logit| "
+          f"> {LM_LOGIT_TOL} (request, step, prompt length "
+          f"{recompute['worst_at']}; p50 {recompute['logit_err_rel_p50']:.3e},"
+          f" p99 {recompute['logit_err_rel_p99']:.3e})")
+    check(recompute["clear_margin_tokens_agree"], "a served token differs "
+          "from the recompute's argmax where its margin is clear")
+    timings = {n: attn_timings(n, kept[n]) for n in kept}
+    del kept
+    k10 = {}
+    for b in buckets:
+        toks = torch.ones((1, b), dtype=torch.long, device=DEVICE)
+        calls = []
+        orig = flash.flash_attention
+
+        def grab(q, k, v, **kw):
+            if not calls:                  # the first layer's launch
+                calls.append(((q.clone(), k.clone(), v.clone()), kw))
+            return orig(q, k, v, **kw)
+
+        flash.flash_attention = grab
+        try:
+            with torch.no_grad():
+                model.prefill(params, toks)
+        finally:
+            flash.flash_attention = orig
+        a, kw = calls[0]
+        k10[b] = {"ms": time_ms(lambda: orig(*a, **kw), 10, 2),
+                  "sdpa_ms": time_ms(sdpa_call("flash_attention", a, kw),
+                                     10, 2),
+                  "bound_ms": attn_bound_ms("flash_attention", a, kw)[0]}
+        del calls
+
+    # One warm tick under the profiler: eight requests decoding.
+    peng = ServeEngine(model, params, num_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    for r in lm_traffic(cfg.vocab)[:LM_SLOTS]:
+        peng.submit(r)
+    peng.step()
+    prof = profile_step(f"one warm LM decode tick ({LM_SLOTS} slots, {L} "
+                        f"layers)", peng.step)
+    del peng
+    exact = lm_exact_f32_check()
+
+    out = {"arch": LM_ARCH, "params": n_params, "layers": L,
+           "init_s": init_s, "requests": len(reqs), "tokens": tokens,
+           "ticks": eng.ticks, "wall_s": wall, "tokens_per_s": tokens / wall,
+           "tick_p50_ms": float(np.percentile(decode_s, 50) * 1e3),
+           "tick_p99_ms": float(np.percentile(decode_s, 99) * 1e3),
+           "prefill_ms": prefill_ms, "peak_bytes": peak,
+           "launches": launches, "edges": edges, "recompute": recompute,
+           "k10_buckets": k10, "timings": timings,
+           "profile": prof, "exact_f32": exact, "card": card}
+    print(f"LM serving: {json.dumps(out)}")
+    print(f"LM serving {LM_ARCH} ({n_params / 1e9:.2f} B params, bf16, init "
+          f"{init_s:.1f} s): {len(reqs)} requests, {tokens} tokens in "
+          f"{eng.ticks} ticks, {wall:.3f} s: {tokens / wall:.1f} tokens/s; "
+          f"decode tick p50 {out['tick_p50_ms']:.2f} ms, p99 "
+          f"{out['tick_p99_ms']:.2f} ms; peak {peak} B; prefill ms by bucket "
+          + ", ".join(f"{b}: {ms:.2f}" for b, ms in prefill_ms.items()))
+    print(f"LM served vs f32 recompute {served_f32:.3e} of max |logit|, "
+          f"bf16 recompute vs f32 {floor:.3e}")
+    print(f"LM tokens vs full recompute: logits within "
+          f"{recompute['logit_err_rel']:.3e} of max |logit| (p50 "
+          f"{recompute['logit_err_rel_p50']:.3e}, p99 "
+          f"{recompute['logit_err_rel_p99']:.3e}), "
+          f"{recompute['tokens_agree']:.1%} of {recompute['tokens']} tokens "
+          f"agree, all {recompute['tokens_clear_margin']} with a clear margin")
+    for b, t in k10.items():
+        print(f"flash_attention at a {b}-token prefill: {t['ms']:.4f} ms, "
+              f"SDPA {t['sdpa_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms")
+    for name, t in timings.items():
+        print(f"{name} on {t['timed']} kept launches: {t['ms']:.4f} ms a "
+              f"launch (device), plain {t['plain_ms']:.4f}, SDPA "
+              f"{t['library_ms']:.4f}, bound {t['bound_ms']:.5f} ms by "
+              f"{t['bound_by']}; back-to-back launches {t['issue_ms']:.4f} "
+              f"ms apart; max_abs_err {t['max_abs_err']:.3e} "
+              f"({t['max_rel_err']:.3e} of max |plain|)")
+    rows = []
+    for name, source in (("flash_attention", "flash_attention.cu"),
+                         ("decode_attention", "decode_attention.cu")):
+        t = timings[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": ATTN_REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(t["max_abs_err"], edges[name][0]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    out["rows"] = rows
+    return out
+
+
+class F32Layers:
+    """A model's ``layers`` upcast to f32 one layer at a time as the trunk
+    walks them (an f32 copy of all 40 granite layers would be 34 GB)."""
+
+    def __init__(self, layers):
+        self.layers = layers
+
+    def __iter__(self):
+        for layer in self.layers:
+            yield _f32(layer)
+
+
+def _f32(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.float()
+    return {k: _f32(v) for k, v in tree.items()}
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        for v in tree:
+            yield from _leaves(v)
+
+
 def main() -> None:
     dev = device_phase()
     kern = kernel_phase()
@@ -2410,6 +3001,7 @@ def main() -> None:
     chains = chain_serving_phase(dev["smi"])
     decode = [decode_phase(c, dev["smi"]) for c in ("lstm", "gru")]
     opbyop = op_by_op_phase(dev["smi"], serve, decode[0])
+    lmserve = lm_serving_phase(dev["smi"])
     row = {"name": "treelstm_megastep", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/treelstm_megastep.cu",
            "replaces": "src/repro/kernels/level_megastep.py:181",
@@ -2461,7 +3053,7 @@ def main() -> None:
             "ms": part["ms"], "plain_ms": part["plain_ms"],
             "bound_ms": part["bound_ms"], "bound_by": "bytes",
             "library_ms": part["library_ms"]})
-    rows += opbyop["rows"]
+    rows += opbyop["rows"] + lmserve["rows"]
     frontier = {"treelstm_megastep at the tree frontier": cont["megastep"],
                 "lstm_megastep at the chain frontier": chains["megastep"],
                 **{f"{d['kind']}_megastep at a decode tick": d["tick"]

@@ -28,9 +28,11 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 
 #: kernel name → (source file, C entry point, argtypes).  Every pointer
-#: and the stream are ``c_void_p`` so ctypes never cuts them to 32 bits.
+#: and the stream are ``c_void_p`` and every stride ``c_longlong``, so
+#: ctypes never cuts them to 32 bits.
 _CELL_FWD = [_P] * 7 + [_I] * 7 + [_P]
 _BWD = [_P] * 12 + [_I] * 8 + [_P]
 KERNELS: Dict[str, Tuple[str, str, List]] = {
@@ -57,6 +59,12 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
                        [_P] * 8 + [_I] * 14 + [_P]),
     "lstm_level_fused": ("lstm_level_fused.cu", "lstm_level_fused_launch",
                          [_P] * 7 + [_I] * 6 + [_P]),
+    "flash_attention": ("flash_attention.cu", "flash_attention_launch",
+                        [_P] * 4 + [_I] * 6 + [_L] * 9 + [_F] + [_I] * 3
+                        + [_P]),
+    "decode_attention": ("decode_attention.cu", "decode_attention_launch",
+                         [_P] * 5 + [_I] * 5 + [_L] * 8 + [_F] + [_I] * 2
+                         + [_P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

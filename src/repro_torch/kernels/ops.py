@@ -11,8 +11,9 @@ This is the only place that makes the choice: the kernels' wrappers
 (``level_megastep.MEGASTEPS``, ``level_megastep_bwd.bwd_megastep``,
 ``level_megastep_bwd.scatter_add_rows``, ``gather_scatter``'s
 ``gather_rows``/``scatter_rows``, ``cell_kernels``' ``lstm_gates``/
-``treelstm_gates`` and ``level_step.lstm_level_fused``) take CUDA tensors
-only.  Every megastep kind (``treelstm``, ``lstm``, ``gru``, ``treefc``)
+``treelstm_gates``, ``level_step.lstm_level_fused``,
+``flash_attention.flash_attention`` and
+``decode_attention.decode_attention``) take CUDA tensors only.  Every megastep kind (``treelstm``, ``lstm``, ``gru``, ``treefc``)
 has its kernels; an unknown kind raises ``ValueError`` on either device.
 The reference's ``impl=`` override is not ported.
 """
@@ -24,6 +25,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import cell_kernels as ck
+from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gather_scatter as gsc
 from repro_torch.kernels import level_megastep as lm
 from repro_torch.kernels import level_megastep_bwd as lmb
@@ -219,3 +222,34 @@ def scatter_add_rows(dst: torch.Tensor, idx: torch.Tensor,
         return ref.scatter_add_rows(dst, idx, rows)
     _tick("scatter_add_rows", "cuda")
     return lmb.scatter_add_rows(dst, idx, rows)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """``[B, Hq, Sq, D] x [B, Hkv, Sk, D]^2 -> [B, Hq, Sq, D]`` (K10):
+    GQA, ``causal`` with the ends aligned, sliding ``window``, ``scale``
+    (default ``D ** -0.5``); float32 math, ``q``'s type out."""
+    if not q.is_cuda:
+        _tick("attention", "ref")
+        return ref.mha(q, k, v, causal=causal, window=window, scale=scale)
+    _tick("attention", "cuda")
+    return fa.flash_attention(q, k, v, causal=causal, window=window,
+                              scale=scale)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     kv_len: Optional[torch.Tensor] = None,
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """``[B, Hq, D] x [B, Hkv, S, D]^2 -> [B, Hq, D]`` (K11): one token a
+    sequence against its cache, rows ``>= kv_len[b]`` masked (``kv_len``
+    ``[B]`` int32 on the tensors' device, default every row), ``window``,
+    GQA, ``scale`` (default ``D ** -0.5``)."""
+    if not q.is_cuda:
+        _tick("decode_attention", "ref")
+        return ref.decode_attention(q, k, v, kv_len=kv_len, window=window,
+                                    scale=scale)
+    _tick("decode_attention", "cuda")
+    return dec.decode_attention(q, k, v, kv_len=kv_len, window=window,
+                                scale=scale)

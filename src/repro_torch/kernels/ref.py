@@ -8,7 +8,7 @@ On a CPU tensor the ``ops`` dispatch runs them; on the card,
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -192,3 +192,79 @@ def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
                                  child_mask.to(g.dtype), weights)
     return scatter_add_rows(g, child_ids.reshape(-1),
                             g_child.reshape(M * A, S))
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA / SWA / causal) -- K10 and K11
+# ---------------------------------------------------------------------------
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            valid: torch.Tensor, scale: float) -> torch.Tensor:
+    """Softmax attention of ``q`` ``[B, Hq, Sq, D]`` over ``k``/``v``
+    ``[B, Hkv, Sk, D]`` (query head ``h`` reads KV head ``h // (Hq/Hkv)``)
+    where ``valid`` (broadcastable to ``[B, Hq, Sq, Sk]``) allows, all in
+    float32; a row with no valid key gives zeros, as the kernels write."""
+    g = q.shape[1] // k.shape[1]
+    kk = k.float().repeat_interleave(g, dim=1)
+    vv = v.float().repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    logits = logits.masked_fill(~valid, float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    w = torch.where(valid.any(dim=-1, keepdim=True), w, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", w, vv).to(q.dtype)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, window: Optional[int] = None,
+        scale: Optional[float] = None) -> torch.Tensor:
+    """Full-materialisation attention (K10's plain version).
+
+    ``q``: ``[B, Hq, Sq, D]``; ``k``/``v``: ``[B, Hkv, Sk, D]`` with
+    ``Hq % Hkv == 0`` (GQA).  ``causal`` aligns the ends: query ``i`` sits
+    at key position ``i + Sk - Sq`` and sees keys up to it.  ``window``:
+    a query at position ``p`` sees keys ``> p - window`` (SWA), with or
+    without ``causal``, as the Pallas kernel masks (the reference's
+    ``ref.mha`` applies it under ``causal`` only; no caller passes a
+    window without it).  ``scale`` defaults to ``D ** -0.5``.
+
+    Computed in float32 (the reference rounds the logits and the
+    probabilities to ``q``'s type first; at float32 the two agree);
+    returns ``q``'s type.  A query with no valid key (``Sq > Sk`` under
+    ``causal``) gives a zero row where the reference gives NaN."""
+    Sq, D = q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= kpos <= qpos
+    if window is not None:
+        valid &= kpos > qpos - window
+    return _attend(q, k, v, valid, scale)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     kv_len: Optional[torch.Tensor] = None,
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token decode attention over a KV cache (K11's plain
+    version).
+
+    ``q``: ``[B, Hq, D]``; ``k``/``v``: ``[B, Hkv, S, D]``; ``kv_len``:
+    ``[B]`` valid cache rows (default ``S``): row ``r`` of sequence ``b``
+    is attended iff ``r < kv_len[b]`` and, with ``window``,
+    ``r >= kv_len[b] - window``.  ``scale`` defaults to ``D ** -0.5``, as
+    the kernel's.  Float32 math, ``q``'s type out; a sequence with no
+    valid row gives zeros."""
+    B, _, D = q.shape
+    S = k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    last = (torch.full((B,), S, dtype=torch.int64, device=q.device)
+            if kv_len is None else kv_len.to(q.device).long())
+    pos = torch.arange(S, device=q.device)[None, :]
+    valid = pos < last[:, None]
+    if window is not None:
+        valid &= pos >= last[:, None] - window
+    return _attend(q[:, :, None, :], k, v, valid[:, None, None, :],
+                   scale)[:, :, 0, :]

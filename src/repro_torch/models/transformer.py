@@ -1,0 +1,223 @@
+"""Pattern-chain transformer LM, the dense-GQA part (port of
+``repro.models.transformer``).
+
+The reference stacks each pattern position's parameters across the
+repeats and runs the stack with one ``lax.scan``; the port keeps one
+parameter dict a layer and loops over the layers (PyTorch runs eagerly,
+so there is nothing to compile once).  The layer order is the
+reference's: the prologue, then the pattern repeated ``repeats`` times
+(:attr:`TransformerLM.descs`).
+
+Three modes, one code path (:meth:`TransformerLM.trunk`):
+
+  - ``train``:   full-sequence causal attention (K10 a layer), no cache;
+  - ``prefill``: as train, and returns each layer's KV cache;
+  - ``decode``:  one token a sequence against the caches (K11 a layer),
+                 written in place.
+
+Ported: attention mixers (``attn``, GQA with optional SWA and biases)
+with dense SwiGLU MLPs -- granite, stablelm, command-r, llama3.  Configs
+that need another mixer or MLP, cross-attention or an encoder raise
+``NotImplementedError`` naming the ROADMAP item that ports them.  The
+training loss (``loss``) and ``encode`` wait for LM training.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, BlockDesc, layer_plan
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (embed_init, rmsnorm, rmsnorm_init,
+                                       swiglu, swiglu_init)
+
+Params = Dict[str, Any]
+#: One dict a layer, ``{"attn": {"k", "v"}}``, every leaf ``[B, ...]``.
+Cache = List[Dict[str, Any]]
+
+#: What this slice does not run yet, and the ROADMAP.md item that ports it.
+NOT_PORTED = {
+    "mla": "queue 1, item 3 (Mamba, MoE and MLA through K12)",
+    "mamba": "queue 1, item 3 (Mamba, MoE and MLA through K12)",
+    "moe": "queue 1, item 3 (Mamba, MoE and MLA through K12)",
+    "none": "queue 1, item 3 (Mamba, MoE and MLA through K12)",
+    "cross": "queue 1, item 9 (cross-attention and encoder-decoder LMs)",
+    "enc_dec": "queue 1, item 9 (cross-attention and encoder-decoder LMs)",
+}
+
+
+def _attn_dims(cfg: ArchConfig) -> attn.AttnDims:
+    return attn.AttnDims(
+        d_model=cfg.d_model, n_q=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.dh, window=cfg.window, rope_theta=cfg.rope_theta,
+        bias=cfg.qkv_bias)
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+def check_ported(cfg: ArchConfig, desc: BlockDesc) -> None:
+    """Raise ``NotImplementedError`` for a block this port cannot run."""
+    for what in (desc.mixer if desc.mixer != "attn" else None,
+                 desc.mlp if desc.mlp != "dense" else None,
+                 "cross" if desc.cross else None,
+                 "enc_dec" if cfg.enc_dec else None):
+        if what is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: {what!r} blocks are not ported yet "
+                f"(ROADMAP.md {NOT_PORTED.get(what, 'queue 1')})")
+
+
+# ---------------------------------------------------------------------------
+# One block (attention + dense MLP), pre-norm residual
+# ---------------------------------------------------------------------------
+
+def block_init(generator: torch.Generator, cfg: ArchConfig, desc: BlockDesc,
+               device=None) -> Params:
+    check_ported(cfg, desc)
+    dt = dtype_of(cfg.param_dtype)
+    device = generator.device if device is None else device
+    return {"norm1": rmsnorm_init(cfg.d_model, dt, device),
+            "attn": attn.gqa_init(generator, _attn_dims(cfg), dt, device),
+            "norm2": rmsnorm_init(cfg.d_model, dt, device),
+            "mlp": swiglu_init(generator, cfg.d_model, cfg.d_ff, dt, device)}
+
+
+def block_cache(cfg: ArchConfig, desc: BlockDesc, batch: int, max_len: int,
+                *, dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
+    """Zeroed decode cache for one block.  SWA caches are rolling buffers
+    of ``window`` rows."""
+    check_ported(cfg, desc)
+    L = min(max_len, cfg.window) if cfg.window else max_len
+    return {"attn": attn.gqa_empty_cache(_attn_dims(cfg), batch, L, dtype,
+                                         device)}
+
+
+def block_apply(params: Params, x: torch.Tensor, desc: BlockDesc,
+                cfg: ArchConfig, *, mode: str,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[Dict[str, Any]] = None,
+                cache_pos: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """One pre-norm block.  Returns ``(x, cache)``: the block's fresh
+    (prefill) or updated (decode) cache, ``None`` in train mode."""
+    check_ported(cfg, desc)
+    h = rmsnorm(params["norm1"], x)
+    y, c = attn.gqa_apply(params["attn"], h, positions, dims=_attn_dims(cfg),
+                          mode=mode,
+                          cache=None if cache is None else cache["attn"],
+                          cache_pos=cache_pos)
+    x = x + y
+    x = x + swiglu(params["mlp"], rmsnorm(params["norm2"], x))
+    return x, (None if c is None else {"attn": c})
+
+
+# ---------------------------------------------------------------------------
+# The LM
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TransformerLM:
+    """Decoder-only LM over an :class:`ArchConfig` (attention + dense MLP
+    blocks).  Constructing it over a config with blocks this port does
+    not run raises ``NotImplementedError``."""
+
+    cfg: ArchConfig
+
+    def __post_init__(self):
+        for d in self.descs:
+            check_ported(self.cfg, d)
+
+    @property
+    def descs(self) -> List[BlockDesc]:
+        """One :class:`BlockDesc` a layer, in the reference's order."""
+        prologue, pattern, repeats = layer_plan(self.cfg)
+        return list(prologue) + list(pattern) * repeats
+
+    # -- init ----------------------------------------------------------------
+    def init(self, generator: torch.Generator, device="cuda") -> Params:
+        """Random weights from ``generator`` (drawn on its device; a CUDA
+        generator builds a full-size model on the card), at the config's
+        ``param_dtype`` on ``device``.  The vocab is padded to 256; the
+        pad rows are masked out of the logits."""
+        cfg = self.cfg
+        dt = dtype_of(cfg.param_dtype)
+        params: Params = {
+            "embed": embed_init(generator, cfg.vocab_padded, cfg.d_model, dt,
+                                device),
+            "final_norm": rmsnorm_init(cfg.d_model, dt, device)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = embed_init(generator, cfg.vocab_padded,
+                                           cfg.d_model, dt, device)
+        params["layers"] = [block_init(generator, cfg, d, device)
+                            for d in self.descs]
+        return params
+
+    # -- the trunk -----------------------------------------------------------
+    def trunk(self, params: Params, x: torch.Tensor, *, mode: str,
+              positions: Optional[torch.Tensor] = None,
+              cache: Optional[Cache] = None,
+              cache_pos: Optional[torch.Tensor] = None,
+              ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """Every layer in order; returns ``(x, cache)``, the cache a list
+        of one dict a layer (prefill, decode) or ``None`` (train)."""
+        new_cache: Optional[Cache] = [] if mode in ("prefill", "decode") \
+            else None
+        for i, (desc, layer) in enumerate(zip(self.descs, params["layers"])):
+            x, c = block_apply(layer, x, desc, self.cfg, mode=mode,
+                               positions=positions,
+                               cache=None if cache is None else cache[i],
+                               cache_pos=cache_pos)
+            if new_cache is not None:
+                new_cache.append(c)
+        return x, new_cache
+
+    # -- heads ---------------------------------------------------------------
+    def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """``[..., vocab_padded]`` at ``x``'s type; the pad columns are
+        -1e30, so no argmax or softmax lands on them."""
+        x = rmsnorm(params["final_norm"], x)
+        head = params["embed"] if self.cfg.tie_embeddings \
+            else params["lm_head"]
+        out = x @ head.t()
+        if self.cfg.vocab_padded != self.cfg.vocab:
+            out[..., self.cfg.vocab:] = -1e30
+        return out
+
+    def embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens].to(dtype_of(self.cfg.compute_dtype))
+
+    # -- serving -------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, *, dtype=None,
+                   device="cuda") -> Cache:
+        """Zeroed caches of ``batch`` sequences, one dict a layer, at the
+        config's ``compute_dtype`` unless ``dtype`` says otherwise."""
+        dtype = dtype or dtype_of(self.cfg.compute_dtype)
+        return [block_cache(self.cfg, d, batch, max_len, dtype=dtype,
+                            device=device) for d in self.descs]
+
+    def prefill(self, params: Params, tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, Cache]:
+        """Full-sequence pass over ``tokens`` ``[B, S]`` building the
+        caches; returns the last position's logits ``[B, V]`` and the
+        caches (``[B, n_kv, S, Dh]`` a layer)."""
+        S = tokens.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        x = self.embed(params, tokens)
+        x, cache = self.trunk(params, x, mode="prefill", positions=positions)
+        return self.logits(params, x[:, -1:, :])[:, 0], cache
+
+    def decode_step(self, params: Params, cache: Cache, tokens: torch.Tensor,
+                    positions: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+        """One new token a sequence.  ``tokens``: ``[B, 1]``;
+        ``positions``: ``[B]`` int32 absolute positions (= each cache's
+        fill).  The caches are written in place and returned."""
+        x = self.embed(params, tokens)
+        x, cache = self.trunk(params, x, mode="decode", cache=cache,
+                              cache_pos=positions)
+        return self.logits(params, x)[:, 0], cache

@@ -1,6 +1,9 @@
-"""Serving engines, port of ``repro.serve.engine`` (less the
-transformer ``ServeEngine``):
+"""Serving engines, port of ``repro.serve.engine``:
 
+  - :class:`ServeEngine` — transformer decode over a KV-cache slot pool
+    (``TransformerLM``; prompts bucketed to powers of two): on the card
+    a prompt's prefill is one K10 flash-attention launch a layer and a
+    tick one K11 decode-attention launch a layer;
   - :class:`VertexServeEngine` — the Cavs-native decode path for
     vertex-function sequence cells (LSTM/GRU): every engine tick is ONE
     batching task ``V_t`` over the slot pool, one megastep launch on the
@@ -56,9 +59,12 @@ from repro_torch.kernels import ops as kops
 from repro_torch.obs import trace
 from repro_torch.pipeline import (BucketPolicy, SchedulePipeline,
                                   graph_fingerprint)
+from repro_torch.models.readout import _sample, step_generator
+from repro_torch.serve.kv_cache import CacheSlots
 from repro_torch.serve.robustness import (ACTIVE, CircuitBreaker,
                                           RequestLifecycle,
                                           quarantine_bisect,
+                                          validate_prompt,
                                           validate_sequence,
                                           validate_structure)
 
@@ -133,6 +139,204 @@ class _EngineBase:
                 self.lifecycle.degradations += 1
                 self.last_degradation = repr(e)
         return oracle()
+
+
+# ---------------------------------------------------------------------------
+# Transformer decode over a KV-cache slot pool
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Request:
+    request_id: int
+    prompt: np.ndarray               # [prompt_len] int32
+    max_new_tokens: int = 32
+    eos_id: Optional[int] = None
+    ttl: Optional[float] = None      # seconds from submit to deadline
+    # -- filled by the engine ------------------------------------------
+    output: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    status: str = "new"              # lifecycle: serve/robustness.py
+    error: Optional[str] = None
+
+
+class ServeEngine(_EngineBase):
+    """Slot-pool continuous batching over a ``TransformerLM``.
+
+    ``model`` exposes ``prefill(params, tokens)`` → ``(last_logits,
+    cache)``, ``decode_step(params, cache, tokens, positions)`` →
+    ``(logits, cache)`` and ``init_cache(batch, max_len, device=)``.  The
+    engine runs on the device of ``params["embed"]``: on the card every
+    prompt's prefill is one K10 launch a layer and every tick one K11
+    launch a layer, over all ``num_slots`` slots (inactive slots compute
+    rows nobody reads, as in the reference).
+
+    Prompts are padded to a power-of-two bucket (at least 8 tokens): the
+    pad goes on the right, the request is admitted
+    at ``plen - 1`` and its last prompt token is replayed through the
+    first decode step, whose fresh K/V overwrites the first pad row while
+    ``kv_len`` masks the rest -- attention stays exact.  Greedy decoding
+    takes the argmax; sampling draws each token on the CPU from a
+    generator seeded by ``(seed, request_id, step)`` (``jax.random``
+    cannot be reproduced here).  There is no degradation ladder, as in
+    the reference: a kernel that fails fails the tick, and the error
+    propagates out of :meth:`step`.
+    """
+
+    def __init__(self, model, params, *, num_slots: int, max_len: int,
+                 greedy: bool = True, seed: int = 0,
+                 max_queue: Optional[int] = None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.model = model
+        self.params = params
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.greedy = greedy
+        self.seed = seed
+        self.device = params["embed"].device
+        cache = model.init_cache(num_slots, max_len, device=self.device)
+        self.slots = CacheSlots.create(cache, num_slots)
+        self.lifecycle = RequestLifecycle(max_queue=max_queue, clock=clock)
+        self._last_token = np.zeros(num_slots, np.int64)
+        self.ticks = 0
+        self._live_requests: Dict[int, Request] = {}
+
+    # -- ingress ------------------------------------------------------------
+    def submit(self, req: Request) -> bool:
+        """Validate + enqueue; returns False (and routes ``req`` to the
+        ``rejected`` terminal) on garbage input or a full queue.  Beyond
+        the reference's checks, a token outside the padded vocab is
+        rejected: on the card the embedding lookup would fault the
+        device."""
+        err = validate_prompt(req.prompt, self.max_len, req.max_new_tokens)
+        vocab = self.params["embed"].shape[0]
+        if err is None and int(np.max(req.prompt)) >= vocab:
+            err = f"prompt contains token ids >= the vocab ({vocab})"
+        return self.lifecycle.submit(req, err)
+
+    # -- one engine tick -----------------------------------------------------
+    @torch.no_grad()
+    def step(self) -> int:
+        """Admit + decode one token for all active slots.  Returns the
+        number of live requests after the tick."""
+        self.lifecycle.sweep_deadlines()
+        self._retire_expired()
+        self._admit()
+        if self.slots.num_active == 0:
+            return len(self.queue)
+        tokens = torch.from_numpy(self._last_token.copy()) \
+            .to(self.device)[:, None]
+        positions = self.slots.positions_device(self.device)
+        with trace.span("serve.decode", active=int(self.slots.num_active)):
+            logits, self.slots.cache = self.model.decode_step(
+                self.params, self.slots.cache, tokens, positions)
+            trace.maybe_block(logits)
+        next_tok = self._sample(logits, [
+            self.slots.request_of[s] if self.slots.active[s] else None
+            for s in range(self.num_slots)])
+        self.slots.advance()
+        self.ticks += 1
+
+        for slot in range(self.num_slots):
+            if not self.slots.active[slot]:
+                continue
+            req = self._live_requests[self.slots.request_of[slot]]
+            tok = int(next_tok[slot])
+            req.output.append(tok)
+            self._last_token[slot] = tok
+            stop = (req.eos_id is not None and tok == req.eos_id) or \
+                len(req.output) >= req.max_new_tokens or \
+                int(self.slots.positions[slot]) >= self.max_len
+            if stop:
+                self._live_requests.pop(req.request_id, None)
+                self.lifecycle.finish_ok(req)
+                self.slots.retire(slot)
+            elif self.lifecycle.expired(req):
+                # In-flight deadline: retire with whatever decoded so far.
+                self._live_requests.pop(req.request_id, None)
+                self.lifecycle.finish_timeout(req)
+                self.slots.retire(slot)
+        return self.slots.num_active + len(self.queue)
+
+    def run(self, max_ticks: int = 10_000) -> List[Request]:
+        """Drain the queue; returns finished requests."""
+        for _ in range(max_ticks):
+            if self.step() == 0 and not self.queue:
+                break
+        return self.finished
+
+    # -- internals -----------------------------------------------------------
+    def _retire_expired(self) -> None:
+        """Retire in-flight requests whose deadline passed between ticks
+        (partial output stays on the request)."""
+        for slot in range(self.num_slots):
+            if not self.slots.active[slot]:
+                continue
+            req = self._live_requests[self.slots.request_of[slot]]
+            if self.lifecycle.expired(req):
+                self._live_requests.pop(req.request_id, None)
+                self.lifecycle.finish_timeout(req)
+                self.slots.retire(slot)
+
+    def _admit(self) -> None:
+        free = self.slots.free_slots()
+        while free and self.queue:
+            slot = free.pop(0)
+            req = self.queue.pop(0)
+            req.status = ACTIVE
+            with trace.correlate(request=req.request_id), \
+                    trace.span("serve.prefill", slot=slot,
+                               prompt_len=len(req.prompt)):
+                self._admit_one(slot, req)
+
+    @staticmethod
+    def bucket(plen: int) -> int:
+        """The prefill length of a prompt of ``plen`` tokens.  Exact for
+        attention caches, which ``kv_len`` masks; a recurrent state
+        (Mamba, ROADMAP queue 1 item 3) will need the reference's
+        ``pad_prompts=False``."""
+        return max(8, 1 << (plen - 1).bit_length())
+
+    def _admit_one(self, slot: int, req: Request) -> None:
+        plen = len(req.prompt)
+        prompt = np.asarray(req.prompt, np.int64)
+        bucket = self.bucket(plen)
+        padded = np.concatenate([prompt, np.zeros(bucket - plen, np.int64)])
+        logits, cache1 = self.model.prefill(
+            self.params, torch.from_numpy(padded).to(self.device)[None, :])
+        if bucket == plen:
+            # A prompt of a bucket's length: the prefilled cache already
+            # holds the last token; the first output token comes from the
+            # prefill logits.
+            self.slots.admit(slot, req.request_id, cache1, prompt_len=plen)
+            tok = int(self._sample(logits, [req.request_id])[0])
+            req.output.append(tok)
+            self._last_token[slot] = tok
+        else:
+            # Padded prompt: admit at plen - 1 and replay the final prompt
+            # token through the decode step.
+            self.slots.admit(slot, req.request_id, cache1,
+                             prompt_len=plen - 1)
+            self._last_token[slot] = int(prompt[-1])
+        self._live_requests[req.request_id] = req
+
+    def _sample(self, logits: torch.Tensor,
+                request_ids: List[Optional[int]]) -> np.ndarray:
+        """One token a row of ``logits`` ``[n, V]``: the argmax, or (not
+        ``greedy``) a draw for row ``i`` of request ``request_ids[i]`` at
+        its next step (rows of ``None`` get the argmax)."""
+        toks = torch.argmax(logits, dim=-1).cpu().numpy()
+        if not self.greedy:
+            for i, rid in enumerate(request_ids):
+                if rid is not None:
+                    step = len(self._live_requests[rid].output) \
+                        if rid in self._live_requests else 0
+                    toks[i] = _sample(logits[i], step_generator(
+                        (self.seed, rid), step))
+        return toks
+
+    def _health_extra(self) -> Dict[str, Any]:
+        return {"active_slots": int(self.slots.num_active),
+                "num_slots": self.num_slots, "ticks": self.ticks}
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,5 @@
 """Request-lifecycle guards for the serve engines (the robustness layer),
-a port of ``repro.serve.robustness`` (NumPy only; the prompt validator
-waits for the token engine that uses it).
+a port of ``repro.serve.robustness`` (NumPy only).
 
 Production serving means adversarial per-example structure: malformed
 graphs, NaN payloads, unbounded queues, requests whose callers stopped
@@ -258,6 +257,25 @@ def validate_sequence(inputs: np.ndarray,
         return (f"input dim {inputs.shape[1]} != vertex input_dim "
                 f"{input_dim}")
     return validate_finite(inputs)
+
+
+def validate_prompt(prompt: np.ndarray, max_len: int,
+                    max_new_tokens: int) -> Optional[str]:
+    """Submit-time validation of a token-prompt request."""
+    prompt = np.asarray(prompt)
+    if prompt.ndim != 1 or prompt.shape[0] < 1:
+        return f"prompt must be a non-empty 1-D token array, got " \
+               f"shape {prompt.shape}"
+    if not np.issubdtype(prompt.dtype, np.integer):
+        return f"prompt must be integer tokens, got dtype {prompt.dtype}"
+    if (prompt < 0).any():
+        return "prompt contains negative token ids"
+    if prompt.shape[0] >= max_len:
+        return (f"prompt length {prompt.shape[0]} >= engine max_len "
+                f"{max_len}")
+    if max_new_tokens < 1:
+        return f"max_new_tokens must be >= 1, got {max_new_tokens}"
+    return None
 
 
 # -- poison quarantine -------------------------------------------------------

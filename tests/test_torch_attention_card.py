@@ -1,0 +1,161 @@
+"""The attention kernels on the card: K10 ``flash_attention`` and K11
+``decode_attention`` against their plain versions (``ref.mha``,
+``ref.decode_attention``, computing in float32 on float32 copies of the
+inputs) at edge shapes -- Sq 1, Sq != Sk without ``causal``, a window of
+24, Hq = Hkv and GQA groups up to 8, head dims 64, 80 and 128, lengths no
+multiple of a tile, ``kv_len`` 1 and ragged, float32 and bf16 -- two
+launches bitwise equal, the wrappers refusing a gradient, and the launch
+counts of ``ServeEngine`` over a small LM on the card (one K10 a layer a
+prompt, one K11 a layer a tick) with its greedy tokens equal to a full
+recompute.  Every test here is ``gpu``-marked and skips inside its body
+where there is no card; none needs JAX, which the GPU machine lacks.
+
+Bars: 1e-5 of max |plain| at float32 (the kernels sum in another order)
+and 1e-2 at bf16 (one bf16 rounding of the output, and the operands'
+own bf16 rounding, which the plain version sees too)."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.archs import reduced
+from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import level_megastep as lm
+from repro_torch.kernels import ref
+from repro_torch.models.transformer import TransformerLM
+from repro_torch.serve import Request, ServeEngine
+
+BARS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def _randn(gen, *shape, dtype):
+    return torch.randn(shape, generator=gen).to("cuda", dtype)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _check(got, again, want, dtype):
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(again)), "two launches differ"
+    assert torch.isfinite(got).all()
+    err = float((got.float() - want).abs().max())
+    assert err <= BARS[dtype] * float(want.abs().max()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", [
+    (1, 32, 8, 1, 1, 128, True, None),        # Sq 1
+    (2, 4, 4, 40, 72, 64, False, None),       # Sq != Sk, not causal
+    (1, 8, 2, 96, 96, 64, True, 24),          # window 24
+    (2, 32, 8, 100, 100, 128, True, None),    # group 4, ragged tiles
+    (1, 16, 2, 33, 65, 80, True, None),       # group 8, D 80
+    (1, 32, 8, 1024, 1024, 128, True, None),  # a full prefill bucket
+])
+def test_flash_attention_matches_plain(dt, B, Hq, Hkv, Sq, Sk, D, causal,
+                                       window):
+    _need_card()
+    dtype = DTYPES[dt]
+    gen = torch.Generator().manual_seed(Sq * 7 + D)
+    q = _randn(gen, B, Sq, Hq, D, dtype=dtype).transpose(1, 2)  # a view
+    k, v = (_randn(gen, B, Hkv, Sk, D, dtype=dtype) for _ in range(2))
+    run = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                     window=window)
+    want = ref.mha(q.float(), k.float(), v.float(), causal=causal,
+                   window=window)
+    _check(run(), run(), want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,kv_len,window", [
+    (8, 32, 8, 1024, 128, [1, 17, 600, 1024, 2, 333, 64, 1000], None),
+    (3, 4, 4, 33, 64, [33, 16, 1], None),     # Hq = Hkv, kv_len 1
+    (2, 8, 2, 100, 64, [100, 41], 24),         # window 24
+    (2, 24, 2, 50, 80, [50, 7], None),         # group 12: two CTAs a head
+])
+def test_decode_attention_matches_plain(dt, B, Hq, Hkv, S, D, kv_len,
+                                        window):
+    _need_card()
+    dtype = DTYPES[dt]
+    gen = torch.Generator().manual_seed(S + D)
+    q = _randn(gen, B, Hq, D, dtype=dtype)
+    k, v = (_randn(gen, B, Hkv, S, D, dtype=dtype) for _ in range(2))
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    run = lambda: dec.decode_attention(q, k, v, kv_len=kvl,  # noqa: E731
+                                       window=window)
+    want = ref.decode_attention(q.float(), k.float(), v.float(), kv_len=kvl,
+                                window=window)
+    _check(run(), run(), want, dtype)
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_grad_and_bad_operands():
+    _need_card()
+    q = torch.randn(1, 4, 8, 64, device="cuda", requires_grad=True)
+    k = torch.randn(1, 2, 8, 64, device="cuda")
+    with pytest.raises(NotImplementedError, match="forward only"):
+        fa.flash_attention(q, k, k)
+    with torch.no_grad():
+        fa.flash_attention(q, k, k)
+    k3 = torch.randn(1, 3, 8, 64, device="cuda")
+    with pytest.raises(ValueError, match="fold"):
+        fa.flash_attention(q.detach(), k3, k3)
+    with pytest.raises(TypeError):
+        dec.decode_attention(q.detach()[:, :, 0], k.half(), k.half())
+    with pytest.raises(ValueError, match="kv_len"):
+        dec.decode_attention(q.detach()[:, :, 0], k, k,
+                             kv_len=torch.ones(1, dtype=torch.int64,
+                                               device="cuda"))
+
+
+@pytest.mark.gpu
+def test_serve_engine_launches_and_tokens_on_the_card():
+    """A small f32 LM served on the card: one K10 launch a layer a prompt,
+    one K11 a layer a tick, and every request's greedy tokens equal to a
+    full recompute on the card."""
+    _need_card()
+    cfg = reduced(get_config("granite-3-8b"))
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
+    eng = ServeEngine(model, params, num_slots=4, max_len=64)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)), max_new_tokens=6)
+            for i, n in enumerate((3, 9, 16, 30, 5))]
+    for r in reqs:
+        assert eng.submit(r)
+    lm.reset_launches()
+    done = eng.run()
+    L = cfg.num_layers
+    assert lm.LAUNCHES["flash_attention"] == L * len(reqs)
+    assert lm.LAUNCHES["decode_attention"] == L * eng.ticks
+    assert all(r.status == "ok" for r in done)
+    with torch.no_grad():
+        for r in done:
+            toks = [int(t) for t in r.prompt]
+            for want in r.output:
+                x = model.embed(params, torch.tensor([toks], device="cuda"))
+                h, _ = model.trunk(params, x, mode="train",
+                                   positions=torch.arange(len(toks),
+                                                          device="cuda"))
+                assert int(torch.argmax(model.logits(params, h)[0, -1])) \
+                    == want
+                toks.append(want)

@@ -28,6 +28,20 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path}: {bad}"
 
 
+
+def test_sources_cover_the_lm_serving_slice():
+    """The globs above reach every module of the LM-serving slice, its
+    configs and its example."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for rel in ("models/attention.py", "models/transformer.py",
+                "models/layers.py", "serve/kv_cache.py", "serve/engine.py",
+                "kernels/flash_attention.py", "kernels/decode_attention.py",
+                "configs/base.py", "configs/archs.py",
+                "configs/granite_3_8b.py", "configs/stablelm_3b.py",
+                "interop.py"):
+        assert f"src/repro_torch/{rel}" in names, rel
+    assert "examples/torch_serve_lm.py" in names
+
 def test_port_imports_with_jax_blocked():
     modules = sorted(
         ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("")
