@@ -134,7 +134,29 @@ Phases, each of which must pass (any failure exits non-zero):
      A profile of one warm decode tick; and ``reduced(granite-3-8b)`` at
      f32 served on the card must give a full recompute's greedy tokens
      exactly;
-  16. report — one JSON line per the kernel table, then the device line.
+  16. Mamba-2 serving — K12 ``ssd_chunk_scan`` against its plain version
+     on the card (f32 and bf16; chunks of 128, 37 and 1, N 16 and 128, 1,
+     30 and 32 heads, x/B/C strided views of one ``xBC`` tensor: within
+     1e-5 of max |plain| at f32 and 1e-2 with bf16 inputs; two launches
+     bitwise equal; ``ops.ssd`` with padding, ``D`` and an initial state
+     against the CPU composition; a backward refused); then mamba2-370m
+     at full width and depth (48 Mamba blocks, d_model 1,024, 32 heads of
+     64, state 128, chunk 128, vocab 50,280; f32 weights from a CUDA
+     ``torch.Generator`` seed 0) served by ``ServeEngine(pad_prompts=
+     False)`` (8 slots, ``max_len`` 1,024, greedy): the LM phase's 16
+     requests and four of 1, 2, 128 and 256 prompt tokens.  Launch counts
+     set to 0 just before and read just after: exactly 48 K12 launches a
+     prompt, none a tick, no K10/K11; every request ``ok``; tokens/s,
+     decode tick p50/p99, prefill ms by prompt length, peak memory.  A
+     tapped re-run keeps every ``TAP_EVERY``-th K12 launch (re-run against
+     the plain version, timed by ``torch.profiler`` beside its bound --
+     67 TFLOP/s fp32 against 3.35 TB/s) and every row of logits a token
+     was drawn from: each request teacher-forced through ``trunk`` in
+     "train" mode must give logits within 1e-4 of max |logit| and the
+     same token wherever its top-2 margin exceeds 2e-4.  A profile of
+     one warm decode tick; ``reduced(mamba2-370m)`` at f32 served on the
+     card must give a full recompute's greedy tokens exactly;
+  17. report — one JSON line per the kernel table, then the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -204,6 +226,7 @@ from repro_torch.kernels import gather_scatter as lmgs  # noqa: E402
 from repro_torch.kernels import level_megastep as lm  # noqa: E402
 from repro_torch.kernels import level_megastep_bwd as lmb  # noqa: E402
 from repro_torch.kernels import level_step as ls  # noqa: E402
+from repro_torch.kernels import mamba_ssd as mssd  # noqa: E402
 from repro_torch.models.readout import (ClassificationHead,  # noqa: E402
                                         TokenReadout)
 from repro_torch.models.rnn import GRUVertex  # noqa: E402
@@ -930,6 +953,7 @@ PROFILE_GROUPS = {
     "K6 row gather/scatter": ("gather_rows_kernel", "scatter_rows_kernel"),
     "K10/K11 attention": ("flash_attention_kernel",
                           "decode_attention_kernel"),
+    "K12 SSD chunk scan": ("ssd_chunk_kernel",),
     "matmul": ("gemm", "Gemm", "cutlass", "xmma", "nvjet"),
     "copy and fill": ("Memcpy", "Memset", "copy", "fill")}
 
@@ -1341,6 +1365,11 @@ def check_scatter(dst, ids, rows, label: str) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+#: Spin kernels launched at the start of each profiler session of
+#: ``device_ms_per_call`` and left out of its sum.
+PRIMER_LAUNCHES = 8
+
+
 def device_ms_per_call(calls, reps: int = 5) -> float:
     """Mean time the card spends per call over ``calls`` (functions that
     launch work), summed from ``torch.profiler``'s device times.  A K6
@@ -1355,16 +1384,20 @@ def device_ms_per_call(calls, reps: int = 5) -> float:
     for _attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # CUPTI can drop the first few events of a session: a primer
+            # of spin kernels, left out of the sum, takes that loss.
+            for _ in range(PRIMER_LAUNCHES):
+                torch.cuda._sleep(1000)
             for _ in range(reps):
                 for c in calls:
                     c()
             torch.cuda.synchronize()
         on_card = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
+                   if e.device_type == DeviceType.CUDA
+                   and "spin_kernel" not in e.key]
         # Every call puts at least one operation on the card; a session
         # that recorded fewer lost events and is taken again, unless it
-        # lost at most 1 % of them (CUPTI can drop the first few of a
-        # session), which biases the mean low by as much.
+        # lost at most 1 % of them, which biases the mean low by as much.
         seen = sum(e.count for e in on_card)
         if seen >= n - n // 100:
             return sum(e.self_device_time_total for e in on_card) / 1e3 / n
@@ -2602,11 +2635,15 @@ def lm_traffic(vocab: int):
                     max_new_tokens=LM_NEW) for i, n in enumerate(lens)]
 
 
-def lm_serve(model, params, reqs, ticks_out=None, engine=ServeEngine):
-    """The traffic through a fresh ``engine``: the first half at once, the
-    rest after ``LM_STAGGER`` ticks; returns the engine.  ``ticks_out``
-    collects (seconds, admitted a prompt) a tick."""
-    eng = engine(model, params, num_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+def lm_serve(model, params, reqs, ticks_out=None, engine=ServeEngine,
+             prefill_kernel="flash_attention", **kw):
+    """The traffic through a fresh ``engine`` (``kw`` to its constructor):
+    the first half at once, the rest after ``LM_STAGGER`` ticks; returns
+    the engine.  ``ticks_out`` collects (seconds, admitted a prompt) a
+    tick, a tick that launched ``prefill_kernel`` counting as one that
+    admitted."""
+    eng = engine(model, params, num_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                 **kw)
     half, live = (len(reqs) + 1) // 2, 1
     for r in reqs[:half]:
         check(eng.submit(r), f"LM request rejected: {r.error}")
@@ -2615,12 +2652,12 @@ def lm_serve(model, params, reqs, ticks_out=None, engine=ServeEngine):
             for r in reqs[half:]:
                 check(eng.submit(r), f"LM request rejected: {r.error}")
             half = len(reqs)
-        n0 = lm.LAUNCHES["flash_attention"]
+        n0 = lm.LAUNCHES[prefill_kernel]
         t0 = time.perf_counter()
         live = eng.step()
         if ticks_out is not None:
             ticks_out.append((time.perf_counter() - t0,
-                              lm.LAUNCHES["flash_attention"] > n0))
+                              lm.LAUNCHES[prefill_kernel] > n0))
         if live == 0 and half == len(reqs):
             return eng
 
@@ -2660,12 +2697,13 @@ def lm_recompute(model, params, reqs) -> dict:
     return out
 
 
-def logit_agreement(reqs, served: dict, want: dict) -> dict:
+def logit_agreement(reqs, served: dict, want: dict,
+                    margin: float = LM_MARGIN) -> dict:
     """Served rows against recomputed ones, request by request: each
     row's max error relative to the request's max |logit| (worst, p50,
     p99, and the step of the worst), the share of tokens equal to the
     recompute's argmax, and whether every token whose recompute top-2
-    margin exceeds LM_MARGIN of max |logit| equals it."""
+    margin exceeds ``margin`` of max |logit| equals it."""
     rel, agree, total, clear, clear_ok, worst_at = [], 0, 0, 0, True, None
     for r in reqs:
         got = torch.stack(served[r.request_id])
@@ -2679,7 +2717,7 @@ def logit_agreement(reqs, served: dict, want: dict) -> dict:
             worst_at = (r.request_id, int(row.argmax()), len(r.prompt))
         rel.append(row)
         top = w.topk(2, dim=-1)
-        sure = (top.values[:, 0] - top.values[:, 1]) > LM_MARGIN * scale
+        sure = (top.values[:, 0] - top.values[:, 1]) > margin * scale
         out = torch.tensor(r.output, device=w.device)
         arg = top.indices[:, 0]
         clear_ok &= bool((out[sure] == arg[sure]).all())
@@ -2695,17 +2733,18 @@ def logit_agreement(reqs, served: dict, want: dict) -> dict:
             "clear_margin_tokens_agree": clear_ok}
 
 
-def lm_exact_f32_check() -> dict:
-    """``reduced(granite-3-8b)`` at f32 on the card: the engine's greedy
-    tokens equal a full recompute's exactly (``tests/test_serve.py``'s
-    assertion for the reference), with staggered admission."""
-    cfg = reduced(get_config(LM_ARCH))
+def lm_exact_f32_check(arch: str = LM_ARCH, **kw) -> dict:
+    """``reduced(arch)`` at f32 on the card (``kw`` to ``ServeEngine``):
+    the engine's greedy tokens equal a full recompute's exactly
+    (``tests/test_serve.py``'s assertion for the reference), with
+    staggered admission."""
+    cfg = reduced(get_config(arch))
     model = TransformerLM(cfg)
     params = model.init(torch.Generator(DEVICE).manual_seed(0), DEVICE)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)), max_new_tokens=6)
             for i, n in enumerate((3, 5, 4, 8, 13, 2))]
-    eng = ServeEngine(model, params, num_slots=2, max_len=32)
+    eng = ServeEngine(model, params, num_slots=2, max_len=32, **kw)
     for r in reqs[:3]:
         eng.submit(r)
     eng.step()
@@ -2984,6 +3023,355 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: Mamba-2 serving (K12 SSD chunk scan)
+# ---------------------------------------------------------------------------
+
+#: The served Mamba-2 model at full width and depth; the LM phase's slot
+#: pool and traffic plus four prompts: 1 and 2 tokens (the conv tail's
+#: zero rows), 128 and 256 (whole chunks, no padding).
+MAMBA_ARCH, MAMBA_EXTRA_PROMPTS = "mamba2-370m", (1, 2, 128, 256)
+#: K12 against plain: bar relative to max |plain| by input type.  The
+#: plain version widens the same bf16 inputs to f32, so both sides do f32
+#: math on identical values and bf16 is held to the f32 bar.
+K12_BARS = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
+#: K12 edge cases (Bt, L, H, P, N, Q), each at f32 and bf16: a 1,024-token
+#: prefill, a 600-token prompt padded to 640, one head with a ragged chunk
+#: of 37 and N 16, chunks of one position, N 16 at 32 heads, and 20 chunks
+#: of 30 heads (head groups of 4 and 2).
+K12_EDGES = ((1, 1024, 32, 64, 128, 128), (1, 640, 32, 64, 128, 128),
+             (2, 74, 1, 64, 16, 37), (1, 5, 32, 64, 128, 1),
+             (1, 256, 32, 64, 16, 128), (1, 2560, 30, 16, 16, 128))
+#: ``ops.ssd`` (padding to the chunk, K12, the cross-chunk code, ``D`` and
+#: an initial state) against the same composition on the CPU:
+#: (L, chunk, with an initial state).
+K12_OPS_EDGES = ((600, 128, True), (37, 128, False), (1, 128, True))
+#: Served logits against a teacher-forced recompute, relative to max
+#: |logit|: the model is f32 end to end, so the bar is the f32 one of the
+#: reference's tests; a token whose recompute top-2 margin is wider than
+#: twice the bar cannot flip and must match.
+MAMBA_LOGIT_TOL = 1e-4
+MAMBA_MARGIN = 2 * MAMBA_LOGIT_TOL
+#: Prompt lengths whose prefill is timed; K12 is timed alone at the
+#: padded lengths of the first four of them (Q = min(128, L)).
+MAMBA_PREFILL_LENS = (1, 16, 128, 256, 600, 1024)
+K12_TIMED_LENS = (16, 128, 640, 1024)
+
+
+def k12_inputs(gen, Bt, L, H, P, N, dtype):
+    """x, dt, A, B, C with x/B/C strided views of one ``xBC`` tensor, as
+    the model's conv output gives them."""
+    Din = H * P
+    xBC = torch.randn(Bt, L, Din + 2 * N, generator=gen).to(DEVICE, dtype)
+    x = xBC[..., :Din].reshape(Bt, L, H, P)
+    dt = torch.nn.functional.softplus(
+        torch.randn(Bt, L, H, generator=gen) - 2.0).to(DEVICE)
+    A = (-torch.exp(torch.randn(H, generator=gen) * 0.5)).to(DEVICE)
+    return x, dt, A, xBC[..., Din:Din + N], xBC[..., Din + N:]
+
+
+def k12_plain(args):
+    x, dt, A, B, C, Q = args
+    return ref.ssd_chunk_diag(x.float(), dt, A, B.float(), C.float(), Q)
+
+
+def k12_check(args, twice: bool = True) -> tuple:
+    """K12 against its plain version on ``args`` (x, dt, A, B, C, Q):
+    finite, two launches bitwise equal (``twice``), ``y_diag`` and the
+    states each within the input type's bar of max |plain|.  Returns
+    (max abs err, err / max |plain|)."""
+    got = mssd.ssd_chunk_diag(*args)
+    again = mssd.ssd_chunk_diag(*args) if twice else got
+    want = k12_plain(args)
+    torch.cuda.synchronize()
+    errs = []
+    for g, a, w, what in zip(got, again, want, ("y_diag", "states")):
+        check(torch.equal(g, a), f"ssd_chunk_scan: two launches differ "
+              f"({what})")
+        check(bool(torch.isfinite(g).all()), f"ssd_chunk_scan: non-finite "
+              f"{what}")
+        err = float((g - w).abs().max())
+        rel = err / max(float(w.abs().max()), 1e-30)
+        check(rel <= K12_BARS[args[0].dtype], f"ssd_chunk_scan disagrees "
+              f"with its plain version on {what}: {rel:.3e} of max |plain| "
+              f"at x {tuple(args[0].shape)} N {args[3].shape[-1]} Q "
+              f"{args[5]} {args[0].dtype}")
+        errs.append((err, rel))
+    return tuple(map(max, *errs))
+
+
+def k12_bound_ms(args) -> tuple:
+    """Least time of one K12 launch on ``args``: over the Q (Q + 1) / 2
+    causal pairs j <= i of a chunk, ``C Bᵀ`` once a chunk (2 N a pair)
+    and, a head, ``y_diag`` (2 P a pair) and the state (2 Q P N) at 67
+    TFLOP/s fp32, against x, B, C and dt read once and y_diag and the
+    states written once (f32) at 3.35 TB/s.  Returns (bound_ms, bound_by,
+    flops, bytes)."""
+    x, dt, A, B, C, Q = args
+    Bt, L, H, P = x.shape
+    N, nc, e = B.shape[-1], L // Q, x.element_size()
+    pairs = Q * (Q + 1) // 2
+    flops = float(Bt * nc * (2 * pairs * N + H * (2 * pairs * P
+                                                  + 2 * Q * P * N)))
+    nbytes = float(e * Bt * L * (H * P + 2 * N) + 4 * Bt * L * H
+                   + 4 * Bt * L * H * P + 4 * Bt * nc * H * P * N)
+    t_op, t_by = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
+            else "bytes", flops, nbytes)
+
+
+def k12_edges_check() -> dict:
+    """K12 on ``K12_EDGES`` (f32 and bf16), ``ops.ssd`` on
+    ``K12_OPS_EDGES`` against the CPU composition, a backward refused;
+    mamba2-370m's shapes at ``K12_TIMED_LENS`` timed by ``torch.profiler``
+    device time beside their bound and the plain version, and with CUDA
+    events around back-to-back calls (paced by the wrapper's host cost
+    where the launch is short)."""
+    gen = torch.Generator().manual_seed(1212)
+    worst = (0.0, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for Bt, L, H, P, N, Q in K12_EDGES:
+            args = (*k12_inputs(gen, Bt, L, H, P, N, dtype), Q)
+            worst = tuple(map(max, worst, k12_check(args)))
+    for L, chunk, init in K12_OPS_EDGES:
+        x, dt, A, B, C = k12_inputs(gen, 1, L, 32, 64, 128, torch.float32)
+        D = torch.rand(32, generator=gen).to(DEVICE)
+        s0 = (torch.randn(1, 32, 64, 128, generator=gen).to(DEVICE)
+              if init else None)
+        n0 = lm.LAUNCHES["ssd_chunk_scan"]
+        y, s = ops.ssd(x, dt, A, B, C, D, chunk=chunk, initial_state=s0)
+        check(lm.LAUNCHES["ssd_chunk_scan"] == n0 + 1,
+              "ops.ssd on the card did not launch K12 once")
+        yc, sc = ops.ssd(*(t.cpu() for t in (x, dt, A, B, C, D)),
+                         chunk=chunk,
+                         initial_state=None if s0 is None else s0.cpu())
+        for g, w, what in ((y, yc, "y"), (s, sc, "final state")):
+            rel = float((g.cpu() - w).abs().max()) / float(w.abs().max())
+            check(rel <= K12_BARS[torch.float32], f"ops.ssd on the card vs "
+                  f"the CPU composition at L {L}: {what} {rel:.3e} of max "
+                  f"|plain|")
+    x, dt, A, B, C = k12_inputs(gen, 1, 16, 2, 16, 16, torch.float32)
+    try:
+        with torch.enable_grad():
+            mssd.ssd_chunk_diag(x.detach().requires_grad_(), dt, A, B, C, 16)
+        fail("ssd_chunk_scan took an input that needs a gradient")
+    except NotImplementedError:
+        pass
+    print(f"ssd_chunk_scan vs plain, edge cases (f32 and bf16): max_abs_err "
+          f"{worst[0]:.3e}, {worst[1]:.3e} of max |plain|; ops.ssd padded "
+          f"and with an initial state within {K12_BARS[torch.float32]} of "
+          f"the CPU composition; a backward refused")
+    by_len = {}
+    for L in K12_TIMED_LENS:
+        a = (*k12_inputs(gen, 1, L, 32, 64, 128, torch.float32),
+             min(128, L))
+        _b, by, flops, nbytes = k12_bound_ms(a)
+        # 200 rounds: one launch is one profiler event, and a recording
+        # may lose 1 % of them.
+        by_len[L] = {
+            "ms": device_ms_per_call([lambda: mssd.ssd_chunk_diag(*a)],
+                                     reps=200),
+            "events_ms": time_ms(lambda: mssd.ssd_chunk_diag(*a), 20, 3),
+            "plain_ms": device_ms_per_call([lambda: k12_plain(a)], reps=3),
+            "bound_ms": _b, "bound_by": by, "flops": flops, "bytes": nbytes}
+        t = by_len[L]
+        print(f"ssd_chunk_scan at {L} tokens: {t['ms']:.4f} ms (device), "
+              f"{t['events_ms']:.4f} ms a call back to back (CUDA events), "
+              f"plain {t['plain_ms']:.4f} ms (device), bound "
+              f"{t['bound_ms']:.5f} ms by {by} ({flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)")
+    return {"max_abs_err": worst[0], "max_rel_err": worst[1],
+            "by_length": by_len}
+
+
+def mamba_traffic(vocab: int):
+    """The LM phase's 16 requests and four more, of ``MAMBA_EXTRA_PROMPTS``
+    tokens (the second half still submitted after ``LM_STAGGER`` ticks)."""
+    reqs = lm_traffic(vocab)
+    rng = np.random.default_rng(1)
+    return reqs + [Request(len(reqs) + i, rng.integers(0, vocab, n),
+                           max_new_tokens=LM_NEW)
+                   for i, n in enumerate(MAMBA_EXTRA_PROMPTS)]
+
+
+def k12_kept_args(x, dt, A, B, C, Q):
+    """A copy of one launch's arguments in the launch's own layout: x, B
+    and C again strided views of one fresh ``xBC`` tensor where they were
+    views (the model's path), else plain clones (a padded prompt)."""
+    if x.is_contiguous():
+        return (x.clone(), dt.clone(), A.clone(), B.clone(), C.clone(), Q)
+    Bt, L, H, P = x.shape
+    Din = H * P
+    xBC = torch.cat([x.reshape(Bt, L, Din), B, C], dim=-1)
+    return (xBC[..., :Din].reshape(Bt, L, H, P), dt.clone(), A.clone(),
+            xBC[..., Din:Din + B.shape[-1]], xBC[..., Din + B.shape[-1]:], Q)
+
+
+def mamba_serving_phase(card: str) -> dict:
+    """mamba2-370m at full width and depth (f32, weights from a CUDA
+    ``torch.Generator`` seed) served through ``ServeEngine(pad_prompts=
+    False)``: the K12 edge cases, the main path with its launch counts, a
+    tapped re-run (every ``TAP_EVERY``-th K12 launch kept, checked and
+    timed; every sampled row of logits kept for the teacher-forced
+    recompute), a profile of one warm tick, and the reduced model's f32
+    exactness."""
+    edges = k12_edges_check()
+    torch.cuda.empty_cache()
+    cfg = get_config(MAMBA_ARCH)
+    model = TransformerLM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(DEVICE).manual_seed(0), DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    L = len(model.descs)
+    serve_kw = {"prefill_kernel": "ssd_chunk_scan", "pad_prompts": False}
+    # Warm the kernel, cuBLAS and the allocator on two short requests.
+    lm_serve(model, params, [Request(i, np.arange(1, 20), max_new_tokens=2)
+                             for i in range(2)], **serve_kw)
+
+    reqs = mamba_traffic(cfg.vocab)
+    ticks = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm.reset_launches()
+    t0 = time.perf_counter()
+    eng = lm_serve(model, params, reqs, ticks, **serve_kw)
+    wall = time.perf_counter() - t0
+    launches = dict(lm.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(r.status == "ok" for r in reqs), "a Mamba request did not end "
+          "ok: " + ", ".join(f"{r.request_id}:{r.status}:{r.error}"
+                             for r in reqs if r.status != "ok"))
+    check(launches == {"ssd_chunk_scan": L * len(reqs)},
+          f"Mamba launches {launches}: expected {L} K12 a prompt "
+          f"({len(reqs)} prompts), none a decode tick and no other kernel")
+    check(all(len(r.output) == LM_NEW for r in reqs),
+          "a Mamba request stopped short of its max_new_tokens")
+    tokens = sum(len(r.output) for r in reqs)
+    decode_s = np.asarray([s for s, admitted in ticks if not admitted])
+
+    # Prefill time by prompt length, outside the main path (host clock,
+    # synced).
+    prefill_ms = {}
+    with torch.no_grad():
+        for n in MAMBA_PREFILL_LENS:
+            toks = torch.ones((1, n), dtype=torch.long, device=DEVICE)
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                model.prefill(params, toks)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t1) * 1e3)
+            prefill_ms[n] = float(np.median(runs))
+
+    # The tapped re-run: the same traffic through a fresh engine.
+    kept, seen = [], [0]
+    inner = mssd.ssd_chunk_diag
+
+    def tap(x, dt, A, B, C, Q):
+        if seen[0] % TAP_EVERY == 0:
+            kept.append(k12_kept_args(x, dt, A, B, C, Q))
+        seen[0] += 1
+        return inner(x, dt, A, B, C, Q)
+
+    mssd.ssd_chunk_diag = tap
+    try:
+        reqs2 = mamba_traffic(cfg.vocab)
+        served = lm_serve(model, params, reqs2, engine=KeepRows,
+                          **serve_kw).rows
+    finally:
+        mssd.ssd_chunk_diag = inner
+    check(seen[0] == L * len(reqs2), f"the tapped re-run launched K12 "
+          f"{seen[0]} times, not {L * len(reqs2)}")
+    check([r.output for r in reqs2] == [r.output for r in reqs],
+          "the tapped re-run served other tokens than the main path")
+    want = lm_recompute(model, params, reqs2)
+    recompute = logit_agreement(reqs2, served, want, margin=MAMBA_MARGIN)
+    del served, want
+    check(recompute["logit_err_rel"] <= MAMBA_LOGIT_TOL, f"served logits vs "
+          f"teacher-forced recompute: {recompute['logit_err_rel']:.3e} of "
+          f"max |logit| > {MAMBA_LOGIT_TOL} (request, step, prompt length "
+          f"{recompute['worst_at']}; p50 {recompute['logit_err_rel_p50']:.3e},"
+          f" p99 {recompute['logit_err_rel_p99']:.3e})")
+    check(recompute["clear_margin_tokens_agree"], "a served token differs "
+          "from the recompute's argmax where its margin is clear")
+
+    errs = [k12_check(a, twice=False) for a in kept]
+    bounds = [k12_bound_ms(a) for a in kept]
+    by_ops = sum(b[0] for b in bounds if b[1] == "operations")
+    timings = {
+        "timed": len(kept), "max_abs_err": max(e[0] for e in errs),
+        "max_rel_err": max(e[1] for e in errs),
+        "bound_ms": float(np.mean([b[0] for b in bounds])),
+        "flops": float(np.mean([b[2] for b in bounds])),
+        "bytes": float(np.mean([b[3] for b in bounds])),
+        # Ten rounds: a profiler recording may lose its first few events
+        # (one K12 launch is one event); the loss must stay within 1 %.
+        "ms": device_ms_per_call([lambda a=a: mssd.ssd_chunk_diag(*a)
+                                  for a in kept], reps=10),
+        "plain_ms": device_ms_per_call([lambda a=a: k12_plain(a)
+                                        for a in kept], reps=1),
+        "bound_by": ("operations" if by_ops >= sum(b[0] for b in bounds) / 2
+                     else "bytes")}
+    del kept
+
+    # One warm tick under the profiler: eight requests decoding.
+    peng = ServeEngine(model, params, num_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                       pad_prompts=False)
+    for r in mamba_traffic(cfg.vocab)[:LM_SLOTS]:
+        peng.submit(r)
+    peng.step()
+    prof = profile_step(f"one warm Mamba-2 decode tick ({LM_SLOTS} slots, "
+                        f"{L} layers)", peng.step)
+    del peng
+    toks = torch.ones((1, 600), dtype=torch.long, device=DEVICE)
+    with torch.no_grad():
+        prof_prefill = profile_step(
+            f"one warm Mamba-2 prefill (600 tokens, {L} layers)",
+            lambda: model.prefill(params, toks)[0].cpu())
+    exact = lm_exact_f32_check(MAMBA_ARCH, pad_prompts=False)
+
+    out = {"arch": MAMBA_ARCH, "params": n_params, "layers": L,
+           "init_s": init_s, "requests": len(reqs), "tokens": tokens,
+           "ticks": eng.ticks, "wall_s": wall, "tokens_per_s": tokens / wall,
+           "tick_p50_ms": float(np.percentile(decode_s, 50) * 1e3),
+           "tick_p99_ms": float(np.percentile(decode_s, 99) * 1e3),
+           "prefill_ms": prefill_ms, "peak_bytes": peak,
+           "launches": launches, "edges": edges, "recompute": recompute,
+           "timings": timings, "profile": prof,
+           "profile_prefill": prof_prefill, "exact_f32": exact,
+           "card": card}
+    print(f"Mamba-2 serving: {json.dumps(out)}")
+    print(f"Mamba-2 serving {MAMBA_ARCH} ({n_params / 1e6:.1f} M params, "
+          f"f32, init {init_s:.1f} s): {len(reqs)} requests, {tokens} tokens "
+          f"in {eng.ticks} ticks, {wall:.3f} s: {tokens / wall:.1f} "
+          f"tokens/s; decode tick p50 {out['tick_p50_ms']:.2f} ms, p99 "
+          f"{out['tick_p99_ms']:.2f} ms; peak {peak} B; prefill ms by prompt "
+          "length " + ", ".join(f"{n}: {ms:.2f}"
+                                for n, ms in prefill_ms.items()))
+    print(f"Mamba-2 tokens vs teacher-forced recompute: logits within "
+          f"{recompute['logit_err_rel']:.3e} of max |logit| (p50 "
+          f"{recompute['logit_err_rel_p50']:.3e}, p99 "
+          f"{recompute['logit_err_rel_p99']:.3e}), "
+          f"{recompute['tokens_agree']:.1%} of {recompute['tokens']} tokens "
+          f"agree, all {recompute['tokens_clear_margin']} with a clear margin")
+    t = timings
+    print(f"ssd_chunk_scan on {t['timed']} kept launches: {t['ms']:.4f} ms a "
+          f"launch (device), plain {t['plain_ms']:.4f}, bound "
+          f"{t['bound_ms']:.5f} ms by {t['bound_by']}; max_abs_err "
+          f"{t['max_abs_err']:.3e} ({t['max_rel_err']:.3e} of max |plain|)")
+    out["rows"] = [{
+        "name": "ssd_chunk_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": mssd.REPLACES, "launches": launches["ssd_chunk_scan"],
+        "max_abs_err": max(t["max_abs_err"], edges["max_abs_err"]),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None}]
+    return out
+
+
 def main() -> None:
     dev = device_phase()
     kern = kernel_phase()
@@ -3002,6 +3390,7 @@ def main() -> None:
     decode = [decode_phase(c, dev["smi"]) for c in ("lstm", "gru")]
     opbyop = op_by_op_phase(dev["smi"], serve, decode[0])
     lmserve = lm_serving_phase(dev["smi"])
+    mamba = mamba_serving_phase(dev["smi"])
     row = {"name": "treelstm_megastep", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/treelstm_megastep.cu",
            "replaces": "src/repro/kernels/level_megastep.py:181",
@@ -3053,7 +3442,7 @@ def main() -> None:
             "ms": part["ms"], "plain_ms": part["plain_ms"],
             "bound_ms": part["bound_ms"], "bound_by": "bytes",
             "library_ms": part["library_ms"]})
-    rows += opbyop["rows"] + lmserve["rows"]
+    rows += opbyop["rows"] + lmserve["rows"] + mamba["rows"]
     frontier = {"treelstm_megastep at the tree frontier": cont["megastep"],
                 "lstm_megastep at the chain frontier": chains["megastep"],
                 **{f"{d['kind']}_megastep at a decode tick": d["tick"]

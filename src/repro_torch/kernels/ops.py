@@ -12,9 +12,11 @@ This is the only place that makes the choice: the kernels' wrappers
 ``level_megastep_bwd.scatter_add_rows``, ``gather_scatter``'s
 ``gather_rows``/``scatter_rows``, ``cell_kernels``' ``lstm_gates``/
 ``treelstm_gates``, ``level_step.lstm_level_fused``,
-``flash_attention.flash_attention`` and
-``decode_attention.decode_attention``) take CUDA tensors only.  Every megastep kind (``treelstm``, ``lstm``, ``gru``, ``treefc``)
-has its kernels; an unknown kind raises ``ValueError`` on either device.
+``flash_attention.flash_attention``,
+``decode_attention.decode_attention`` and
+``mamba_ssd.ssd_chunk_diag``) take CUDA tensors only.  Every megastep
+kind (``treelstm``, ``lstm``, ``gru``, ``treefc``) has its kernels; an
+unknown kind raises ``ValueError`` on either device.
 The reference's ``impl=`` override is not ported.
 """
 
@@ -31,6 +33,7 @@ from repro_torch.kernels import gather_scatter as gsc
 from repro_torch.kernels import level_megastep as lm
 from repro_torch.kernels import level_megastep_bwd as lmb
 from repro_torch.kernels import level_step as ls
+from repro_torch.kernels import mamba_ssd as mssd
 from repro_torch.kernels import ref
 from repro_torch.obs.registry import get_registry
 
@@ -253,3 +256,47 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _tick("decode_attention", "cuda")
     return dec.decode_attention(q, k, v, kv_len=kv_len, window=window,
                                 scale=scale)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, D: Optional[torch.Tensor] = None, *,
+        chunk: int = 128, initial_state: Optional[torch.Tensor] = None,
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked state-space-dual scan (K12); returns ``(y, final_state)``.
+
+    ``x`` ``[Bt, L, H, P]``, ``dt`` ``[Bt, L, H]``, ``A`` ``[H]``,
+    ``B``/``C`` ``[Bt, L, N]``, ``D`` ``[H]``; ``y`` at ``x``'s type, the
+    state ``[Bt, H, P, N]`` float32.  As the reference: ``Q = min(chunk,
+    L)`` and the sequence is padded to a multiple of ``Q`` with ``dt = 0``
+    rows (decay ``exp(0) = 1`` and no input, so the final state is exact;
+    the padded ``y`` rows are dropped).  The within-chunk part is K12 on a
+    CUDA tensor and ``ref.ssd_chunk_diag`` on a CPU one; both then go
+    through the same cross-chunk code (``ref.ssd_combine``)."""
+    L = x.shape[1]
+    Q = min(chunk, L)
+    Lp = -(-L // Q) * Q
+    if Lp != L:
+        pad = Lp - L
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, pad))
+    if not x.is_cuda:
+        _tick("ssd", "ref")
+        y_diag, states = ref.ssd_chunk_diag(x, dt, A, B, C, Q)
+    else:
+        _tick("ssd", "cuda")
+        y_diag, states = mssd.ssd_chunk_diag(x, dt, A, B, C, Q)
+    y, s = ref.ssd_combine(y_diag, states, x, dt, A, C, D, initial_state)
+    return y[:, :L], s
+
+
+def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor,
+                    D: Optional[torch.Tensor], state: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token SSM update, plain ops on either device (plain jnp in the
+    reference too): ``state`` ``[Bt, H, P, N]`` float32 is updated IN
+    PLACE and returned with ``y`` ``[Bt, H, P]``."""
+    _tick("ssd_decode_step", "ref")
+    return ref.ssd_decode_step(x, dt, A, B, C, D, state)

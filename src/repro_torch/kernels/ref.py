@@ -268,3 +268,179 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         valid &= pos >= last[:, None] - window
     return _attend(q[:, :, None, :], k, v, valid[:, None, None, :],
                    scale)[:, :, 0, :]
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality) -- K12
+# ---------------------------------------------------------------------------
+
+def ssd_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor,
+                  D: Optional[torch.Tensor] = None,
+                  initial_state: Optional[torch.Tensor] = None,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact sequential SSM recurrence, one step a position (the ground
+    truth for the chunked and kernel paths).
+
+    Shapes (one B/C group): ``x`` ``[Bt, L, H, P]``, ``dt`` ``[Bt, L, H]``,
+    ``A`` ``[H]`` (negative log-decay rates), ``B``/``C`` ``[Bt, L, N]``,
+    ``D`` ``[H]`` skip.  Per head ``S_t = exp(dt_t A) S_{t-1} + dt_t x_t
+    ⊗ B_t`` and ``y_t = S_t C_t (+ D x_t)``, in float32.  Returns
+    ``(y [Bt, L, H, P] at x's type, state [Bt, H, P, N] float32)``."""
+    Bt, L, H, P = x.shape
+    N = B.shape[-1]
+    f32 = torch.float32
+    s = (torch.zeros((Bt, H, P, N), dtype=f32, device=x.device)
+         if initial_state is None else initial_state.to(f32))
+    xf, dtf, Bf, Cf = x.to(f32), dt.to(f32), B.to(f32), C.to(f32)
+    ys = []
+    for t in range(L):
+        dtt = dtf[:, t]
+        decay = torch.exp(dtt * A[None, :])[:, :, None, None]
+        upd = (dtt[:, :, None, None] * xf[:, t, ..., None]
+               * Bf[:, t, None, None, :])
+        s = decay * s + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", s, Cf[:, t]))
+    y = torch.stack(ys, dim=1)
+    if D is not None:
+        y = y + D[None, None, :, None] * xf
+    return y.to(x.dtype), s
+
+
+def _segsum(z: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular pairwise segment sums:
+    ``out[..., i, j] = sum_{j<k<=i} z_k``, ``-inf`` above the diagonal."""
+    L = z.shape[-1]
+    cs = torch.cumsum(z, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=z.device))
+    return out.masked_fill(~mask, float("-inf"))
+
+
+def _chunks(x, dt, A, B, C, chunk):
+    """The chunked float32 views the SSD forms share: ``xc`` ``[Bt, nc,
+    Q, H, P]``, ``dtc`` ``[Bt, nc, Q, H]``, ``Bc``/``Cc`` ``[Bt, nc, Q, N]``
+    and ``da = dt A`` ``[Bt, nc, H, Q]``."""
+    Bt, L, H, P = x.shape
+    if L % chunk:
+        raise ValueError(f"sequence length {L} is not a multiple of the "
+                         f"chunk {chunk}")
+    nc, N, f32 = L // chunk, B.shape[-1], torch.float32
+    xc = x.reshape(Bt, nc, chunk, H, P).to(f32)
+    dtc = dt.reshape(Bt, nc, chunk, H).to(f32)
+    Bc = B.reshape(Bt, nc, chunk, N).to(f32)
+    Cc = C.reshape(Bt, nc, chunk, N).to(f32)
+    da = (dtc * A[None, None, None, :].to(f32)).movedim(-1, 2)
+    return xc, dtc, Bc, Cc, da
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor,
+                D: Optional[torch.Tensor] = None, chunk: int = 16,
+                initial_state: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (Dao & Gu 2024, Alg. 1): quadratic within chunks of
+    ``chunk`` positions, a linear recurrence across the chunk states.
+    Shapes as :func:`ssd_reference`; ``L`` a multiple of ``chunk``."""
+    Bt, L, H, P = x.shape
+    xc, dtc, Bc, Cc, da = _chunks(x, dt, A, B, C, chunk)
+    Ldec = torch.exp(_segsum(da))                          # [Bt,nc,H,Q,Q]
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)            # [Bt,nc,Q,Q]
+    M = G[:, :, None] * Ldec
+    y_diag = torch.einsum("bchij,bcjh,bcjhp->bcihp", M, dtc, xc)
+    decay_to_end = torch.exp(
+        torch.cumsum(da.flip(-1), dim=-1).flip(-1) - da)
+    states = torch.einsum("bchj,bcjh,bcjhp,bcjn->bchpn", decay_to_end, dtc,
+                          xc, Bc)
+    return ssd_combine(y_diag.reshape(Bt, L, H, P), states, x, dt, A, C, D,
+                       initial_state)
+
+
+def ssd_combine(y_diag: torch.Tensor, states: torch.Tensor, x: torch.Tensor,
+                dt: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
+                D: Optional[torch.Tensor] = None,
+                initial_state: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD's part outside the intra-chunk kernel (the
+    reference keeps it in jnp beside its ``pallas_call``): a loop over the
+    ``nc`` chunks carries the state (each chunk's entering state, decayed
+    by the chunk's ``exp(sum dt A)``, plus the chunk's own final state),
+    and one einsum reads each chunk's entering state out through ``C``
+    with the decay from the chunk's start, added to ``y_diag``; then the
+    ``D`` skip.
+
+    ``y_diag`` ``[Bt, L, H, P]`` and ``states`` ``[Bt, nc, H, P, N]`` as
+    :func:`ssd_chunk_diag` returns them; ``x``, ``dt``, ``A``, ``C``,
+    ``D`` as :func:`ssd_reference`.  Returns ``(y at x's type, final
+    state float32)``."""
+    Bt, L, H, P = x.shape
+    nc, N, f32 = states.shape[1], states.shape[-1], torch.float32
+    Q = L // nc
+    da = (dt.reshape(Bt, nc, Q, H).to(f32)
+          * A[None, None, None, :].to(f32)).movedim(-1, 2)  # [Bt,nc,H,Q]
+    chunk_decay = torch.exp(da.sum(dim=-1))                # [Bt,nc,H]
+    s = (torch.zeros((Bt, H, P, N), dtype=f32, device=states.device)
+         if initial_state is None else initial_state.to(f32))
+    entering = []
+    for c in range(nc):
+        entering.append(s)
+        s = chunk_decay[:, c, :, None, None] * s + states[:, c]
+    entering = torch.stack(entering, dim=1)                # [Bt,nc,H,P,N]
+    decay_from_start = torch.exp(torch.cumsum(da, dim=-1))  # [Bt,nc,H,Q]
+    y_off = torch.einsum("bcin,bchpn,bchi->bcihp",
+                         C.reshape(Bt, nc, Q, N).to(f32), entering,
+                         decay_from_start)
+    y = (y_diag.reshape(Bt, nc, Q, H, P) + y_off).reshape(Bt, L, H, P)
+    if D is not None:
+        y = y + D[None, None, :, None] * x.to(f32)
+    return y.to(x.dtype), s
+
+
+def ssd_chunk_diag(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, chunk: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What K12 computes (its plain version): for each chunk of ``chunk``
+    positions and each head, with ``cs`` the inclusive cumsum of
+    ``dt A`` over the chunk,
+
+      ``y_diag[i, p] = sum_{j<=i} (C_i . B_j) exp(cs_i - cs_j) dt_j x[j, p]``
+      ``states[p, n] = sum_j exp(cs_last - cs_j) dt_j x[j, p] B[j, n]``.
+
+    Shapes as :func:`ssd_reference` with ``L`` a multiple of ``chunk``;
+    float32 math on widened inputs.  Returns ``y_diag`` ``[Bt, L, H, P]``
+    and ``states`` ``[Bt, nc, H, P, N]``, both float32."""
+    Bt, L, H, P = x.shape
+    xc, dtc, Bc, Cc, da = _chunks(x, dt, A, B, C, chunk)
+    cs = torch.cumsum(da, dim=-1)                          # [Bt,nc,H,Q]
+    seg = cs[..., :, None] - cs[..., None, :]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    # Above the diagonal the exponent is positive and may overflow: the
+    # select (not a multiply by a 0/1 mask) keeps inf out of the sums.
+    Lm = torch.where(tri, torch.exp(seg.masked_fill(~tri, 0.0)), 0.0)
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)            # [Bt,nc,Q,Q]
+    dx = dtc[..., None] * xc                               # [Bt,nc,Q,H,P]
+    y_diag = torch.einsum("bchij,bcjhp->bcihp", G[:, :, None] * Lm, dx)
+    decay_to_end = torch.exp(cs[..., -1:] - cs)            # [Bt,nc,H,Q]
+    w = decay_to_end.movedim(2, 3)[..., None] * dx         # [Bt,nc,Q,H,P]
+    states = torch.einsum("bcjhp,bcjn->bchpn", w, Bc)
+    return y_diag.reshape(Bt, L, H, P), states
+
+
+def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor,
+                    D: Optional[torch.Tensor], state: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token SSM update: ``x`` ``[Bt, H, P]``, ``dt`` ``[Bt, H]``,
+    ``B``/``C`` ``[Bt, N]``, ``state`` ``[Bt, H, P, N]`` float32.
+
+    The state is updated IN PLACE (``state`` is the returned tensor):
+    ``exp(dt A) state + dt x ⊗ B``, the reference's values in its order
+    of operations.  Returns ``(y [Bt, H, P] at x's type, state)``."""
+    decay = torch.exp(dt * A[None, :])[:, :, None, None]
+    upd = dt[:, :, None, None] * x[..., None] * B[:, None, None, :]
+    state.mul_(decay).add_(upd)
+    y = torch.einsum("bhpn,bn->bhp", state, C)
+    if D is not None:
+        y = y + D[None, :, None] * x
+    return y.to(x.dtype), state

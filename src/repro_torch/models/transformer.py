@@ -1,5 +1,5 @@
-"""Pattern-chain transformer LM, the dense-GQA part (port of
-``repro.models.transformer``).
+"""Pattern-chain transformer LM, the dense-GQA and Mamba-2 parts (port
+of ``repro.models.transformer``).
 
 The reference stacks each pattern position's parameters across the
 repeats and runs the stack with one ``lax.scan``; the port keeps one
@@ -10,14 +10,18 @@ reference's: the prologue, then the pattern repeated ``repeats`` times
 
 Three modes, one code path (:meth:`TransformerLM.trunk`):
 
-  - ``train``:   full-sequence causal attention (K10 a layer), no cache;
-  - ``prefill``: as train, and returns each layer's KV cache;
-  - ``decode``:  one token a sequence against the caches (K11 a layer),
-                 written in place.
+  - ``train``:   the full sequence, causal (K10 an attention layer, K12 a
+                 Mamba layer), no cache;
+  - ``prefill``: as train, and returns each layer's cache (KV rows, or
+                 the Mamba conv tail and SSM state);
+  - ``decode``:  one token a sequence against the caches (K11 an
+                 attention layer, plain ops a Mamba layer), written in
+                 place.
 
 Ported: attention mixers (``attn``, GQA with optional SWA and biases)
-with dense SwiGLU MLPs -- granite, stablelm, command-r, llama3.  Configs
-that need another mixer or MLP, cross-attention or an encoder raise
+with dense SwiGLU MLPs -- granite, stablelm, command-r, llama3 -- and
+Mamba-2 mixers without an MLP (``mlp="none"``) -- mamba2.  Configs that
+need another mixer or MLP, cross-attention or an encoder raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.  The
 training loss (``loss``) and ``encode`` wait for LM training.
 """
@@ -31,19 +35,19 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, BlockDesc, layer_plan
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.layers import (embed_init, rmsnorm, rmsnorm_init,
                                        swiglu, swiglu_init)
 
 Params = Dict[str, Any]
-#: One dict a layer, ``{"attn": {"k", "v"}}``, every leaf ``[B, ...]``.
+#: One dict a layer, ``{"attn": {"k", "v"}}`` or ``{"mamba": {"conv",
+#: "ssm"}}``, every leaf ``[B, ...]``.
 Cache = List[Dict[str, Any]]
 
-#: What this slice does not run yet, and the ROADMAP.md item that ports it.
+#: What this port does not run yet, and the ROADMAP.md item that ports it.
 NOT_PORTED = {
-    "mla": "queue 1, item 3 (Mamba, MoE and MLA through K12)",
-    "mamba": "queue 1, item 3 (Mamba, MoE and MLA through K12)",
-    "moe": "queue 1, item 3 (Mamba, MoE and MLA through K12)",
-    "none": "queue 1, item 3 (Mamba, MoE and MLA through K12)",
+    "mla": "queue 1, item 3c (MLA through K11 at head dim 576)",
+    "moe": "queue 1, item 3b (MoE and the hybrid/MoE configs)",
     "cross": "queue 1, item 9 (cross-attention and encoder-decoder LMs)",
     "enc_dec": "queue 1, item 9 (cross-attention and encoder-decoder LMs)",
 }
@@ -56,6 +60,13 @@ def _attn_dims(cfg: ArchConfig) -> attn.AttnDims:
         bias=cfg.qkv_bias)
 
 
+def _mamba_dims(cfg: ArchConfig) -> mamba_mod.MambaDims:
+    m = cfg.mamba
+    return mamba_mod.MambaDims(
+        d_model=cfg.d_model, d_state=m.d_state, headdim=m.headdim,
+        expand=m.expand, d_conv=m.d_conv, chunk=m.chunk)
+
+
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]
@@ -63,8 +74,9 @@ def dtype_of(name: str) -> torch.dtype:
 
 def check_ported(cfg: ArchConfig, desc: BlockDesc) -> None:
     """Raise ``NotImplementedError`` for a block this port cannot run."""
-    for what in (desc.mixer if desc.mixer != "attn" else None,
-                 desc.mlp if desc.mlp != "dense" else None,
+    for what in (desc.mixer if desc.mixer not in ("attn", "mamba")
+                 else None,
+                 desc.mlp if desc.mlp not in ("dense", "none") else None,
                  "cross" if desc.cross else None,
                  "enc_dec" if cfg.enc_dec else None):
         if what is not None:
@@ -74,7 +86,8 @@ def check_ported(cfg: ArchConfig, desc: BlockDesc) -> None:
 
 
 # ---------------------------------------------------------------------------
-# One block (attention + dense MLP), pre-norm residual
+# One block (attention or Mamba mixer + optional dense MLP), pre-norm
+# residual
 # ---------------------------------------------------------------------------
 
 def block_init(generator: torch.Generator, cfg: ArchConfig, desc: BlockDesc,
@@ -82,17 +95,27 @@ def block_init(generator: torch.Generator, cfg: ArchConfig, desc: BlockDesc,
     check_ported(cfg, desc)
     dt = dtype_of(cfg.param_dtype)
     device = generator.device if device is None else device
-    return {"norm1": rmsnorm_init(cfg.d_model, dt, device),
-            "attn": attn.gqa_init(generator, _attn_dims(cfg), dt, device),
-            "norm2": rmsnorm_init(cfg.d_model, dt, device),
-            "mlp": swiglu_init(generator, cfg.d_model, cfg.d_ff, dt, device)}
+    p: Params = {"norm1": rmsnorm_init(cfg.d_model, dt, device)}
+    if desc.mixer == "attn":
+        p["attn"] = attn.gqa_init(generator, _attn_dims(cfg), dt, device)
+    else:
+        p["mamba"] = mamba_mod.mamba_init(generator, _mamba_dims(cfg), dt,
+                                          device)
+    if desc.mlp == "dense":
+        p["norm2"] = rmsnorm_init(cfg.d_model, dt, device)
+        p["mlp"] = swiglu_init(generator, cfg.d_model, cfg.d_ff, dt, device)
+    return p
 
 
 def block_cache(cfg: ArchConfig, desc: BlockDesc, batch: int, max_len: int,
                 *, dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
     """Zeroed decode cache for one block.  SWA caches are rolling buffers
-    of ``window`` rows."""
+    of ``window`` rows; a Mamba block's SSM state is float32 whatever
+    ``dtype``, its conv tail at ``dtype``."""
     check_ported(cfg, desc)
+    if desc.mixer == "mamba":
+        return {"mamba": mamba_mod.mamba_empty_cache(
+            _mamba_dims(cfg), batch, dtype, device)}
     L = min(max_len, cfg.window) if cfg.window else max_len
     return {"attn": attn.gqa_empty_cache(_attn_dims(cfg), batch, L, dtype,
                                          device)}
@@ -108,13 +131,20 @@ def block_apply(params: Params, x: torch.Tensor, desc: BlockDesc,
     (prefill) or updated (decode) cache, ``None`` in train mode."""
     check_ported(cfg, desc)
     h = rmsnorm(params["norm1"], x)
-    y, c = attn.gqa_apply(params["attn"], h, positions, dims=_attn_dims(cfg),
-                          mode=mode,
-                          cache=None if cache is None else cache["attn"],
-                          cache_pos=cache_pos)
+    key = desc.mixer
+    if key == "attn":
+        y, c = attn.gqa_apply(params["attn"], h, positions,
+                              dims=_attn_dims(cfg), mode=mode,
+                              cache=None if cache is None else cache["attn"],
+                              cache_pos=cache_pos)
+    else:
+        y, c = mamba_mod.mamba_apply(
+            params["mamba"], h, dims=_mamba_dims(cfg), mode=mode,
+            cache=None if cache is None else cache["mamba"])
     x = x + y
-    x = x + swiglu(params["mlp"], rmsnorm(params["norm2"], x))
-    return x, (None if c is None else {"attn": c})
+    if desc.mlp == "dense":
+        x = x + swiglu(params["mlp"], rmsnorm(params["norm2"], x))
+    return x, (None if c is None else {key: c})
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +154,7 @@ def block_apply(params: Params, x: torch.Tensor, desc: BlockDesc,
 @dataclasses.dataclass(frozen=True)
 class TransformerLM:
     """Decoder-only LM over an :class:`ArchConfig` (attention + dense MLP
-    blocks).  Constructing it over a config with blocks this port does
+    blocks, or Mamba-2 blocks).  Constructing it over a config with blocks this port does
     not run raises ``NotImplementedError``."""
 
     cfg: ArchConfig
@@ -205,7 +235,8 @@ class TransformerLM:
                 ) -> Tuple[torch.Tensor, Cache]:
         """Full-sequence pass over ``tokens`` ``[B, S]`` building the
         caches; returns the last position's logits ``[B, V]`` and the
-        caches (``[B, n_kv, S, Dh]`` a layer)."""
+        caches (``[B, n_kv, S, Dh]`` K/V an attention layer; the conv
+        tail and the float32 SSM state a Mamba layer)."""
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         x = self.embed(params, tokens)

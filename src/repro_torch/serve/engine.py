@@ -1,9 +1,11 @@
 """Serving engines, port of ``repro.serve.engine``:
 
   - :class:`ServeEngine` — transformer decode over a KV-cache slot pool
-    (``TransformerLM``; prompts bucketed to powers of two): on the card
-    a prompt's prefill is one K10 flash-attention launch a layer and a
-    tick one K11 decode-attention launch a layer;
+    (``TransformerLM``; prompts bucketed to powers of two, or prefilled
+    at their exact length for SSM states): on the card a prompt's
+    prefill is one K10 flash-attention launch an attention layer and one
+    K12 SSD chunk-scan launch a Mamba layer, and a tick one K11
+    decode-attention launch an attention layer;
   - :class:`VertexServeEngine` — the Cavs-native decode path for
     vertex-function sequence cells (LSTM/GRU): every engine tick is ONE
     batching task ``V_t`` over the slot pool, one megastep launch on the
@@ -166,15 +168,21 @@ class ServeEngine(_EngineBase):
     cache)``, ``decode_step(params, cache, tokens, positions)`` →
     ``(logits, cache)`` and ``init_cache(batch, max_len, device=)``.  The
     engine runs on the device of ``params["embed"]``: on the card every
-    prompt's prefill is one K10 launch a layer and every tick one K11
-    launch a layer, over all ``num_slots`` slots (inactive slots compute
-    rows nobody reads, as in the reference).
+    prompt's prefill is one K10 launch an attention layer (K12 a Mamba
+    layer) and every tick one K11 launch an attention layer, over all
+    ``num_slots`` slots (inactive slots compute rows nobody reads, as in
+    the reference).
 
-    Prompts are padded to a power-of-two bucket (at least 8 tokens): the
-    pad goes on the right, the request is admitted
-    at ``plen - 1`` and its last prompt token is replayed through the
-    first decode step, whose fresh K/V overwrites the first pad row while
-    ``kv_len`` masks the rest -- attention stays exact.  Greedy decoding
+    With ``pad_prompts`` (the default over attention), prompts are padded
+    to a power-of-two bucket (at least 8 tokens): the pad goes on the
+    right, the request is admitted at ``plen - 1`` and its last prompt
+    token is replayed through the first decode step, whose fresh K/V
+    overwrites the first pad row while ``kv_len`` masks the rest --
+    attention stays exact.  Pads would roll into an SSM state, so over a model with Mamba
+    layers (``model.cfg.mamba`` set) ``pad_prompts`` defaults to False
+    and True raises: each prompt is prefilled at its exact length and its
+    first token comes from the prefill logits (the reference's launcher
+    sets the same rule by hand).  Greedy decoding
     takes the argmax; sampling draws each token on the CPU from a
     generator seeded by ``(seed, request_id, step)`` (``jax.random``
     cannot be reproduced here).  There is no degradation ladder, as in
@@ -184,8 +192,17 @@ class ServeEngine(_EngineBase):
 
     def __init__(self, model, params, *, num_slots: int, max_len: int,
                  greedy: bool = True, seed: int = 0,
+                 pad_prompts: Optional[bool] = None,
                  max_queue: Optional[int] = None,
                  clock: Callable[[], float] = time.monotonic):
+        recurrent = getattr(getattr(model, "cfg", None), "mamba",
+                            None) is not None
+        if pad_prompts and recurrent:
+            raise ValueError("ServeEngine: pad_prompts=True over Mamba "
+                             "layers would roll the pads into the SSM "
+                             "state")
+        self.pad_prompts = (not recurrent if pad_prompts is None
+                            else pad_prompts)
         self.model = model
         self.params = params
         self.num_slots = num_slots
@@ -288,12 +305,13 @@ class ServeEngine(_EngineBase):
                                prompt_len=len(req.prompt)):
                 self._admit_one(slot, req)
 
-    @staticmethod
-    def bucket(plen: int) -> int:
-        """The prefill length of a prompt of ``plen`` tokens.  Exact for
-        attention caches, which ``kv_len`` masks; a recurrent state
-        (Mamba, ROADMAP queue 1 item 3) will need the reference's
-        ``pad_prompts=False``."""
+    def bucket(self, plen: int) -> int:
+        """The prefill length of a prompt of ``plen`` tokens: a power of
+        two of at least 8 with ``pad_prompts`` (exact for attention
+        caches, which ``kv_len`` masks), else ``plen`` itself (an SSM
+        state would take the pads in)."""
+        if not self.pad_prompts:
+            return plen
         return max(8, 1 << (plen - 1).bit_length())
 
     def _admit_one(self, slot: int, req: Request) -> None:
@@ -304,9 +322,9 @@ class ServeEngine(_EngineBase):
         logits, cache1 = self.model.prefill(
             self.params, torch.from_numpy(padded).to(self.device)[None, :])
         if bucket == plen:
-            # A prompt of a bucket's length: the prefilled cache already
-            # holds the last token; the first output token comes from the
-            # prefill logits.
+            # An exact prompt (a bucket's length, or pad_prompts=False):
+            # the prefilled cache already holds the last token; the first
+            # output token comes from the prefill logits.
             self.slots.admit(slot, req.request_id, cache1, prompt_len=plen)
             tok = int(self._sample(logits, [req.request_id])[0])
             req.output.append(tok)

@@ -42,6 +42,17 @@ def test_sources_cover_the_lm_serving_slice():
         assert f"src/repro_torch/{rel}" in names, rel
     assert "examples/torch_serve_lm.py" in names
 
+
+def test_sources_cover_the_mamba_serving_slice():
+    """The globs reach every module of the Mamba-2 serving slice: the
+    mixer, the K12 wrapper, the dispatch, its config and the launcher."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for rel in ("models/mamba.py", "kernels/mamba_ssd.py", "kernels/ops.py",
+                "kernels/ref.py", "configs/mamba2_370m.py",
+                "launch/serve.py", "launch/__init__.py"):
+        assert f"src/repro_torch/{rel}" in names, rel
+
+
 def test_port_imports_with_jax_blocked():
     modules = sorted(
         ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("")

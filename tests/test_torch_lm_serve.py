@@ -298,7 +298,7 @@ def test_deadline_times_out_in_flight():
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x22b", "deepseek-v2-lite-16b",
-                                  "mamba2-370m", "seamless-m4t-large-v2",
+                                  "jamba-v0.1-52b", "seamless-m4t-large-v2",
                                   "llama-3.2-vision-90b"])
 def test_unported_blocks_name_their_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
