@@ -106,12 +106,17 @@ Phases, each of which must pass (any failure exits non-zero):
      ``execute``); ``execute_serial`` on 8 parses beside the batched
      engine; each gate kernel re-run on its main path's own launches and
      timed beside its bound;
-  15. LM serving — K10 ``flash_attention`` and K11 ``decode_attention``
-     against their plain versions on the card (f32 and bf16; Sq 1, Sq !=
-     Sk without ``causal``, a window of 24, Hq = Hkv and GQA groups 4, 8
-     and 12, head dims 64/80/128, ragged lengths, ``kv_len`` 1 and
-     ragged: within 1e-5 of max |plain| at f32 and 1e-2 at bf16, the
-     plain version computing in f32; two launches bitwise equal); then
+  15. LM serving — K10 ``flash_attention`` (bf16 on its wgmma route,
+     ``flash_attention_sm90.cu``; f32 on its SIMT route) and K11
+     ``decode_attention`` against their plain versions on the card (f32
+     and bf16; Sq 1, 63, 65, 127 and 129, Sq != Sk without ``causal``,
+     windows of 24 and 100, Hq = Hkv and GQA groups 4, 8 and 12, head
+     dims 16/32/64/80/128/160/256, Sq > Sk (zero rows), a 2,048-token
+     prefill, ``kv_len`` 1 and ragged: within 1e-5 of max |plain| at f32
+     and 1e-2 at bf16, the plain version computing in f32; two launches
+     bitwise equal; each K10 launch on the route its operands choose); the
+     wgmma kernel's registers, spills and shared memory, and ``HGMMA``
+     and ``UTMALDG`` in its SASS where ``cuobjdump`` is there; then
      granite-3-8b at full width and depth (40 layers, d_model 4,096,
      GQA 32/8, head 128, d_ff 12,800, vocab 49,155 padded to 49,408;
      bf16 weights from a CUDA ``torch.Generator`` seed 0) served by
@@ -120,7 +125,10 @@ Phases, each of which must pass (any failure exits non-zero):
      second half submitted after 4 ticks.  Launch counts set to 0 just
      before and read just after: exactly 40 K10 launches a prompt and 40
      K11 a tick; every request ``ok``; tokens/s, decode tick p50/p99,
-     prefill ms a bucket, peak memory.  A tapped re-run of the same
+     prefill ms a bucket, peak memory; every K10 launch on the wgmma
+     route.  K10 and SDPA by ``torch.profiler`` device time on each
+     bucket's first-layer launch, beside the SIMT kernel on the same
+     launch (K10 before its redesign).  A tapped re-run of the same
      traffic keeps every ``TAP_EVERY``-th K10/K11 launch (re-run against
      the plain version and timed by ``torch.profiler`` beside the bound
      -- bf16 at 989 TFLOP/s against bytes at 3.35 TB/s -- and beside
@@ -131,9 +139,11 @@ Phases, each of which must pass (any failure exits non-zero):
      wherever its top-2 margin exceeds 4e-2 of max |logit|, and logits no
      farther from an f32 recompute of the same weights than 1.25 x the
      bf16 recompute's distance from it.
-     A profile of one warm decode tick; and ``reduced(granite-3-8b)`` at
-     f32 served on the card must give a full recompute's greedy tokens
-     exactly;
+     Profiles of one warm decode tick and of one warm 1,024-token
+     prefill; and ``reduced(granite-3-8b)`` at f32 served on the card
+     (the SIMT route's path, its launches counted from 0) must give a
+     full recompute's greedy tokens exactly; the SIMT route timed on the
+     kept launches' f32 copies;
   16. Mamba-2 serving — K12 ``ssd_chunk_scan`` against its plain version
      on the card (f32 and bf16; chunks of 128, 37 and 1, N 16 and 128, 1,
      30 and 32 heads, x/B/C strided views of one ``xBC`` tensor: within
@@ -164,8 +174,11 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -952,6 +965,7 @@ PROFILE_GROUPS = {
                        "panel_add_kernel"),
     "K6 row gather/scatter": ("gather_rows_kernel", "scatter_rows_kernel"),
     "K10/K11 attention": ("flash_attention_kernel",
+                          "flash_attention_sm90_kernel",
                           "decode_attention_kernel"),
     "K12 SSD chunk scan": ("ssd_chunk_kernel",),
     "matmul": ("gemm", "Gemm", "cutlass", "xmma", "nvjet"),
@@ -2487,13 +2501,29 @@ ATTN_BARS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 #: the f32 recompute than the bf16 recompute is.
 LM_LOGIT_TOL, LM_MARGIN, LM_FLOOR_RATIO = 3e-2, 4e-2, 1.25
 #: K10 (B, Hq, Hkv, Sq, Sk, D, causal, window) and K11 (B, Hq, Hkv, S, D,
-#: kv_len, window) edge cases, each at f32 and bf16.
+#: kv_len, window) edge cases, each at f32 (the SIMT route) and bf16 (the
+#: wgmma route): Sq 1, 63, 65, 127 and 129 against key tiles of 64 and
+#: query tiles of 128; Sq != Sk without ``causal``; windows of 24 and of
+#: 100 (starting inside a key tile); GQA groups 1, 4, 8 and 12; head dims
+#: 16, 32, 64, 80, 128, 160 and 256 (the wgmma kernel's four padded
+#: widths, 64 to 256); Sq > Sk under ``causal`` (zero rows); a
+#: 2,048-token causal prefill.  q is a permuted view in every case.
 K10_EDGES = ((1, 32, 8, 1, 1, 128, True, None),
              (2, 4, 4, 40, 72, 64, False, None),
              (1, 8, 2, 96, 96, 64, True, 24),
              (2, 32, 8, 100, 100, 128, True, None),
              (1, 16, 2, 33, 65, 80, True, None),
-             (1, 32, 8, 1024, 1024, 128, True, None))
+             (1, 4, 1, 63, 63, 32, True, None),
+             (1, 4, 4, 65, 65, 256, True, None),
+             (1, 8, 1, 127, 127, 64, True, None),
+             (1, 12, 1, 129, 129, 128, True, None),
+             (1, 8, 2, 65, 200, 128, False, None),
+             (1, 8, 2, 300, 300, 128, True, 100),
+             (1, 4, 4, 129, 50, 128, True, None),
+             (1, 4, 2, 100, 100, 160, True, None),
+             (1, 2, 2, 70, 70, 16, False, None),
+             (1, 32, 8, 1024, 1024, 128, True, None),
+             (1, 32, 8, 2048, 2048, 128, True, None))
 K11_EDGES = ((8, 32, 8, 1024, 128, (1, 17, 600, 1024, 2, 333, 64, 1000),
               None),
              (3, 4, 4, 33, 64, (33, 16, 1), None),
@@ -2537,9 +2567,12 @@ def attn_check(name: str, args, kw, twice: bool = True) -> tuple:
 
 
 def attn_edges_check() -> dict:
-    """Both kernels on the edge cases of ``K10_EDGES``/``K11_EDGES``."""
+    """Both kernels on the edge cases of ``K10_EDGES``/``K11_EDGES``; K10's
+    worst errors kept by route (f32 takes "simt", bf16 "wgmma")."""
     gen = torch.Generator().manual_seed(1010)
-    out = {"flash_attention": (0.0, 0.0), "decode_attention": (0.0, 0.0)}
+    out = {"flash_attention.simt": (0.0, 0.0),
+           "flash_attention.wgmma": (0.0, 0.0),
+           "decode_attention": (0.0, 0.0)}
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen).to(DEVICE, dtype)
@@ -2549,10 +2582,14 @@ def attn_edges_check() -> dict:
             q = randn(B, Sq, Hq, D, dtype=dtype).transpose(1, 2)
             k, v = randn(B, Hkv, Sk, D, dtype=dtype), \
                 randn(B, Hkv, Sk, D, dtype=dtype)
+            n0 = lm.LAUNCHES["flash_attention.wgmma"]
             e = attn_check("flash_attention", (q, k, v),
                            {"causal": causal, "window": window})
-            out["flash_attention"] = tuple(map(max, out["flash_attention"],
-                                               e))
+            key = f"flash_attention.{flash.route(dtype, D)}"
+            check((lm.LAUNCHES["flash_attention.wgmma"] - n0 == 2)
+                  == (key == "flash_attention.wgmma"),
+                  f"K10 at {dtype}, D {D} did not take the {key} route")
+            out[key] = tuple(map(max, out[key], e))
         for B, Hq, Hkv, S, D, kvl, window in K11_EDGES:
             q = randn(B, Hq, D, dtype=dtype)
             k, v = randn(B, Hkv, S, D, dtype=dtype), \
@@ -2563,17 +2600,64 @@ def attn_edges_check() -> dict:
             out["decode_attention"] = tuple(map(max, out["decode_attention"],
                                                 e))
     for name, (err, rel) in out.items():
-        print(f"{name} vs plain, edge cases (f32 and bf16): max_abs_err "
-              f"{err:.3e}, {rel:.3e} of max |plain|")
+        print(f"{name} vs plain, edge cases: max_abs_err {err:.3e}, "
+              f"{rel:.3e} of max |plain|")
     return out
+
+
+@contextlib.contextmanager
+def k10_route(path: str):
+    """Every K10 launch inside takes route ``path``: times the SIMT
+    kernel, K10 before its redesign, on the bf16 launches the wgmma route
+    serves."""
+    orig = flash.route
+    flash.route = lambda dtype, D: path
+    try:
+        yield
+    finally:
+        flash.route = orig
+
+
+def k10_build_report() -> dict:
+    """What ``nvcc -Xptxas -v`` said of each instantiation (by padded
+    head dim) of the wgmma kernel, its dynamic shared memory a CTA by
+    head dim, and, where ``cuobjdump`` is on the machine, the counts of
+    ``HGMMA`` and ``UTMALDG`` in its SASS, both of which must be there."""
+    lib_path = _build.library_path("flash_attention_sm90")
+    ptxas, dp = {}, None
+    for line in _build.build_log("flash_attention_sm90").splitlines():
+        m = re.search(r"Compiling entry function .*ILi(\d+)E", line)
+        if m:
+            dp = int(m.group(1))
+        elif dp and ("registers" in line or "spill stores" in line):
+            ptxas.setdefault(dp, []).append(
+                line.replace("ptxas info    :", "").strip())
+    smem_of = ctypes.CDLL(str(lib_path)).flash_attention_sm90_smem_bytes
+    smem = {D: smem_of(D) for D in (32, 64, 80, 128, 256)}
+    cob = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = {}
+    if Path(cob).exists():
+        dump = subprocess.run([cob, "-sass", str(lib_path)],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        sass = {op: dump.count(op) for op in ("HGMMA", "UTMALDG")}
+        check(all(sass.values()), f"flash_attention_sm90.cu's SASS lacks "
+              f"HGMMA or UTMALDG: {sass}")
+    for d, lines in sorted(ptxas.items()):
+        print(f"flash_attention_sm90.cu, padded head dim {d}: "
+              + "; ".join(lines))
+    print(f"flash_attention_sm90.cu: dynamic shared memory a CTA by head "
+          f"dim {smem}; SASS {sass or 'not read (no cuobjdump)'}")
+    return {"ptxas": ptxas, "smem": smem, "sass": sass}
 
 
 def attn_bound_ms(name: str, args, kw) -> tuple:
     """Least time of one K10/K11 launch on ``args``: QK^T and PV over the
     pairs of query and valid key this launch's data has (4 * D FLOPs a
-    pair a head) at 989 TFLOP/s bf16, against q, the valid K/V rows and
-    the output moved once at 3.35 TB/s.  Returns (bound_ms, bound_by,
-    flops, bytes)."""
+    pair a head) at 989 TFLOP/s for bf16 operands (67 TFLOP/s for f32,
+    which the fp32 constraint keeps off the tensor cores), against q, the
+    valid K/V rows and the output moved once at 3.35 TB/s.  Returns
+    (bound_ms, bound_by, flops, bytes)."""
     q, k, v = args
     e = q.element_size()
     if name == "flash_attention":
@@ -2598,7 +2682,8 @@ def attn_bound_ms(name: str, args, kw) -> tuple:
         pairs = rows * Hq
         nbytes = e * (2 * B * Hq * D + 2 * rows * Hkv * D) + 4 * B
     flops = 4.0 * D * pairs
-    t_op, t_by = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_op, t_by = flops / peak, nbytes / PEAK_BYTES
     return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
             else "bytes", flops, nbytes)
 
@@ -2831,9 +2916,11 @@ def lm_serving_phase(card: str) -> dict:
           + ", ".join(f"{r.request_id}:{r.status}:{r.error}" for r in reqs
                       if r.status != "ok"))
     check(launches == {"flash_attention": L * len(reqs),
+                       "flash_attention.wgmma": L * len(reqs),
                        "decode_attention": L * eng.ticks},
           f"LM launches {launches}: expected {L} K10 a prompt "
-          f"({len(reqs)} prompts) and {L} K11 a tick ({eng.ticks} ticks)")
+          f"({len(reqs)} prompts), all on the wgmma route, and {L} K11 a "
+          f"tick ({eng.ticks} ticks)")
     tokens = sum(len(r.output) for r in reqs)
     check(all(len(r.output) == LM_NEW for r in reqs),
           "an LM request stopped short of its max_new_tokens")
@@ -2909,7 +2996,18 @@ def lm_serving_phase(card: str) -> dict:
     check(recompute["clear_margin_tokens_agree"], "a served token differs "
           "from the recompute's argmax where its margin is clear")
     timings = {n: attn_timings(n, kept[n]) for n in kept}
+    # K10 before its redesign: the SIMT kernel on the same bf16 launches;
+    # and the SIMT route on their f32 copies, the type it now serves.
+    k10_calls = kept["flash_attention"]
+    with k10_route("simt"):
+        timings["flash_attention"]["simt_bf16_ms"] = device_ms_per_call(
+            [lambda a=a, kw=kw: flash.flash_attention(*a, **kw)
+             for a, kw in k10_calls], reps=1)
     del kept
+    simt = attn_timings("flash_attention",
+                        [(tuple(t.float() for t in a), kw)
+                         for a, kw in k10_calls])
+    del k10_calls
     k10 = {}
     for b in buckets:
         toks = torch.ones((1, b), dtype=torch.long, device=DEVICE)
@@ -2928,10 +3026,13 @@ def lm_serving_phase(card: str) -> dict:
         finally:
             flash.flash_attention = orig
         a, kw = calls[0]
-        k10[b] = {"ms": time_ms(lambda: orig(*a, **kw), 10, 2),
-                  "sdpa_ms": time_ms(sdpa_call("flash_attention", a, kw),
-                                     10, 2),
+        k10[b] = {"ms": device_ms_per_call([lambda: orig(*a, **kw)], 10),
+                  "sdpa_ms": device_ms_per_call(
+                      [sdpa_call("flash_attention", a, kw)], 10),
                   "bound_ms": attn_bound_ms("flash_attention", a, kw)[0]}
+        with k10_route("simt"):
+            k10[b]["simt_ms"] = device_ms_per_call(
+                [lambda: orig(*a, **kw)], 3)
         del calls
 
     # One warm tick under the profiler: eight requests decoding.
@@ -2942,7 +3043,23 @@ def lm_serving_phase(card: str) -> dict:
     prof = profile_step(f"one warm LM decode tick ({LM_SLOTS} slots, {L} "
                         f"layers)", peng.step)
     del peng
+    # One warm prefill of the largest bucket: the card's share of it.
+    toks = torch.ones((1, LM_MAX_LEN), dtype=torch.long, device=DEVICE)
+    with torch.no_grad():
+        prof_prefill = profile_step(
+            f"one warm LM prefill ({LM_MAX_LEN} tokens, {L} layers)",
+            lambda: model.prefill(params, toks)[0].cpu())
+    # The SIMT route's own path: the reduced f32 model served on the card,
+    # the launch counts set to 0 just before and read just after.
+    lm.reset_launches()
     exact = lm_exact_f32_check()
+    f32_launches = dict(lm.LAUNCHES)
+    check(f32_launches.get("flash_attention.simt", 0)
+          == f32_launches.get("flash_attention", 0) > 0
+          and "flash_attention.wgmma" not in f32_launches,
+          f"f32 LM K10 launches {f32_launches}: expected all on the SIMT "
+          f"route")
+    build = k10_build_report()
 
     out = {"arch": LM_ARCH, "params": n_params, "layers": L,
            "init_s": init_s, "requests": len(reqs), "tokens": tokens,
@@ -2951,8 +3068,10 @@ def lm_serving_phase(card: str) -> dict:
            "tick_p99_ms": float(np.percentile(decode_s, 99) * 1e3),
            "prefill_ms": prefill_ms, "peak_bytes": peak,
            "launches": launches, "edges": edges, "recompute": recompute,
-           "k10_buckets": k10, "timings": timings,
-           "profile": prof, "exact_f32": exact, "card": card}
+           "k10_buckets": k10, "timings": timings, "simt_f32": simt,
+           "f32_launches": f32_launches, "k10_build": build,
+           "profile": prof, "profile_prefill": prof_prefill,
+           "exact_f32": exact, "card": card}
     print(f"LM serving: {json.dumps(out)}")
     print(f"LM serving {LM_ARCH} ({n_params / 1e9:.2f} B params, bf16, init "
           f"{init_s:.1f} s): {len(reqs)} requests, {tokens} tokens in "
@@ -2969,9 +3088,13 @@ def lm_serving_phase(card: str) -> dict:
           f"{recompute['tokens_agree']:.1%} of {recompute['tokens']} tokens "
           f"agree, all {recompute['tokens_clear_margin']} with a clear margin")
     for b, t in k10.items():
-        print(f"flash_attention at a {b}-token prefill: {t['ms']:.4f} ms, "
-              f"SDPA {t['sdpa_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms")
-    for name, t in timings.items():
+        print(f"flash_attention at a {b}-token prefill (device time): "
+              f"wgmma {t['ms']:.4f} ms, SIMT {t['simt_ms']:.4f} ms, SDPA "
+              f"{t['sdpa_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms")
+    print(f"flash_attention on the kept bf16 launches: SIMT route (before "
+          f"the redesign) {timings['flash_attention']['simt_bf16_ms']:.4f} "
+          f"ms a launch (device)")
+    for name, t in (*timings.items(), ("flash_attention.simt at f32", simt)):
         print(f"{name} on {t['timed']} kept launches: {t['ms']:.4f} ms a "
               f"launch (device), plain {t['plain_ms']:.4f}, SDPA "
               f"{t['library_ms']:.4f}, bound {t['bound_ms']:.5f} ms by "
@@ -2979,14 +3102,21 @@ def lm_serving_phase(card: str) -> dict:
               f"ms apart; max_abs_err {t['max_abs_err']:.3e} "
               f"({t['max_rel_err']:.3e} of max |plain|)")
     rows = []
-    for name, source in (("flash_attention", "flash_attention.cu"),
-                         ("decode_attention", "decode_attention.cu")):
-        t = timings[name]
+    for name, source, t, n, edge in (
+            ("flash_attention.wgmma", "flash_attention_sm90.cu",
+             timings["flash_attention"], launches["flash_attention.wgmma"],
+             edges["flash_attention.wgmma"]),
+            ("flash_attention.simt", "flash_attention.cu", simt,
+             f32_launches["flash_attention.simt"],
+             edges["flash_attention.simt"]),
+            ("decode_attention", "decode_attention.cu",
+             timings["decode_attention"], launches["decode_attention"],
+             edges["decode_attention"])):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": ATTN_REPLACES[name], "launches": launches[name],
-            "max_abs_err": max(t["max_abs_err"], edges[name][0]),
+            "replaces": ATTN_REPLACES[name.split(".")[0]], "launches": n,
+            "max_abs_err": max(t["max_abs_err"], edge[0]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

@@ -43,10 +43,13 @@
 // against q, k, v and o each moved once at 3.35 TB/s.  A granite-3-8b
 // prefill of a 1,024-token bucket (Hq 32, Hkv 8, D 128, causal) is 8.6
 // GFLOP, 8.7 us, against 21 MB of bytes, 6.3 us: bound by operations.
-// This first kernel runs its products as fp32 FMAs on the CUDA cores (67
+// This kernel runs its products as fp32 FMAs on the CUDA cores (67
 // TFLOP/s peak) and reads an operand from shared memory for about every
-// FMA, so it stays far from either bound; wgmma for QK^T and PV, fed by
-// TMA, is the later work.
+// FMA, so it stays far from either bound.  It is the route for f32
+// operands (which the fp32 constraint keeps off the tensor cores) and for
+// bf16 head dims that are not a multiple of 16; bf16 operands with
+// D % 16 == 0 take flash_attention_sm90.cu (wgmma for QK^T and PV, fed by
+// TMA), chosen by flash_attention.py's `route`.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

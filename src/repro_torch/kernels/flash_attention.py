@@ -2,24 +2,38 @@
 
 Port of ``repro.kernels.flash_attention``'s Pallas kernel
 (``flash_attention``): ``q`` ``[B, Hq, Sq, D]`` against ``k``/``v``
-``[B, Hkv, Sk, D]`` → ``[B, Hq, Sq, D]`` at ``q``'s type, float32 math,
-with ``causal`` masking (the ends aligned: query ``i`` sits at key
-position ``i + Sk - Sq``), a sliding ``window`` (keys ``> p - window``),
-GQA (query head ``h`` reads KV head ``h // (Hq / Hkv)``, no copy) and
-``scale`` (default ``D ** -0.5``).  ``csrc/flash_attention.cu`` holds the
-kernel; its header states the bound and the design.  A query with no
-valid key gets a zero row.
+``[B, Hkv, Sk, D]`` → ``[B, Hq, Sq, D]`` at ``q``'s type, fp32
+accumulation, with ``causal`` masking (the ends aligned: query ``i`` sits
+at key position ``i + Sk - Sq``), a sliding ``window`` (keys ``> p -
+window``), GQA (query head ``h`` reads KV head ``h // (Hq / Hkv)``, no
+copy) and ``scale`` (default ``D ** -0.5``).  A query with no valid key
+gets a zero row.
 
-The wrapper takes CUDA tensors only: it launches the kernel or raises.
-The plain version for CPU tensors (``ref.mha``) is chosen in
-:mod:`repro_torch.kernels.ops`.  Each launch is counted in
-``level_megastep.LAUNCHES``.  Forward only, as in the reference (no
+Two kernels, chosen by the operands (:func:`route`), never as a
+fallback:
+
+* ``"wgmma"`` -- bf16 with ``D % 16 == 0`` and ``D <= 256``:
+  ``csrc/flash_attention_sm90.cu``, QKᵀ and PV on the tensor cores by
+  ``wgmma``, operands staged by TMA.  QKᵀ of bf16 operands is exact in
+  fp32; each fp32 probability is split into ``P_hi = bf16(P)`` and
+  ``P_lo = bf16(P - P_hi)`` and PV runs on both, so PV keeps about 16
+  bits of ``P``.  TMA reads the batch, head and row strides, which must
+  be multiples of 16 bytes (:func:`tma_strides` raises otherwise);
+* ``"simt"`` -- float32, or any other bf16 head dim:
+  ``csrc/flash_attention.cu``, fp32 FMAs on the CUDA cores.
+
+Each source's header states its bound and design.  The wrapper takes
+CUDA tensors only: it launches a kernel or raises.  The plain version for
+CPU tensors (``ref.mha``) is chosen in :mod:`repro_torch.kernels.ops`.
+Each launch is counted in ``level_megastep.LAUNCHES`` under
+``"flash_attention"`` and under its route (``"flash_attention.wgmma"``,
+``"flash_attention.simt"``).  Forward only, as in the reference (no
 VJP): a call that would need a gradient raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,6 +42,37 @@ from repro_torch.kernels.level_megastep import launch_kernel, require_cuda
 #: Element types the attention kernels take, and the widest head.
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
+#: route → the library (``_build.KERNELS`` name) that runs it.
+LIBRARIES = {"wgmma": "flash_attention_sm90", "simt": "flash_attention"}
+
+
+def route(dtype: torch.dtype, D: int) -> str:
+    """The kernel that takes operands of ``dtype`` at head dim ``D``:
+    ``"wgmma"`` for bf16 with ``D % 16 == 0`` and ``D <= 256`` (bf16
+    ``wgmma`` takes k16 steps), ``"simt"`` for the rest."""
+    if dtype == torch.bfloat16 and D % 16 == 0 and 0 < D <= MAX_HEAD_DIM:
+        return "wgmma"
+    return "simt"
+
+
+def tma_strides(op: str, name: str, t: torch.Tensor) -> Tuple[int, ...]:
+    """The (batch, head, row) strides, in elements, through which TMA
+    reads the ``[B, H, S, D]`` operand ``t``; a dimension of size 1 gets
+    its contiguous stride, since no copy steps along it.  Raises unless
+    each is a positive multiple of 16 bytes and ``t`` starts on a 16-byte
+    boundary, which TMA needs (a view that breaks this is not copied)."""
+    B, H, S, D = t.shape
+    e = t.element_size()
+    sizes, contiguous = (B, H, S), (H * S * D, S * D, D)
+    st = tuple(c if n == 1 else s for n, s, c in
+               zip(sizes, t.stride()[:3], contiguous))
+    if any(s <= 0 or s * e % 16 for s in st) or t.data_ptr() % 16:
+        raise ValueError(
+            f"{op}: TMA reads {name} through its batch, head and row "
+            f"strides, which must be positive multiples of 16 bytes on a "
+            f"16-byte aligned base; got strides {t.stride()} of "
+            f"{t.dtype} at offset {t.data_ptr() % 16} from 16 bytes")
+    return st
 
 
 def check_operand(op: str, name: str, t: torch.Tensor, ndim: int,
@@ -72,9 +117,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of ``q`` ``[B, Hq, Sq, D]`` over ``k``/``v``
     ``[B, Hkv, Sk, D]`` (K10), float32 or bf16 (one type; permuted views
     welcome, unit stride along ``D``).  Returns a new contiguous
-    ``[B, Hq, Sq, D]`` tensor at ``q``'s type."""
+    ``[B, Hq, Sq, D]`` tensor at ``q``'s type.  The operands are checked
+    before the device, so a view TMA cannot read raises on any device."""
     op = "flash_attention"
-    require_cuda(op, q)
     refuse_grad(op, "src/repro/kernels/flash_attention.py:88", q, k, v)
     dev = q.device
     check_operand(op, "q", q, 4, q.dtype, dev)
@@ -90,13 +135,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None and window < 1:
         raise ValueError(f"{op}: window must be >= 1, got {window}")
     scale = D ** -0.5 if scale is None else float(scale)
+    path = route(q.dtype, D)
+    if path == "wgmma":
+        strides = [s for name, t in (("q", q), ("k", k), ("v", v))
+                   for s in tma_strides(op, name, t)]
+        flags = (scale, int(causal), window or 0)
+    else:
+        strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
+        flags = (scale, int(causal), window or 0,
+                 int(q.dtype == torch.bfloat16))
+    require_cuda(op, q)
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=dev)
     if out.numel():
-        launch_kernel(op, dev, out.data_ptr(), q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
-                      q.stride(0), q.stride(1), q.stride(2),
-                      k.stride(0), k.stride(1), k.stride(2),
-                      v.stride(0), v.stride(1), v.stride(2),
-                      scale, int(causal), window or 0,
-                      int(q.dtype == torch.bfloat16))
+        launch_kernel(LIBRARIES[path], dev, out.data_ptr(), q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
+                      *strides, *flags, counts=(op, f"{op}.{path}"))
     return out

@@ -127,17 +127,20 @@ def check_arg(op: str, name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{op}: {name} must be contiguous")
 
 
-def launch_kernel(name: str, device: torch.device, *args) -> None:
+def launch_kernel(name: str, device: torch.device, *args,
+                  counts: Tuple[str, ...] = ()) -> None:
     """Launch kernel ``name`` (built on first use) with ``args`` on the
     current stream of ``device``; raise if CUDA refuses the launch, and
-    count it in ``LAUNCHES`` only once it is in the stream."""
+    count it in ``LAUNCHES`` (under ``name``, or under each of ``counts``)
+    only once it is in the stream."""
     launch = _build.load(name)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = launch(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+    for key in counts or (name,):
+        LAUNCHES[key] += 1
 
 
 def treelstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,

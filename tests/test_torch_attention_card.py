@@ -1,18 +1,34 @@
 """The attention kernels on the card: K10 ``flash_attention`` and K11
 ``decode_attention`` against their plain versions (``ref.mha``,
 ``ref.decode_attention``, computing in float32 on float32 copies of the
-inputs) at edge shapes -- Sq 1, Sq != Sk without ``causal``, a window of
-24, Hq = Hkv and GQA groups up to 8, head dims 64, 80 and 128, lengths no
+inputs) at edge shapes -- Sq 1, Sq != Sk without ``causal``, windows,
+Hq = Hkv and GQA groups up to 12, head dims 16 to 256, lengths no
 multiple of a tile, ``kv_len`` 1 and ragged, float32 and bf16 -- two
 launches bitwise equal, the wrappers refusing a gradient, and the launch
 counts of ``ServeEngine`` over a small LM on the card (one K10 a layer a
 prompt, one K11 a layer a tick) with its greedy tokens equal to a full
-recompute.  Every test here is ``gpu``-marked and skips inside its body
+recompute at f32, and every K10 launch on the wgmma route at bf16.  Every test here is ``gpu``-marked and skips inside its body
 where there is no card; none needs JAX, which the GPU machine lacks.
 
 Bars: 1e-5 of max |plain| at float32 (the kernels sum in another order)
 and 1e-2 at bf16 (one bf16 rounding of the output, and the operands'
-own bf16 rounding, which the plain version sees too)."""
+own bf16 rounding, which the plain version sees too).
+
+bf16 K10 takes the wgmma route (``csrc/flash_attention_sm90.cu``: bf16
+``wgmma`` for QKᵀ and for PV on ``P_hi + P_lo``, TMA staging); f32 the
+SIMT route; the K10 cases check which route each launch took.  They
+cover head dims 16, 32, 64, 80, 128, 160 and 256 (every padded width of
+the wgmma kernel's shared tiles), Sq 1, 63, 65, 127 and 129, Sq != Sk
+without ``causal``, a window starting inside a key tile, GQA groups 1,
+4, 8 and 12, a 2,048-token causal prefill, q as a permuted view, and
+Sq > Sk (rows with no key, exactly zero).  Against the plain version on
+f32 copies of the same bf16 operands the wgmma route's error is that
+of the output's one bf16 rounding (unit roundoff 2^-8 = 3.9e-3 of an
+element): 1.2e-3 to 3.6e-3 of max |plain| on the H100 (NVIDIA H100
+80GB HBM3, 700 W; these cases and ``chip_smoke.py`` phase 15's edges
+and kept launches), far under the 1e-2 bar."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -69,6 +85,18 @@ def _check(got, again, want, dtype):
     (2, 32, 8, 100, 100, 128, True, None),    # group 4, ragged tiles
     (1, 16, 2, 33, 65, 80, True, None),       # group 8, D 80
     (1, 32, 8, 1024, 1024, 128, True, None),  # a full prefill bucket
+    (1, 4, 1, 63, 63, 32, True, None),        # D 32, Sq 63, group 4
+    (1, 8, 1, 65, 65, 64, True, None),        # Sq 65, group 8
+    (1, 16, 2, 127, 127, 80, True, None),     # Sq 127
+    (2, 12, 1, 129, 129, 128, True, None),    # Sq 129, group 12
+    (1, 4, 4, 1, 1, 256, True, None),         # D 256, Sq 1, group 1
+    (1, 4, 4, 65, 130, 256, True, None),      # D 256, ragged keys
+    (1, 4, 2, 100, 100, 160, True, None),     # D 160 (192 in smem)
+    (1, 2, 2, 70, 70, 16, False, None),       # D 16 (64 in smem)
+    (1, 8, 2, 65, 200, 128, False, None),     # Sq < Sk, not causal
+    (1, 8, 2, 300, 300, 128, True, 100),      # window inside a key tile
+    (1, 4, 4, 129, 50, 128, True, None),      # Sq > Sk: zero rows
+    (1, 32, 8, 2048, 2048, 128, True, None),  # a 2,048-token prefill
 ])
 def test_flash_attention_matches_plain(dt, B, Hq, Hkv, Sq, Sk, D, causal,
                                        window):
@@ -81,7 +109,15 @@ def test_flash_attention_matches_plain(dt, B, Hq, Hkv, Sq, Sk, D, causal,
                                      window=window)
     want = ref.mha(q.float(), k.float(), v.float(), causal=causal,
                    window=window)
-    _check(run(), run(), want, dtype)
+    lm.reset_launches()
+    got = run()
+    _check(got, run(), want, dtype)
+    path = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert fa.route(dtype, D) == path
+    assert dict(lm.LAUNCHES) == {"flash_attention": 2,
+                                 f"flash_attention.{path}": 2}
+    if causal and Sq > Sk:
+        assert not got[:, :, :Sq - Sk].any(), "a row with no key is not 0"
 
 
 @pytest.mark.gpu
@@ -146,6 +182,7 @@ def test_serve_engine_launches_and_tokens_on_the_card():
     done = eng.run()
     L = cfg.num_layers
     assert lm.LAUNCHES["flash_attention"] == L * len(reqs)
+    assert lm.LAUNCHES["flash_attention.simt"] == L * len(reqs)
     assert lm.LAUNCHES["decode_attention"] == L * eng.ticks
     assert all(r.status == "ok" for r in done)
     with torch.no_grad():
@@ -159,3 +196,28 @@ def test_serve_engine_launches_and_tokens_on_the_card():
                 assert int(torch.argmax(model.logits(params, h)[0, -1])) \
                     == want
                 toks.append(want)
+
+
+@pytest.mark.gpu
+def test_bf16_serve_engine_takes_the_wgmma_route():
+    """A small bf16 LM (head dim 32) served on the card: every K10 launch
+    on the wgmma route, one a layer a prompt, every request ``ok``."""
+    _need_card()
+    cfg = dataclasses.replace(reduced(get_config("granite-3-8b")),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
+    eng = ServeEngine(model, params, num_slots=4, max_len=64)
+    rng = np.random.default_rng(1)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)), max_new_tokens=4)
+            for i, n in enumerate((3, 9, 16, 30, 5))]
+    for r in reqs:
+        assert eng.submit(r)
+    lm.reset_launches()
+    done = eng.run()
+    L = cfg.num_layers
+    assert all(r.status == "ok" for r in done)
+    assert lm.LAUNCHES["flash_attention"] == L * len(reqs)
+    assert lm.LAUNCHES["flash_attention.wgmma"] == L * len(reqs)
+    assert "flash_attention.simt" not in lm.LAUNCHES
