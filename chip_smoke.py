@@ -32,13 +32,18 @@ Phases, each of which must pass (any failure exits non-zero):
      backward's sorted runs), taken with taps on ``ops.bwd_megastep`` and
      ``ops.scatter_add_rows``: every reverse level through the reverse
      megastep kernel against its plain version on the same inputs (error
-     relative to max |plain| <= 1e-4, untouched rows bit-unchanged), every
-     scatter of the step and a duplicate-heavy case through the
-     scatter-add kernel against its plain version, each timed with CUDA
-     events beside its bound (and the scatter beside ``index_add_``); the
-     fused leg's gradients (every param and the external matrix) against
-     ``fusion_mode="none"`` on the card within 1e-4 relative; two
-     backward passes of the step bitwise equal;
+     relative to max |plain| <= 1e-4, untouched rows bit-unchanged), timed
+     with CUDA events beside its bound; the step's scatter (with the
+     schedule's plan, which it must have been given) and a
+     duplicate-heavy case through the scatter-add kernel (K7) against
+     its plain version (1e-4) and bit for bit against the plain rendering
+     of its plan's summation order, timed by ``torch.profiler`` device
+     time (its add and combine kernels apart) beside ``index_add_`` and
+     its bound, the plans' host build time apart; the fused leg's
+     gradients (every param and the external matrix) against
+     ``fusion_mode="none"`` on the card within 1e-4 relative, that leg's
+     backward making one K7 launch a level and one for the pulled rows;
+     two backward passes of the step bitwise equal;
   5. training — the example's loop (AdamW, warmup-cosine) for
      ``TRAIN_STEPS`` steps: finite losses, step time p50/p99, steps/s,
      peak device memory, one forward and one reverse megastep launch per
@@ -61,10 +66,11 @@ Phases, each of which must pass (any failure exits non-zero):
      ``ops.scatter_add_rows``: every forward and reverse level and the
      pulled-row scatter re-run through its kernel and its plain version
      (error relative to max |plain| <= 1e-4, untouched rows
-     bit-unchanged), timed beside its data-aware bound; the fused
-     gradients against ``fusion_mode="none"`` within 1e-4 relative; two
-     backward passes bitwise equal; a ``torch.profiler`` breakdown of one
-     warm step;
+     bit-unchanged; K7 as in phase 4), timed beside its data-aware bound;
+     the fused gradients against ``fusion_mode="none"`` within 1e-4
+     relative (T + 1 K7 launches in that backward); two backward passes
+     bitwise equal; the scatter plans' build time; a ``torch.profiler``
+     breakdown of one warm step;
   9. K6 vs plain — the row gather/scatter kernels against their plain
      versions on the card, bit for bit, at the serving phases' shapes, a
      bf16 gather, rows not a multiple of 4 wide, n = 1 and pad lanes
@@ -225,9 +231,9 @@ from repro_torch.configs.paper import get_paper_model  # noqa: E402
 from repro_torch.core.scheduler import (execute, execute_lazy,  # noqa: E402
                                         execute_serial, readout_nodes,
                                         readout_roots)
-from repro_torch.core.structure import (chain, pack_batch,  # noqa: E402
-                                        pack_external, random_binary_tree,
-                                        random_dag)
+from repro_torch.core.structure import (ScatterPlan,  # noqa: E402
+                                        chain, pack_batch, pack_external,
+                                        random_binary_tree, random_dag)
 from repro_torch.data.trees import sst_like_dataset  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.archs import reduced  # noqa: E402
@@ -753,6 +759,75 @@ def heavy_scatter_case(gen: torch.Generator):
     return dst.to(DEVICE), idx.to(DEVICE), rows.to(DEVICE)
 
 
+#: K7's two kernels, timed apart by ``torch.profiler``.
+K7_PARTS = {"add_ms": ("chunk_add_kernel",),
+            "combine_ms": ("run_combine_kernel",)}
+
+
+def plan_build_ms(sched) -> float:
+    """Host ms to build a schedule's scatter plans on the card (what
+    ``to_device`` adds once per schedule): the pulled-row plan and one
+    per level, copies to the card included."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.scatter_plans(DEVICE)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def k7_check(label: str, dst0, idx, src, plan) -> dict:
+    """K7 on one scatter's inputs with its plan: against ``index_add_``
+    (error relative to max |plain| <= TOL), bit for bit against the plain
+    rendering of its own summation order and against a second launch,
+    rows no index points at bit-unchanged; then device ms a call (its
+    add and combine apart), of its plain version and of ``index_add_``
+    by ``torch.profiler``, beside its bound.  Returns the numbers."""
+    got = lmb.scatter_add_rows(dst0.clone(), idx, src, plan=plan)
+    again = lmb.scatter_add_rows(dst0.clone(), idx, src, plan=plan)
+    want = ref.scatter_add_rows(dst0.clone(), idx, src)
+    order = ref.scatter_add_rows_planned(dst0.clone(), src, plan)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    hit = torch.zeros(dst0.shape[0], dtype=torch.bool, device=DEVICE)
+    hit[idx.long()] = True
+    check(bitwise_equal(got[~hit], dst0[~hit]),
+          f"scatter-add changed rows no index points at ({label})")
+    check(bitwise_equal(got, again), f"scatter-add not repeatable bit for "
+          f"bit ({label})")
+    check(bitwise_equal(got, order), f"scatter-add is not the sum in its "
+          f"plan's order ({label})")
+    check(err <= TOL, f"scatter-add disagrees with its plain version "
+          f"({label}): {err:.3e} > {TOL}")
+    dk, dp, dl = dst0.clone(), dst0.clone(), dst0.clone()
+    idx_long = idx.long()
+    ms, parts = device_ms_per_call(
+        [lambda: lmb.scatter_add_rows(dk, idx, src, plan=plan)], reps=10,
+        parts=K7_PARTS)
+    out = {"max_abs_err": float((got - want).abs().max()),
+           "max_rel_err": err, "ms": ms, **parts,
+           "plain_ms": device_ms_per_call(
+               [lambda: ref.scatter_add_rows(dp, idx, src)], reps=10),
+           "library_ms": device_ms_per_call(
+               [lambda: dl.index_add_(0, idx_long, src)], reps=10),
+           "events_ms": time_ms(lambda: lmb.scatter_add_rows(
+               dk, idx, src, plan=plan), 20, 3)}
+    out["bound_ms"], out["bound_by"], nbytes = scatter_bound_ms(idx, src)
+    share = float((idx == dst0.shape[0] - 1).float().mean())
+    print(f"scatter-add, {label} (n={idx.numel()}, R={dst0.shape[0]}, "
+          f"D={dst0.shape[1]}, {share:.0%} at the last row; plan: "
+          f"{plan.chunks.shape[0]} chunks of <= {plan.chunk_rows}, "
+          f"{plan.split_chunks} in {plan.run_start.numel() - 1} split "
+          f"run(s)): error {err:.3e} of max |plain| (max abs "
+          f"{out['max_abs_err']:.3e}), bitwise its plan's order, "
+          f"repeatable, untouched rows kept; device ms: kernel "
+          f"{ms:.4f} (add {parts['add_ms']:.4f}, combine "
+          f"{parts['combine_ms']:.4f}; events {out['events_ms']:.4f}), "
+          f"plain {out['plain_ms']:.4f}, index_add_ "
+          f"{out['library_ms']:.4f}, bound {out['bound_ms']:.5f} by bytes "
+          f"({nbytes / 1e6:.1f} MB)")
+    return out
+
+
 def train_levels_phase() -> dict:
     """One full-width training step, its backward taken with taps on
     ``ops.bwd_megastep`` and ``ops.scatter_add_rows`` that keep each
@@ -772,9 +847,9 @@ def train_levels_phase() -> dict:
         levels.append(((kind, g.clone()) + args, kw))
         return inner_bwd(kind, g, *args, **kw)
 
-    def tap_sc(dst, idx, rows):
-        scatters.append((dst.clone(), idx, rows))
-        return inner_sc(dst, idx, rows)
+    def tap_sc(dst, idx, rows, plan=None):
+        scatters.append((dst.clone(), idx, rows, plan))
+        return inner_sc(dst, idx, rows, plan=plan)
 
     ops.bwd_megastep, ops.scatter_add_rows = tap_bwd, tap_sc
     try:
@@ -833,48 +908,29 @@ def train_levels_phase() -> dict:
           f"{bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, bound "
           f"{bwd['bound_ms']:.5f} ms by {bwd['bound_by']}")
 
-    sc_rel, sc_abs = 0.0, 0.0
-    gen = torch.Generator().manual_seed(7)
-    for name, (dst0, idx, src) in (("step's pulled-row scatter",
-                                    scatters[0]),
-                                   ("duplicate-heavy case",
-                                    heavy_scatter_case(gen))):
-        got = lmb.scatter_add_rows(dst0.clone(), idx, src)
-        again = lmb.scatter_add_rows(dst0.clone(), idx, src)
-        want = ref.scatter_add_rows(dst0.clone(), idx, src)
-        torch.cuda.synchronize()
-        e = rel_err(got, want)
-        hit = torch.zeros(dst0.shape[0], dtype=torch.bool, device=DEVICE)
-        hit[idx.long()] = True
-        check(bitwise_equal(got[~hit], dst0[~hit]),
-              f"scatter-add changed rows no index points at ({name})")
-        check(bitwise_equal(got, again), f"scatter-add not repeatable "
-              f"bit for bit ({name})")
-        print(f"scatter-add vs plain, {name} (n={idx.numel()}, "
-              f"R={dst0.shape[0]}, D={dst0.shape[1]}): error {e:.3e} of "
-              f"max |plain| (max abs "
-              f"{float((got - want).abs().max()):.3e})")
-        sc_rel = max(sc_rel, e)
-        sc_abs = max(sc_abs, float((got - want).abs().max()))
-    check(sc_rel <= TOL, f"scatter-add disagrees with its plain version: "
-          f"{sc_rel:.3e} > {TOL}")
-    dst0, idx, src = scatters[0]
-    dk, dp, dl = dst0.clone(), dst0.clone(), dst0.clone()
-    idx_long = idx.long()
-    sc = {"max_abs_err": sc_abs,
-          "ms": time_ms(lambda: lmb.scatter_add_rows(dk, idx, src), 20, 3),
-          "plain_ms": time_ms(lambda: ref.scatter_add_rows(dp, idx, src),
-                              20, 3),
-          "library_ms": time_ms(lambda: dl.index_add_(0, idx_long, src),
-                                20, 3)}
-    sc["bound_ms"], sc["bound_by"], nbytes = scatter_bound_ms(idx, src)
-    print(f"scatter-add, step's pulled-row scatter: kernel {sc['ms']:.4f} "
-          f"ms, plain {sc['plain_ms']:.4f} ms, index_add_ "
-          f"{sc['library_ms']:.4f} ms, bound {sc['bound_ms']:.5f} ms by "
-          f"bytes ({nbytes / 1e6:.1f} MB)")
+    check(scatters[0][3] is b.dev.ext_plan, "the step's scatter did not "
+          "get the schedule's plan")
+    plan_ms = plan_build_ms(b.sched)
+    print(f"scatter plans of the step's schedule (T{T}xM{M}: the pulled "
+          f"rows and {T} levels) built in {plan_ms:.3f} ms (host, once per "
+          f"schedule)")
+    sc = k7_check("step's pulled-row scatter", *scatters[0])
+    dst0, idx, src = heavy_scatter_case(torch.Generator().manual_seed(7))
+    t0 = time.perf_counter()
+    heavy_plan = ScatterPlan.build(idx, DEVICE)
+    heavy_ms = (time.perf_counter() - t0) * 1e3
+    heavy = k7_check("duplicate-heavy case", dst0, idx, src, heavy_plan)
+    heavy["plan_ms"] = heavy_ms
+    sc.update(plan_ms=plan_ms, heavy=heavy,
+              max_abs_err=max(sc["max_abs_err"], heavy["max_abs_err"]))
 
     torch.set_grad_enabled(True)
+    lm.reset_launches()
     loss_n, none = grads_of(ex, fn, params, b, y, "none")
+    check(lm.LAUNCHES["scatter_add_rows"] == T + 1,
+          f"{lm.LAUNCHES['scatter_add_rows']} scatter-add launches in the "
+          f"op-by-op backward, designed {T + 1} (one a level and one for "
+          f"the pulled rows)")
     worst = 0.0
     for k, v in fused.items():
         e = rel_err(v, none[k])
@@ -961,8 +1017,8 @@ PROFILE_GROUPS = {
                                      "cell_megastep_kernel"),
     "K2 reverse megastep": ("bwd_gates_kernel", "bwd_hgrad_kernel",
                             "scatter_runs_kernel"),
-    "K7 scatter-add": ("panel_count_kernel", "panel_fill_kernel",
-                       "panel_add_kernel"),
+    "K7 add": ("chunk_add_kernel",),
+    "K7 combine": ("run_combine_kernel",),
     "K6 row gather/scatter": ("gather_rows_kernel", "scatter_rows_kernel"),
     "K10/K11 attention": ("flash_attention_kernel",
                           "flash_attention_sm90_kernel",
@@ -1041,7 +1097,7 @@ def cell_setup(phase: str):
           .astype(np.float32) for g in graphs]
     ext = torch.from_numpy(pack_external(xs, s, cfg.input_dim)).to(DEVICE)
     h_lo = HIDDEN if kind == "lstm" else 0          # the h part of a state
-    return kind, fn, params, s.to_device(DEVICE), ext, h_lo
+    return kind, fn, params, s.to_device(DEVICE), ext, h_lo, s
 
 
 def cell_grads(fn, params, d, ext, h_lo, fusion_mode: str = "auto"):
@@ -1128,9 +1184,9 @@ def cell_levels_check(kind: str, fn, params, d, ext, h_lo) -> dict:
         bwd.append(((k, g.clone()) + args, kw))
         return inner[1](k, g, *args, **kw)
 
-    def tap_sc(dst, idx, rows):
-        scatters.append((dst.clone(), idx, rows))
-        return inner[2](dst, idx, rows)
+    def tap_sc(dst, idx, rows, plan=None):
+        scatters.append((dst.clone(), idx, rows, plan))
+        return inner[2](dst, idx, rows, plan=plan)
 
     ops.level_megastep, ops.bwd_megastep, ops.scatter_add_rows = \
         tap_fwd, tap_bwd, tap_sc
@@ -1198,36 +1254,9 @@ def cell_levels_check(kind: str, fn, params, d, ext, h_lo) -> dict:
                 n=10, warmup=2)
             b_rows.append((ms, plain_ms) + cell_bound_ms(
                 kind, (kind, g0) + case[3:], True) + (off // M,))
-        dst0, idx, src = scatters[0]
-        sc_got = lmb.scatter_add_rows(dst0.clone(), idx, src)
-        sc_again = lmb.scatter_add_rows(dst0.clone(), idx, src)
-        sc_want = ref.scatter_add_rows(dst0.clone(), idx, src)
-        torch.cuda.synchronize()
-        hit = torch.zeros(dst0.shape[0], dtype=torch.bool, device=DEVICE)
-        hit[idx.long()] = True
-        sc_err = rel_err(sc_got, sc_want)
-        check(bitwise_equal(sc_got[~hit], dst0[~hit]) and
-              bitwise_equal(sc_got, sc_again) and sc_err <= TOL,
-              f"{kind}: scatter-add at D={src.shape[1]}: error {sc_err:.3e}, "
-              f"or untouched rows changed, or not repeatable")
-        sentinel_share = float((idx == dst0.shape[0] - 1).float().mean())
-        dk, dp, dl = dst0.clone(), dst0.clone(), dst0.clone()
-        idx_long = idx.long()
-        sc = {"ms": time_ms(lambda: lmb.scatter_add_rows(dk, idx, src),
-                            10, 2),
-              "plain_ms": time_ms(lambda: ref.scatter_add_rows(dp, idx, src),
-                                  10, 2),
-              "library_ms": time_ms(lambda: dl.index_add_(0, idx_long, src),
-                                    10, 2),
-              "bound_ms": scatter_bound_ms(idx, src)[0],
-              "max_rel_err": sc_err}
-        print(f"{kind}: scatter-add of the pulled rows (n={idx.numel()}, "
-              f"D={src.shape[1]}, {sentinel_share:.0%} aimed at the "
-              f"sentinel): error {sc_err:.3e} of max |plain|, untouched "
-              f"rows bit-unchanged, repeatable; kernel {sc['ms']:.4f} ms, "
-              f"plain {sc['plain_ms']:.4f} ms, index_add_ "
-              f"{sc['library_ms']:.4f} ms, bound {sc['bound_ms']:.5f} ms by "
-              f"bytes")
+        check(scatters[0][3] is d.ext_plan, f"{kind}: the step's scatter "
+              f"did not get the schedule's plan")
+        sc = k7_check(f"{kind} pulled rows", *scatters[0])
     for label, rows in (("forward", f_rows), ("reverse", b_rows)):
         T_all = len(rows)
         for r in rows[:2] + rows[T_all // 2:T_all // 2 + 1] + rows[-1:]:
@@ -1248,7 +1277,11 @@ def cell_levels_check(kind: str, fn, params, d, ext, h_lo) -> dict:
               f"{sm['bound_ms']:.5f} ms by {sm['bound_by']}")
 
     ext_n = ext.clone().requires_grad_()
+    lm.reset_launches()
     loss_n, none = cell_grads(fn, params, d, ext_n, h_lo, "none")
+    check(lm.LAUNCHES["scatter_add_rows"] == T + 1,
+          f"{kind}: {lm.LAUNCHES['scatter_add_rows']} scatter-add launches "
+          f"in the op-by-op backward, designed {T + 1}")
     worst = max(rel_err(v, none[k]) for k, v in fused.items())
     check(abs(float(loss) - float(loss_n)) <= TOL * max(1.0, float(loss_n)),
           f"{kind}: fused loss {float(loss)} vs op-by-op {float(loss_n)}")
@@ -1269,7 +1302,7 @@ def cell_train_phase(phase: str, card: str) -> dict:
     through ``execute_lazy`` on one packed batch, launch counts set to 0
     just before and read just after; then the level checks with the
     params AdamW has moved, and a profile of one warm step."""
-    kind, fn, params, d, ext, h_lo = cell_setup(phase)
+    kind, fn, params, d, ext, h_lo, s = cell_setup(phase)
     opt = adamw_init(params)
 
     def step():
@@ -1299,7 +1332,7 @@ def cell_train_phase(phase: str, card: str) -> dict:
            "step_p50_ms": float(np.percentile(ms, 50)),
            "step_p99_ms": float(np.percentile(ms, 99)),
            "max_memory_allocated_bytes": int(peak), "launches": launches,
-           "card": card}
+           "plan_ms": plan_build_ms(s), "card": card}
     print(f"{phase} losses: " + " ".join(f"{x:.6f}" for x in losses))
     print(f"{phase}: {json.dumps(out)}")
     out.update(cell_levels_check(kind, fn, params, d, ext, h_lo))
@@ -1384,11 +1417,13 @@ def check_scatter(dst, ids, rows, label: str) -> float:
 PRIMER_LAUNCHES = 8
 
 
-def device_ms_per_call(calls, reps: int = 5) -> float:
+def device_ms_per_call(calls, reps: int = 5, parts=None):
     """Mean time the card spends per call over ``calls`` (functions that
     launch work), summed from ``torch.profiler``'s device times.  A K6
     launch takes less device time than its host launch cost, so CUDA
-    events around back-to-back launches would time the host instead."""
+    events around back-to-back launches would time the host instead.
+    ``parts``: name → kernel-name patterns; then returns ``(ms, {name:
+    ms of the kernels matching it})``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for c in calls:
@@ -1414,7 +1449,12 @@ def device_ms_per_call(calls, reps: int = 5) -> float:
         # lost at most 1 % of them, which biases the mean low by as much.
         seen = sum(e.count for e in on_card)
         if seen >= n - n // 100:
-            return sum(e.self_device_time_total for e in on_card) / 1e3 / n
+            ms = sum(e.self_device_time_total for e in on_card) / 1e3 / n
+            if parts is None:
+                return ms
+            return ms, {k: sum(e.self_device_time_total for e in on_card
+                               if any(p in e.key for p in pats)) / 1e3 / n
+                        for k, pats in parts.items()}
     fail(f"torch.profiler recorded {seen} device operations for {n} calls "
          f"in three sessions")
 
@@ -2242,7 +2282,7 @@ def var_lstm_opbyop(card: str) -> dict:
     beside the fused leg's.  A tapped run before the main path keeps each
     level's kernel arguments for the kernel's checks and times (taps keep
     tensors alive, so the timed runs are untapped)."""
-    _kind, fn, params, d, ext, _h = cell_setup("var_lstm")
+    _kind, fn, params, d, ext, _h, _s = cell_setup("var_lstm")
     cpu_args = ({k: v.cpu() for k, v in params.items()},
                 _schedule_on(d, "cpu"), ext.cpu())
 
@@ -3542,7 +3582,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/scatter_add_rows.cu",
         "replaces": "src/repro/kernels/level_megastep_bwd.py:108",
         "launches": train["launches"]["scatter_add_rows"],
-        "max_abs_err": sc["max_abs_err"], "ms": sc["ms"],
+        "max_abs_err": max([sc["max_abs_err"]] + [
+            c["scatter"]["max_abs_err"] for c in cells]), "ms": sc["ms"],
         "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
         "bound_by": sc["bound_by"], "library_ms": sc["library_ms"]}]
     for c in cells:
@@ -3581,6 +3622,17 @@ def main() -> None:
         print(f"{label}: {part['ms']:.4f} ms a launch, plain "
               f"{part['plain_ms']:.4f} ms, bound {part['bound_ms']:.5f} ms "
               f"by {part['bound_by']}, max_abs_err {part['max_abs_err']:.3e}")
+    for label, part in (("the Tree-LSTM step", sc),
+                        ("the duplicate-heavy case", sc["heavy"]),
+                        *((c["phase"], c["scatter"]) for c in cells)):
+        print(f"K7 at {label}: {part['ms']:.4f} ms of device time (add "
+              f"{part['add_ms']:.4f}, combine {part['combine_ms']:.4f}), "
+              f"index_add_ {part['library_ms']:.4f}, plain "
+              f"{part['plain_ms']:.4f}, bound {part['bound_ms']:.5f} ms")
+    print(f"scatter plans built in {sc['plan_ms']:.3f} ms (the Tree-LSTM "
+          f"step's schedule), " + ", ".join(
+              f"{c['phase']} {c['plan_ms']:.3f} ms" for c in cells)
+          + " (host, once per schedule)")
     print(dev["smi"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

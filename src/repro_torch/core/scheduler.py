@@ -29,7 +29,8 @@ and pulled-row gradients.  On the fused leg the reverse sweep is one
 reverse megastep per level (``kernels/level_megastep_bwd.py``) and the
 forward saves only the node buffer (remat).  The scatters of the
 backward (∂gather, ∂pull) go through ``ops.scatter_add_rows``, which on
-the card is a deterministic kernel: no float atomics.
+the card is a deterministic kernel (no float atomics) reading the
+schedule's scatter plans (``DeviceSchedule.ext_plan``/``child_plans``).
 
 Continuous serving goes through :func:`frontier_step`: one batching task
 over a union frontier of many in-flight graphs at different depths,
@@ -179,6 +180,12 @@ def _level_runs(sched: DeviceSchedule, t: int) -> Dict[str, Any]:
             for k in names}
 
 
+def _level_plan(sched: DeviceSchedule, t: int):
+    """Level ``t``'s scatter plan of its flat child ids (``None`` on a
+    schedule packed without the sorted runs)."""
+    return None if sched.child_plans is None else sched.child_plans[t]
+
+
 class _ExecuteMegastep(torch.autograd.Function):
     """The fused leg: one megastep per level forward, and the fused
     backward — ONE reverse megastep per level for the state chain
@@ -233,7 +240,7 @@ class _ExecuteMegastep(torch.autograd.Function):
         # ∂pull = push: scatter the pulled-row cotangents back to the
         # packed matrix (autograd then runs the projection's VJP).
         g_ext = kops.scatter_add_rows(torch.zeros_like(ext), ext_ids,
-                                      d_gates)
+                                      d_gates, plan=sched.ext_plan)
         return (None, None, None, g_ext,
                 *(g_params[k] for k in ctx.names))
 
@@ -372,7 +379,8 @@ class _ExecuteLazyOpByOp(torch.autograd.Function):
             # ∂gather = scatter (§3.4): child cotangents back into the
             # buffer; duplicate children accumulate.
             kops.scatter_add_rows(g, sched.child_ids[t].reshape(-1),
-                                  g_ch.reshape(M * A, S))
+                                  g_ch.reshape(M * A, S),
+                                  plan=_level_plan(sched, t))
 
         # Lazy batching: ONE parameter/external VJP over all T*M slots.
         io_flat = _flat_io(fn, sched, buf, ext)
@@ -387,7 +395,8 @@ class _ExecuteLazyOpByOp(torch.autograd.Function):
                                  torch.cat(g_states))
         # ∂pull = push: pulled-row cotangents back to the packed matrix.
         g_ext = kops.scatter_add_rows(torch.zeros_like(ext),
-                                      sched.ext_ids.reshape(T * M), g_rows)
+                                      sched.ext_ids.reshape(T * M), g_rows,
+                                      plan=sched.ext_plan)
         return (None, None, None, g_ext, *g_params)
 
 

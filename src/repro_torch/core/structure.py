@@ -248,13 +248,33 @@ class LevelSchedule:
         """Fraction of slots holding real vertices (padding efficiency)."""
         return float(self.node_mask.sum()) / max(1, self.num_slots)
 
+    def scatter_plans(self, device="cuda"
+                      ) -> Tuple["ScatterPlan", Tuple["ScatterPlan", ...]]:
+        """The backward's scatter-add plans on ``device``: one for the
+        pulled rows (``ext_ids.reshape(T*M)``, ∂pull) and one per level
+        for the child rows (``child_ids[t].reshape(M*A)``, the op-by-op
+        ∂gather), the latter ordered by this schedule's sorted runs.
+        Needs the sorted runs (``pack_batch(with_runs=True)``)."""
+        if self.sort_perm is None:
+            raise ValueError("scatter plans need the sorted runs: pack "
+                             "with pack_batch(with_runs=True)")
+        ext_plan, = scatter_plans(self.ext_ids.reshape(1, -1), device)
+        child_plans = scatter_plans(self.child_ids.reshape(self.T, -1),
+                                    device, order=self.sort_perm)
+        return ext_plan, tuple(child_plans)
+
     def to_device(self, device="cuda") -> "DeviceSchedule":
         """Copy the schedule to ``device`` (index tensors stay int32,
-        the width the kernels take)."""
+        the width the kernels take).  A schedule with the backward's
+        sorted runs also gets its scatter-add plans
+        (:meth:`scatter_plans`), built once here for every step that
+        reuses the device schedule."""
         def _t(x):
             return None if x is None else torch.from_numpy(
                 np.ascontiguousarray(x)).to(device)
 
+        ext_plan, child_plans = (None, None) if self.sort_perm is None \
+            else self.scatter_plans(device)
         return DeviceSchedule(
             child_ids=_t(self.child_ids),
             child_mask=_t(self.child_mask),
@@ -266,6 +286,8 @@ class LevelSchedule:
             sort_perm=_t(self.sort_perm),
             sorted_child_ids=_t(self.sorted_child_ids),
             run_head=_t(self.run_head),
+            ext_plan=ext_plan,
+            child_plans=child_plans,
         )
 
 
@@ -285,6 +307,11 @@ class DeviceSchedule:
     sort_perm: Optional[torch.Tensor] = None
     sorted_child_ids: Optional[torch.Tensor] = None
     run_head: Optional[torch.Tensor] = None
+    # The backward's scatter-add plans (LevelSchedule.scatter_plans):
+    # ∂pull over ext_ids.reshape(T*M), and ∂gather per level; ``None``
+    # on schedules without the sorted runs.
+    ext_plan: Optional["ScatterPlan"] = None
+    child_plans: Optional[Tuple["ScatterPlan", ...]] = None
 
     @property
     def T(self) -> int:
@@ -465,6 +492,139 @@ def _sorted_runs(child_ids: np.ndarray
     head = np.ones_like(scids)
     head[:, 1:] = (scids[:, 1:] != scids[:, :-1]).astype(np.int32)
     return perm, scids, head
+
+
+# ---------------------------------------------------------------------------
+# Scatter-add plans (the row scatter-add kernel's work list, per schedule)
+# ---------------------------------------------------------------------------
+
+#: Chunks hold at least this many contributions (``C`` is never smaller).
+PLAN_MIN_CHUNK = 32
+#: ...and ``C`` is large enough that the longest run splits into at most
+#: this many chunks, which bounds the combine's partial sums.
+PLAN_MAX_SPLIT = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterPlan:
+    """How ``dst[idx[i]] += rows[i]`` is cut into work for the row
+    scatter-add kernel (``kernels/csrc/scatter_add_rows.cu``), built once
+    per index vector from the data alone.
+
+    ``order`` ``[n]`` int32: the positions ``i`` grouped by destination
+    row (ascending), in increasing ``i`` within a row — the stable argsort
+    of ``idx``.  A row's positions form its *run*; a run is cut into
+    chunks of at most ``chunk_rows`` positions.  ``chunks`` ``[nc, 4]``
+    int32: per chunk its destination row, the range ``[begin, end)`` of
+    ``order`` it sums and ``order[begin]``.  The chunks of runs cut into
+    several (``split_chunks`` of them) come first, run by run in chunk
+    order; then every run that is one chunk, by row.  ``run_start``
+    ``[ns + 1]`` int32: split run ``s`` owns chunks ``[run_start[s],
+    run_start[s+1])``.  ``rows``: one past the largest index (0 for an
+    empty ``idx``)."""
+
+    order: torch.Tensor
+    chunks: torch.Tensor
+    run_start: torch.Tensor
+    split_chunks: int
+    chunk_rows: int
+    rows: int
+
+    @property
+    def n(self) -> int:
+        return self.order.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.chunks.device
+
+    @classmethod
+    def build(cls, idx, device="cuda") -> "ScatterPlan":
+        """The plan of ``idx`` (a host array, or a tensor on any device:
+        one on the card is copied to the host, which waits for it) on
+        ``device``."""
+        if isinstance(idx, torch.Tensor):
+            idx = idx.detach().cpu().numpy()
+        return scatter_plans(np.reshape(idx, (1, -1)), device)[0]
+
+
+def scatter_plans(idx: np.ndarray, device="cuda",
+                  order: Optional[np.ndarray] = None) -> List[ScatterPlan]:
+    """The :class:`ScatterPlan` of each row of ``idx`` (``[L, m]``, host
+    int32), built in one vectorised pass on the host and copied to
+    ``device`` in three copies (each plan holds views).
+
+    ``order``: the rows' stable argsorts when the caller has them (a
+    schedule's ``sort_perm``), else computed here.
+    A row's ``C`` (``chunk_rows``) is ``PLAN_MIN_CHUNK``, or more where
+    its longest run would otherwise be cut into more than
+    ``PLAN_MAX_SPLIT`` chunks; a run of ``n`` positions becomes
+    ``ceil(n / C)`` chunks, all of ``C`` but the last."""
+    idx = np.asarray(idx).astype(np.int32, copy=False)
+    L, m = idx.shape
+    if m and int(idx.min()) < 0:
+        raise ValueError(f"scatter plan: index {int(idx.min())} < 0")
+    if order is None:
+        order = np.argsort(idx, axis=1, kind="stable")
+    order = np.asarray(order).astype(np.int32, copy=False).reshape(L, m)
+    if m == 0:
+        nc = ns = split = np.zeros(L, np.int64)
+        C, rows = np.full(L, PLAN_MIN_CHUNK), np.zeros(L, np.int64)
+        chunks, run_start = np.zeros((0, 4), np.int32), np.zeros(L, np.int32)
+    else:
+        sidx = np.take_along_axis(idx, order, axis=1).reshape(-1)
+        head = np.ones(L * m, bool)
+        head[1:] = sidx[1:] != sidx[:-1]
+        head[::m] = True                          # a row starts a run
+        head = np.flatnonzero(head)
+        length = np.diff(np.r_[head, L * m])
+        level = head // m
+        first_run = np.searchsorted(head, np.arange(L) * m)
+        C = np.maximum(PLAN_MIN_CHUNK, -(-np.maximum.reduceat(
+            length, first_run) // PLAN_MAX_SPLIT))
+        c_run = C[level]
+        k = -(-length // c_run)                   # chunks a run
+        run = np.repeat(np.arange(head.size), k)
+        j = np.arange(run.size) - np.repeat(np.cumsum(k) - k, k)
+        begin = head[run] + j * c_run[run]
+        end = np.minimum(begin + c_run[run], head[run] + length[run])
+        split_run = k > 1
+        is_split = split_run[run]
+        lv = level[run]
+        # per row: its split runs' chunks (run by run), then its whole runs
+        pick = np.argsort(2 * lv + ~is_split, kind="stable")
+        lo = lv * m
+        chunks = np.stack([sidx[begin], begin - lo, end - lo,
+                           order.reshape(-1)[begin]], axis=1)[pick]
+        chunks = chunks.astype(np.int32)
+        nc = np.bincount(lv, minlength=L)
+        split = np.bincount(lv[is_split], minlength=L)
+        ns = np.bincount(level[split_run], minlength=L)
+        # run_start: per row, 0 then the running chunk count of its
+        # split runs
+        cum = np.cumsum(k[split_run])
+        within = cum - np.repeat(np.r_[0, cum][np.cumsum(ns) - ns], ns)
+        run_start = np.zeros(L + int(ns.sum()), np.int32)
+        later = np.ones(run_start.size, bool)
+        later[np.cumsum(ns + 1) - (ns + 1)] = False
+        run_start[later] = within
+        rows = sidx.reshape(L, m)[:, -1].astype(np.int64) + 1
+
+    def _on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    chunks_d, starts_d = _on(chunks.reshape(-1)), _on(run_start)
+    order_d = _on(order.reshape(-1))
+    out, c0, s0 = [], 0, 0
+    for r in range(L):
+        n_c, n_s = int(nc[r]), int(ns[r]) + 1
+        out.append(ScatterPlan(
+            order=order_d[r * m:(r + 1) * m],
+            chunks=chunks_d[4 * c0:4 * (c0 + n_c)].view(n_c, 4),
+            run_start=starts_d[s0:s0 + n_s], split_chunks=int(split[r]),
+            chunk_rows=int(C[r]), rows=int(rows[r])))
+        c0, s0 = c0 + n_c, s0 + n_s
+    return out
 
 
 def pack_external(inputs: Sequence[np.ndarray], schedule: LevelSchedule,

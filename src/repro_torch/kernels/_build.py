@@ -43,7 +43,7 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
         "treelstm_bwd_megastep.cu", "treelstm_bwd_megastep_launch", _BWD),
     "scatter_add_rows": (
         "scatter_add_rows.cu", "scatter_add_rows_launch",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        [_P] * 6 + [_I] * 4 + [_L] * 2 + [_P]),
     **{f"{kind}_megastep": ("cell_megastep.cu", f"{kind}_megastep_launch",
                             _CELL_FWD)
        for kind in ("lstm", "gru", "treefc")},

@@ -11,198 +11,257 @@
 // external matrix (dpull = push) and, on the op-by-op leg, the scatter of
 // child cotangents into the gradient buffer (dgather = scatter-add).
 //
-// Design.  The Pallas kernel walks a (column stripe, row panel) grid in
-// order on one core, seeds each destination panel from dst and folds in
-// every contribution with a sequential loop.  Here the destination rows
-// are cut into panels of BR rows and the columns into stripes of BD, and
-// three launches do the work:
-//   (1) panel_count: one block per panel counts the indices that land in
-//       it;
-//   (2) panel_fill: one block per panel sums the counts of the panels
-//       before it (its offset) and writes the positions i of its indices,
-//       in increasing i, each with its row in the panel, into one list of
-//       n entries (warp ballots and a prefix over the warps keep the
-//       order);
-//   (3) panel_add: one block per (stripe, panel) walks its panel's list.
-//       The list is split among P warps, warp p taking entries p, p + P,
-//       ...; each warp adds its rows into its own copy of the panel in
-//       shared memory (lane = column), U loads in flight at a time.  The
-//       P partial panels are summed in the fixed order 0..P-1 and added to
-//       dst, for the rows that received a contribution only: every other
-//       row stays bit-unchanged.
-// The order of every sum depends on the data alone, so two runs give the
-// same bits.  The scan over all n indices happens once per panel (not
-// once per panel and stripe), and the P-way split lets a destination that
-// receives most of the rows (the sentinel of a padded batch) be summed by
-// P warps in each stripe, not one.  The wrapper passes an int workspace
-// of 2 * panels + n entries (counts, offsets, the list).
+// Bound on an H100 SXM (3.35 TB/s): bytes -- the n contribution rows read
+// once, each touched dst row read and written once.
 //
-// Bound on an H100 SXM (3.35 TB/s): bytes -- the n contribution rows and
-// the indices read once, each touched dst row read and written once.
+// Design.  The Pallas kernel walks a (column stripe, row panel) grid in
+// order on one core and folds every contribution into its panel in turn.
+// Here the work list is a plan built once per schedule on the host
+// (src/repro_torch/core/structure.py `scatter_plans`): the positions i
+// grouped by destination row in increasing i (a row's *run*), cut into
+// chunks of at most C positions.  Two launches:
+//   (1) chunk_add: a warp per (chunk, column stripe).  It sums its
+//       chunk's rows in increasing i, starting from the first row, with
+//       16 16-byte loads a lane in flight, the chunk's positions read 32
+//       at a time and passed round by shuffles.  A chunk of a run split
+//       into several (the sentinel, which padding and masked rows aim at)
+//       takes a stripe of 128 columns and 16 rows in flight: its long walk
+//       is cut across many warps and pipelined deep; it writes its sum to
+//       a partial row of the workspace.  A chunk that is its row's whole
+//       run (every live destination on the main path) takes a stripe of
+//       512 columns, 4 rows in flight: one chunk load serves a wide
+//       stripe; it adds its sum to dst, one writer a row.  Split chunks
+//       come first in the plan and in the grid, so their walks start
+//       first.
+//   (2) run_combine (only when a run is split): a block per (split run,
+//       stripe of 128 columns).  Its G warps each sum a contiguous group
+//       of the run's partials in chunk order; warp 0 adds the G group sums
+//       in group order and adds the total to dst once.
+// Every sum's order depends on the plan alone, so two runs give the same
+// bits, and rows no index points at are never written.  The work is
+// O(n * D), with no scan of the indices on the card.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BR = 32;          // rows per panel
-constexpr int BD = 32;          // columns per stripe (one per lane)
-constexpr int P = 8;            // warps, each with its own partial panel
-constexpr int NT = 32 * P;      // 256 threads
-constexpr int U = 16;           // contributions in flight per warp
-// A list entry packs the row within the panel above the position i, so
-// the add kernel needs no second, dependent load of idx[i].
-constexpr int kRowShift = 26;
-constexpr int kPosMask = (1 << kRowShift) - 1;
-static_assert(BR <= (1 << (31 - kRowShift)), "panel row must fit the list");
+constexpr int kAddWarps = 8;             // warps (tasks) a chunk_add block
+constexpr int kLoads = 16;               // 16-byte loads in flight a lane
+constexpr int kNarrow = 128;             // columns a split chunk's task
+constexpr int kWide = 512;               // columns a whole run's task
+constexpr int kGroups = 16;              // warps (groups) a combine block
+constexpr int kCombineRows = 8;          // partials in flight a lane
 
-__global__ void __launch_bounds__(NT)
-panel_count_kernel(const int* __restrict__ idx, int n,
-                   int* __restrict__ count) {
-  const int r0 = blockIdx.x * BR;
-  int total = 0;
-  for (int base = 0; base < n; base += NT) {
-    const int i = base + threadIdx.x;
-    const int local = i < n ? idx[i] - r0 : -1;
-    total += __syncthreads_count(local >= 0 && local < BR);
-  }
-  if (threadIdx.x == 0) count[blockIdx.x] = total;
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-__global__ void __launch_bounds__(NT)
-panel_fill_kernel(const int* __restrict__ idx, int n,
-                  const int* __restrict__ count, int* __restrict__ offs,
-                  int* __restrict__ list) {
-  __shared__ int red[NT];
-  __shared__ int warp_cnt[P];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int wid = tid >> 5;
-  const int panel = blockIdx.x;
-  const int r0 = panel * BR;
-
-  int part = 0;
-  for (int p = tid; p < panel; p += NT) part += count[p];
-  red[tid] = part;
-  __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
-    __syncthreads();
+// Columns [col, col + 4) of a row; zeros past D.  kVec: one 16-byte load
+// (D, the strides and the base are multiples of 4 floats).
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* __restrict__ row,
+                                        int col, int D) {
+  if (kVec) {
+    return col < D ? __ldg(reinterpret_cast<const float4*>(row + col))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  int pos = red[0];
-  if (tid == 0) offs[panel] = pos;
-
-  for (int base = 0; base < n; base += NT) {
-    const int i = base + tid;
-    const int local = i < n ? idx[i] - r0 : -1;
-    const bool in = local >= 0 && local < BR;
-    const unsigned ballot = __ballot_sync(0xffffffffu, in);
-    if (lane == 0) warp_cnt[wid] = __popc(ballot);
-    __syncthreads();
-    int before = 0, total = 0;
-#pragma unroll
-    for (int w = 0; w < P; ++w) {
-      before += w < wid ? warp_cnt[w] : 0;
-      total += warp_cnt[w];
-    }
-    if (in) {
-      list[pos + before + __popc(ballot & ((1u << lane) - 1u))] =
-          (local << kRowShift) | i;
-    }
-    pos += total;
-    __syncthreads();
-  }
+  return make_float4(col < D ? __ldg(row + col) : 0.f,
+                     col + 1 < D ? __ldg(row + col + 1) : 0.f,
+                     col + 2 < D ? __ldg(row + col + 2) : 0.f,
+                     col + 3 < D ? __ldg(row + col + 3) : 0.f);
 }
 
-__global__ void __launch_bounds__(NT)
-panel_add_kernel(float* __restrict__ dst, int dst_stride,
-                 const float* __restrict__ rows, int rows_stride,
-                 const int* __restrict__ count, const int* __restrict__ offs,
-                 const int* __restrict__ list, int R, int D) {
-  __shared__ float part[P][BR][BD];
-  __shared__ int hit[BR];
+// dst[col, col + 4) += v, columns past D untouched.
+template <bool kVec>
+__device__ __forceinline__ void add_into(float* __restrict__ row, int col,
+                                         int D, float4 v) {
+  if (kVec) {
+    if (col < D) {
+      float4* p = reinterpret_cast<float4*>(row + col);
+      *p = add4(*p, v);
+    }
+    return;
+  }
+  if (col < D) row[col] += v.x;
+  if (col + 1 < D) row[col + 1] += v.y;
+  if (col + 2 < D) row[col + 2] += v.z;
+  if (col + 3 < D) row[col + 3] += v.w;
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int wid = tid >> 5;
-  const int c0 = blockIdx.x * BD;
-  // Blocks start in the order of blockIdx; the last panel, which holds
-  // the sentinel row that padding and masked rows aim at (the heaviest),
-  // goes first so that its long walk does not become the tail.
-  const int panel = gridDim.y - 1 - blockIdx.y;
-  const int r0 = panel * BR;
-  const int col = c0 + lane;
-  const bool col_ok = col < D;
-  const int cnt = count[panel];
-  const int* mine = list + offs[panel];
-  if (cnt == 0) return;                     // uniform across the block
-
-  for (int e = tid; e < P * BR * BD; e += NT) (&part[0][0][0])[e] = 0.0f;
-  for (int e = tid; e < BR; e += NT) hit[e] = 0;
-  __syncthreads();
-
-  for (int j = wid; j < cnt; j += P * U) {
-    float v[U];
-    int r[U];
+// The sum of a chunk's rows over columns col0 + 128 v + [0, 4), v < V, of
+// each lane, in increasing i from the first row; 16 / V rows in flight.
+template <bool kVec, int V>
+__device__ __forceinline__ void chunk_sum(const float* __restrict__ rows,
+                                          long long rows_stride,
+                                          const int* __restrict__ order,
+                                          int4 ch, int col0, int D,
+                                          float4 (&acc)[V]) {
+  constexpr int kRows = kLoads / V;
+  const int lane = threadIdx.x & 31;
+  {
+    const float* r = rows + (long long)ch.w * rows_stride;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int jj = j + u * P;
-      r[u] = -1;
-      v[u] = 0.0f;
-      if (jj < cnt) {
-        const int e = mine[jj];
-        const int ii = e & kPosMask;
-        r[u] = e >> kRowShift;
-        v[u] = col_ok ? rows[(size_t)ii * rows_stride + col] : 0.0f;
+    for (int v = 0; v < V; ++v) acc[v] = load4<kVec>(r, col0 + 128 * v, D);
+  }
+  for (int j0 = ch.y + 1; j0 < ch.z; j0 += 32) {   // uniform across a warp
+    const int m = min(32, ch.z - j0);
+    const int mine = lane < m ? __ldg(order + j0 + lane) : 0;
+    for (int u0 = 0; u0 < m; u0 += kRows) {
+      float4 val[kRows][V];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const int i = __shfl_sync(0xffffffffu, mine, u0 + u);
+        const float* r = rows + (long long)i * rows_stride;
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          val[u][v] = u0 + u < m ? load4<kVec>(r, col0 + 128 * v, D)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
       }
-    }
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (r[u] >= 0) {
-        part[wid][r[u]][lane] += v[u];
-        hit[r[u]] = 1;
+      for (int u = 0; u < kRows; ++u) {
+        if (u0 + u < m) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = add4(acc[v], val[u][v]);
+        }
       }
     }
   }
-  __syncthreads();
+}
 
-  for (int e = tid; e < BR * BD; e += NT) {
-    const int r = e / BD, c = e % BD;
-    if (!hit[r] || r0 + r >= R || c0 + c >= D) continue;
-    float s = part[0][r][c];
-#pragma unroll
-    for (int p = 1; p < P; ++p) s += part[p][r][c];
-    float* out = dst + (size_t)(r0 + r) * dst_stride + c0 + c;
-    *out += s;
+// Tasks [0, split_tasks): (split chunk, 128-column stripe), chunk-major;
+// then (whole-run chunk, 512-column stripe).
+template <bool kVec>
+__global__ void __launch_bounds__(32 * kAddWarps)
+chunk_add_kernel(float* __restrict__ dst, long long dst_stride,
+                 const float* __restrict__ rows, long long rows_stride,
+                 const int* __restrict__ order,
+                 const int4* __restrict__ chunks, float* __restrict__ partial,
+                 long long split_tasks, long long tasks, int narrow,
+                 int wide, int split_chunks, int D) {
+  const int lane = threadIdx.x & 31;
+  const long long task =
+      (long long)blockIdx.x * kAddWarps + (threadIdx.x >> 5);
+  if (task >= tasks) return;                       // uniform across a warp
+  if (task < split_tasks) {
+    const int c = (int)(task / narrow);
+    const int col0 = (int)(task % narrow) * kNarrow + 4 * lane;
+    float4 acc[1];
+    chunk_sum<kVec, 1>(rows, rows_stride, order, __ldg(chunks + c), col0, D,
+                       acc);
+    // The workspace's rows are narrow * 128 floats: always whole float4s,
+    // zeros past D.
+    *reinterpret_cast<float4*>(
+        partial + (long long)c * narrow * kNarrow + col0) = acc[0];
+    return;
   }
+  const long long t = task - split_tasks;
+  const int4 ch = __ldg(chunks + split_chunks + (int)(t / wide));
+  const int col0 = (int)(t % wide) * kWide + 4 * lane;
+  float4 acc[4];
+  chunk_sum<kVec, 4>(rows, rows_stride, order, ch, col0, D, acc);
+  float* out = dst + (long long)ch.x * dst_stride;
+#pragma unroll
+  for (int v = 0; v < 4; ++v) add_into<kVec>(out, col0 + 128 * v, D, acc[v]);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(32 * kGroups)
+run_combine_kernel(float* __restrict__ dst, long long dst_stride,
+                   const int4* __restrict__ chunks,
+                   const int* __restrict__ run_start,
+                   const float* __restrict__ partial, long long part_stride,
+                   int stripes, int D) {
+  __shared__ float4 group_sum[kGroups][32];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int run = blockIdx.x / stripes;
+  const int col = (blockIdx.x % stripes) * kNarrow + 4 * lane;
+  const int c0 = run_start[run];
+  const int k = run_start[run + 1] - c0;           // chunks of the run
+  const int per = (k + kGroups - 1) / kGroups;     // partials a group
+  const int g0 = c0 + w * per;
+  const int g1 = min(c0 + k, g0 + per);
+
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (g0 < g1) {                                   // uniform across a warp
+    const float* base = partial + col;
+    acc = *reinterpret_cast<const float4*>(base + (long long)g0 * part_stride);
+    for (int c = g0 + 1; c < g1; c += kCombineRows) {
+      float4 val[kCombineRows];
+#pragma unroll
+      for (int u = 0; u < kCombineRows; ++u)
+        val[u] = c + u < g1 ? *reinterpret_cast<const float4*>(
+                                  base + (long long)(c + u) * part_stride)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < kCombineRows; ++u)
+        if (c + u < g1) acc = add4(acc, val[u]);
+    }
+  }
+  group_sum[w][lane] = acc;
+  __syncthreads();
+  if (w != 0) return;
+  const int groups = (k + per - 1) / per;          // groups with partials
+  float4 total = group_sum[0][lane];
+  for (int g = 1; g < groups; ++g) total = add4(total, group_sum[g][lane]);
+  add_into<kVec>(dst + (long long)__ldg(chunks + c0).x * dst_stride, col, D,
+                 total);
+}
+
+template <bool kVec>
+int launch(float* dst, long long dst_stride, const float* rows,
+           long long rows_stride, const int* order, const int4* chunks,
+           const int* run_start, float* partial, int n_chunks,
+           int split_chunks, int split_runs, int D, cudaStream_t s) {
+  const int narrow = (D + kNarrow - 1) / kNarrow;
+  const int wide = (D + kWide - 1) / kWide;
+  const long long split_tasks = (long long)split_chunks * narrow;
+  const long long tasks =
+      split_tasks + (long long)(n_chunks - split_chunks) * wide;
+  const long long blocks = (tasks + kAddWarps - 1) / kAddWarps;
+  if (blocks > 0x7fffffffLL ||
+      (long long)split_runs * narrow > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  chunk_add_kernel<kVec><<<(unsigned)blocks, 32 * kAddWarps, 0, s>>>(
+      dst, dst_stride, rows, rows_stride, order, chunks, partial,
+      split_tasks, tasks, narrow, wide, split_chunks, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || split_runs == 0) return (int)err;
+  run_combine_kernel<kVec><<<split_runs * narrow, 32 * kGroups, 0, s>>>(
+      dst, dst_stride, chunks, run_start, partial,
+      (long long)narrow * kNarrow, narrow, D);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Every pointer is a device
-// pointer; `ws` is an int workspace of 2 * ceil(R / 32) + n entries;
-// `stream` is a cudaStream_t.  Returns the cudaError_t of the launches (0
-// on success); cudaErrorInvalidValue for a grid too tall or n >= 2^26.
-extern "C" int scatter_add_rows_launch(void* dst, const void* idx,
-                                       const void* rows, void* ws, int n,
-                                       int R, int D, int dst_stride,
-                                       int rows_stride, void* stream) {
-  if (n <= 0 || R <= 0 || D <= 0) return 0;
-  const int panels = (R + BR - 1) / BR;
-  if (panels > 65535 || n > kPosMask + 1) return (int)cudaErrorInvalidValue;
-  int* count = static_cast<int*>(ws);
-  int* offs = count + panels;
-  int* list = offs + panels;
-  const int* ip = static_cast<const int*>(idx);
+// pointer: `order`, `chunks` ([n_chunks, 4], 16-byte aligned) and
+// `run_start` ([split_runs + 1]) are a plan's (see the header);
+// `partial` is a float workspace of split_chunks * ceil(D / 128) * 128
+// entries, 16-byte aligned; `stream` is a cudaStream_t.  Returns the
+// cudaError_t of the launches (0 on success).
+extern "C" int scatter_add_rows_launch(void* dst, const void* rows,
+                                       const void* order, const void* chunks,
+                                       const void* run_start, void* partial,
+                                       int n_chunks, int split_chunks,
+                                       int split_runs, int D,
+                                       long long dst_stride,
+                                       long long rows_stride, void* stream) {
+  if (n_chunks <= 0 || D <= 0) return 0;
+  const bool vec = D % 4 == 0 && dst_stride % 4 == 0 &&
+                   rows_stride % 4 == 0 &&
+                   reinterpret_cast<unsigned long long>(dst) % 16 == 0 &&
+                   reinterpret_cast<unsigned long long>(rows) % 16 == 0;
+  auto* d = static_cast<float*>(dst);
+  auto* r = static_cast<const float*>(rows);
+  auto* o = static_cast<const int*>(order);
+  auto* c = static_cast<const int4*>(chunks);
+  auto* rs = static_cast<const int*>(run_start);
+  auto* p = static_cast<float*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  panel_count_kernel<<<panels, NT, 0, s>>>(ip, n, count);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  panel_fill_kernel<<<panels, NT, 0, s>>>(ip, n, count, offs, list);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((D + BD - 1) / BD, panels);
-  panel_add_kernel<<<grid, NT, 0, s>>>(
-      static_cast<float*>(dst), dst_stride,
-      static_cast<const float*>(rows), rows_stride, count, offs, list, R, D);
-  return (int)cudaGetLastError();
+  return vec ? launch<true>(d, dst_stride, r, rows_stride, o, c, rs, p,
+                            n_chunks, split_chunks, split_runs, D, s)
+             : launch<false>(d, dst_stride, r, rows_stride, o, c, rs, p,
+                             n_chunks, split_chunks, split_runs, D, s);
 }

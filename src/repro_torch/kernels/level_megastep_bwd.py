@@ -14,7 +14,10 @@ Port of ``repro.kernels.level_megastep_bwd``:
     launches per level (see the sources' headers);
     ``LAUNCHES["<kind>_bwd_megastep"]`` counts levels.
   :func:`scatter_add_rows` (``csrc/scatter_add_rows.cu``) —
-    ``dst[idx[i]] += rows[i]`` with repeats, in place, no float atomics.
+    ``dst[idx[i]] += rows[i]`` with repeats, in place, no float atomics,
+    along a per-schedule plan (``core.structure.ScatterPlan``); one
+    count in ``LAUNCHES["scatter_add_rows"]`` a call (an add launch and,
+    where a destination's run is split, a combine launch).
 
 Both take CUDA tensors only: they launch the kernel or raise.  The
 choice of the plain version for CPU tensors is made once, in
@@ -28,15 +31,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.structure import ScatterPlan
 from repro_torch.kernels.level_megastep import (MAX_ARITY, cell_hidden,
                                                 check_arg, launch_kernel,
                                                 packed_recurrent,
                                                 require_cuda, widths)
 
 
-#: Destination rows per panel of the scatter-add kernel (``BR`` in
+#: The scatter-add's workspace rows (one a chunk of a split run) are ``D``
+#: rounded up to a multiple of this (``kNarrow`` in
 #: ``csrc/scatter_add_rows.cu``).
-SCATTER_PANEL_ROWS = 32
+SCATTER_STRIPE = 128
 
 
 def workspace_numel(kind: str, M: int, A: int, H: int) -> int:
@@ -143,32 +148,65 @@ def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
 
 
 def scatter_add_rows(dst: torch.Tensor, idx: torch.Tensor,
-                     rows: torch.Tensor) -> torch.Tensor:
+                     rows: torch.Tensor, *,
+                     plan: Optional[ScatterPlan] = None) -> torch.Tensor:
     """``dst[idx[i]] += rows[i]`` in place, duplicates accumulating in a
-    fixed order (no float atomics).  ``dst``: ``[R, D]`` float32;
-    ``idx``: ``[n]`` int32, every entry in ``[0, R)`` — masked rows
-    arrive as zero rows aimed at a sentinel, and nothing is dropped (an
-    index outside the range is the caller's error: checking it would
-    synchronise the card, and the kernel writes nothing for it);
-    ``rows``: ``[n, D]`` float32.  Rows no index points at come out
-    bit-unchanged.  Returns ``dst``."""
+    fixed order (no float atomics).  ``dst``: ``[R, D]`` float32, rows
+    possibly strided; ``idx``: ``[n]`` int32, every entry in ``[0, R)`` —
+    masked rows arrive as zero rows aimed at a sentinel, and nothing is
+    dropped; ``rows``: ``[n, D]`` float32.  Rows no index points at come
+    out bit-unchanged.  Returns ``dst``.
+
+    ``plan``: ``idx``'s :class:`~repro_torch.core.structure.ScatterPlan`
+    on ``dst``'s device, which the kernel reads instead of ``idx`` (the
+    scheduler passes the schedule's, built once by ``to_device``).
+    Without one it is built here: ``idx`` is copied to the host, which
+    waits for the card, and sorted there, O(n log n) — the cost the plan
+    exists to take out of the step.  The sum of each destination row is
+    its chunks' sums (each in increasing ``i``) and, for a row whose run
+    is split, the chunk sums grouped as ``run_combine_kernel`` does
+    (``ref.scatter_add_rows_planned`` is that order in plain PyTorch)."""
     op = "scatter_add_rows"
     require_cuda(op, dst)
     if dst.dim() != 2:
         raise ValueError(f"{op}: dst must be [R, D], got {tuple(dst.shape)}")
     R, D = dst.shape
     n = idx.shape[0]
+    dev = dst.device
     check = functools.partial(check_arg, op)
-    check("dst", dst, torch.float32, (R, D), dst.device)
-    check("idx", idx, torch.int32, (n,), dst.device)
-    check("rows", rows, torch.float32, (n, D), dst.device)
+    check("idx", idx, torch.int32, (n,), dev)
+    for name, t, shape in (("dst", dst, (R, D)), ("rows", rows, (n, D))):
+        _check_rows(op, name, t, shape, dev)
     if n == 0:
         return dst
-    # Per-panel counts and offsets, and the list of contributions grouped
-    # by destination panel (see the source's header).
-    panels = -(-R // SCATTER_PANEL_ROWS)
-    ws = torch.empty(2 * panels + n, dtype=torch.int32, device=dst.device)
-    launch_kernel(op, dst.device, dst.data_ptr(), idx.data_ptr(),
-                  rows.data_ptr(), ws.data_ptr(), n, R, D, dst.stride(0),
+    if plan is None:
+        plan = ScatterPlan.build(idx, dev)
+    if plan.n != n or plan.device != dev or plan.rows > R:
+        raise ValueError(f"{op}: the plan is of {plan.n} indices up to row "
+                         f"{plan.rows - 1} on {plan.device}; the call has "
+                         f"{n} into {R} rows on {dev}")
+    stripes = -(-D // SCATTER_STRIPE)
+    partial = torch.empty(plan.split_chunks * stripes * SCATTER_STRIPE,
+                          dtype=torch.float32, device=dev)
+    launch_kernel(op, dev, dst.data_ptr(), rows.data_ptr(),
+                  plan.order.data_ptr(), plan.chunks.data_ptr(),
+                  plan.run_start.data_ptr(), partial.data_ptr(),
+                  plan.chunks.shape[0], plan.split_chunks,
+                  plan.run_start.shape[0] - 1, D, dst.stride(0),
                   rows.stride(0))
     return dst
+
+
+def _check_rows(op: str, name: str, t: torch.Tensor, shape,
+                device: torch.device) -> None:
+    """Like ``check_arg``, but the rows may be strided: only the columns
+    must be contiguous."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{op}: {name} must be torch.float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{op}: {name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{op}: {name} is on {t.device}, dst on {device}")
+    if t.numel() > 1 and t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{op}: {name}'s columns must be contiguous")

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.structure import ScatterPlan
 from repro_torch.kernels import cell_kernels as ck
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
@@ -217,14 +218,20 @@ def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
 
 
 def scatter_add_rows(dst: torch.Tensor, idx: torch.Tensor,
-                     rows: torch.Tensor) -> torch.Tensor:
+                     rows: torch.Tensor, *,
+                     plan: Optional[ScatterPlan] = None) -> torch.Tensor:
     """``dst[idx[i]] += rows[i]`` with repeats, in place, deterministic
-    (∂gather = scatter-add, ∂pull = push, §3.4).  Returns ``dst``."""
+    (∂gather = scatter-add, ∂pull = push, §3.4).  Returns ``dst``.
+
+    ``plan``: ``idx``'s scatter plan (``DeviceSchedule.ext_plan`` /
+    ``child_plans[t]``), which the card's kernel reads; without one the
+    kernel's wrapper builds it, waiting for the card.  The plain version
+    ignores it."""
     if not dst.is_cuda:
         _tick("scatter_add_rows", "ref")
         return ref.scatter_add_rows(dst, idx, rows)
     _tick("scatter_add_rows", "cuda")
-    return lmb.scatter_add_rows(dst, idx, rows)
+    return lmb.scatter_add_rows(dst, idx, rows, plan=plan)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

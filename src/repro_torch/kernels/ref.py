@@ -174,6 +174,51 @@ def scatter_add_rows(dst: torch.Tensor, idx: torch.Tensor,
     return dst.index_add_(0, idx.long(), rows.to(dst.dtype))
 
 
+#: Warps of the scatter-add's combine block, each summing one contiguous
+#: group of a split run's chunk sums (``kGroups`` in
+#: ``csrc/scatter_add_rows.cu``).
+SCATTER_GROUPS = 16
+
+
+def scatter_add_rows_planned(dst: torch.Tensor, rows: torch.Tensor,
+                             plan) -> torch.Tensor:
+    """``dst[idx[i]] += rows[i]`` summed in the order of the card's
+    kernel along ``plan`` (a ``core.structure.ScatterPlan`` of ``idx``):
+    each chunk's rows in plan order from its first row; a row that is one
+    chunk gets ``dst + sum``; a split run's chunk sums are cut into
+    ``SCATTER_GROUPS`` contiguous groups of ``ceil(k / SCATTER_GROUPS)``,
+    each summed in chunk order, and the group sums added in order before
+    ``dst + total``.  Float adds in that order give the kernel's bits.
+    Writes ``dst`` IN PLACE and returns it."""
+    ch = plan.chunks.to(dst.device).long()
+    if ch.shape[0] == 0:
+        return dst
+    order = plan.order.to(dst.device).long()
+    rows = rows.to(dst.dtype)
+    begin, length = ch[:, 1], ch[:, 2] - ch[:, 1]
+    acc = rows[ch[:, 3]]
+    for j in range(1, int(length.max())):
+        live = torch.nonzero(length > j).squeeze(1)
+        acc[live] = acc[live] + rows[order[begin[live] + j]]
+    S = plan.split_chunks
+    dst_rows, sums = [ch[S:, 0]], [acc[S:]]
+    starts = plan.run_start.tolist()
+    for c0, c1 in zip(starts[:-1], starts[1:]):
+        part = acc[c0:c1]
+        per = -(-(c1 - c0) // SCATTER_GROUPS)
+        total = None
+        for g0 in range(0, c1 - c0, per):
+            group = part[g0]
+            for c in range(g0 + 1, min(g0 + per, c1 - c0)):
+                group = group + part[c]
+            total = group if total is None else total + group
+        dst_rows.append(ch[c0:c0 + 1, 0])
+        sums.append(total[None])
+    r = torch.cat(dst_rows)
+    dst[r] = dst[r] + torch.cat(sums)
+    return dst
+
+
 def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
                  child_ids: torch.Tensor, child_mask: torch.Tensor,
                  ext_ids: torch.Tensor, node_mask: torch.Tensor,

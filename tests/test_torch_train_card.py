@@ -15,8 +15,8 @@ import pytest
 import torch
 
 from repro_torch.core import scheduler as tsch
-from repro_torch.core.structure import (pack_batch, random_binary_tree,
-                                        random_dag)
+from repro_torch.core.structure import (ScatterPlan, pack_batch,
+                                        random_binary_tree, random_dag)
 from repro_torch.interop import pack_recurrent
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import level_megastep as lm
@@ -104,30 +104,74 @@ def test_reverse_megastep_matches_plain_on_card(kind, pads):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("R,D,n,heavy", [(33, 40, 500, 0.0),
-                                         (200, 2048, 3000, 0.9),
-                                         (5, 7, 1, 0.0)])
-def test_scatter_add_rows_matches_plain_on_card(R, D, n, heavy):
+@pytest.mark.parametrize("with_plan", [False, True])
+@pytest.mark.parametrize("R,D,n,heavy,strided", [
+    (33, 40, 500, 0.0, False), (200, 2048, 3000, 0.9, False),
+    (5, 7, 1, 0.0, False),
+    (32 * 65535 + 100, 4, 4000, 0.5, False),      # R past the old grid
+    (300, 7, 2000, 0.95, False),                  # D % 4 != 0, split runs
+    (300, 130, 2000, 0.95, True),                 # strided dst, odd stride
+    (64, 36, 3000, 1.0, True),                    # every index on one row
+    (10, 16, 0, 0.0, False)])                     # n = 0
+def test_scatter_add_rows_matches_plain_on_card(R, D, n, heavy, strided,
+                                                with_plan):
+    """The kernel against ``index_add_`` (error relative to max |plain|
+    <= TOL), bit for bit against the plain rendering of its own
+    summation order (``ref.scatter_add_rows_planned``) and against a
+    second launch, rows no index points at (and a strided dst's other
+    columns) bit-unchanged; with the plan given or built by the
+    wrapper."""
     _need_card()
     rng = np.random.default_rng(R + n)
-    dst = torch.from_numpy(rng.standard_normal((R, D)).astype(np.float32))
+    width = D + (1 if D % 4 else 4) if strided else D
+    base = torch.from_numpy(rng.standard_normal((R, width))
+                            .astype(np.float32)).cuda()
+    dst = base[:, :D]
     idx = rng.integers(0, R, size=n).astype(np.int32)
     idx[rng.random(n) < heavy] = R - 1            # a duplicate-heavy row
     rows = torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32))
-    dst, rows = dst.cuda(), rows.cuda()
+    rows = rows.cuda()
     idx_t = torch.from_numpy(idx).cuda()
+    plan = ScatterPlan.build(idx, "cuda") if with_plan else None
     want = ref.scatter_add_rows(dst.clone(), idx_t, rows)
+    order = ref.scatter_add_rows_planned(
+        dst.clone(), rows, ScatterPlan.build(idx, "cuda"))
     lm.reset_launches()
-    got = lmb.scatter_add_rows(dst.clone(), idx_t, rows)
-    again = lmb.scatter_add_rows(dst.clone(), idx_t, rows)
+    out = base.clone()
+    got = lmb.scatter_add_rows(out[:, :D], idx_t, rows, plan=plan)
+    again = lmb.scatter_add_rows(base.clone()[:, :D], idx_t, rows, plan=plan)
     torch.cuda.synchronize()
-    assert lm.LAUNCHES["scatter_add_rows"] == 2
+    assert lm.LAUNCHES["scatter_add_rows"] == (2 if n else 0)
     assert float((got - want).abs().max()) \
-        / float(want.abs().max()) <= TOL
+        / max(float(want.abs().max()), 1e-30) <= TOL
+    assert torch.equal(got.view(torch.int32), order.view(torch.int32))
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     untouched = torch.from_numpy(np.setdiff1d(np.arange(R), idx)).cuda()
     assert torch.equal(got[untouched].view(torch.int32),
                        dst[untouched].view(torch.int32))
+    assert torch.equal(out[:, D:], base[:, D:])
+
+
+@pytest.mark.gpu
+def test_scatter_add_rows_refuses_a_plan_that_does_not_fit():
+    """A plan of other indices (another count, a row past dst, another
+    device) raises before any launch."""
+    _need_card()
+    dst = torch.zeros(8, 16, device="cuda")
+    idx = torch.tensor([1, 7, 7], dtype=torch.int32, device="cuda")
+    rows = torch.ones(3, 16, device="cuda")
+    lm.reset_launches()
+    for plan in (ScatterPlan.build(np.array([1, 7], np.int32), "cuda"),
+                 ScatterPlan.build(np.array([1, 9, 9], np.int32), "cuda"),
+                 ScatterPlan.build(np.array([1, 7, 7], np.int32), "cpu")):
+        with pytest.raises(ValueError, match="plan"):
+            lmb.scatter_add_rows(dst, idx, rows, plan=plan)
+    with pytest.raises(ValueError, match="row"):
+        lmb.scatter_add_rows(dst, torch.tensor([8], dtype=torch.int32,
+                                               device="cuda"), rows[:1])
+    torch.cuda.synchronize()
+    assert sum(lm.LAUNCHES.values()) == 0
+    assert not dst.any()
 
 
 def _grads(fn, params, sched, ext, labels_cot, fusion_mode):
