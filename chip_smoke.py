@@ -118,11 +118,15 @@ Phases, each of which must pass (any failure exits non-zero):
      and bf16; Sq 1, 63, 65, 127 and 129, Sq != Sk without ``causal``,
      windows of 24 and 100, Hq = Hkv and GQA groups 4, 8 and 12, head
      dims 16/32/64/80/128/160/256, Sq > Sk (zero rows), a 2,048-token
-     prefill, ``kv_len`` 1 and ragged: within 1e-5 of max |plain| at f32
-     and 1e-2 at bf16, the plain version computing in f32; two launches
-     bitwise equal; each K10 launch on the route its operands choose); the
-     wgmma kernel's registers, spills and shared memory, and ``HGMMA``
-     and ``UTMALDG`` in its SASS where ``cuobjdump`` is there; then
+     prefill, ``kv_len`` 0, 1 and ragged, a 4,096-row cache, a window
+     across K11's split, cache rows not 16-byte aligned: within 1e-5 of
+     max |plain| at f32 and 1e-2 at bf16, the plain version computing in
+     f32; two launches bitwise equal; each K10 launch on the route its
+     operands choose); the wgmma kernel's registers, spills and shared
+     memory, and ``HGMMA`` and ``UTMALDG`` in its SASS where
+     ``cuobjdump`` is there; K11's registers and spills by instantiation
+     and the split (NS, grid, tile, shared memory) at granite's shape;
+     then
      granite-3-8b at full width and depth (40 layers, d_model 4,096,
      GQA 32/8, head 128, d_ff 12,800, vocab 49,155 padded to 49,408;
      bf16 weights from a CUDA ``torch.Generator`` seed 0) served by
@@ -144,7 +148,14 @@ Phases, each of which must pass (any failure exits non-zero):
      model's own noise is ~2e-2, see ``LM_LOGIT_TOL``), the same token
      wherever its top-2 margin exceeds 4e-2 of max |logit|, and logits no
      farther from an f32 recompute of the same weights than 1.25 x the
-     bf16 recompute's distance from it.
+     bf16 recompute's distance from it.  K11 with all 8 slots filled to
+     16, 64, 256, 632 and 1,024 rows of a 1,024-row cache (granite's
+     decode shape and the engine's cache, so the main path's split;
+     distinct inputs whose valid rows hold 100 MB so each launch reads
+     HBM): kernel, SDPA, plain and bound by ``torch.profiler`` device
+     time.  SDPA, here and on the kept launches, gets the cache's rows up
+     to the longest ``kv_len``, the kernel and the plain version the
+     engine's whole cache.
      Profiles of one warm decode tick and of one warm 1,024-token
      prefill; and ``reduced(granite-3-8b)`` at f32 served on the card
      (the SIMT route's path, its launches counted from 0) must give a
@@ -240,6 +251,7 @@ from repro_torch.configs.archs import reduced  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cell_kernels as ck  # noqa: E402
 from repro_torch.kernels import decode_attention as decattn  # noqa: E402
+from repro_torch.kernels import decode_split  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import gather_scatter as lmgs  # noqa: E402
 from repro_torch.kernels import level_megastep as lm  # noqa: E402
@@ -2564,11 +2576,30 @@ K10_EDGES = ((1, 32, 8, 1, 1, 128, True, None),
              (1, 2, 2, 70, 70, 16, False, None),
              (1, 32, 8, 1024, 1024, 128, True, None),
              (1, 32, 8, 2048, 2048, 128, True, None))
+#: K11's cases carry an eighth field, ``pad``: the cache rows are views of
+#: rows ``D + pad`` long.  Beyond the cases above: a ``kv_len`` 0 slot
+#: (zeros), a 4,096-row cache filled to 4,000 and 17, D 256 with group 1,
+#: D 16 with group 8, a window of 100 across the split's shares, rows
+#: whose stride is no multiple of 16 bytes, and D 20 (40-byte bf16 rows):
+#: the kernel's element-wise staging.
 K11_EDGES = ((8, 32, 8, 1024, 128, (1, 17, 600, 1024, 2, 333, 64, 1000),
-              None),
-             (3, 4, 4, 33, 64, (33, 16, 1), None),
-             (2, 8, 2, 100, 64, (100, 41), 24),
-             (2, 24, 2, 50, 80, (50, 7), None))
+              None, 0),
+             (3, 4, 4, 33, 64, (33, 16, 1), None, 0),
+             (2, 8, 2, 100, 64, (100, 41), 24, 0),
+             (2, 24, 2, 50, 80, (50, 7), None, 0),
+             (4, 8, 2, 100, 64, (0, 100, 37, 0), None, 0),
+             (2, 32, 8, 4096, 128, (4000, 17), None, 0),
+             (2, 8, 8, 300, 256, (300, 129), None, 0),
+             (3, 16, 2, 200, 16, (200, 3, 150), None, 0),
+             (2, 32, 8, 1024, 128, (1000, 250), 100, 0),
+             (3, 8, 2, 300, 64, (300, 77, 1), None, 1),
+             (3, 8, 2, 300, 20, (300, 77, 1), None, 0))
+#: K11 at granite's decode shape with every slot filled to n rows of the
+#: engine's ``LM_MAX_LEN``-row cache.
+K11_FILLS = (16, 64, 256, 632, 1024)
+#: Bytes of K/V rows a timed set of K11 inputs holds at least: twice the
+#: 50 MB L2, so each launch finds its rows in HBM, as a decode tick does.
+K11_COLD_BYTES = 100e6
 ATTN_REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:88",
     "decode_attention": "src/repro/kernels/decode_attention.py:70"}
@@ -2630,10 +2661,10 @@ def attn_edges_check() -> dict:
                   == (key == "flash_attention.wgmma"),
                   f"K10 at {dtype}, D {D} did not take the {key} route")
             out[key] = tuple(map(max, out[key], e))
-        for B, Hq, Hkv, S, D, kvl, window in K11_EDGES:
+        for B, Hq, Hkv, S, D, kvl, window, pad in K11_EDGES:
             q = randn(B, Hq, D, dtype=dtype)
-            k, v = randn(B, Hkv, S, D, dtype=dtype), \
-                randn(B, Hkv, S, D, dtype=dtype)
+            k, v = (randn(B, Hkv, S, D + pad, dtype=dtype)[..., :D]
+                    for _ in range(2))
             kv_len = torch.tensor(kvl, dtype=torch.int32, device=DEVICE)
             e = attn_check("decode_attention", (q, k, v),
                            {"kv_len": kv_len, "window": window})
@@ -2691,6 +2722,99 @@ def k10_build_report() -> dict:
     return {"ptxas": ptxas, "smem": smem, "sass": sass}
 
 
+#: K11's three instantiation routes (``decode_attention_plan``'s code).
+ROUTES = ("CUDA cores, narrow rows", "CUDA cores, 16-byte rows",
+          "tensor cores (mma.sync), 16-byte rows")
+
+
+def k11_build_report(shape) -> dict:
+    """What ``nvcc -Xptxas -v`` said of each instantiation of K11's
+    kernel (type, query heads a cluster, route), and the
+    launch K11 makes at ``shape`` = (B, Hq, Hkv, D) over granite's
+    1,024-row cache: NS, the grid, heads a cluster, tile rows, shared
+    memory a CTA."""
+    ptxas, key = {}, None
+    for line in _build.build_log("decode_attention").splitlines():
+        m = re.search(r"decode_attention_kernelI(\w+?)Li(\d+)ELb(\d)ELb(\d)E",
+                      line)
+        if m and "Compiling entry function" in line:
+            key = (f"{'bf16' if 'bfloat16' in m.group(1) else 'f32'}, GC "
+                   f"{m.group(2)}, "
+                   + ROUTES[2 if m.group(4) == "1" else int(m.group(3))])
+        elif key and ("registers" in line or "spill stores" in line):
+            ptxas.setdefault(key, []).append(
+                line.replace("ptxas info    :", "").strip())
+    B, Hq, Hkv, D = shape
+    G = Hq // Hkv
+    lib = ctypes.CDLL(str(_build.library_path("decode_attention")))
+    plan = (ctypes.c_int * 6)()
+    lib.decode_attention_plan(D, G, 1, plan)
+    gc, tr, ldb, _, smem, route = plan
+    ngc = -(-G // decode_split.heads_per_cta(G))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ns = decode_split.split_count(LM_MAX_LEN, B * Hkv * ngc, sms)
+    grid = (B, Hkv, ngc * ns)
+    for k, lines in ptxas.items():
+        print(f"decode_attention.cu, {k}: " + "; ".join(lines))
+    print(f"K11 at granite's decode shape (B {B}, Hq {Hq}, Hkv {Hkv}, D "
+          f"{D}, bf16, cache {LM_MAX_LEN} rows, {sms} SMs): NS {ns}, grid "
+          f"{grid} = {B * Hkv * ngc * ns} CTAs in clusters of {ns}, {gc} "
+          f"query heads a cluster, tiles of {tr} rows of {ldb} B, {smem} "
+          f"B of shared memory a CTA, {ROUTES[route]}")
+    check(gc == G and route == 2, f"K11 at granite's shape: {gc} heads a "
+          f"cluster (the group has {G}), route {ROUTES[route]}")
+    return {"ptxas": ptxas, "ns": ns, "grid": grid, "heads": gc,
+            "tile_rows": tr, "smem": smem, "route": ROUTES[route]}
+
+
+def k11_by_fill(shape) -> dict:
+    """K11 at ``shape`` = (B, Hq, Hkv, D), bf16, as the engine calls it:
+    a cache of ``LM_MAX_LEN`` rows (so the split of the main path) with
+    every slot's ``kv_len`` = n, for n in ``K11_FILLS``; enough distinct
+    inputs that their valid rows hold ``K11_COLD_BYTES``, the first
+    checked against the plain version (two launches bitwise equal);
+    device time (``torch.profiler``) of the kernel, SDPA (on the valid
+    rows, ``sdpa_call``) and the plain version, and the bound."""
+    B, Hq, Hkv, D = shape
+    gen = torch.Generator(DEVICE).manual_seed(23)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    G = Hq // Hkv
+    ns = decode_split.split_count(
+        LM_MAX_LEN, B * Hkv * -(-G // decode_split.heads_per_cta(G)), sms)
+    out = {}
+    for n in K11_FILLS:
+        kw = {"kv_len": torch.full((B,), n, dtype=torch.int32,
+                                   device=DEVICE), "window": None}
+        calls = []
+        for _ in range(max(2, -(-int(K11_COLD_BYTES) // (4 * B * Hkv * n
+                                                           * D)))):
+            q = torch.randn((B, Hq, D), generator=gen, device=DEVICE)
+            k, v = (torch.zeros((B, Hkv, LM_MAX_LEN, D), dtype=torch.bfloat16,
+                                device=DEVICE) for _ in range(2))
+            for t in (k, v):
+                t[:, :, :n] = torch.randn((B, Hkv, n, D), generator=gen,
+                                          device=DEVICE)
+            calls.append((q.to(torch.bfloat16), k, v))
+        err = attn_check("decode_attention", calls[0], kw)
+        kern = [lambda a=a: decattn.decode_attention(*a, **kw) for a in calls]
+        t = {"copies": len(calls), "ns": ns, "max_abs_err": err[0],
+             "bound_ms": attn_bound_ms("decode_attention", calls[0], kw)[0],
+             "ms": device_ms_per_call(kern, reps=3)}
+        t["sdpa_ms"] = device_ms_per_call(
+            [sdpa_call("decode_attention", a, kw) for a in calls], reps=3)
+        t["plain_ms"] = device_ms_per_call(
+            [lambda a=a: attn_plain("decode_attention", a, kw)
+             for a in calls[:8]], reps=1)
+        out[n] = t
+        del calls, kern
+        print(f"decode_attention, every slot at {n} of {LM_MAX_LEN} rows "
+              f"(NS {ns}; device time over {t['copies']} inputs): "
+              f"{t['ms']:.4f} ms, SDPA {t['sdpa_ms']:.4f}, plain "
+              f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.5f} ms; "
+              f"max_abs_err {t['max_abs_err']:.3e}")
+    return out
+
+
 def attn_bound_ms(name: str, args, kw) -> tuple:
     """Least time of one K10/K11 launch on ``args``: QK^T and PV over the
     pairs of query and valid key this launch's data has (4 * D FLOPs a
@@ -2745,7 +2869,10 @@ def sdpa_call(name: str, args, kw):
               "the SDPA yardstick times square causal prefills only")
         return lambda: sdpa(q, k, v, is_causal=kw.get("causal", True),
                             **extra)
-    S = k.shape[2]
+    # The cache's rows up to the longest kv_len, copied before the timing:
+    # rows past it are masked for every slot, and SDPA reads what it gets.
+    S = max(1, min(k.shape[2], int(kw["kv_len"].max())))
+    k, v = k[:, :, :S].contiguous(), v[:, :, :S].contiguous()
     mask = (torch.arange(S, device=q.device)[None, :]
             < kw["kv_len"][:, None].long())[:, None, None, :]
     q4 = q[:, :, None, :]
@@ -2926,8 +3053,8 @@ def lm_serving_phase(card: str) -> dict:
     ``torch.Generator`` seed) served through ``ServeEngine``: the kernel
     edge cases, the main path with its launch counts, a tapped re-run
     (every ``TAP_EVERY``-th K10/K11 launch kept, checked and timed; every
-    sampled row of logits kept for the recompute), a profile of one warm
-    tick, and the f32 exactness check."""
+    sampled row of logits kept for the recompute), K11 by fill, a profile
+    of one warm tick, and the f32 exactness check."""
     edges = attn_edges_check()
     torch.cuda.empty_cache()
     cfg = get_config(LM_ARCH)
@@ -2991,8 +3118,6 @@ def lm_serving_phase(card: str) -> dict:
         def tap(q, k, v, **kw):
             if seen[name] % TAP_EVERY == 0:
                 if name == "decode_attention":
-                    m = int(kw["kv_len"].max())
-                    k, v = k[:, :, :m], v[:, :, :m]
                     kw = dict(kw, kv_len=kw["kv_len"].clone())
                 kept[name].append(((q.clone(), k.clone(), v.clone()), kw))
             seen[name] += 1
@@ -3075,6 +3200,9 @@ def lm_serving_phase(card: str) -> dict:
                 [lambda: orig(*a, **kw)], 3)
         del calls
 
+    k11_shape = (LM_SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.dh)
+    k11_fills = k11_by_fill(k11_shape)
+
     # One warm tick under the profiler: eight requests decoding.
     peng = ServeEngine(model, params, num_slots=LM_SLOTS, max_len=LM_MAX_LEN)
     for r in lm_traffic(cfg.vocab)[:LM_SLOTS]:
@@ -3100,6 +3228,7 @@ def lm_serving_phase(card: str) -> dict:
           f"f32 LM K10 launches {f32_launches}: expected all on the SIMT "
           f"route")
     build = k10_build_report()
+    k11_build = k11_build_report(k11_shape)
 
     out = {"arch": LM_ARCH, "params": n_params, "layers": L,
            "init_s": init_s, "requests": len(reqs), "tokens": tokens,
@@ -3110,6 +3239,7 @@ def lm_serving_phase(card: str) -> dict:
            "launches": launches, "edges": edges, "recompute": recompute,
            "k10_buckets": k10, "timings": timings, "simt_f32": simt,
            "f32_launches": f32_launches, "k10_build": build,
+           "k11_fills": k11_fills, "k11_build": k11_build,
            "profile": prof, "profile_prefill": prof_prefill,
            "exact_f32": exact, "card": card}
     print(f"LM serving: {json.dumps(out)}")

@@ -67,7 +67,7 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
                              [_P] * 4 + [_I] * 6 + [_L] * 9 + [_F]
                              + [_I] * 2 + [_P]),
     "decode_attention": ("decode_attention.cu", "decode_attention_launch",
-                         [_P] * 5 + [_I] * 5 + [_L] * 8 + [_F] + [_I] * 2
+                         [_P] * 5 + [_I] * 5 + [_L] * 8 + [_F] + [_I] * 3
                          + [_P]),
     "ssd_chunk_scan": ("ssd_chunk.cu", "ssd_chunk_launch",
                        [_P] * 7 + [_I] * 7 + [_L] * 10 + [_I, _P]),

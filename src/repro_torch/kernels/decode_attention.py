@@ -10,6 +10,12 @@ math, GQA, ``scale`` (default ``D ** -0.5``).  ``csrc/decode_attention.cu``
 holds the kernel; its header states the bound and the design.  ``kv_len``
 stays a device tensor, so a launch never synchronises with the host.
 
+Each slot's valid rows are split over the ``ns`` CTAs of a thread-block
+cluster, which combine their partial softmax statistics in rank order
+inside the launch.  The split's arithmetic is written once, in
+:mod:`repro_torch.kernels.decode_split`, and mirrored in the ``.cu``;
+this wrapper takes ``ns`` from its ``split_count``.
+
 The wrapper takes CUDA tensors only: it launches the kernel or raises.
 The plain version for CPU tensors (``ref.decode_attention``) is chosen in
 :mod:`repro_torch.kernels.ops`.  Each launch is counted in
@@ -18,13 +24,20 @@ The plain version for CPU tensors (``ref.decode_attention``) is chosen in
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels.decode_split import heads_per_cta, split_count
 from repro_torch.kernels.flash_attention import (check_heads, check_operand,
                                                  refuse_grad)
 from repro_torch.kernels.level_megastep import launch_kernel, require_cuda
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -62,10 +75,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = D ** -0.5 if scale is None else float(scale)
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=dev)
     if out.numel():
+        G = Hq // Hkv
+        clusters = B * Hkv * -(-G // heads_per_cta(G))
+        ns = split_count(S, clusters, _sm_count(dev.index))
         launch_kernel(op, dev, out.data_ptr(), q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), kv_len.data_ptr(), B, Hq, Hkv, S, D,
                       q.stride(0), q.stride(1),
                       k.stride(0), k.stride(1), k.stride(2),
                       v.stride(0), v.stride(1), v.stride(2),
-                      scale, window or 0, int(q.dtype == torch.bfloat16))
+                      scale, window or 0, ns, int(q.dtype == torch.bfloat16))
     return out

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import level_megastep as lm
+from repro_torch.kernels.decode_split import row_range, split_rows
 
 
 def lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor
@@ -313,6 +314,46 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         valid &= pos >= last[:, None] - window
     return _attend(q[:, :, None, :], k, v, valid[:, None, None, :],
                    scale)[:, :, 0, :]
+
+
+def decode_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, kv_len: Optional[torch.Tensor] = None,
+                           window: Optional[int] = None,
+                           scale: Optional[float] = None,
+                           ns: int = 1) -> torch.Tensor:
+    """K11's split of the rows in plain PyTorch (for the tests and
+    ``chip_smoke.py``; never on the main path): each slot's valid rows
+    assigned to ``ns`` ranks exactly as the kernel assigns them
+    (``decode_split.row_range`` and ``split_rows``), each rank's
+    partial ``(m, l, acc)`` formed over its rows, and the partials
+    combined in rank order: ``m = max m_i``, ``l = sum l_i e^(m_i - m)``,
+    ``o = sum acc_i e^(m_i - m) / l``, zeros where ``l = 0``.  Arguments
+    as :func:`decode_attention`; float32 math, ``q``'s type out."""
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    lens = [S] * B if kv_len is None else [int(n) for n in kv_len.tolist()]
+    out = torch.zeros((B, Hq, D), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        parts = []
+        for r0, r1 in split_rows(*row_range(lens[b], S, window), ns):
+            kk = k[b, :, r0:r1].float().repeat_interleave(g, dim=0)
+            vv = v[b, :, r0:r1].float().repeat_interleave(g, dim=0)
+            s = torch.einsum("hd,hnd->hn", q[b].float(), kk) * scale
+            m = (s.amax(dim=-1) if r1 > r0 else
+                 torch.full((Hq,), float("-inf"), device=q.device))
+            p = torch.exp(s - m[:, None])
+            parts.append((m, p.sum(dim=-1), torch.einsum("hn,hnd->hd", p, vv)))
+        m = torch.stack([mi for mi, _, _ in parts]).amax(dim=0)
+        l = torch.zeros((Hq,), device=q.device)
+        o = torch.zeros((Hq, D), device=q.device)
+        for mi, li, acc in parts:
+            e = torch.where(mi == float("-inf"), 0.0, torch.exp(mi - m))
+            l = l + li * e
+            o = o + acc * e[:, None]
+        out[b] = torch.where(l[:, None] > 0, o / l[:, None], 0.0)
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

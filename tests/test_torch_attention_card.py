@@ -2,9 +2,12 @@
 ``decode_attention`` against their plain versions (``ref.mha``,
 ``ref.decode_attention``, computing in float32 on float32 copies of the
 inputs) at edge shapes -- Sq 1, Sq != Sk without ``causal``, windows,
-Hq = Hkv and GQA groups up to 12, head dims 16 to 256, lengths no
-multiple of a tile, ``kv_len`` 1 and ragged, float32 and bf16 -- two
-launches bitwise equal, the wrappers refusing a gradient, and the launch
+Hq = Hkv and GQA groups up to 12, head dims 7 to 256, lengths no
+multiple of a tile, ``kv_len`` 0, 1 and ragged, caches of 4,096 rows,
+unaligned cache rows, float32 and bf16 -- two launches bitwise equal,
+K11 one launch a call and at f32 within 1e-6 of its split computed in
+plain PyTorch (``ref.decode_attention_split``) whatever the cluster size,
+the wrappers refusing a gradient, and the launch
 counts of ``ServeEngine`` over a small LM on the card (one K10 a layer a
 prompt, one K11 a layer a tick) with its greedy tokens equal to a full
 recompute at f32, and every K10 launch on the wgmma route at bf16.  Every test here is ``gpu``-marked and skips inside its body
@@ -127,6 +130,11 @@ def test_flash_attention_matches_plain(dt, B, Hq, Hkv, Sq, Sk, D, causal,
     (3, 4, 4, 33, 64, [33, 16, 1], None),     # Hq = Hkv, kv_len 1
     (2, 8, 2, 100, 64, [100, 41], 24),         # window 24
     (2, 24, 2, 50, 80, [50, 7], None),         # group 12: two CTAs a head
+    (4, 8, 2, 100, 64, [0, 100, 37, 0], None),  # kv_len 0: zero rows
+    (2, 32, 8, 4096, 128, [4000, 17], None),   # S 4,096
+    (2, 8, 8, 300, 256, [300, 129], None),     # D 256, group 1
+    (3, 16, 2, 200, 16, [200, 3, 150], None),  # D 16, group 8
+    (2, 32, 8, 1024, 128, [1000, 250], 100),   # window 100 across shares
 ])
 def test_decode_attention_matches_plain(dt, B, Hq, Hkv, S, D, kv_len,
                                         window):
@@ -141,6 +149,50 @@ def test_decode_attention_matches_plain(dt, B, Hq, Hkv, S, D, kv_len,
     want = ref.decode_attention(q.float(), k.float(), v.float(), kv_len=kvl,
                                 window=window)
     _check(run(), run(), want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("D,pad", [(64, 1), (20, 0), (7, 3)])
+def test_decode_attention_narrow_staging_matches_plain(dt, D, pad):
+    """Rows that are not 16-byte aligned (a cache view whose row stride is
+    D + pad elements) or not a multiple of 16 bytes long take the
+    kernel's element-wise staging path, split over a cluster."""
+    _need_card()
+    dtype = DTYPES[dt]
+    gen = torch.Generator().manual_seed(D + pad)
+    B, Hq, Hkv, S = 3, 8, 2, 300
+    q = _randn(gen, B, Hq, D, dtype=dtype)
+    k, v = (_randn(gen, B, Hkv, S, D + pad, dtype=dtype)[..., :D]
+            for _ in range(2))
+    kvl = torch.tensor([300, 77, 1], dtype=torch.int32, device="cuda")
+    run = lambda: dec.decode_attention(q, k, v, kv_len=kvl)  # noqa: E731
+    want = ref.decode_attention(q.float(), k.float(), v.float(), kv_len=kvl)
+    _check(run(), run(), want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ns", [1, 3, 8])
+def test_decode_attention_is_one_launch_of_the_split(monkeypatch, ns):
+    """One call is one launch (one count in ``LAUNCHES``), and at f32 the
+    kernel equals ``ref.decode_attention_split`` -- the same rows a rank,
+    combined in rank order -- within 1e-6 of max |plain|; ``ns`` forced."""
+    _need_card()
+    monkeypatch.setattr(dec, "split_count", lambda S, clusters, sms: ns)
+    gen = torch.Generator().manual_seed(ns)
+    q = _randn(gen, 8, 32, 128, dtype=torch.float32)
+    k, v = (_randn(gen, 8, 8, 1024, 128, dtype=torch.float32)
+            for _ in range(2))
+    kvl = torch.tensor([1, 17, 600, 1024, 2, 333, 64, 1000],
+                       dtype=torch.int32, device="cuda")
+    lm.reset_launches()
+    got = dec.decode_attention(q, k, v, kv_len=kvl, window=500)
+    torch.cuda.synchronize()
+    assert dict(lm.LAUNCHES) == {"decode_attention": 1}
+    want = ref.decode_attention_split(q, k, v, kv_len=kvl, window=500, ns=ns)
+    plain = ref.decode_attention(q, k, v, kv_len=kvl, window=500)
+    err = float((got - want).abs().max())
+    assert err <= 1e-6 * float(plain.abs().max()), err
 
 
 @pytest.mark.gpu
