@@ -113,18 +113,23 @@ Phases, each of which must pass (any failure exits non-zero):
      engine; each gate kernel re-run on its main path's own launches and
      timed beside its bound;
   15. LM serving — K10 ``flash_attention`` (bf16 on its wgmma route,
-     ``flash_attention_sm90.cu``; f32 on its SIMT route) and K11
+     ``flash_attention_sm90.cu``; f32 on its tf32 route,
+     ``flash_attention_tf32.cu``; head dims neither takes on the SIMT
+     route, ``flash_attention.cu``) and K11
      ``decode_attention`` against their plain versions on the card (f32
      and bf16; Sq 1, 63, 65, 127 and 129, Sq != Sk without ``causal``,
-     windows of 24 and 100, Hq = Hkv and GQA groups 4, 8 and 12, head
-     dims 16/32/64/80/128/160/256, Sq > Sk (zero rows), a 2,048-token
+     windows of 24, 50 and 100, Hq = Hkv and GQA groups 2, 4, 8 and 12,
+     head dims 16/20/32/40/64/80/128/160/256, Sq > Sk (zero rows), a
+     2,048-token
      prefill, ``kv_len`` 0, 1 and ragged, a 4,096-row cache, a window
      across K11's split, cache rows not 16-byte aligned: within 1e-5 of
      max |plain| at f32 and 1e-2 at bf16, the plain version computing in
      f32; two launches bitwise equal; each K10 launch on the route its
      operands choose); the wgmma kernel's registers, spills and shared
      memory, and ``HGMMA`` and ``UTMALDG`` in its SASS where
-     ``cuobjdump`` is there; K11's registers and spills by instantiation
+     ``cuobjdump`` is there; the tf32 kernel's registers, spills and
+     shared memory by instantiation and ``HMMA.1688.F32.TF32`` in its
+     SASS; K11's registers and spills by instantiation
      and the split (NS, grid, tile, shared memory) at granite's shape;
      then
      granite-3-8b at full width and depth (40 layers, d_model 4,096,
@@ -138,10 +143,13 @@ Phases, each of which must pass (any failure exits non-zero):
      prefill ms a bucket, peak memory; every K10 launch on the wgmma
      route.  K10 and SDPA by ``torch.profiler`` device time on each
      bucket's first-layer launch, beside the SIMT kernel on the same
-     launch (K10 before its redesign).  A tapped re-run of the same
-     traffic keeps every ``TAP_EVERY``-th K10/K11 launch (re-run against
-     the plain version and timed by ``torch.profiler`` beside the bound
-     -- bf16 at 989 TFLOP/s against bytes at 3.35 TB/s -- and beside
+     launch (K10 before its redesign), and on its f32 copy the tf32
+     route, the SIMT kernel and SDPA at f32 beside the bound (three TF32
+     products at 495 TFLOP/s; fp32 FMAs at 67 as an extra figure).  A
+     tapped re-run of the same traffic keeps every ``TAP_EVERY``-th
+     K10/K11 launch (re-run against the plain version and timed by
+     ``torch.profiler`` beside the bound -- bf16 at 989 TFLOP/s against
+     bytes at 3.35 TB/s -- and beside
      ``scaled_dot_product_attention``) and every row of logits a token
      was drawn from: each request teacher-forced through ``trunk`` in
      "train" mode must give logits within 3e-2 of max |logit| (the bf16
@@ -158,9 +166,14 @@ Phases, each of which must pass (any failure exits non-zero):
      engine's whole cache.
      Profiles of one warm decode tick and of one warm 1,024-token
      prefill; and ``reduced(granite-3-8b)`` at f32 served on the card
-     (the SIMT route's path, its launches counted from 0) must give a
-     full recompute's greedy tokens exactly; the SIMT route timed on the
-     kept launches' f32 copies;
+     (the tf32 route's path, its launches counted from 0, every one on
+     that route, each re-run against the plain version at the shapes the
+     path gave it) must give a full recompute's greedy tokens exactly; the
+     tf32 route timed on the kept granite launches' f32 copies beside the
+     SIMT kernel (its route before the redesign), SDPA at f32, the plain
+     version and the bound; the same reduced model at head dim 20 (the
+     SIMT route's path: every launch on it) exact too, its launches
+     re-run and timed for the SIMT row;
   16. Mamba-2 serving — K12 ``ssd_chunk_scan`` against its plain version
      on the card (f32 and bf16; chunks of 128, 37 and 1, N 16 and 128, 1,
      30 and 32 heads, x/B/C strided views of one ``xBC`` tensor: within
@@ -213,9 +226,10 @@ TRAIN_STEPS, TRAIN_DATA = 30, 512
 #: AdamW steps of each of the Var-LSTM, GRU and Tree-FC phases.
 TRAIN_CELL_STEPS = 10
 #: Published H100 SXM peaks (NVIDIA data sheet): fp32 without tensor
-#: cores, dense bf16 on the tensor cores, and HBM3 bandwidth.
+#: cores, dense bf16 and TF32 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -2553,13 +2567,17 @@ ATTN_BARS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 #: the f32 recompute than the bf16 recompute is.
 LM_LOGIT_TOL, LM_MARGIN, LM_FLOOR_RATIO = 3e-2, 4e-2, 1.25
 #: K10 (B, Hq, Hkv, Sq, Sk, D, causal, window) and K11 (B, Hq, Hkv, S, D,
-#: kv_len, window) edge cases, each at f32 (the SIMT route) and bf16 (the
-#: wgmma route): Sq 1, 63, 65, 127 and 129 against key tiles of 64 and
-#: query tiles of 128; Sq != Sk without ``causal``; windows of 24 and of
-#: 100 (starting inside a key tile); GQA groups 1, 4, 8 and 12; head dims
-#: 16, 32, 64, 80, 128, 160 and 256 (the wgmma kernel's four padded
-#: widths, 64 to 256); Sq > Sk under ``causal`` (zero rows); a
-#: 2,048-token causal prefill.  q is a permuted view in every case.
+#: kv_len, window) edge cases, each at f32 and bf16 (K10 at f32 takes the
+#: tf32 route where D % 8 == 0, at bf16 the wgmma route where D % 16 == 0,
+#: the SIMT route otherwise): Sq 1, 63, 65, 127 and 129 against key tiles
+#: of 32 and 64 and query tiles of 64 and 128; Sq != Sk without
+#: ``causal``; windows of 24, 50 and 100 (starting inside a key tile); GQA
+#: groups 1, 2, 4, 8 and 12; head dims 16, 32, 64, 80, 128, 160 and 256
+#: (the wgmma kernel's four padded widths, 64 to 256, and the tf32
+#: kernel's four classes, 32 to 256), 20 (the SIMT route at f32 and bf16)
+#: and 40 (tf32 at f32, SIMT at bf16); Sq > Sk under ``causal`` (zero
+#: rows); a 2,048-token causal prefill.  q is a permuted view in every
+#: case.
 K10_EDGES = ((1, 32, 8, 1, 1, 128, True, None),
              (2, 4, 4, 40, 72, 64, False, None),
              (1, 8, 2, 96, 96, 64, True, 24),
@@ -2574,6 +2592,8 @@ K10_EDGES = ((1, 32, 8, 1, 1, 128, True, None),
              (1, 4, 4, 129, 50, 128, True, None),
              (1, 4, 2, 100, 100, 160, True, None),
              (1, 2, 2, 70, 70, 16, False, None),
+             (1, 8, 2, 100, 100, 20, True, None),
+             (1, 4, 2, 129, 129, 40, True, 50),
              (1, 32, 8, 1024, 1024, 128, True, None),
              (1, 32, 8, 2048, 2048, 128, True, None))
 #: K11's cases carry an eighth field, ``pad``: the cache rows are views of
@@ -2597,6 +2617,9 @@ K11_EDGES = ((8, 32, 8, 1024, 128, (1, 17, 600, 1024, 2, 333, 64, 1000),
 #: K11 at granite's decode shape with every slot filled to n rows of the
 #: engine's ``LM_MAX_LEN``-row cache.
 K11_FILLS = (16, 64, 256, 632, 1024)
+#: The head dim at which the reduced f32 model takes K10's SIMT route (no
+#: multiple of 8, which the tf32 route needs).
+SIMT_HEAD_DIM = 20
 #: Bytes of K/V rows a timed set of K11 inputs holds at least: twice the
 #: 50 MB L2, so each launch finds its rows in HBM, as a decode tick does.
 K11_COLD_BYTES = 100e6
@@ -2639,10 +2662,11 @@ def attn_check(name: str, args, kw, twice: bool = True) -> tuple:
 
 def attn_edges_check() -> dict:
     """Both kernels on the edge cases of ``K10_EDGES``/``K11_EDGES``; K10's
-    worst errors kept by route (f32 takes "simt", bf16 "wgmma")."""
+    worst errors kept by route (``flash.route``: f32 "tf32" or "simt",
+    bf16 "wgmma" or "simt"), each case's two launches counted on that
+    route alone."""
     gen = torch.Generator().manual_seed(1010)
-    out = {"flash_attention.simt": (0.0, 0.0),
-           "flash_attention.wgmma": (0.0, 0.0),
+    out = {**{f"flash_attention.{r}": (0.0, 0.0) for r in flash.LIBRARIES},
            "decode_attention": (0.0, 0.0)}
 
     def randn(*shape, dtype):
@@ -2653,13 +2677,16 @@ def attn_edges_check() -> dict:
             q = randn(B, Sq, Hq, D, dtype=dtype).transpose(1, 2)
             k, v = randn(B, Hkv, Sk, D, dtype=dtype), \
                 randn(B, Hkv, Sk, D, dtype=dtype)
-            n0 = lm.LAUNCHES["flash_attention.wgmma"]
+            n0 = dict(lm.LAUNCHES)
             e = attn_check("flash_attention", (q, k, v),
                            {"causal": causal, "window": window})
             key = f"flash_attention.{flash.route(dtype, D)}"
-            check((lm.LAUNCHES["flash_attention.wgmma"] - n0 == 2)
-                  == (key == "flash_attention.wgmma"),
-                  f"K10 at {dtype}, D {D} did not take the {key} route")
+            taken = {r: lm.LAUNCHES[f"flash_attention.{r}"]
+                     - n0.get(f"flash_attention.{r}", 0)
+                     for r in flash.LIBRARIES}
+            check(taken[key.split(".")[1]] == 2 and sum(taken.values()) == 2,
+                  f"K10 at {dtype}, D {D}: launches by route {taken}, "
+                  f"expected both on the {key} route")
             out[key] = tuple(map(max, out[key], e))
         for B, Hq, Hkv, S, D, kvl, window, pad in K11_EDGES:
             q = randn(B, Hq, D, dtype=dtype)
@@ -2679,8 +2706,8 @@ def attn_edges_check() -> dict:
 @contextlib.contextmanager
 def k10_route(path: str):
     """Every K10 launch inside takes route ``path``: times the SIMT
-    kernel, K10 before its redesign, on the bf16 launches the wgmma route
-    serves."""
+    kernel, K10 before its redesigns, on the bf16 launches the wgmma route
+    serves and on the f32 launches the tf32 route serves."""
     orig = flash.route
     flash.route = lambda dtype, D: path
     try:
@@ -2689,37 +2716,56 @@ def k10_route(path: str):
         flash.route = orig
 
 
-def k10_build_report() -> dict:
-    """What ``nvcc -Xptxas -v`` said of each instantiation (by padded
-    head dim) of the wgmma kernel, its dynamic shared memory a CTA by
-    head dim, and, where ``cuobjdump`` is on the machine, the counts of
-    ``HGMMA`` and ``UTMALDG`` in its SASS, both of which must be there."""
-    lib_path = _build.library_path("flash_attention_sm90")
-    ptxas, dp = {}, None
-    for line in _build.build_log("flash_attention_sm90").splitlines():
-        m = re.search(r"Compiling entry function .*ILi(\d+)E", line)
+def k10_build_report(lib: str, key_re: str, label, dims,
+                     sass_ops) -> dict:
+    """What ``nvcc -Xptxas -v`` said of each instantiation of K10's
+    kernel in library ``lib`` (an entry function matching ``key_re``,
+    named by ``label(match)``): registers, spills; its dynamic shared
+    memory a CTA at each head dim of ``dims``; and, where ``cuobjdump`` is
+    on the machine, the count of each SASS opcode of ``sass_ops`` in the
+    library, none of which may be 0."""
+    lib_path = _build.library_path(lib)
+    ptxas, key = {}, None
+    for line in _build.build_log(lib).splitlines():
+        m = re.search(r"Compiling entry function .*" + key_re, line)
         if m:
-            dp = int(m.group(1))
-        elif dp and ("registers" in line or "spill stores" in line):
-            ptxas.setdefault(dp, []).append(
+            key = label(m)
+        elif key and ("registers" in line or "spill stores" in line):
+            ptxas.setdefault(key, []).append(
                 line.replace("ptxas info    :", "").strip())
-    smem_of = ctypes.CDLL(str(lib_path)).flash_attention_sm90_smem_bytes
-    smem = {D: smem_of(D) for D in (32, 64, 80, 128, 256)}
+    smem_of = getattr(ctypes.CDLL(str(lib_path)), f"{lib}_smem_bytes")
+    smem = {D: smem_of(D) for D in dims}
     cob = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = {}
     if Path(cob).exists():
         dump = subprocess.run([cob, "-sass", str(lib_path)],
                               capture_output=True, text=True,
                               timeout=120).stdout
-        sass = {op: dump.count(op) for op in ("HGMMA", "UTMALDG")}
-        check(all(sass.values()), f"flash_attention_sm90.cu's SASS lacks "
-              f"HGMMA or UTMALDG: {sass}")
-    for d, lines in sorted(ptxas.items()):
-        print(f"flash_attention_sm90.cu, padded head dim {d}: "
-              + "; ".join(lines))
-    print(f"flash_attention_sm90.cu: dynamic shared memory a CTA by head "
-          f"dim {smem}; SASS {sass or 'not read (no cuobjdump)'}")
+        sass = {op: dump.count(op) for op in sass_ops}
+        check(all(sass.values()), f"{lib}.cu's SASS lacks one of "
+              f"{sass_ops}: {sass}")
+    for k, lines in ptxas.items():
+        print(f"{lib}.cu, {k}: " + "; ".join(lines))
+    print(f"{lib}.cu: dynamic shared memory a CTA by head dim {smem}; SASS "
+          f"{sass or 'not read (no cuobjdump)'}")
     return {"ptxas": ptxas, "smem": smem, "sass": sass}
+
+
+def k10_build_reports() -> tuple:
+    """``k10_build_report`` of the wgmma kernel (by padded head dim; TMA
+    loads and ``wgmma`` in its SASS) and of the tf32 kernel (by head-dim
+    class and whether D equals it; TF32 ``mma.sync``, ``cp.async`` and
+    ``ldmatrix`` in its SASS)."""
+    return (k10_build_report(
+                "flash_attention_sm90", r"ILi(\d+)E",
+                lambda m: f"padded head dim {m.group(1)}",
+                (32, 64, 80, 128, 256), ("HGMMA", "UTMALDG")),
+            k10_build_report(
+                "flash_attention_tf32", r"ILi(\d+)ELb(\d)E",
+                lambda m: f"DMAX {m.group(1)}"
+                + (", D = DMAX" if m.group(2) == "1" else ""),
+                (32, 40, 64, 80, 128, 256),
+                ("HMMA.1688.F32.TF32", "LDGSTS", "LDSM")))
 
 
 #: K11's three instantiation routes (``decode_attention_plan``'s code).
@@ -2815,11 +2861,13 @@ def k11_by_fill(shape) -> dict:
     return out
 
 
-def attn_bound_ms(name: str, args, kw) -> tuple:
+def attn_bound_ms(name: str, args, kw, fp32_fma: bool = False) -> tuple:
     """Least time of one K10/K11 launch on ``args``: QK^T and PV over the
     pairs of query and valid key this launch's data has (4 * D FLOPs a
-    pair a head) at 989 TFLOP/s for bf16 operands (67 TFLOP/s for f32,
-    which the fp32 constraint keeps off the tensor cores), against q, the
+    pair a head) on the tensor cores, at 989 TFLOP/s for bf16 operands and,
+    for f32 operands, as three TF32 products each at 495 TFLOP/s (the
+    split that keeps f32 accuracy there); ``fp32_fma``: f32 operands at 67
+    TFLOP/s, the fp32 rate of the CUDA cores, instead.  Against q, the
     valid K/V rows and the output moved once at 3.35 TB/s.  Returns
     (bound_ms, bound_by, flops, bytes)."""
     q, k, v = args
@@ -2846,8 +2894,12 @@ def attn_bound_ms(name: str, args, kw) -> tuple:
         pairs = rows * Hq
         nbytes = e * (2 * B * Hq * D + 2 * rows * Hkv * D) + 4 * B
     flops = 4.0 * D * pairs
-    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    t_op, t_by = flops / peak, nbytes / PEAK_BYTES
+    if q.dtype == torch.bfloat16:
+        t_op = flops / PEAK_BF16_FLOPS
+    else:
+        t_op = flops / PEAK_FP32_FLOPS if fp32_fma \
+            else 3 * flops / PEAK_TF32_FLOPS
+    t_by = nbytes / PEAK_BYTES
     return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
             else "bytes", flops, nbytes)
 
@@ -2985,18 +3037,41 @@ def logit_agreement(reqs, served: dict, want: dict,
             "clear_margin_tokens_agree": clear_ok}
 
 
-def lm_exact_f32_check(arch: str = LM_ARCH, **kw) -> dict:
-    """``reduced(arch)`` at f32 on the card (``kw`` to ``ServeEngine``):
-    the engine's greedy tokens equal a full recompute's exactly
-    (``tests/test_serve.py``'s assertion for the reference), with
-    staggered admission."""
+def lm_exact_f32_check(arch: str = LM_ARCH, head_dim=None, keep=None,
+                       **kw) -> dict:
+    """``reduced(arch)`` at f32 on the card (``kw`` to ``ServeEngine``;
+    ``head_dim`` in place of the reduced config's 32): the engine's greedy
+    tokens equal a full recompute's exactly (``tests/test_serve.py``'s
+    assertion for the reference), with staggered admission.  ``keep``: a
+    list that collects a copy of every K10 launch's (args, kw)."""
     cfg = reduced(get_config(arch))
+    if head_dim:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
     model = TransformerLM(cfg)
     params = model.init(torch.Generator(DEVICE).manual_seed(0), DEVICE)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)), max_new_tokens=6)
             for i, n in enumerate((3, 5, 4, 8, 13, 2))]
     eng = ServeEngine(model, params, num_slots=2, max_len=32, **kw)
+    inner = flash.flash_attention
+    if keep is not None:
+        def tap(q, k, v, **akw):
+            keep.append(((q.clone(), k.clone(), v.clone()), akw))
+            return inner(q, k, v, **akw)
+        flash.flash_attention = tap
+    try:
+        _serve_and_recompute(model, params, reqs, eng)
+    finally:
+        flash.flash_attention = inner
+    heads = f", head dim {cfg.dh}" if cfg.n_heads else ""
+    print(f"LM f32 ({cfg.name}{heads}): {len(reqs)} requests' greedy tokens "
+          f"equal a full recompute on the card")
+    return {"requests": len(reqs), "head_dim": cfg.dh if cfg.n_heads else 0}
+
+
+def _serve_and_recompute(model, params, reqs, eng) -> None:
+    """``reqs`` through ``eng``, half after one tick; each request's greedy
+    tokens then recomputed from its prompt by ``trunk`` and checked."""
     for r in reqs[:3]:
         eng.submit(r)
     eng.step()
@@ -3017,9 +3092,6 @@ def lm_exact_f32_check(arch: str = LM_ARCH, **kw) -> dict:
                 toks.append(want[-1])
             check(r.output == want, f"f32 request {r.request_id}: served "
                   f"{r.output}, recompute {want}")
-    print(f"LM f32 ({cfg.name}): {len(reqs)} requests' greedy tokens equal "
-          f"a full recompute on the card")
-    return {"requests": len(reqs)}
 
 
 def attn_timings(name: str, calls) -> dict:
@@ -3162,17 +3234,25 @@ def lm_serving_phase(card: str) -> dict:
           "from the recompute's argmax where its margin is clear")
     timings = {n: attn_timings(n, kept[n]) for n in kept}
     # K10 before its redesign: the SIMT kernel on the same bf16 launches;
-    # and the SIMT route on their f32 copies, the type it now serves.
+    # and the tf32 route on their f32 copies, with the SIMT kernel (its
+    # route before the tf32 kernel) on the same copies.
     k10_calls = kept["flash_attention"]
     with k10_route("simt"):
         timings["flash_attention"]["simt_bf16_ms"] = device_ms_per_call(
             [lambda a=a, kw=kw: flash.flash_attention(*a, **kw)
              for a, kw in k10_calls], reps=1)
     del kept
-    simt = attn_timings("flash_attention",
-                        [(tuple(t.float() for t in a), kw)
-                         for a, kw in k10_calls])
+    f32_calls = [(tuple(t.float() for t in a), kw) for a, kw in k10_calls]
     del k10_calls
+    tf32 = attn_timings("flash_attention", f32_calls)
+    tf32["bound_fma_ms"] = float(np.mean(
+        [attn_bound_ms("flash_attention", a, kw, fp32_fma=True)[0]
+         for a, kw in f32_calls]))
+    with k10_route("simt"):
+        tf32["simt_ms"] = device_ms_per_call(
+            [lambda a=a, kw=kw: flash.flash_attention(*a, **kw)
+             for a, kw in f32_calls], reps=1)
+    del f32_calls
     k10 = {}
     for b in buckets:
         toks = torch.ones((1, b), dtype=torch.long, device=DEVICE)
@@ -3191,14 +3271,25 @@ def lm_serving_phase(card: str) -> dict:
         finally:
             flash.flash_attention = orig
         a, kw = calls[0]
+        a32 = tuple(t.float() for t in a)
         k10[b] = {"ms": device_ms_per_call([lambda: orig(*a, **kw)], 10),
                   "sdpa_ms": device_ms_per_call(
                       [sdpa_call("flash_attention", a, kw)], 10),
-                  "bound_ms": attn_bound_ms("flash_attention", a, kw)[0]}
+                  "bound_ms": attn_bound_ms("flash_attention", a, kw)[0],
+                  "f32_ms": device_ms_per_call([lambda: orig(*a32, **kw)],
+                                               10),
+                  "f32_sdpa_ms": device_ms_per_call(
+                      [sdpa_call("flash_attention", a32, kw)], 10),
+                  "f32_bound_ms": attn_bound_ms("flash_attention", a32,
+                                                kw)[0],
+                  "f32_bound_fma_ms": attn_bound_ms(
+                      "flash_attention", a32, kw, fp32_fma=True)[0]}
         with k10_route("simt"):
             k10[b]["simt_ms"] = device_ms_per_call(
                 [lambda: orig(*a, **kw)], 3)
-        del calls
+            k10[b]["f32_simt_ms"] = device_ms_per_call(
+                [lambda: orig(*a32, **kw)], 3)
+        del calls, a32
 
     k11_shape = (LM_SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.dh)
     k11_fills = k11_by_fill(k11_shape)
@@ -3217,17 +3308,44 @@ def lm_serving_phase(card: str) -> dict:
         prof_prefill = profile_step(
             f"one warm LM prefill ({LM_MAX_LEN} tokens, {L} layers)",
             lambda: model.prefill(params, toks)[0].cpu())
-    # The SIMT route's own path: the reduced f32 model served on the card,
+    # The tf32 route's own path: the reduced f32 model served on the card,
     # the launch counts set to 0 just before and read just after.
+    tf32_calls = []
     lm.reset_launches()
-    exact = lm_exact_f32_check()
+    exact = lm_exact_f32_check(keep=tf32_calls)
     f32_launches = dict(lm.LAUNCHES)
-    check(f32_launches.get("flash_attention.simt", 0)
-          == f32_launches.get("flash_attention", 0) > 0
-          and "flash_attention.wgmma" not in f32_launches,
-          f"f32 LM K10 launches {f32_launches}: expected all on the SIMT "
+    check(f32_launches.get("flash_attention.tf32", 0)
+          == f32_launches.get("flash_attention", 0) == len(tf32_calls) > 0
+          and "flash_attention.wgmma" not in f32_launches
+          and "flash_attention.simt" not in f32_launches,
+          f"f32 LM K10 launches {f32_launches}: expected all on the tf32 "
           f"route")
-    build = k10_build_report()
+    # Each of those launches again, at the shapes that path gave it,
+    # against the plain version (two launches bitwise equal).
+    errs = [attn_check("flash_attention", a, kw) for a, kw in tf32_calls]
+    tf32["path_max_abs_err"] = max(e[0] for e in errs)
+    tf32["path_max_rel_err"] = max(e[1] for e in errs)
+    print(f"flash_attention.tf32 on its own path's {len(errs)} launches "
+          f"(the reduced f32 model, head dim {exact['head_dim']}, Sq "
+          f"{min(a[0].shape[2] for a, _ in tf32_calls)}–"
+          f"{max(a[0].shape[2] for a, _ in tf32_calls)}): max_abs_err "
+          f"{tf32['path_max_abs_err']:.3e} "
+          f"({tf32['path_max_rel_err']:.3e} of max |plain|), two launches "
+          f"bitwise equal")
+    del tf32_calls, errs
+    # The SIMT route's path: the same model at head dim 20, which no other
+    # route takes, its launches kept for the SIMT row's timing.
+    simt_calls = []
+    lm.reset_launches()
+    exact_simt = lm_exact_f32_check(head_dim=SIMT_HEAD_DIM, keep=simt_calls)
+    simt_launches = dict(lm.LAUNCHES)
+    check(simt_launches.get("flash_attention.simt", 0)
+          == simt_launches.get("flash_attention", 0) == len(simt_calls) > 0,
+          f"f32 LM K10 launches at head dim {SIMT_HEAD_DIM} {simt_launches}:"
+          f" expected all on the SIMT route")
+    simt = attn_timings("flash_attention", simt_calls)
+    del simt_calls
+    build, tf32_build = k10_build_reports()
     k11_build = k11_build_report(k11_shape)
 
     out = {"arch": LM_ARCH, "params": n_params, "layers": L,
@@ -3237,8 +3355,10 @@ def lm_serving_phase(card: str) -> dict:
            "tick_p99_ms": float(np.percentile(decode_s, 99) * 1e3),
            "prefill_ms": prefill_ms, "peak_bytes": peak,
            "launches": launches, "edges": edges, "recompute": recompute,
-           "k10_buckets": k10, "timings": timings, "simt_f32": simt,
-           "f32_launches": f32_launches, "k10_build": build,
+           "k10_buckets": k10, "timings": timings, "tf32_f32": tf32,
+           "simt_f32": simt, "f32_launches": f32_launches,
+           "simt_launches": simt_launches, "exact_simt": exact_simt,
+           "k10_build": build, "k10_tf32_build": tf32_build,
            "k11_fills": k11_fills, "k11_build": k11_build,
            "profile": prof, "profile_prefill": prof_prefill,
            "exact_f32": exact, "card": card}
@@ -3260,11 +3380,24 @@ def lm_serving_phase(card: str) -> dict:
     for b, t in k10.items():
         print(f"flash_attention at a {b}-token prefill (device time): "
               f"wgmma {t['ms']:.4f} ms, SIMT {t['simt_ms']:.4f} ms, SDPA "
-              f"{t['sdpa_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms")
+              f"{t['sdpa_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms; at f32: "
+              f"tf32 {t['f32_ms']:.4f} ms, SIMT {t['f32_simt_ms']:.4f} ms, "
+              f"SDPA {t['f32_sdpa_ms']:.4f} ms, bound {t['f32_bound_ms']:.5f}"
+              f" ms (3 TF32 products; {t['f32_bound_fma_ms']:.5f} ms at the "
+              f"fp32 FMA rate)")
     print(f"flash_attention on the kept bf16 launches: SIMT route (before "
           f"the redesign) {timings['flash_attention']['simt_bf16_ms']:.4f} "
           f"ms a launch (device)")
-    for name, t in (*timings.items(), ("flash_attention.simt at f32", simt)):
+    print(f"flash_attention on the kept launches' f32 copies: tf32 route "
+          f"{tf32['ms']:.4f} ms, SIMT route (before the redesign) "
+          f"{tf32['simt_ms']:.4f} ms, SDPA {tf32['library_ms']:.4f} ms a "
+          f"launch (device); bound {tf32['bound_ms']:.5f} ms (3 TF32 "
+          f"products; {tf32['bound_fma_ms']:.5f} ms at the fp32 FMA rate), "
+          f"{tf32['flops'] / 1e9:.3f} GFLOP")
+    for name, t in (*timings.items(),
+                    ("flash_attention.tf32 at f32", tf32),
+                    (f"flash_attention.simt at f32, head dim {SIMT_HEAD_DIM}",
+                     simt)):
         print(f"{name} on {t['timed']} kept launches: {t['ms']:.4f} ms a "
               f"launch (device), plain {t['plain_ms']:.4f}, SDPA "
               f"{t['library_ms']:.4f}, bound {t['bound_ms']:.5f} ms by "
@@ -3276,8 +3409,11 @@ def lm_serving_phase(card: str) -> dict:
             ("flash_attention.wgmma", "flash_attention_sm90.cu",
              timings["flash_attention"], launches["flash_attention.wgmma"],
              edges["flash_attention.wgmma"]),
+            ("flash_attention.tf32", "flash_attention_tf32.cu", tf32,
+             f32_launches["flash_attention.tf32"],
+             edges["flash_attention.tf32"]),
             ("flash_attention.simt", "flash_attention.cu", simt,
-             f32_launches["flash_attention.simt"],
+             simt_launches["flash_attention.simt"],
              edges["flash_attention.simt"]),
             ("decode_attention", "decode_attention.cu",
              timings["decode_attention"], launches["decode_attention"],
@@ -3286,7 +3422,8 @@ def lm_serving_phase(card: str) -> dict:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": ATTN_REPLACES[name.split(".")[0]], "launches": n,
-            "max_abs_err": max(t["max_abs_err"], edge[0]),
+            "max_abs_err": max(t["max_abs_err"], edge[0],
+                               t.get("path_max_abs_err", 0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

@@ -10,18 +10,24 @@ plain PyTorch (``ref.decode_attention_split``) whatever the cluster size,
 the wrappers refusing a gradient, and the launch
 counts of ``ServeEngine`` over a small LM on the card (one K10 a layer a
 prompt, one K11 a layer a tick) with its greedy tokens equal to a full
-recompute at f32, and every K10 launch on the wgmma route at bf16.  Every test here is ``gpu``-marked and skips inside its body
-where there is no card; none needs JAX, which the GPU machine lacks.
+recompute at f32, every K10 launch on the tf32 route at f32 and on the
+wgmma route at bf16.  Every test here is ``gpu``-marked and skips inside
+its body where there is no card; none needs JAX, which the GPU machine
+lacks.
 
 Bars: 1e-5 of max |plain| at float32 (the kernels sum in another order)
 and 1e-2 at bf16 (one bf16 rounding of the output, and the operands'
 own bf16 rounding, which the plain version sees too).
 
 bf16 K10 takes the wgmma route (``csrc/flash_attention_sm90.cu``: bf16
-``wgmma`` for QKᵀ and for PV on ``P_hi + P_lo``, TMA staging); f32 the
-SIMT route; the K10 cases check which route each launch took.  They
-cover head dims 16, 32, 64, 80, 128, 160 and 256 (every padded width of
-the wgmma kernel's shared tiles), Sq 1, 63, 65, 127 and 129, Sq != Sk
+``wgmma`` for QKᵀ and for PV on ``P_hi + P_lo``, TMA staging) where
+``D % 16 == 0``; f32 the tf32 route (``csrc/flash_attention_tf32.cu``:
+TF32 ``mma.sync`` with each product split into three, ``cp.async``
+staging) where ``D % 8 == 0``; other head dims the SIMT route; the K10
+cases check which route each launch took.  They cover head dims 16, 20,
+32, 40, 64, 80, 128, 160 and 256 (every padded width of the wgmma
+kernel's shared tiles and every class of the tf32 kernel's; 20 on the
+SIMT route at both types, 40 at bf16), Sq 1, 63, 65, 127 and 129, Sq != Sk
 without ``causal``, a window starting inside a key tile, GQA groups 1,
 4, 8 and 12, a 2,048-token causal prefill, q as a permuted view, and
 Sq > Sk (rows with no key, exactly zero).  Against the plain version on
@@ -100,6 +106,8 @@ def _check(got, again, want, dtype):
     (1, 8, 2, 300, 300, 128, True, 100),      # window inside a key tile
     (1, 4, 4, 129, 50, 128, True, None),      # Sq > Sk: zero rows
     (1, 32, 8, 2048, 2048, 128, True, None),  # a 2,048-token prefill
+    (1, 8, 2, 100, 100, 20, True, None),      # D 20: SIMT at both types
+    (1, 4, 2, 129, 129, 40, True, 50),        # D 40: tf32 / SIMT at bf16
 ])
 def test_flash_attention_matches_plain(dt, B, Hq, Hkv, Sq, Sk, D, causal,
                                        window):
@@ -115,12 +123,36 @@ def test_flash_attention_matches_plain(dt, B, Hq, Hkv, Sq, Sk, D, causal,
     lm.reset_launches()
     got = run()
     _check(got, run(), want, dtype)
-    path = "wgmma" if dtype == torch.bfloat16 else "simt"
+    if dtype == torch.bfloat16:
+        path = "wgmma" if D % 16 == 0 else "simt"
+    else:
+        path = "tf32" if D % 8 == 0 else "simt"
     assert fa.route(dtype, D) == path
     assert dict(lm.LAUNCHES) == {"flash_attention": 2,
                                  f"flash_attention.{path}": 2}
     if causal and Sq > Sk:
         assert not got[:, :, :Sq - Sk].any(), "a row with no key is not 0"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,pad,off", [(64, 2, 0), (128, 1, 1), (40, 0, 1)])
+def test_flash_attention_tf32_narrow_strides_match_plain(D, pad, off):
+    """f32 operands whose rows are D + pad elements apart or whose base
+    sits ``off`` elements past 16 bytes: the tf32 kernel copies them 4
+    bytes at a time (no 16-byte ``cp.async``), in the same launch."""
+    _need_card()
+    gen = torch.Generator().manual_seed(D + pad + off)
+    q = _randn(gen, 1, 8, 70, D + pad + off, dtype=torch.float32)
+    k, v = (_randn(gen, 1, 2, 90, D + pad + off, dtype=torch.float32)
+            for _ in range(2))
+    q, k, v = (t[..., off:off + D] for t in (q, k, v))
+    assert fa.route(torch.float32, D) == "tf32"
+    run = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+    want = ref.mha(q, k, v)
+    lm.reset_launches()
+    _check(run(), run(), want, torch.float32)
+    assert dict(lm.LAUNCHES) == {"flash_attention": 2,
+                                 "flash_attention.tf32": 2}
 
 
 @pytest.mark.gpu
@@ -218,8 +250,9 @@ def test_wrappers_refuse_grad_and_bad_operands():
 @pytest.mark.gpu
 def test_serve_engine_launches_and_tokens_on_the_card():
     """A small f32 LM served on the card: one K10 launch a layer a prompt,
-    one K11 a layer a tick, and every request's greedy tokens equal to a
-    full recompute on the card."""
+    each on the tf32 route (head dim 32), one K11 a layer a tick, and
+    every request's greedy tokens equal to a full recompute on the
+    card."""
     _need_card()
     cfg = reduced(get_config("granite-3-8b"))
     model = TransformerLM(cfg)
@@ -234,7 +267,7 @@ def test_serve_engine_launches_and_tokens_on_the_card():
     done = eng.run()
     L = cfg.num_layers
     assert lm.LAUNCHES["flash_attention"] == L * len(reqs)
-    assert lm.LAUNCHES["flash_attention.simt"] == L * len(reqs)
+    assert lm.LAUNCHES["flash_attention.tf32"] == L * len(reqs)
     assert lm.LAUNCHES["decode_attention"] == L * eng.ticks
     assert all(r.status == "ok" for r in done)
     with torch.no_grad():
@@ -273,3 +306,31 @@ def test_bf16_serve_engine_takes_the_wgmma_route():
     assert lm.LAUNCHES["flash_attention"] == L * len(reqs)
     assert lm.LAUNCHES["flash_attention.wgmma"] == L * len(reqs)
     assert "flash_attention.simt" not in lm.LAUNCHES
+    assert "flash_attention.tf32" not in lm.LAUNCHES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim,path", [(32, "tf32"), (20, "simt")])
+def test_f32_serve_engine_takes_one_route(head_dim, path):
+    """The reduced f32 model served through ``ServeEngine`` on the card:
+    at head dim 32 (its own) every K10 launch on the tf32 route, at head
+    dim 20 every one on the SIMT route; no launch on another route, every
+    request ``ok``."""
+    _need_card()
+    cfg = dataclasses.replace(reduced(get_config("granite-3-8b")),
+                              head_dim=head_dim)
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
+    eng = ServeEngine(model, params, num_slots=4, max_len=64)
+    rng = np.random.default_rng(2)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)), max_new_tokens=4)
+            for i, n in enumerate((3, 9, 16, 30, 5))]
+    for r in reqs:
+        assert eng.submit(r)
+    lm.reset_launches()
+    done = eng.run()
+    L = cfg.num_layers
+    assert all(r.status == "ok" for r in done)
+    routes = {k: n for k, n in lm.LAUNCHES.items()
+              if k.startswith("flash_attention.")}
+    assert routes == {f"flash_attention.{path}": L * len(reqs)}, routes

@@ -5,7 +5,8 @@ JAX reference.
 
 - ``route`` for every (dtype, head dim) that the configs, their reduced
   forms and ``chip_smoke.K10_EDGES`` use: bf16 with ``D % 16 == 0`` and
-  ``D <= 256`` takes "wgmma", everything else "simt".
+  ``D <= 256`` takes "wgmma", f32 with ``D % 8 == 0`` and ``D <= 256``
+  "tf32" (``tests/test_torch_flash_tf32.py``), everything else "simt".
 - ``tma_strides`` and the wrapper refusing, on CPU and meta tensors and
   before any launch, a batch, head or row stride that is not a positive
   multiple of 16 bytes or a base off a 16-byte boundary, and accepting
@@ -81,15 +82,17 @@ def test_route_for_every_config_head_dim():
     assert {32, 64, 80, 128} <= set(dims), dims
     for D in dims:
         assert fa.route(torch.bfloat16, D) == "wgmma", D
-        assert fa.route(torch.float32, D) == "simt", D
+        assert fa.route(torch.float32, D) == "tf32", D
 
 
 def test_route_for_every_k10_edge():
     edges = _k10_edges()
     assert {e[5] for e in edges} >= {32, 64, 80, 128, 256}
     for *_, D, _causal, _window in edges:
-        assert fa.route(torch.bfloat16, D) == "wgmma", D
-        assert fa.route(torch.float32, D) == "simt", D
+        assert fa.route(torch.bfloat16, D) == \
+            ("wgmma" if D % 16 == 0 else "simt"), D
+        assert fa.route(torch.float32, D) == \
+            ("tf32" if D % 8 == 0 else "simt"), D
 
 
 @pytest.mark.parametrize("D,want", [(16, "wgmma"), (48, "wgmma"),
@@ -98,7 +101,8 @@ def test_route_for_every_k10_edge():
                                     (257, "simt")])
 def test_route_rule_on_other_head_dims(D, want):
     assert fa.route(torch.bfloat16, D) == want
-    assert fa.route(torch.float32, D) == "simt"
+    assert fa.route(torch.float32, D) == \
+        ("tf32" if D % 8 == 0 and D <= 256 else "simt")
     assert fa.route(torch.float16, D) == "simt"
 
 
@@ -151,7 +155,7 @@ def test_wrapper_refuses_strides_tma_cannot_take(device, bad):
         fa.tma_strides("flash_attention", "k", k)
     with pytest.raises(ValueError, match="TMA reads k"):
         fa.flash_attention(q, k, q)
-    # The SIMT route reads any stride: f32 operands reach the device check.
+    # The tf32 route reads any stride: f32 operands reach the device check.
     with pytest.raises(ValueError, match="CUDA tensors|cuda"):
         fa.flash_attention(q.float(), k.float(), q.float())
 
