@@ -31,9 +31,17 @@ Phases, each of which must pass (any failure exits non-zero):
      SST-like parses of seed 0 in batches of 64, pow2 buckets with the
      backward's sorted runs), taken with taps on ``ops.bwd_megastep`` and
      ``ops.scatter_add_rows``: every reverse level through the reverse
-     megastep kernel against its plain version on the same inputs (error
-     relative to max |plain| <= 1e-4, untouched rows bit-unchanged), timed
-     with CUDA events beside its bound; the step's scatter (with the
+     megastep kernel (K2, ``bwd_megastep_sm90.cu``) against its plain
+     version on the same inputs (error relative to max |plain| <= 1e-4,
+     untouched rows bit-unchanged, two launches bitwise equal, the CUDA
+     launches its plan designs: none on a level with no live slot, at
+     most 2 on a tree level), its live slots and CTAs, timed by
+     ``torch.profiler`` device time, every level in one session (CUDA
+     events beside, and for its plain version) beside its bound (three
+     TF32 products at 495 TFLOP/s;
+     the 67 TFLOP/s fp32-FMA figure beside it); K2's ptxas lines (no
+     spills), shared memory and SASS (``HMMA.1688.F32.TF32``, no float
+     atomic); the step's scatter (with the
      schedule's plan, which it must have been given) and a
      duplicate-heavy case through the scatter-add kernel (K7) against
      its plain version (1e-4) and bit for bit against the plain rendering
@@ -46,8 +54,9 @@ Phases, each of which must pass (any failure exits non-zero):
      two backward passes of the step bitwise equal;
   5. training — the example's loop (AdamW, warmup-cosine) for
      ``TRAIN_STEPS`` steps: finite losses, step time p50/p99, steps/s,
-     peak device memory, one forward and one reverse megastep launch per
-     padded level and one scatter-add launch per step; then a
+     peak device memory, one forward megastep launch per padded level, one
+     reverse megastep per level with a live slot (two CUDA launches each)
+     and one scatter-add launch per step; then a
      ``torch.profiler`` breakdown of one warm step;
   6-8. the paper's Var-LSTM (``var_lstm``: 128 variable-length chains
      of ``_var_lstm_graphs``, seed 0, ``max_len=64``, ``LSTMVertex``),
@@ -58,15 +67,17 @@ Phases, each of which must pass (any failure exits non-zero):
      normal inputs), loss ``mean(readout_roots(buf)[:, h] ** 2)``: the
      main path is ``TRAIN_CELL_STEPS`` AdamW steps through
      ``execute_lazy`` with the launch counts set to 0 just before and
-     read just after (one forward megastep kernel — K3, K4 or K5 — and
-     one reverse megastep of the matching kind per level and step, one
-     scatter-add per step), step p50/p99 and peak memory; then, with the
+     read just after (one forward megastep kernel — K3, K4 or K5 — per
+     level and step, one reverse megastep of the matching kind per level
+     with a live slot and step, two CUDA launches each, one scatter-add
+     per step), step p50/p99 and peak memory; then, with the
      params AdamW has moved, one step taken with taps on
      ``ops.level_megastep``, ``ops.bwd_megastep`` and
      ``ops.scatter_add_rows``: every forward and reverse level and the
      pulled-row scatter re-run through its kernel and its plain version
      (error relative to max |plain| <= 1e-4, untouched rows
-     bit-unchanged; K7 as in phase 4), timed beside its data-aware bound;
+     bit-unchanged; K2 and K7 as in phase 4), timed beside its data-aware
+     bound;
      the fused gradients against ``fusion_mode="none"`` within 1e-4
      relative (T + 1 K7 launches in that backward); two backward passes
      bitwise equal; the scatter plans' build time; a ``torch.profiler``
@@ -738,15 +749,30 @@ def grads_of(ex, fn, params, b, y, fusion_mode: str):
     return float(loss), out
 
 
+def priced_ms(flops: float, nbytes: float, tf32x3: bool) -> tuple:
+    """(bound ms, bound_by, fp32-FMA bound ms) of work of ``flops`` and
+    ``nbytes``: the bytes at 3.35 TB/s against the operations at 67
+    TFLOP/s fp32, or, with ``tf32x3``, as the three TF32 products an
+    operation that keep f32 accuracy on the tensor cores at 495 TFLOP/s
+    (the 67 TFLOP/s figure is then the third value)."""
+    t_by = nbytes / PEAK_BYTES
+    t_fma = flops / PEAK_FP32_FLOPS
+    t_op = 3 * flops / PEAK_TF32_FLOPS if tf32x3 else t_fma
+    return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
+            else "bytes", max(t_fma, t_by) * 1e3)
+
+
 def bwd_bound_ms(case) -> tuple:
-    """Least time for one reverse level on the card, from this level's
-    data: the multiply-adds that slots with a live child need (the gate
-    recompute, (a + 3) H^2 for a slot with a children, and as many again
-    for the child-row cotangents) at 67 TFLOP/s, against each input read
-    once (distinct child rows, the live slots' ext and gradient rows, the
-    weights unless no slot needs them, indices and runs) and each touched
-    row read and written once, at 3.35 TB/s.  Returns (bound_ms,
-    bound_by, flops, bytes)."""
+    """Least time for one reverse Tree-LSTM level on the card, from this
+    level's data: the multiply-adds that slots with a live child need
+    (the gate recompute, (a + 3) H^2 for a slot with a children, and as
+    many again for the child-row cotangents) as three TF32 products at
+    495 TFLOP/s (K2's products run on the tensor cores), against each
+    input read once (distinct child rows, the live slots' ext and
+    gradient rows, the weights unless no slot needs them, indices and
+    runs) and each touched row read and written once, at 3.35 TB/s.
+    Returns (bound_ms, bound_by, flops, bytes, bound_fma_ms), the last at
+    the 67 TFLOP/s fp32-FMA rate."""
     (_kind, g, _buf, cids, _cmask, eids, nmask, _off, _ext, w), _kw = case
     M, A = cids.shape
     H = w[0].shape[0]
@@ -759,9 +785,8 @@ def bwd_bound_ms(case) -> tuple:
     weights = (4 * H * H + 4 * H) if flops > 0 else 0
     nbytes = 4 * (rows * 2 * H + erows * 4 * H + int(live.sum()) * 2 * H
                   + weights + M * (A + 2) + 3 * M * A + 2 * rows * 2 * H)
-    t_op, t_by = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
-            else "bytes", flops, nbytes)
+    b_ms, b_by, fma_ms = priced_ms(flops, nbytes, True)
+    return b_ms, b_by, flops, nbytes, fma_ms
 
 
 def scatter_bound_ms(idx: torch.Tensor, rows: torch.Tensor) -> tuple:
@@ -854,6 +879,206 @@ def k7_check(label: str, dst0, idx, src, plan) -> dict:
     return out
 
 
+def k2_ctas(kind: str, live: int, A: int, H: int) -> tuple:
+    """CTAs of K2's two launches on a level of ``live`` live slots (tiles
+    times the cluster's depth split, ``level_megastep_bwd.k2_split``)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return tuple(g[0] * s for g, s in zip(
+        lmb.k2_grid(kind, live, A, H), lmb.k2_splits(kind, live, A, H, sms)))
+
+
+def k2_level(case, bound) -> dict:
+    """One tapped reverse level ``case`` (the arguments and keywords the
+    backward gave ``ops.bwd_megastep``, the gradient buffer as it was)
+    re-run through K2 and its plain version: error relative to max
+    |plain|, rows no child touches bit-unchanged, finite, a second launch
+    bitwise equal, the CUDA launches the call made against the level's
+    plan (none without a live slot, 2 with one contribution a row, 3
+    else); then, on a level that launches, the kernel's and its plain
+    version's CUDA event ms, CTAs, ``bound(case)``'s bound, and the call
+    (``"call"``) that ``k2_device_ms`` times."""
+    (kind, g0, buf, cids, cmask, eids, nm, off, ext, w), kw = case
+    M, A = cids.shape
+    key = f"{kind}_bwd_megastep.cuda_launches"
+    before = lm.LAUNCHES[key]
+    got = lmb.bwd_megastep(kind, g0.clone(), buf, cids, eids, nm, off, ext,
+                           w, **kw)
+    made = lm.LAUNCHES[key] - before
+    again = lmb.bwd_megastep(kind, g0.clone(), buf, cids, eids, nm, off, ext,
+                             w, **kw)
+    want = ref.bwd_megastep(kind, g0.clone(), buf, cids, cmask, eids, nm,
+                            off, ext, w)
+    torch.cuda.synchronize()
+    touched = torch.zeros(g0.shape[0], dtype=torch.bool, device=DEVICE)
+    touched[cids.reshape(-1).long()] = True
+    touched[-1] = False
+    check(bitwise_equal(got[~touched], g0[~touched]),
+          f"{kind} reverse megastep changed rows it does not touch at "
+          f"offset {off}")
+    check(bool(torch.isfinite(got).all()),
+          f"{kind} reverse megastep wrote non-finite values")
+    check(bitwise_equal(got, again), f"{kind} reverse megastep: two "
+          f"launches differ at offset {off}")
+    live, single = kw["live"], kw["single"]
+    designed = 0 if live == 0 else 2 if single else 3
+    check(made == designed, f"{kind} reverse level at offset {off}: {made} "
+          f"CUDA launches, designed {designed}")
+    out = {"t": off // M, "live": live, "M": M, "single": single,
+           "launches": made, "max_rel_err": rel_err(got, want),
+           "max_abs_err": float((got - want).abs().max())}
+    if live == 0:
+        return out
+    H = w[0].shape[0] if kind in ("treelstm", "lstm", "gru") \
+        else w[0].shape[1]
+    gk, gp = g0.clone(), g0.clone()
+
+    def kernel():
+        lmb.bwd_megastep(kind, gk, buf, cids, eids, nm, off, ext, w, **kw)
+
+    out["ctas"] = k2_ctas(kind, live, A, H)
+    out["call"] = kernel
+    out["events_ms"] = time_ms(kernel, n=10, warmup=2)
+    out["plain_ms"] = time_ms(lambda: ref.bwd_megastep(
+        kind, gp, buf, cids, cmask, eids, nm, off, ext, w), n=5, warmup=1)
+    (out["bound_ms"], out["bound_by"], out["flops"], out["bytes"],
+     out["bound_fma_ms"]) = bound(case)
+    return out
+
+
+def k2_device_ms(rows, reps: int = 10) -> None:
+    """Device ms a call of K2 on each launching level of ``rows``
+    (``k2_level``'s), all in one ``torch.profiler`` session (one session
+    a level, hundreds a run, left CUPTI recording nothing): each level's
+    ``reps`` calls in turn, their ``k2_*`` kernels taken in launch order,
+    ``launches`` of them a call.  A session that lost a kernel is taken
+    again.  Sets each row's ``ms``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    timed = [r for r in rows if r["live"]]
+    for r in timed:
+        r["call"]()
+    torch.cuda.synchronize()
+    want = reps * sum(r["launches"] for r in timed)
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PRIMER_LAUNCHES):
+                torch.cuda._sleep(1000)
+            for r in timed:
+                for _ in range(reps):
+                    r["call"]()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and "k2_" in e.name),
+                         key=lambda e: e.time_range.start)
+        if len(kernels) == want:
+            at = 0
+            for r in timed:
+                n = reps * r["launches"]
+                r["ms"] = sum(e.self_device_time_total
+                              for e in kernels[at:at + n]) / 1e3 / reps
+                at += n
+            return
+    fail(f"torch.profiler recorded {len(kernels)} K2 kernels for {want} "
+         f"launches in three sessions")
+
+
+def k2_print(label: str, r: dict) -> None:
+    if r["live"] == 0:
+        print(f"  {label} reverse level {r['t']:2d}: no live slot, no "
+              f"launch; error {r['max_rel_err']:.3e}")
+        return
+    print(f"  {label} reverse level {r['t']:2d}: live {r['live']}/{r['M']}, "
+          f"CTAs {r['ctas'][0]} + {r['ctas'][1]}, {r['launches']} launches; "
+          f"device {r['ms']:.4f} ms (events {r['events_ms']:.4f}), plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
+          f"{r['bound_by']} (fp32 FMA {r['bound_fma_ms']:.5f}; "
+          f"{r['flops'] / 1e9:.3f} GFLOP, {r['bytes'] / 1e6:.2f} MB); "
+          f"error {r['max_rel_err']:.3e}")
+
+
+def k2_summary(rows) -> dict:
+    """K2's row over a phase's tapped levels: the worst errors over every
+    level; means per launching level (the levels ``launches`` counts) of
+    device ms, event ms, plain ms and both bounds; which bound holds most
+    of the bound time; the most CUDA launches a level."""
+    timed = [r for r in rows if r["live"]]
+    n = len(timed)
+    total = sum(r["bound_ms"] for r in timed)
+    by_ops = sum(r["bound_ms"] for r in timed
+                 if r["bound_by"] == "operations")
+    return {"levels": len(rows), "launching_levels": n,
+            "max_rel_err": max(r["max_rel_err"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: sum(r[k] for r in timed) / n for k in
+               ("ms", "events_ms", "plain_ms", "bound_ms", "bound_fma_ms")},
+            "bound_by": "operations" if by_ops >= total / 2 else "bytes",
+            "max_launches_a_level": max(r["launches"] for r in rows)}
+
+
+def k2_design(dev_sched) -> tuple:
+    """(levels that launch, CUDA launches) of one K2 backward over a
+    schedule, from its plan."""
+    work = [single for live, single in zip(dev_sched.bwd_live,
+                                           dev_sched.bwd_single) if live]
+    return len(work), sum(2 if single else 3 for single in work)
+
+
+#: K2's instantiations in ``bwd_megastep_sm90.cu``: kind by template code.
+K2_KINDS = ("treelstm", "lstm", "gru", "treefc")
+
+
+def k2_build_report() -> dict:
+    """What ``nvcc -Xptxas -v`` said of each of K2's kernels (pass and
+    kind, treelstm by arity): registers and spills, none of which may
+    spill; their dynamic shared memory a CTA; and, where ``cuobjdump`` is
+    on the machine, the TF32 ``mma.sync`` (``HMMA.1688.F32.TF32``) the
+    SASS must hold and the float atomics (``RED``/``ATOM`` on ``.F32``)
+    it must not."""
+    lib = "treelstm_bwd_megastep"
+    ptxas, key = {}, None
+    for line in _build.build_log(lib).splitlines():
+        m = re.search(r"Compiling entry function .*k2_(gates|hgrad|runs)"
+                      r"_kernel(?:ILi(\d)ELi(\d)E)?", line)
+        if m:
+            kind = K2_KINDS[int(m.group(2))] if m.group(2) else "any"
+            key = f"{m.group(1)}, {kind}" + (
+                f", A {m.group(3)}" if kind == "treelstm" else "")
+        elif key and ("registers" in line or "spill stores" in line):
+            ptxas.setdefault(key, []).append(
+                line.replace("ptxas info    :", "").strip())
+    spills = [k for k, lines in ptxas.items() for ln in lines
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+    check(len(ptxas) >= 9, f"K2's ptxas report names {len(ptxas)} kernels")
+    check(not spills, f"K2 spills registers: {spills}")
+    smem_of = ctypes.CDLL(str(_build.library_path(lib))) \
+        .bwd_megastep_smem_bytes
+    smem = {f"{k}{f' A {a}' if k == 'treelstm' else ''}":
+            (smem_of(i, a, 0), smem_of(i, a, 1))
+            for i, k in enumerate(K2_KINDS)
+            for a in ((1, 2, 3, 4) if k == "treelstm" else (1,))}
+    cob = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = {}
+    if Path(cob).exists():
+        dump = subprocess.run([cob, "-sass", str(_build.library_path(lib))],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        sass = {"HMMA.1688.F32.TF32": dump.count("HMMA.1688.F32.TF32"),
+                "LDGSTS": dump.count("LDGSTS"), "LDSM": dump.count("LDSM"),
+                "float atomics": len(re.findall(
+                    r"\b(?:RED|ATOMG?|ATOMS)\.[A-Z0-9.]*F32", dump))}
+        check(sass["HMMA.1688.F32.TF32"] > 0, f"K2's SASS has no TF32 "
+              f"mma.sync: {sass}")
+        check(sass["float atomics"] == 0, f"K2's SASS has float atomics: "
+              f"{sass}")
+    for k, lines in ptxas.items():
+        print(f"bwd_megastep_sm90.cu, {k}: " + "; ".join(lines))
+    print(f"bwd_megastep_sm90.cu: dynamic shared memory a CTA (gates, "
+          f"hgrad) {smem}; SASS {sass or 'not read (no cuobjdump)'}")
+    return {"ptxas": ptxas, "smem": smem, "sass": sass}
+
+
 def train_levels_phase() -> dict:
     """One full-width training step, its backward taken with taps on
     ``ops.bwd_megastep`` and ``ops.scatter_add_rows`` that keep each
@@ -886,53 +1111,24 @@ def train_levels_phase() -> dict:
     check(len(levels) == T, f"{len(levels)} reverse levels for T={T}")
     check(len(scatters) == 1, f"{len(scatters)} scatters in a fused step")
 
-    rows, worst_rel, worst_abs = [], 0.0, 0.0
     torch.set_grad_enabled(False)          # re-runs of the backward's work
-    for case in levels:
-        (kind, g0, buf, cids, cmask, eids, nmask, off, ext, w), kw = case
-        got = lmb.bwd_megastep(kind, g0.clone(), buf, cids, eids, nmask,
-                               off, ext, w, **kw)
-        want = ref.bwd_megastep(kind, g0.clone(), buf, cids, cmask, eids,
-                                nmask, off, ext, w)
-        torch.cuda.synchronize()
-        worst_rel = max(worst_rel, rel_err(got, want))
-        worst_abs = max(worst_abs, float((got - want).abs().max()))
-        touched = torch.zeros(g0.shape[0], dtype=torch.bool, device=DEVICE)
-        touched[cids.reshape(-1).long()] = True
-        touched[-1] = False
-        check(bitwise_equal(got[~touched], g0[~touched]),
-              f"reverse megastep changed rows it does not touch at offset "
-              f"{off}")
-        check(bool(torch.isfinite(got).all()),
-              "reverse megastep wrote non-finite values")
-        gk, gp = g0.clone(), g0.clone()
-        ms = time_ms(lambda: lmb.bwd_megastep(kind, gk, buf, cids, eids,
-                                              nmask, off, ext, w, **kw),
-                     n=10, warmup=2)
-        plain_ms = time_ms(lambda: ref.bwd_megastep(
-            kind, gp, buf, cids, cmask, eids, nmask, off, ext, w),
-            n=10, warmup=2)
-        b_ms, b_by, flops, nbytes = bwd_bound_ms(case)
-        rows.append((off // M, ms, plain_ms, b_ms, b_by, flops, nbytes))
+    rows = [k2_level(case, bwd_bound_ms) for case in levels]
+    k2_device_ms(rows)
     print(f"train step: T{T}xM{M}, loss {loss:.6f}")
-    for t, ms, plain_ms, b_ms, b_by, flops, nbytes in rows:
-        print(f"  reverse level {t:2d}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
-              f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
-    check(worst_rel <= TOL, f"reverse megastep disagrees with its plain "
-          f"version: error {worst_rel:.3e} of max |plain| > {TOL}")
-    n = len(rows)
-    bwd = {"levels": n, "max_abs_err": worst_abs, "max_rel_err": worst_rel,
-           "ms": sum(r[1] for r in rows) / n,
-           "plain_ms": sum(r[2] for r in rows) / n,
-           "bound_ms": sum(r[3] for r in rows) / n,
-           "bound_by": ("operations" if sum(r[3] for r in rows
-                                            if r[4] == "operations")
-                        >= sum(r[3] for r in rows) / 2 else "bytes")}
-    print(f"reverse megastep: {n} levels, error {worst_rel:.3e} of max "
-          f"|plain| (max abs {worst_abs:.3e}); mean per launch: kernel "
-          f"{bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, bound "
-          f"{bwd['bound_ms']:.5f} ms by {bwd['bound_by']}")
+    for r in rows:
+        k2_print("treelstm", r)
+    bwd = k2_summary(rows)
+    check(bwd["max_rel_err"] <= TOL, f"reverse megastep disagrees with its "
+          f"plain version: error {bwd['max_rel_err']:.3e} of max |plain| > "
+          f"{TOL}")
+    check(bwd["max_launches_a_level"] <= 2, f"K2 made "
+          f"{bwd['max_launches_a_level']} CUDA launches on a tree level")
+    print(f"reverse megastep: {bwd['levels']} levels ({bwd['launching_levels']}"
+          f" launching), error {bwd['max_rel_err']:.3e} of max |plain| (max "
+          f"abs {bwd['max_abs_err']:.3e}); mean per launching level: device "
+          f"{bwd['ms']:.4f} ms (events {bwd['events_ms']:.4f}), plain "
+          f"{bwd['plain_ms']:.4f} ms, bound {bwd['bound_ms']:.5f} ms by "
+          f"{bwd['bound_by']} (fp32 FMA {bwd['bound_fma_ms']:.5f})")
 
     check(scatters[0][3] is b.dev.ext_plan, "the step's scatter did not "
           "get the schedule's plan")
@@ -986,13 +1182,14 @@ def train_phase(card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     lm.reset_launches()
-    losses, step_s, pack_s, padded = [], [], [], 0
+    losses, step_s, pack_s, padded, work = [], [], [], 0, [0, 0]
     t_all = time.perf_counter()
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         graphs, inputs, labels = next(batches)
         b = pipe.pack(graphs, inputs)
         t1 = time.perf_counter()
+        work = [x + y for x, y in zip(work, k2_design(b.dev))]
         loss, _acc = ex.train_step(fn, params, opt, b, _labels(labels),
                                    lr(opt.step))
         losses.append(float(loss))         # waits for the step's work
@@ -1003,9 +1200,13 @@ def train_phase(card: str) -> dict:
     launches = dict(lm.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check(bool(np.isfinite(losses).all()), f"non-finite losses: {losses}")
-    check(launches.get("treelstm_bwd_megastep", 0) == padded,
+    check(launches.get("treelstm_bwd_megastep", 0) == work[0],
           f"{launches.get('treelstm_bwd_megastep', 0)} reverse megastep "
-          f"launches for {padded} padded levels")
+          f"launches for {work[0]} levels with a live slot")
+    check(launches.get("treelstm_bwd_megastep.cuda_launches", 0)
+          == work[1] <= 2 * work[0],
+          f"{launches.get('treelstm_bwd_megastep.cuda_launches', 0)} K2 "
+          f"CUDA launches, designed {work[1]} (at most 2 a tree level)")
     check(launches.get("treelstm_megastep", 0) == padded,
           f"{launches.get('treelstm_megastep', 0)} forward megastep "
           f"launches for {padded} padded levels")
@@ -1041,13 +1242,14 @@ def train_phase(card: str) -> dict:
 PROFILE_GROUPS = {
     "forward megastep (K1, K3-K5)": ("treelstm_megastep_kernel",
                                      "cell_megastep_kernel"),
-    "K2 reverse megastep": ("bwd_gates_kernel", "bwd_hgrad_kernel",
-                            "scatter_runs_kernel"),
+    "K2 reverse megastep": ("k2_gates_kernel", "k2_hgrad_kernel",
+                            "k2_runs_kernel"),
     "K7 add": ("chunk_add_kernel",),
     "K7 combine": ("run_combine_kernel",),
     "K6 row gather/scatter": ("gather_rows_kernel", "scatter_rows_kernel"),
     "K10/K11 attention": ("flash_attention_kernel",
                           "flash_attention_sm90_kernel",
+                          "flash_attention_tf32_kernel",
                           "decode_attention_kernel"),
     "K12 SSD chunk scan": ("ssd_chunk_kernel",),
     "matmul": ("gemm", "Gemm", "cutlass", "xmma", "nvjet"),
@@ -1144,13 +1346,15 @@ def cell_bound_ms(kind: str, case, reverse: bool, sentinel=None) -> tuple:
     """Least time for one level on the card, from this level's data: the
     multiply-adds its live slots need (an lstm/gru slot with a
     predecessor NG*H*H, a Tree-FC slot H*H per child it has; twice that
-    in reverse: recompute and child cotangents) at 67 TFLOP/s fp32,
-    against each input read once (distinct child rows, the live slots'
-    ext rows and, in reverse, their gradient rows; the weight unless no
-    slot needs it; bias, indices and runs) and the block written once
-    (in reverse: each touched row read and written once) at 3.35 TB/s.
-    Absent children point at ``sentinel`` (default: the last row).
-    Returns (bound_ms, bound_by, flops, bytes)."""
+    in reverse: recompute and child cotangents) at 67 TFLOP/s fp32 (in
+    reverse as three TF32 products at 495 TFLOP/s: K2 runs its products
+    on the tensor cores), against each input read once (distinct child
+    rows, the live slots' ext rows and, in reverse, their gradient rows;
+    the weight unless no slot needs it; bias, indices and runs) and the
+    block written once (in reverse: each touched row read and written
+    once) at 3.35 TB/s.  Absent children point at ``sentinel`` (default:
+    the last row).  Returns (bound_ms, bound_by, flops, bytes,
+    bound_fma_ms), the last at the 67 TFLOP/s fp32-FMA rate."""
     _k, lead, cids, _cmask, eids, nmask, _off, _ext, (w, _b) = case
     M, A = cids.shape
     H = w.shape[1] if kind == "treefc" else w.shape[0]
@@ -1174,9 +1378,8 @@ def cell_bound_ms(kind: str, case, reverse: bool, sentinel=None) -> tuple:
                       + M * (A + 2) + 3 * M * A + 2 * touched * S)
     else:
         nbytes = 4 * (rows * S + erows * G + weights + M * (A + 2) + M * S)
-    t_op, t_by = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
-            else "bytes", flops, nbytes)
+    b_ms, b_by, fma_ms = priced_ms(flops, nbytes, reverse)
+    return b_ms, b_by, flops, nbytes, fma_ms
 
 
 def _summary(rows) -> dict:
@@ -1231,7 +1434,7 @@ def cell_levels_check(kind: str, fn, params, d, ext, h_lo) -> dict:
     check(all(c[0] == kind for c in fwd) and
           all(c[0][0] == kind for c in bwd), f"{kind}: another kind ran")
 
-    f_rows, b_rows, f_err, b_err, b_abs, f_abs = [], [], 0.0, 0.0, 0.0, 0.0
+    f_rows, f_err, f_abs = [], 0.0, 0.0
     with torch.no_grad():
         for case in fwd:
             _k, buf, cids, cmask, eids, nm, off, e, w = case
@@ -1254,53 +1457,47 @@ def cell_levels_check(kind: str, fn, params, d, ext, h_lo) -> dict:
                 kind, pb, cids, cmask, eids, nm, off, e, w), n=10, warmup=2)
             f_rows.append((ms, plain_ms) + cell_bound_ms(kind, case, False)
                           + (off // M,))
-        for case, kw in bwd:
-            _k, g0, buf, cids, cmask, eids, nm, off, e, w = case
-            got = lmb.bwd_megastep(kind, g0.clone(), buf, cids, eids, nm,
-                                   off, e, w, **kw)
-            want = ref.bwd_megastep(kind, g0.clone(), buf, cids, cmask, eids,
-                                    nm, off, e, w)
-            torch.cuda.synchronize()
-            b_err = max(b_err, rel_err(got, want))
-            b_abs = max(b_abs, float((got - want).abs().max()))
-            touched = torch.zeros(g0.shape[0], dtype=torch.bool,
-                                  device=DEVICE)
-            touched[cids.reshape(-1).long()] = True
-            touched[-1] = False
-            check(bitwise_equal(got[~touched], g0[~touched]),
-                  f"{kind} reverse megastep changed rows it does not touch")
-            check(bool(torch.isfinite(got).all()),
-                  f"{kind} reverse megastep wrote non-finite values")
-            gk, gp = g0.clone(), g0.clone()
-            ms = time_ms(lambda: lmb.bwd_megastep(kind, gk, buf, cids, eids,
-                                                  nm, off, e, w, **kw),
-                         n=10, warmup=2)
-            plain_ms = time_ms(lambda: ref.bwd_megastep(
-                kind, gp, buf, cids, cmask, eids, nm, off, e, w),
-                n=10, warmup=2)
-            b_rows.append((ms, plain_ms) + cell_bound_ms(
-                kind, (kind, g0) + case[3:], True) + (off // M,))
+        b_rows = [k2_level(c, lambda c: cell_bound_ms(
+            kind, (kind,) + c[0][1:2] + c[0][3:], True)) for c in bwd]
+        k2_device_ms(b_rows)
         check(scatters[0][3] is d.ext_plan, f"{kind}: the step's scatter "
               f"did not get the schedule's plan")
         sc = k7_check(f"{kind} pulled rows", *scatters[0])
-    for label, rows in (("forward", f_rows), ("reverse", b_rows)):
-        T_all = len(rows)
-        for r in rows[:2] + rows[T_all // 2:T_all // 2 + 1] + rows[-1:]:
-            print(f"  {kind} {label} level {r[-1]:2d}: kernel {r[0]:.4f} ms, "
-                  f"plain {r[1]:.4f} ms, bound {r[2]:.5f} ms by {r[3]} "
-                  f"({r[4] / 1e9:.3f} GFLOP, {r[5] / 1e6:.2f} MB)")
+    T_all = len(f_rows)
+    for r in f_rows[:2] + f_rows[T_all // 2:T_all // 2 + 1] + f_rows[-1:]:
+        print(f"  {kind} forward level {r[-1]:2d}: kernel {r[0]:.4f} ms, "
+              f"plain {r[1]:.4f} ms, bound {r[2]:.5f} ms by {r[3]} "
+              f"({r[4] / 1e9:.3f} GFLOP, {r[5] / 1e6:.2f} MB)")
+    timed = [r for r in b_rows if r["live"]]
+    n_b = len(timed)
+    shown = b_rows[:1] + timed[:1] + timed[n_b // 2:n_b // 2 + 1] \
+        + timed[-1:]
+    for i, r in enumerate(shown):
+        if all(r is not q for q in shown[:i]):
+            k2_print(kind, r)
+    bwd_s = k2_summary(b_rows)
     check(f_err <= TOL, f"{kind} forward kernel disagrees with its plain "
           f"version: {f_err:.3e} of max |plain| > {TOL}")
-    check(b_err <= TOL, f"{kind} reverse megastep disagrees with its plain "
-          f"version: {b_err:.3e} of max |plain| > {TOL}")
+    check(bwd_s["max_rel_err"] <= TOL, f"{kind} reverse megastep disagrees "
+          f"with its plain version: {bwd_s['max_rel_err']:.3e} of max "
+          f"|plain| > {TOL}")
+    check(bwd_s["max_launches_a_level"] <= 2, f"{kind}: K2 made "
+          f"{bwd_s['max_launches_a_level']} CUDA launches on a level")
     fwd_s = {**_summary(f_rows), "max_rel_err": f_err, "max_abs_err": f_abs}
-    bwd_s = {**_summary(b_rows), "max_rel_err": b_err, "max_abs_err": b_abs}
-    for label, sm in (("forward", fwd_s), ("reverse", bwd_s)):
-        print(f"{kind} {label}: {sm['levels']} levels, error "
-              f"{sm['max_rel_err']:.3e} of max |plain| (max abs "
-              f"{sm['max_abs_err']:.3e}); mean per launch: kernel "
-              f"{sm['ms']:.4f} ms, plain {sm['plain_ms']:.4f} ms, bound "
-              f"{sm['bound_ms']:.5f} ms by {sm['bound_by']}")
+    sm = fwd_s
+    print(f"{kind} forward: {sm['levels']} levels, error "
+          f"{sm['max_rel_err']:.3e} of max |plain| (max abs "
+          f"{sm['max_abs_err']:.3e}); mean per launch: kernel "
+          f"{sm['ms']:.4f} ms, plain {sm['plain_ms']:.4f} ms, bound "
+          f"{sm['bound_ms']:.5f} ms by {sm['bound_by']}")
+    sm = bwd_s
+    print(f"{kind} reverse: {sm['levels']} levels "
+          f"({sm['launching_levels']} launching), error "
+          f"{sm['max_rel_err']:.3e} of max |plain| (max abs "
+          f"{sm['max_abs_err']:.3e}); mean per launching level: device "
+          f"{sm['ms']:.4f} ms (events {sm['events_ms']:.4f}), plain "
+          f"{sm['plain_ms']:.4f} ms, bound {sm['bound_ms']:.5f} ms by "
+          f"{sm['bound_by']} (fp32 FMA {sm['bound_fma_ms']:.5f})")
 
     ext_n = ext.clone().requires_grad_()
     lm.reset_launches()
@@ -1348,8 +1545,12 @@ def cell_train_phase(phase: str, card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     T, n = d.T, TRAIN_CELL_STEPS
     check(bool(np.isfinite(losses).all()), f"{phase}: non-finite losses")
-    want = {f"{kind}_megastep": n * T, f"{kind}_bwd_megastep": n * T,
+    work, cuda = k2_design(d)
+    want = {f"{kind}_megastep": n * T, f"{kind}_bwd_megastep": n * work,
+            f"{kind}_bwd_megastep.cuda_launches": n * cuda,
             "scatter_add_rows": n}
+    check(cuda <= 2 * work, f"{phase}: K2 designed {cuda} CUDA launches "
+          f"for {work} levels (at most 2 a level)")
     check(launches == want, f"{phase}: launches {launches}, designed {want} "
           f"({n} steps of T={T} levels)")
     ms = np.asarray(step_s) * 1e3
@@ -3809,6 +4010,23 @@ def mamba_serving_phase(card: str) -> dict:
     return out
 
 
+def k2_row(kind: str, part: dict, launches: dict) -> dict:
+    """K2's kernel row for kind ``kind``: ``launches`` counts the main
+    path's levels that launched (its CUDA launches beside it); ``ms`` is
+    device time, ``events_ms`` CUDA events; ``bound_ms`` prices the
+    products as three TF32 products, ``bound_fma_ms`` at fp32 FMA."""
+    name = f"{kind}_bwd_megastep"
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bwd_megastep_sm90.cu",
+            "replaces": "src/repro/kernels/level_megastep_bwd.py:205",
+            "launches": launches[name],
+            "cuda_launches": launches[f"{name}.cuda_launches"],
+            "max_abs_err": part["max_abs_err"], "ms": part["ms"],
+            "events_ms": part["events_ms"], "plain_ms": part["plain_ms"],
+            "bound_ms": part["bound_ms"], "bound_by": part["bound_by"],
+            "bound_fma_ms": part["bound_fma_ms"], "library_ms": None}
+
+
 def main() -> None:
     dev = device_phase()
     kern = kernel_phase()
@@ -3819,6 +4037,7 @@ def main() -> None:
           f"{serve['launches']} launches")
     profile_phase()
     levels = train_levels_phase()
+    k2_build_report()
     train = train_phase(dev["smi"])
     cells = [cell_train_phase(p, dev["smi"]) for p in CELL_PHASES]
     k6_err = k6_phase()
@@ -3837,14 +4056,7 @@ def main() -> None:
            "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
            "library_ms": None}
     bwd, sc = levels["bwd"], levels["scatter"]
-    rows = [row, {
-        "name": "treelstm_bwd_megastep", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/treelstm_bwd_megastep.cu",
-        "replaces": "src/repro/kernels/level_megastep_bwd.py:205",
-        "launches": train["launches"]["treelstm_bwd_megastep"],
-        "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
-        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
-        "bound_by": bwd["bound_by"], "library_ms": None}, {
+    rows = [row, k2_row("treelstm", bwd, train["launches"]), {
         "name": "scatter_add_rows", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scatter_add_rows.cu",
         "replaces": "src/repro/kernels/level_megastep_bwd.py:108",
@@ -3854,19 +4066,15 @@ def main() -> None:
         "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
         "bound_by": sc["bound_by"], "library_ms": sc["library_ms"]}]
     for c in cells:
-        k = c["kind"]
-        for name, part, source, replaces in (
-                (f"{k}_megastep", c["fwd"], "cell_megastep.cu",
-                 FORWARD_REPLACES[k]),
-                (f"{k}_bwd_megastep", c["bwd"], "cell_bwd_megastep.cu",
-                 "src/repro/kernels/level_megastep_bwd.py:205")):
-            rows.append({
-                "name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{source}",
-                "replaces": replaces, "launches": c["launches"][name],
-                "max_abs_err": part["max_abs_err"], "ms": part["ms"],
-                "plain_ms": part["plain_ms"], "bound_ms": part["bound_ms"],
-                "bound_by": part["bound_by"], "library_ms": None})
+        k, part, name = c["kind"], c["fwd"], f"{c['kind']}_megastep"
+        rows += [{
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cell_megastep.cu",
+            "replaces": FORWARD_REPLACES[k], "launches": c["launches"][name],
+            "max_abs_err": part["max_abs_err"], "ms": part["ms"],
+            "plain_ms": part["plain_ms"], "bound_ms": part["bound_ms"],
+            "bound_by": part["bound_by"], "library_ms": None},
+            k2_row(k, c["bwd"], c["launches"])]
     for name, part, replaces in (
             ("gather_rows", cont["gather"],
              "src/repro/kernels/gather_scatter.py:39"),

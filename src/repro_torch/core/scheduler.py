@@ -173,11 +173,16 @@ def _megastep_forward(spec: GateSpec, weights, sched: DeviceSchedule,
 
 
 def _level_runs(sched: DeviceSchedule, t: int) -> Dict[str, Any]:
-    """Level ``t``'s precomputed sorted runs as keyword arguments of
+    """Level ``t``'s precomputed sorted runs and reverse-megastep plan
+    (``live``, ``single``, ``heads``) as keyword arguments of
     ``ops.bwd_megastep`` (``None`` on a schedule packed without them)."""
     names = ("sort_perm", "sorted_child_ids", "run_head")
-    return {k: None if getattr(sched, k) is None else getattr(sched, k)[t]
-            for k in names}
+    kw = {k: None if getattr(sched, k) is None else getattr(sched, k)[t]
+          for k in names}
+    if sched.bwd_live is not None:
+        kw.update(live=sched.bwd_live[t], single=sched.bwd_single[t],
+                  heads=sched.bwd_heads[t])
+    return kw
 
 
 def _level_plan(sched: DeviceSchedule, t: int):

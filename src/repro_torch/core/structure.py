@@ -275,6 +275,12 @@ class LevelSchedule:
 
         ext_plan, child_plans = (None, None) if self.sort_perm is None \
             else self.scatter_plans(device)
+        live = single = heads = None
+        if self.sort_perm is not None:
+            plans = self.bwd_plans()
+            live = tuple(p[0] for p in plans)
+            single = tuple(p[1] for p in plans)
+            heads = _on_device([p[2] for p in plans], device)
         return DeviceSchedule(
             child_ids=_t(self.child_ids),
             child_mask=_t(self.child_mask),
@@ -288,7 +294,20 @@ class LevelSchedule:
             run_head=_t(self.run_head),
             ext_plan=ext_plan,
             child_plans=child_plans,
+            bwd_live=live,
+            bwd_single=single,
+            bwd_heads=heads,
         )
+
+    def bwd_plans(self) -> List[Tuple[int, bool, Optional[np.ndarray]]]:
+        """Each level's :func:`level_bwd_plan`, from its child ids and
+        sorted runs (``pack_batch(with_runs=True)``)."""
+        if self.sorted_child_ids is None:
+            raise ValueError("the reverse megastep's plans need the sorted "
+                             "runs: pack with pack_batch(with_runs=True)")
+        return [level_bwd_plan(self.child_ids[t], self.sentinel_slot,
+                               self.sorted_child_ids[t])
+                for t in range(self.T)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,6 +331,13 @@ class DeviceSchedule:
     # on schedules without the sorted runs.
     ext_plan: Optional["ScatterPlan"] = None
     child_plans: Optional[Tuple["ScatterPlan", ...]] = None
+    # The reverse megastep's per-level plans (LevelSchedule.bwd_plans):
+    # the live slot count and the one-contribution flag as host values,
+    # and the run heads of a level with several contributions to a row
+    # (``None`` elsewhere); ``None`` on schedules without the sorted runs.
+    bwd_live: Optional[Tuple[int, ...]] = None
+    bwd_single: Optional[Tuple[bool, ...]] = None
+    bwd_heads: Optional[Tuple[Optional[torch.Tensor], ...]] = None
 
     @property
     def T(self) -> int:
@@ -492,6 +518,58 @@ def _sorted_runs(child_ids: np.ndarray
     head = np.ones_like(scids)
     head[:, 1:] = (scids[:, 1:] != scids[:, :-1]).astype(np.int32)
     return perm, scids, head
+
+
+def level_bwd_plan(child_ids: np.ndarray, sentinel: int,
+                   sorted_child_ids: Optional[np.ndarray] = None
+                   ) -> Tuple[int, bool, Optional[np.ndarray]]:
+    """The reverse megastep's plan of one level (``child_ids`` ``[M, A]``,
+    absent children at ``sentinel``, the largest row), read from the data
+    alone:
+
+      - ``live``: one past the last slot with a child other than the
+        sentinel (0 when no slot has one); the kernel's grid covers
+        ``[0, live)``;
+      - ``single``: every destination row other than the sentinel
+        receives one contribution (``run_head`` all ones up to the
+        sentinel's run), so the kernel adds each child's cotangent into
+        the gradient buffer itself;
+      - ``heads``: else the sorted positions that start each destination
+        run other than the sentinel's, then the end of the last (``[runs
+        + 1]`` int32), the work list of the kernel's run pass; ``None``
+        where ``single``.
+
+    ``sorted_child_ids``: the level's flat child ids in stable sorted
+    order (the schedule's), else sorted here."""
+    cids = np.asarray(child_ids)
+    has = (cids != sentinel).any(axis=1)
+    live = int(np.flatnonzero(has)[-1]) + 1 if has.any() else 0
+    scids = np.sort(cids.reshape(-1), kind="stable") \
+        if sorted_child_ids is None else np.asarray(sorted_child_ids)
+    n = int(np.count_nonzero(scids != sentinel))
+    head = np.ones(n, bool)
+    if n > 1:
+        head[1:] = scids[1:n] != scids[:n - 1]
+    if head.all():
+        return live, True, None
+    return live, False, np.append(np.flatnonzero(head), n).astype(np.int32)
+
+
+def _on_device(arrays: Sequence[Optional[np.ndarray]], device
+               ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The arrays on ``device`` in one copy, as views (``None`` kept)."""
+    kept = [a for a in arrays if a is not None]
+    if not kept:
+        return tuple(None for _ in arrays)
+    flat = torch.from_numpy(np.concatenate(kept)).to(device)
+    out, at = [], 0
+    for a in arrays:
+        if a is None:
+            out.append(None)
+        else:
+            out.append(flat[at:at + a.shape[0]])
+            at += a.shape[0]
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

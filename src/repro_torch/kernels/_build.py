@@ -34,22 +34,20 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 #: and the stream are ``c_void_p`` and every stride ``c_longlong``, so
 #: ctypes never cuts them to 32 bits.
 _CELL_FWD = [_P] * 7 + [_I] * 7 + [_P]
-_BWD = [_P] * 12 + [_I] * 8 + [_P]
+_BWD = [_P] * 12 + [_I] * 13 + [_P, _P]
 KERNELS: Dict[str, Tuple[str, str, List]] = {
     "treelstm_megastep": (
         "treelstm_megastep.cu", "treelstm_megastep_launch",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "treelstm_bwd_megastep": (
-        "treelstm_bwd_megastep.cu", "treelstm_bwd_megastep_launch", _BWD),
     "scatter_add_rows": (
         "scatter_add_rows.cu", "scatter_add_rows_launch",
         [_P] * 6 + [_I] * 4 + [_L] * 2 + [_P]),
     **{f"{kind}_megastep": ("cell_megastep.cu", f"{kind}_megastep_launch",
                             _CELL_FWD)
        for kind in ("lstm", "gru", "treefc")},
-    **{f"{kind}_bwd_megastep": ("cell_bwd_megastep.cu",
+    **{f"{kind}_bwd_megastep": ("bwd_megastep_sm90.cu",
                                 f"{kind}_bwd_megastep_launch", _BWD)
-       for kind in ("lstm", "gru", "treefc")},
+       for kind in ("treelstm", "lstm", "gru", "treefc")},
     **{name: ("gather_scatter.cu", f"{name}_launch",
               [_P, _P, _P] + [_I] * 6 + [_P])
        for name in ("gather_rows", "scatter_rows")},

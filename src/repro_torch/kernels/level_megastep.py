@@ -283,9 +283,8 @@ MEGASTEPS = {"treelstm": treelstm_megastep, "lstm": lstm_megastep,
 # Shape-polymorphic over the leading ``N``: the same code is the plain
 # version of one reverse level (``ref.bwd_megastep``, N = M) and the
 # scheduler's flat lazily batched parameter-gradient pass over all T*M
-# slots (paper §3.5).  The reverse megastep kernels
-# (``csrc/treelstm_bwd_megastep.cu``, ``csrc/cell_bwd_megastep.cu``)
-# compute the same cotangents.
+# slots (paper §3.5).  The reverse megastep kernel
+# (``csrc/bwd_megastep_sm90.cu``) computes the same cotangents.
 # ---------------------------------------------------------------------------
 
 def _lstm_bwd(g_state, child, ext_rows, child_mask, weights):

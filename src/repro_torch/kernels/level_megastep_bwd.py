@@ -6,13 +6,17 @@ Port of ``repro.kernels.level_megastep_bwd``:
   :func:`bwd_megastep` — one reverse batching task of any megastep kind:
     re-gather the child rows from the residual node buffer, recompute the
     gates, run the cotangent math of ``level_megastep.level_bwd`` and
-    scatter-ADD the child-row cotangents into the gradient buffer along
-    the level's sorted runs (∂gather = scatter-add, §3.4), IN PLACE — the
-    counterpart of the Pallas kernel's ``input_output_aliases``.  Kind
-    ``treelstm`` is ``csrc/treelstm_bwd_megastep.cu``; kinds ``lstm``,
-    ``gru`` and ``treefc`` are ``csrc/cell_bwd_megastep.cu``.  Three
-    launches per level (see the sources' headers);
-    ``LAUNCHES["<kind>_bwd_megastep"]`` counts levels.
+    scatter-ADD the child-row cotangents into the gradient buffer
+    (∂gather = scatter-add, §3.4), IN PLACE — the counterpart of the
+    Pallas kernel's ``input_output_aliases``.  Every kind is
+    ``csrc/bwd_megastep_sm90.cu``: both products on the TF32 tensor
+    cores (3xTF32), the depth split over a thread-block cluster sized by
+    :func:`k2_split`, the grid over the level's live slots; two launches
+    a level, three on a level where a row has several contributions, none
+    on a level with no live slot (its header).
+    ``LAUNCHES["<kind>_bwd_megastep"]`` counts levels that launched,
+    ``LAUNCHES["<kind>_bwd_megastep.cuda_launches"]`` their CUDA
+    launches.
   :func:`scatter_add_rows` (``csrc/scatter_add_rows.cu``) —
     ``dst[idx[i]] += rows[i]`` with repeats, in place, no float atomics,
     along a per-schedule plan (``core.structure.ScatterPlan``); one
@@ -21,19 +25,22 @@ Port of ``repro.kernels.level_megastep_bwd``:
 
 Both take CUDA tensors only: they launch the kernel or raise.  The
 choice of the plain version for CPU tensors is made once, in
-:mod:`repro_torch.kernels.ops`.  Neither synchronises the card.
+:mod:`repro_torch.kernels.ops`.  Neither synchronises the card when
+given its plan (a schedule's, built once by ``to_device``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.structure import ScatterPlan
-from repro_torch.kernels.level_megastep import (MAX_ARITY, cell_hidden,
-                                                check_arg, launch_kernel,
+from repro_torch.core.structure import ScatterPlan, level_bwd_plan
+from repro_torch.kernels.level_megastep import (LAUNCHES, MAX_ARITY,
+                                                cell_hidden, check_arg,
+                                                launch_kernel,
                                                 packed_recurrent,
                                                 require_cuda, widths)
 
@@ -42,6 +49,72 @@ from repro_torch.kernels.level_megastep import (MAX_ARITY, cell_hidden,
 #: rounded up to a multiple of this (``kNarrow`` in
 #: ``csrc/scatter_add_rows.cu``).
 SCATTER_STRIPE = 128
+
+
+#: K2's tile: slots a tile, depth of a staged chunk, the largest cluster
+#: splitting a depth (``BM``, ``BK``, ``MAX_SPLIT`` in
+#: ``csrc/bwd_megastep_sm90.cu``).
+K2_BM, K2_BK, K2_MAX_SPLIT = 64, 32, 8
+#: Hidden columns a pass (a) tile, output columns a pass (b) tile, and
+#: pass (b)'s depth in segments of H, by kind (``Cfg`` there).
+K2_BJ = {"treelstm": 16, "lstm": 16, "gru": 16, "treefc": 64}
+K2_BN = {"treelstm": 32, "lstm": 64, "gru": 64, "treefc": 64}
+K2_SEGS = {"treelstm": 4, "lstm": 4, "gru": 3, "treefc": 1}
+#: Warps a CTA of pass (a) by kind, and of pass (b) (``Cfg::NTA``,
+#: ``Cfg::NTB`` there).
+K2_WARPS_A = {"treelstm": 8, "lstm": 4, "gru": 4, "treefc": 4}
+K2_WARPS_B = 8
+
+
+def k2_grid(kind: str, live: int, A: int, H: int):
+    """``((tiles, chunks, warps), (tiles, chunks, warps))`` of K2's two
+    passes over a level with ``live`` live slots: the CTA tiles of a pass,
+    the chunks of ``K2_BK`` along its depth (segments of H, each cut into
+    ``ceil(H / K2_BK)`` chunks: pass (a) has one, treefc's A, one a
+    child; pass (b) ``K2_SEGS``), and the warps of its CTAs."""
+    rows = -(-live // K2_BM)
+    cps = -(-H // K2_BK)
+    cols_b = A * H if kind == "treefc" else H
+    return ((rows * -(-H // K2_BJ[kind]),
+             (A if kind == "treefc" else 1) * cps, K2_WARPS_A[kind]),
+            (rows * -(-cols_b // K2_BN[kind]), K2_SEGS[kind] * cps,
+             K2_WARPS_B))
+
+
+def k2_split(tiles: int, chunks: int, sms: int, warps: int) -> int:
+    """CTAs of a cluster splitting a pass's depth, a power of two up to
+    ``K2_MAX_SPLIT`` and the pass's chunks: the least that gives the
+    launch about eight warps an SM (``sms``; 90 % of them), then twice
+    that while the launch keeps at most sixteen warps an SM and each rank
+    at least 8 chunks (below that the split's partials and the cluster's
+    reduce cost more than they save; measured on an H100, PERF.md §6).
+    Rank ``r`` of ``s`` takes chunks ``[r n / s, (r + 1) n / s)``
+    (:func:`k2_chunks`)."""
+    s = 1
+    while s < K2_MAX_SPLIT and 10 * tiles * s * warps < 72 * sms \
+            and 2 * s <= chunks:
+        s *= 2
+    while s < K2_MAX_SPLIT and 2 * tiles * s * warps <= 16 * sms \
+            and chunks >= 16 * s:
+        s *= 2
+    return s
+
+
+def k2_splits(kind: str, live: int, A: int, H: int, sms: int) -> tuple:
+    """The depth splits of K2's two passes over a level with ``live``
+    live slots, on a card of ``sms`` SMs."""
+    return tuple(k2_split(tiles, chunks, sms, warps)
+                 for tiles, chunks, warps in k2_grid(kind, live, A, H))
+
+
+def k2_chunks(rank: int, s: int, n: int) -> range:
+    """The chunks of a pass's ``n`` that rank ``rank`` of ``s`` takes."""
+    return range(rank * n // s, (rank + 1) * n // s)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def workspace_numel(kind: str, M: int, A: int, H: int) -> int:
@@ -56,6 +129,11 @@ def workspace_numel(kind: str, M: int, A: int, H: int) -> int:
         cotangent ``[M, H]``;
       - ``treefc``: ``d_pre`` ``[M, H]`` and the child cotangents
         ``[M·A, H]``.
+
+    The child cotangents are written only on a level where a row has
+    several contributions (elsewhere the kernel adds them into ``g``;
+    gru's rows hold ``g_h * z`` between its passes); the depth split's
+    partial sums live in the cluster's shared memory, not here.
     """
     per_slot = {"treelstm": 3 + 3 * A, "lstm": 4 + 2, "gru": 3 + 1,
                 "treefc": 1 + A}
@@ -78,7 +156,9 @@ def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
                  sort_perm: Optional[torch.Tensor],
                  sorted_child_ids: Optional[torch.Tensor],
                  run_head: Optional[torch.Tensor],
-                 workspace: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 workspace: Optional[torch.Tensor] = None,
+                 live: Optional[int] = None, single: Optional[bool] = None,
+                 heads: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One fused reverse batching task of kind ``kind``, in place.
 
     ``g``: ``[T*M+1, S]`` float32 gradient buffer; the child-row
@@ -90,6 +170,12 @@ def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
     / ``run_head``: the level's flat ``[M·A]`` sorted runs, which
     ``pack_batch(with_runs=True)`` precomputes (absent: raises).
     ``workspace``: see :func:`bwd_workspace`; allocated here when omitted.
+    ``live`` / ``single`` / ``heads``: the level's
+    :func:`~repro_torch.core.structure.level_bwd_plan` (``DeviceSchedule.
+    bwd_live`` / ``bwd_single`` / ``bwd_heads``, host values but
+    ``heads``, on ``g``'s device).  Without them the plan is built here
+    from ``child_ids`` and ``sorted_child_ids`` copied to the host, which
+    waits for the card.  A level with no live slot launches nothing.
     Rows ``[offset, offset+M)``, the sentinel and every row no child
     points at come out bit-unchanged.  Returns ``g``.
     """
@@ -138,12 +224,34 @@ def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
     if offset < 0 or offset + M > R - 1:
         raise ValueError(f"{op}: rows [{offset}, {offset + M}) outside a "
                          f"buffer of {R} rows with its sentinel")
+    if live is None or single is None or (not single and heads is None):
+        live, single, h = level_bwd_plan(
+            child_ids.cpu().numpy(), R - 1,
+            sorted_child_ids.cpu().numpy())
+        heads = None if h is None else torch.from_numpy(h).to(dev)
+    live, single = int(live), bool(single)
+    if not 0 <= live <= M:
+        raise ValueError(f"{op}: live={live} outside [0, {M}]")
+    nruns = 0
+    if not single:
+        if heads is None or heads.dim() != 1 or heads.shape[0] < 2:
+            raise ValueError(f"{op}: a level with several contributions "
+                             f"to a row needs its run heads")
+        check("heads", heads, torch.int32, heads.shape, dev)
+        nruns = heads.shape[0] - 1
+    if live == 0:
+        return g
+    split_a, split_b = k2_splits(kind, live, A, H, _sm_count(dev))
+    n = ctypes.c_int(0)
     launch_kernel(op, dev, g.data_ptr(), buf.data_ptr(), child_ids.data_ptr(),
                   ext_ids.data_ptr(), node_mask.data_ptr(), ext.data_ptr(),
                   w.data_ptr(), b.data_ptr(), sort_perm.data_ptr(),
-                  sorted_child_ids.data_ptr(), run_head.data_ptr(),
+                  sorted_child_ids.data_ptr(),
+                  None if single else heads.data_ptr(),
                   workspace.data_ptr(), M, A, H, offset, R - 1, g.stride(0),
-                  buf.stride(0), ext.stride(0))
+                  buf.stride(0), ext.stride(0), live, int(single), nruns,
+                  split_a, split_b, ctypes.addressof(n))
+    LAUNCHES[f"{op}.cuda_launches"] += n.value
     return g
 
 

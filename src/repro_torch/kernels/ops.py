@@ -197,7 +197,9 @@ def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
                  sort_perm: Optional[torch.Tensor] = None,
                  sorted_child_ids: Optional[torch.Tensor] = None,
                  run_head: Optional[torch.Tensor] = None,
-                 workspace: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 workspace: Optional[torch.Tensor] = None,
+                 live: Optional[int] = None, single: Optional[bool] = None,
+                 heads: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One fused reverse batching task: recompute the level's gates from
     the residual node buffer ``buf``, run the cotangent math and
     scatter-ADD the child-row cotangents into the gradient buffer ``g``
@@ -205,7 +207,9 @@ def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
 
     On the card the level's sorted runs (``sort_perm`` /
     ``sorted_child_ids`` / ``run_head``, from ``pack_batch``) are
-    required; the plain version ignores them and the workspace."""
+    required, and its plan (``live`` / ``single`` / ``heads``, from
+    ``LevelSchedule.bwd_plans``) is read where given; the plain version
+    ignores them and the workspace."""
     if not g.is_cuda:
         _tick("bwd_megastep", "ref")
         return ref.bwd_megastep(kind, g, buf, child_ids, child_mask,
@@ -214,7 +218,8 @@ def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
     return lmb.bwd_megastep(kind, g, buf, child_ids, ext_ids, node_mask,
                             offset, ext, weights, sort_perm=sort_perm,
                             sorted_child_ids=sorted_child_ids,
-                            run_head=run_head, workspace=workspace)
+                            run_head=run_head, workspace=workspace,
+                            live=live, single=single, heads=heads)
 
 
 def scatter_add_rows(dst: torch.Tensor, idx: torch.Tensor,

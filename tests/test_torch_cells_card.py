@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.core import scheduler as tsch
 from repro_torch.core.structure import (balanced_binary_tree, chain,
-                                        pack_batch, random_binary_tree)
+                                        pack_batch, random_binary_tree,
+                                        random_dag)
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import level_megastep as lm
 from repro_torch.kernels import level_megastep_bwd as lmb
@@ -46,6 +47,11 @@ def _graphs(kind, family, rng):
     if kind == "treefc":
         if family == "balanced":
             return [balanced_binary_tree(64) for _ in range(4)]
+        if family == "single":                    # levels of one slot
+            return [balanced_binary_tree(4)]
+        if family == "dag":                       # runs of several
+            return [random_dag(int(rng.integers(6, 24)), rng, max_arity=2)
+                    for _ in range(6)]
         return [random_binary_tree(int(rng.integers(1, 40)), rng)
                 for _ in range(8)]
     if family == "single":                        # M = 1
@@ -90,7 +96,10 @@ CASES = [("lstm", "chains", 72, {}), ("lstm", "single", 16, {}),
          ("gru", "chains", 72, {}), ("gru", "single", 16, {}),
          ("gru", "chains", 512, {"pad_levels": 40, "pad_width": 128}),
          ("treefc", "random", 72, {"pad_levels": 12, "pad_width": 256}),
-         ("treefc", "balanced", 512, {})]
+         ("treefc", "balanced", 512, {}),
+         ("lstm", "chains", 20, {}), ("gru", "chains", 20, {}),
+         ("treefc", "random", 20, {}), ("treefc", "single", 20, {}),
+         ("treefc", "dag", 72, {}), ("lstm", "chains", 6, {})]
 
 
 @pytest.mark.gpu
@@ -101,6 +110,7 @@ def test_forward_and_reverse_kernels_match_plain_on_card(kind, family, h,
     s, d, buf, g, ext, w = _levels(kind, family, h, **pads)
     ws = lmb.bwd_workspace(kind, s.M, s.A, h, "cuda")
     lm.reset_launches()
+    launches = f"{kind}_bwd_megastep.cuda_launches"
     for t in range(s.T):
         lvl = (d.child_ids[t], d.child_mask[t], d.ext_ids[t], d.node_mask[t],
                t * s.M, ext, w)
@@ -108,14 +118,20 @@ def test_forward_and_reverse_kernels_match_plain_on_card(kind, family, h,
         got = lm.MEGASTEPS[kind](buf.clone(), d.child_ids[t], d.ext_ids[t],
                                  d.node_mask[t], t * s.M, ext, *w)
         wantb = ref.bwd_megastep(kind, g.clone(), buf, *lvl)
-        gotb = lmb.bwd_megastep(kind, g.clone(), buf, d.child_ids[t],
-                                d.ext_ids[t], d.node_mask[t], t * s.M, ext, w,
-                                sort_perm=d.sort_perm[t],
-                                sorted_child_ids=d.sorted_child_ids[t],
-                                run_head=d.run_head[t], workspace=ws)
+        before = lm.LAUNCHES[launches]
+        bargs = (buf, d.child_ids[t], d.ext_ids[t], d.node_mask[t], t * s.M,
+                 ext, w)
+        gotb = lmb.bwd_megastep(kind, g.clone(), *bargs, workspace=ws,
+                                **tsch._level_runs(d, t))
+        made = lm.LAUNCHES[launches] - before
+        again = lmb.bwd_megastep(kind, g.clone(), *bargs, workspace=ws,
+                                 **tsch._level_runs(d, t))
         torch.cuda.synchronize()
         assert _rel(got, want) <= TOL, ("forward", t)
         assert _rel(gotb, wantb) <= TOL, ("reverse", t)
+        assert torch.equal(_bits(gotb), _bits(again)), t
+        live, single = d.bwd_live[t], d.bwd_single[t]
+        assert made == (0 if live == 0 else 2 if single else 3), t
         keep = torch.ones(buf.shape[0], dtype=torch.bool, device="cuda")
         keep[t * s.M:(t + 1) * s.M] = False
         assert torch.equal(_bits(got[keep]), _bits(buf[keep])), t
@@ -126,7 +142,47 @@ def test_forward_and_reverse_kernels_match_plain_on_card(kind, family, h,
         if not bool(d.node_mask[t].any()):        # an all-padding level
             assert not bool(got[t * s.M:(t + 1) * s.M].any())
     assert lm.LAUNCHES[f"{kind}_megastep"] == s.T
-    assert lm.LAUNCHES[f"{kind}_bwd_megastep"] == s.T
+    work = sum(1 for live in d.bwd_live if live)
+    assert lm.LAUNCHES[f"{kind}_bwd_megastep"] == 2 * work
+    if family == "dag":
+        assert not all(d.bwd_single), "no level with a run of several"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["lstm", "gru", "treefc"])
+def test_reverse_runs_of_several_on_card(kind):
+    """A hand-built level whose slots share children (runs of two and
+    three contributions, so the kernel's run pass), its plan built by the
+    wrapper: against the plain version, untouched rows bit-unchanged,
+    three CUDA launches, a second launch bitwise equal."""
+    _need_card()
+    s, d, buf, g, ext, w = _levels(kind, "chains" if kind != "treefc"
+                                   else "random", 72)
+    t = 1
+    cids = d.child_ids[t].clone()
+    live = int((cids != s.T * s.M).any(1).nonzero().max()) + 1
+    assert live >= 3
+    cids[:live] = cids[0]                         # one run per child column
+    cids[1, 0] = s.T * s.M                        # a sentinel child
+    flat = cids.reshape(-1)
+    perm = torch.sort(flat.cpu().long(), stable=True)[1].int().cuda()
+    runs = dict(sort_perm=perm, sorted_child_ids=flat[perm.long()],
+                run_head=torch.zeros_like(flat))
+    lvl = (cids, (cids != s.T * s.M).float(), d.ext_ids[t], d.node_mask[t],
+           t * s.M, ext, w)
+    want = ref.bwd_megastep(kind, g.clone(), buf, *lvl)
+    lm.reset_launches()
+    bargs = (buf, cids, d.ext_ids[t], d.node_mask[t], t * s.M, ext, w)
+    got = lmb.bwd_megastep(kind, g.clone(), *bargs, **runs)
+    again = lmb.bwd_megastep(kind, g.clone(), *bargs, **runs)
+    torch.cuda.synchronize()
+    assert lm.LAUNCHES[f"{kind}_bwd_megastep.cuda_launches"] == 6
+    assert _rel(got, want) <= TOL
+    assert torch.equal(_bits(got), _bits(again))
+    touched = torch.zeros(g.shape[0], dtype=torch.bool, device="cuda")
+    touched[flat.long()] = True
+    touched[-1] = False
+    assert torch.equal(_bits(got[~touched]), _bits(g[~touched]))
 
 
 def _cell(kind, x, h):
@@ -163,8 +219,10 @@ def test_training_gradients_repeat_bitwise_and_match_opbyop(kind):
     d = s.to_device("cuda")
     lm.reset_launches()
     first = _grads(fn, params, d, ext, cot, "auto")
+    work = sum(1 for live in d.bwd_live if live)
     assert lm.LAUNCHES[f"{kind}_megastep"] == s.T
-    assert lm.LAUNCHES[f"{kind}_bwd_megastep"] == s.T
+    assert lm.LAUNCHES[f"{kind}_bwd_megastep"] == work
+    assert lm.LAUNCHES[f"{kind}_bwd_megastep.cuda_launches"] == 2 * work
     assert lm.LAUNCHES["scatter_add_rows"] == 1
     second = _grads(fn, params, d, ext, cot, "auto")
     oracle = _grads(fn, params, d, ext, cot, "none")

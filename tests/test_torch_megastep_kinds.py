@@ -363,7 +363,8 @@ def test_build_table_covers_every_kind(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_CSRC", csrc)
     monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "build")
     before = _build.library_path("gru_bwd_megastep")
-    (csrc / "runs.cuh").write_text((csrc / "runs.cuh").read_text() + "\n")
+    (csrc / "cell_tile.cuh").write_text((csrc / "cell_tile.cuh").read_text()
+                                        + "\n")
     assert _build.library_path("gru_bwd_megastep") != before
     monkeypatch.setattr(_build, "_nvcc", lambda: "false")
     monkeypatch.setattr(_build, "_LOADED", {})

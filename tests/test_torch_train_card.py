@@ -53,8 +53,14 @@ def _graphs(kind, rng):
     if kind == "trees":
         return [random_binary_tree(int(rng.integers(2, 30)), rng)
                 for _ in range(6)]
+    if kind == "one":                             # levels of one live slot
+        return [random_binary_tree(5, rng)]
     return [random_dag(int(rng.integers(6, 24)), rng, max_arity=3)
             for _ in range(6)]
+
+
+def _cuda_launches(kind="treelstm"):
+    return lm.LAUNCHES[f"{kind}_bwd_megastep.cuda_launches"]
 
 
 def _levels(kind, seed, h=72, dev="cuda", **pads):
@@ -75,32 +81,102 @@ def _levels(kind, seed, h=72, dev="cuda", **pads):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind,pads", [
-    ("trees", {}), ("dags", {}),
-    ("trees", {"pad_levels": 32, "pad_width": 256})])
-def test_reverse_megastep_matches_plain_on_card(kind, pads):
+@pytest.mark.parametrize("kind,pads,h", [
+    ("trees", {}, 72), ("dags", {}, 72),
+    ("trees", {"pad_levels": 32, "pad_width": 256}, 72),
+    ("trees", {}, 20), ("dags", {}, 20), ("one", {}, 72), ("one", {}, 5)])
+def test_reverse_megastep_matches_plain_on_card(kind, pads, h):
+    """Every level through the kernel with the schedule's plan against the
+    plain version (error relative to max |plain| <= TOL), rows no child
+    touches bit-unchanged, a second launch bitwise equal, and the CUDA
+    launches the level's plan designs (none without a live slot, 2 where
+    every row gets one contribution, 3 on a DAG level with a run of
+    several).  H 20 and 5 are ragged widths (a partial k-step of 8; 5
+    takes 4-byte copies)."""
     _need_card()
-    s, d, buf, g, ext, w = _levels(kind, 1, **pads)
+    s, d, buf, g, ext, w = _levels(kind, 1, h=h, **pads)
     ws = lmb.bwd_workspace("treelstm", s.M, s.A, w[0].shape[0], "cuda")
     lm.reset_launches()
     for t in range(s.T):
         want = ref.bwd_megastep("treelstm", g.clone(), buf, d.child_ids[t],
                                 d.child_mask[t], d.ext_ids[t],
                                 d.node_mask[t], t * s.M, ext, w)
-        got = lmb.bwd_megastep("treelstm", g.clone(), buf, d.child_ids[t],
-                               d.ext_ids[t], d.node_mask[t], t * s.M, ext,
-                               w, sort_perm=d.sort_perm[t],
-                               sorted_child_ids=d.sorted_child_ids[t],
-                               run_head=d.run_head[t], workspace=ws)
+        before = _cuda_launches()
+        args = ("treelstm", buf, d.child_ids[t], d.ext_ids[t],
+                d.node_mask[t], t * s.M, ext, w)
+        got = lmb.bwd_megastep(args[0], g.clone(), *args[1:], workspace=ws,
+                               **tsch._level_runs(d, t))
+        made = _cuda_launches() - before
+        again = lmb.bwd_megastep(args[0], g.clone(), *args[1:],
+                                 workspace=ws, **tsch._level_runs(d, t))
         torch.cuda.synchronize()
         scale = max(float(want.abs().max()), 1e-30)
         assert float((got - want).abs().max()) / scale <= TOL, t
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32)), t
         touched = torch.zeros(g.shape[0], dtype=torch.bool, device="cuda")
         touched[d.child_ids[t].reshape(-1).long()] = True
         touched[-1] = False                       # the sentinel is kept
         assert torch.equal(got[~touched].view(torch.int32),
                            g[~touched].view(torch.int32)), t
-    assert lm.LAUNCHES["treelstm_bwd_megastep"] == s.T
+        live, single = d.bwd_live[t], d.bwd_single[t]
+        assert made == (0 if live == 0 else 2 if single else 3), t
+    work = sum(1 for live in d.bwd_live if live)
+    assert lm.LAUNCHES["treelstm_bwd_megastep"] == 2 * work
+    if kind == "dags":
+        assert not all(d.bwd_single), "no level with a run of several"
+    if kind == "one":
+        assert 1 in d.bwd_live, "no level of one live slot"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,pads", [
+    ("trees", {}), ("one", {}), ("dags", {}),
+    ("trees", {"pad_levels": 32, "pad_width": 256})])
+def test_cuda_launches_a_level_follow_the_plan(kind, pads):
+    """K2's CUDA launches a level, as the entry point counts them: none on
+    a level with no live slot (leaves, padding levels), at most 2 on a
+    tree level (each row one contribution: the two passes add into the
+    gradient rows themselves), 3 on a DAG level with a run of several
+    (the run pass)."""
+    _need_card()
+    s, d, buf, g, ext, w = _levels(kind, 5, **pads)
+    made = []
+    for t in range(s.T):
+        before = _cuda_launches()
+        lmb.bwd_megastep("treelstm", g, buf, d.child_ids[t], d.ext_ids[t],
+                         d.node_mask[t], t * s.M, ext, w,
+                         **tsch._level_runs(d, t))
+        made.append(_cuda_launches() - before)
+    torch.cuda.synchronize()
+    assert made == [0 if not live else 2 if single else 3
+                    for live, single in zip(d.bwd_live, d.bwd_single)]
+    assert made[0] == 0                           # the leaves
+    if kind == "dags":
+        assert 3 in made
+    else:
+        assert max(made) == 2
+    if pads:
+        assert made[-1] == 0                      # a padding level
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["trees", "dags"])
+def test_reverse_megastep_builds_its_plan_without_one(kind):
+    """A level called without its plan (a hand-built level) gets the bits
+    of the same level with the schedule's plan."""
+    _need_card()
+    s, d, buf, g, ext, w = _levels(kind, 2)
+    for t in range(s.T):
+        kw = tsch._level_runs(d, t)
+        args = ("treelstm", buf, d.child_ids[t], d.ext_ids[t],
+                d.node_mask[t], t * s.M, ext, w)
+        planned = lmb.bwd_megastep(args[0], g.clone(), *args[1:], **kw)
+        for k in ("live", "single", "heads"):
+            kw.pop(k)
+        built = lmb.bwd_megastep(args[0], g.clone(), *args[1:], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(planned.view(torch.int32),
+                           built.view(torch.int32)), t
 
 
 @pytest.mark.gpu
@@ -203,7 +279,10 @@ def test_training_gradients_repeat_bitwise_and_match_opbyop(kind):
     fn, params, sched, ext, cot = _train_case(3, kind)
     lm.reset_launches()
     first = _grads(fn, params, sched, ext, cot, "auto")
-    assert lm.LAUNCHES["treelstm_bwd_megastep"] == sched.T
+    work = [single for live, single in zip(sched.bwd_live, sched.bwd_single)
+            if live]
+    assert lm.LAUNCHES["treelstm_bwd_megastep"] == len(work)
+    assert _cuda_launches() == sum(2 if single else 3 for single in work)
     assert lm.LAUNCHES["scatter_add_rows"] == 1
     second = _grads(fn, params, sched, ext, cot, "auto")
     oracle = _grads(fn, params, sched, ext, cot, "none")
