@@ -10,16 +10,26 @@ Phases, each of which must pass (any failure exits non-zero):
 
   1. device — require CUDA, print the card and its power limit, build
      every hand-written kernel from ``src/repro_torch/kernels/csrc``;
-  2. kernel vs plain — the Tree-LSTM megastep kernel against its plain
-     PyTorch version on the card, at full width (H=512, A=2, M=4096) and
-     on edge cases (M=1; A=3 DAG levels with shared children; padded
-     slots; absent children at the sentinel): max-abs error <= 1e-4 on
-     the written block, every other row bit-unchanged;
+  2. kernel vs plain — the Tree-LSTM megastep kernel (K1,
+     ``treelstm_megastep_sm90.cu``) against its plain PyTorch version on
+     the card, at full width (H=512, A=2, M=4096) and on edge cases (M=1;
+     A=1; A=3 DAG levels with shared children; a level of leaves, a padded
+     level and an all-padding level, each with the schedule's live count
+     and without one; H=72; absent children at the sentinel): max-abs
+     error <= 1e-4 on the written block, every other row (the sentinel
+     among them) bit-unchanged, two launches bitwise equal, the CUDA
+     launches of its design (the product where a slot may have a child,
+     the leaf launch past the live slots, at most 2 a level); the M=4096
+     level timed by ``torch.profiler`` device time;
   2b. served levels — the same check on every level the serving phase
      launches (the served traffic is scored once with a tap on the
-     kernel layer that keeps each level's arguments), each level timed
-     with CUDA events against its plain version: these times, at the
-     main path's own shapes, are the ones the JSON line reports;
+     kernel layer that keeps each level's arguments and live count),
+     each level timed by ``torch.profiler`` device time, every level in
+     one session, CUDA events beside, against its plain version and its
+     bound (three TF32 products at 495 TFLOP/s, the 67 TFLOP/s fp32-FMA
+     figure beside it), also by kind of level (level 0, all padding,
+     fewer and more than 64 live slots): these times, at the main path's
+     own shapes, are the ones the JSON line reports;
   3. serving — ``StructureServeEngine`` for the paper's ``tree_lstm``
      (hidden 512, input 256, arity 2, random weights from a seed) scores
      512 SST-like requests in batches of 64: every request ends ``ok``,
@@ -29,8 +39,12 @@ Phases, each of which must pass (any failure exits non-zero):
   4. training levels — one full-width training step of the paper's
      ``tree_lstm`` (the example ``examples/torch_treelstm_sentiment.py``,
      SST-like parses of seed 0 in batches of 64, pow2 buckets with the
-     backward's sorted runs), taken with taps on ``ops.bwd_megastep`` and
-     ``ops.scatter_add_rows``: every reverse level through the reverse
+     backward's sorted runs), taken with taps on ``ops.level_megastep``,
+     ``ops.bwd_megastep`` and ``ops.scatter_add_rows``: every forward
+     level through K1 as in phase 2b (its device time a step); K1's
+     ptxas lines (no spills), shared memory and SASS
+     (``HMMA.1688.F32.TF32``, ``LDGSTS``, ``LDSM``, no float atomic);
+     every reverse level through the reverse
      megastep kernel (K2, ``bwd_megastep_sm90.cu``) against its plain
      version on the same inputs (error relative to max |plain| <= 1e-4,
      untouched rows bit-unchanged, two launches bitwise equal, the CUDA
@@ -54,8 +68,9 @@ Phases, each of which must pass (any failure exits non-zero):
      two backward passes of the step bitwise equal;
   5. training — the example's loop (AdamW, warmup-cosine) for
      ``TRAIN_STEPS`` steps: finite losses, step time p50/p99, steps/s,
-     peak device memory, one forward megastep launch per padded level, one
-     reverse megastep per level with a live slot (two CUDA launches each)
+     peak device memory, one forward megastep launch per padded level
+     (the CUDA launches its live counts design), one reverse megastep per
+     level with a live slot (two CUDA launches each)
      and one scatter-add launch per step; then a
      ``torch.profiler`` breakdown of one warm step;
   6-8. the paper's Var-LSTM (``var_lstm``: 128 variable-length chains
@@ -89,11 +104,13 @@ Phases, each of which must pass (any failure exits non-zero):
   10. continuous Tree-LSTM serving — the serving phase's 512 parses
      submitted at once to ``ContinuousBatchEngine`` (4,096 arena rows,
      256 lanes, ``ClassificationHead(1024, 5)``, nonzero biases): a
-     tapped run re-runs every ``TAP_EVERY``-th tick's megastep and row
-     scatter and every root gather against their plain versions and
-     times them; the main path, launch counts set to 0 just before and
-     read just after, must launch one megastep and one row scatter a
-     tick and one row gather a retiring window; every request ``ok``, no
+     tapped run re-runs every ``TAP_EVERY``-th tick's megastep (K1, with
+     the checks of phase 2, timed by ``torch.profiler``) and row scatter
+     and every root gather against their plain versions and times them;
+     the main path, launch counts set to 0 just before and read just
+     after, must launch one megastep (one CUDA launch: the frontier has
+     no live count) and one row scatter a tick and one row gather a
+     retiring window; every request ``ok``, no
      degradation; roots and logits within 1e-4 of solo scoring on the
      card and of the plain path on the CPU (bitwise-equal roots
      counted); requests/s, latency, occupancy; host spans and a profile;
@@ -368,7 +385,8 @@ def synthetic_level(M: int, A: int, H: int, gen: torch.Generator, dev,
 def schedule_level(graphs, t: int, H: int, gen: torch.Generator, dev,
                    **pads):
     """Level ``t`` of a real packed schedule, buffer rows filled at
-    random (the sentinel stays zero)."""
+    random (the sentinel stays zero), and its live count as the
+    schedule's ``to_device`` gives it."""
     s = pack_batch(graphs, with_runs=False, **pads)
     d = s.to_device(dev)
     R = s.T * s.M + 1
@@ -377,22 +395,47 @@ def schedule_level(graphs, t: int, H: int, gen: torch.Generator, dev,
     ext = torch.randn(s.K * s.N + 1, 4 * H, generator=gen) * 0.5
     ext[-1] = 0.0
     return (buf.to(dev), d.child_ids[t], d.child_mask[t], d.ext_ids[t],
-            d.node_mask[t], t * s.M, ext.to(dev), _weights(H, gen, dev))
+            d.node_mask[t], t * s.M, ext.to(dev),
+            _weights(H, gen, dev)), d.live[t]
 
 
-def compare(case) -> float:
+def k1_designed(M: int, live) -> int:
+    """The CUDA launches K1 makes on a level of ``M`` slots given ``live``
+    (None: not given, and its product grid covers every slot): the
+    product where a slot may have a child, the leaf launch over ``[live,
+    M)``."""
+    live = M if live is None else live
+    return (live > 0) + (live < M)
+
+
+def compare(case, **kw) -> float:
+    """K1 on one level ``case`` with the keywords the main path gave it
+    (``live``, ``sentinel``) against its plain version: the max abs error
+    on the written block; rows outside the block (the sentinel among
+    them) bit-unchanged, finite values, a second launch bitwise equal, and
+    the CUDA launches of its design, at most 2."""
     buf, cids, cmask, eids, nmask, off, ext, w = case
     M = cids.shape[0]
-    got = lm.treelstm_megastep(buf.clone(), cids, eids, nmask, off, ext, *w)
+    before = lm.CUDA_LAUNCHES["treelstm_megastep"]
+    got = lm.treelstm_megastep(buf.clone(), cids, eids, nmask, off, ext, *w,
+                               **kw)
+    made = lm.CUDA_LAUNCHES["treelstm_megastep"] - before
+    again = lm.treelstm_megastep(buf.clone(), cids, eids, nmask, off, ext,
+                                 *w, **kw)
     want = ref.level_megastep("treelstm", buf.clone(), cids, cmask, eids,
                               nmask, off, ext, w)
     torch.cuda.synchronize()
     err = float((got[off:off + M] - want[off:off + M]).abs().max())
     outside = torch.ones(buf.shape[0], dtype=torch.bool, device=buf.device)
     outside[off:off + M] = False
-    check(torch.equal(got[outside], buf[outside]),
-          "kernel changed rows outside [offset, offset+M)")
-    check(bool(torch.isfinite(got).all()), "kernel wrote non-finite values")
+    check(bitwise_equal(got[outside], buf[outside]),
+          "K1 changed rows outside [offset, offset+M)")
+    check(bool(torch.isfinite(got).all()), "K1 wrote non-finite values")
+    check(bitwise_equal(got, again), f"K1: two launches differ at offset "
+          f"{off}")
+    designed = k1_designed(M, kw.get("live"))
+    check(made == designed <= 2, f"K1 at offset {off}: {made} CUDA "
+          f"launches, designed {designed}")
     return err
 
 
@@ -411,14 +454,17 @@ def time_ms(fn, n: int = 50, warmup: int = 5) -> float:
 
 
 def bound_ms(case, sentinel=None) -> tuple:
-    """Least time for the level on the card, from this level's data:
-    FLOPs of the multiply-adds its live slots need (h_k·U_f for each
-    child a slot has, and hsum·U_i/U_o/U_u for a slot with any child; a
-    leaf needs none), and bytes of each input read once (distinct child
-    rows and ext rows of live slots, the weights unless no slot needs
-    them, the indices) and the block written once.  Absent children
-    point at ``sentinel`` (default: the buffer's last row).  Returns
-    (bound_ms, bound_by, flops, bytes)."""
+    """Least time for K1's level on the card, from this level's data: the
+    multiply-adds its live slots need (h_k·U_f for each child a slot has,
+    and hsum·U_i/U_o/U_u for a slot with any child; a leaf needs none),
+    as three TF32 products at 495 TFLOP/s (K1's products run on the
+    tensor cores), against each input read once (distinct child rows, the
+    ext rows of live slots -- a leaf's i, o and u lanes only --, the
+    weights unless no slot needs them, the bias, the indices) and the
+    block written once, at 3.35 TB/s.  Absent children point at
+    ``sentinel`` (default: the buffer's last row).  Returns (bound_ms,
+    bound_by, flops, bytes, bound_fma_ms), the last at the 67 TFLOP/s
+    fp32-FMA rate."""
     buf, cids, cmask, eids, nmask, off, ext, w = case
     M, A = cids.shape
     H = w[0].shape[0]
@@ -426,27 +472,49 @@ def bound_ms(case, sentinel=None) -> tuple:
     sentinel = buf.shape[0] - 1 if sentinel is None else sentinel
     present = (cids != sentinel) & live[:, None]
     n_child = present.sum(dim=1)
-    flops = float((n_child + 3 * (n_child > 0)).sum()) * H * H * 2
-    rows = torch.unique(cids[present])
-    erows = torch.unique(eids[live])
-    weights = (4 * H * H + 4 * H) if flops > 0 else 0
-    nbytes = 4 * (rows.numel() * H * 2 + erows.numel() * 4 * H + weights
+    inner = n_child > 0
+    flops = float((n_child + 3 * inner).sum()) * H * H * 2
+    rows = torch.unique(cids[present]).numel()
+    lanes = (4 * torch.unique(eids[live & inner]).numel()
+             + 3 * torch.unique(eids[live & ~inner]).numel())
+    weights = 4 * H * H if flops > 0 else 0
+    nbytes = 4 * (rows * H * 2 + lanes * H + weights + 4 * H
                   + M * (A + 2) + M * 2 * H)
-    t_op, t_by = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
-            else "bytes", flops, nbytes)
+    b_ms, b_by, fma_ms = priced_ms(flops, nbytes, True)
+    return b_ms, b_by, flops, nbytes, fma_ms
 
 
-def time_level(case, n: int = 20, warmup: int = 3) -> tuple:
-    """(kernel ms, plain ms) for one level, each on its own copy of the
-    buffer, launched in place as the main path does."""
-    buf, cids, cmask, eids, nmask, off, ext, w = case
-    k_buf, p_buf = buf.clone(), buf.clone()
-    ms = time_ms(lambda: lm.treelstm_megastep(k_buf, cids, eids, nmask, off,
-                                              ext, *w), n, warmup)
-    plain_ms = time_ms(lambda: ref.level_megastep(
-        "treelstm", p_buf, cids, cmask, eids, nmask, off, ext, w), n, warmup)
-    return ms, plain_ms
+def k1_times(cases, reps: int = 10) -> list:
+    """K1 and its plain version on each level of ``cases`` ((case, kw)
+    pairs, ``kw`` as the main path gave it), launched in place as the main
+    path does on a copy of the level's buffer (levels that share a buffer
+    share its copy: a level reads only rows that no re-run changes):
+    device ms a call by ``torch.profiler``, every level in one session,
+    with K1's CUDA-event ms beside (back to back, events time the host
+    where a launch is shorter than its cost).  Returns ``(ms, plain_ms,
+    events_ms)`` a level."""
+    copies, sets, events = {}, {}, []
+    for i, (case, kw) in enumerate(cases):
+        buf, cids, cmask, eids, nmask, off, ext, w = case
+        kb, pb = copies.setdefault(buf.data_ptr(),
+                                   (buf.clone(), buf.clone()))
+
+        def kern(kb=kb, case=case, kw=kw):
+            _b, cids, _cm, eids, nmask, off, ext, w = case
+            lm.treelstm_megastep(kb, cids, eids, nmask, off, ext, *w, **kw)
+
+        def plain(pb=pb, case=case):
+            _b, cids, cmask, eids, nmask, off, ext, w = case
+            ref.level_megastep("treelstm", pb, cids, cmask, eids, nmask,
+                               off, ext, w)
+
+        sets[i, "kernel"] = {"calls": [kern], "match": "k1_", "launches":
+                             k1_designed(cids.shape[0], kw.get("live"))}
+        sets[i, "plain"] = {"calls": [plain], "reps": 3}
+        events.append(time_ms(kern, 10, 2))
+    t = device_ms(sets, reps=reps)
+    return [(t[i, "kernel"], t[i, "plain"], events[i])
+            for i in range(len(cases))]
 
 
 def kernel_phase() -> dict:
@@ -464,16 +532,17 @@ def kernel_phase() -> dict:
             for _ in range(24)]
     T = pack_batch(dags, with_runs=False).T
     for t in (1, T // 2, T - 1):
-        errs[f"dag_A3_level{t}"] = compare(
-            schedule_level(dags, t, H, gen, dev))
+        case, live = schedule_level(dags, t, H, gen, dev)
+        errs[f"dag_A3_level{t}"] = compare(case, live=live)
     trees = [random_binary_tree(int(rng.integers(2, 40)), rng)
              for _ in range(16)]
-    errs["tree_padded_level0"] = compare(
-        schedule_level(trees, 0, H, gen, dev, pad_levels=64, pad_width=512))
-    errs["tree_padded_level3"] = compare(
-        schedule_level(trees, 3, H, gen, dev, pad_levels=64, pad_width=512))
-    errs["tree_all_padding_level40"] = compare(
-        schedule_level(trees, 40, H, gen, dev, pad_levels=64, pad_width=512))
+    pads = {"pad_levels": 64, "pad_width": 512}
+    for t, label in ((0, "leaves"), (3, "padded"), (40, "all_padding")):
+        case, live = schedule_level(trees, t, H, gen, dev, **pads)
+        errs[f"tree_{label}_level{t}"] = compare(case, live=live)
+        # Without the live count the product's grid covers every slot,
+        # and its tiles of no child take the leaf formula on the card.
+        errs[f"tree_{label}_level{t}_no_live_count"] = compare(case)
     errs["H72_ragged"] = compare(synthetic_level(100, 2, 72, gen, dev))
     for k, v in errs.items():
         print(f"kernel vs plain: {k}: max_abs_err {v:.3e}")
@@ -481,78 +550,119 @@ def kernel_phase() -> dict:
     check(worst <= TOL, f"kernel disagrees with its plain version: "
           f"max_abs_err {worst:.3e} > {TOL}")
 
-    ms, plain_ms = time_level(full, n=50, warmup=5)
-    b_ms, b_by, flops, nbytes = bound_ms(full)
+    (ms, plain_ms, ev), = k1_times([(full, {})], reps=20)
+    b_ms, b_by, flops, nbytes, fma_ms = bound_ms(full)
     print(f"timing synthetic H{H}_A2_M{M_FULL} (not a served shape): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
-          f"{b_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); kernel "
-          f"at {flops / ms / 1e9:.2f} TFLOP/s = {b_ms / ms:.1%} of bound")
-    return {"max_abs_err": worst}
+          f"{ms:.4f} ms device ({ev:.4f} events), plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms by {b_by} (fp32 FMA {fma_ms:.4f}; "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); kernel at "
+          f"{flops / ms / 1e9:.2f} TFLOP/s = {b_ms / ms:.1%} of bound")
+    return {"max_abs_err": worst, "synthetic": {
+        "ms": ms, "events_ms": ev, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "bound_fma_ms": fma_ms}}
 
 
-def served_levels_phase() -> dict:
-    """Every level the serving phase launches, with its own inputs: the
-    served traffic is scored once, with a tap on the kernel layer that
-    keeps each level's arguments.  The buffer kept is the one the batch
-    finished with: a level reads only rows below its offset (final by
-    then) and the zero sentinel, so a level re-run on a copy of it sees
-    what the main path saw.  Each level is compared with its plain
-    version and both are timed; the means per launch over these levels
-    are the numbers the JSON line reports."""
-    fn, params, ds = served_traffic()
-    levels = []
-    inner = ops.level_megastep
+def tapped_levels(run) -> list:
+    """``run()`` with a tap on ``ops.level_megastep`` that keeps each
+    level's arguments and keywords; returns them as ``(case, kw)`` pairs,
+    ``case`` = (buf, child_ids, child_mask, ext_ids, node_mask, offset,
+    ext, weights).  The buffer kept is the one the run finished with: a
+    level reads only rows below its offset (final by then) and the zero
+    sentinel, so a level re-run on a copy of it sees what the run saw."""
+    levels, inner = [], ops.level_megastep
 
-    def tap(kind, buf, *args):
-        levels.append((buf,) + args)
-        return inner(kind, buf, *args)
+    def tap(kind, buf, *args, **kw):
+        levels.append(((buf,) + args, kw))
+        return inner(kind, buf, *args, **kw)
 
     ops.level_megastep = tap
     try:
+        run()
+    finally:
+        ops.level_megastep = inner
+    return levels
+
+
+def served_level_cases() -> list:
+    """Every level the serving phase launches, with its own inputs and
+    keywords: the served traffic scored once through ``tapped_levels``."""
+    fn, params, ds = served_traffic()
+
+    def run():
         eng = StructureServeEngine(fn, params, batch_size=BATCH,
                                    device=DEVICE)
         for r in _requests(ds):
             eng.submit(r)
         eng.run()
-    finally:
-        ops.level_megastep = inner
-    check(levels, "the served traffic reached no kernel level")
-    rows, worst = [], 0.0
-    for case in levels:
-        worst = max(worst, compare(case))
-        ms, plain_ms = time_level(case)
-        b_ms, b_by, flops, _ = bound_ms(case)
-        rows.append((case[1].shape[0], int(case[5]) // case[1].shape[0],
-                     ms, plain_ms, b_ms, b_by, flops))
-    check(worst <= TOL, f"kernel disagrees with its plain version on a "
-          f"served level: max_abs_err {worst:.3e} > {TOL}")
-    n = len(rows)
-    for M in sorted({r[0] for r in rows}):
-        sel = [r for r in rows if r[0] == M]
-        T = max(r[1] for r in sel) + 1
-        for t in (0, T // 2):
-            at = [r for r in sel if r[1] == t]
-            print(f"served M{M} level {t} (x{len(at)}): kernel "
-                  f"{np.mean([r[2] for r in at]):.4f} ms, plain "
-                  f"{np.mean([r[3] for r in at]):.4f} ms, bound "
-                  f"{np.mean([r[4] for r in at]):.4f} ms, "
-                  f"{np.mean([r[6] for r in at]) / 1e9:.3f} GFLOP")
-        print(f"served M{M}, all {len(sel)} levels: kernel "
-              f"{sum(r[2] for r in sel):.4f} ms, plain "
-              f"{sum(r[3] for r in sel):.4f} ms, bound "
-              f"{sum(r[4] for r in sel):.4f} ms")
-    by_ops = sum(r[4] for r in rows if r[5] == "operations")
-    out = {"levels": n, "max_abs_err": worst,
-           "ms": sum(r[2] for r in rows) / n,
-           "plain_ms": sum(r[3] for r in rows) / n,
-           "bound_ms": sum(r[4] for r in rows) / n,
-           "bound_by": ("operations" if by_ops >= sum(r[4] for r in rows) / 2
-                        else "bytes")}
-    print(f"served levels: {n} levels, max_abs_err {worst:.3e}; mean per "
-          f"launch: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} "
-          f"ms, bound {out['bound_ms']:.4f} ms by {out['bound_by']} "
-          f"({out['bound_ms'] / out['ms']:.1%} of bound)")
+
+    return tapped_levels(run)
+
+
+#: K1's levels by kind: level 0 of a batch (leaves), the levels past a
+#: batch's depth (all padding), and by live slots.
+K1_CLASSES = {
+    "level 0": lambda t, live: t == 0,
+    "all padding": lambda t, live: t > 0 and live == 0,
+    "live < 64": lambda t, live: 0 < live < 64,
+    "live >= 64": lambda t, live: live >= 64}
+
+
+def k1_levels(label: str, levels) -> dict:
+    """K1 on tapped levels ``levels`` ((case, kw) pairs): each compared
+    with its plain version (``compare``) and timed (``k1_times``) beside
+    its bound; the means a launch over all of them and by
+    ``K1_CLASSES``."""
+    worst = max(compare(case, **kw) for case, kw in levels)
+    check(worst <= TOL, f"K1 disagrees with its plain version on a level "
+          f"of {label}: max_abs_err {worst:.3e} > {TOL}")
+    rows = []
+    for (case, kw), (ms, plain_ms, ev) in zip(levels, k1_times(levels)):
+        M = case[1].shape[0]
+        live = M if kw.get("live") is None else kw["live"]
+        b_ms, b_by, flops, _nb, fma_ms = bound_ms(case)
+        rows.append({"t": int(case[5]) // M, "live": live, "ms": ms,
+                     "plain_ms": plain_ms, "events_ms": ev,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_fma_ms": fma_ms, "flops": flops})
+
+    def mean(sel):
+        return {k: float(np.mean([r[k] for r in sel])) for k in
+                ("ms", "events_ms", "plain_ms", "bound_ms", "bound_fma_ms",
+                 "live")}
+
+    out = {"levels": len(rows), "max_abs_err": worst, **mean(rows),
+           "total_ms": sum(r["ms"] for r in rows), "by_class": {}}
+    by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    out["bound_by"] = ("operations" if by_ops >= sum(r["bound_ms"]
+                                                     for r in rows) / 2
+                       else "bytes")
+    for name, pick in K1_CLASSES.items():
+        sel = [r for r in rows if pick(r["t"], r["live"])]
+        if sel:
+            out["by_class"][name] = {"levels": len(sel), **mean(sel)}
+            c = out["by_class"][name]
+            print(f"K1, {label}, {name} (x{len(sel)}, mean live "
+                  f"{c['live']:.1f}): device {c['ms']:.4f} ms (events "
+                  f"{c['events_ms']:.4f}), plain {c['plain_ms']:.4f} ms, "
+                  f"bound {c['bound_ms']:.5f} ms (fp32 FMA "
+                  f"{c['bound_fma_ms']:.5f})")
+    print(f"K1, {label}: {len(rows)} levels, max_abs_err {worst:.3e}; mean "
+          f"a launch: device {out['ms']:.4f} ms (events "
+          f"{out['events_ms']:.4f}), plain {out['plain_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.5f} ms by {out['bound_by']} (fp32 FMA "
+          f"{out['bound_fma_ms']:.5f}), {out['bound_ms'] / out['ms']:.1%} of "
+          f"bound; all levels {out['total_ms']:.4f} ms")
     return out
+
+
+def served_levels_phase() -> dict:
+    """Every level the serving phase launches, with its own inputs and
+    keywords (``served_level_cases``), through ``k1_levels``: these
+    times, at the main path's own shapes, are the ones the JSON line
+    reports."""
+    levels = served_level_cases()
+    check(levels, "the served traffic reached no kernel level")
+    return k1_levels("served levels", levels)
 
 
 # ---------------------------------------------------------------------------
@@ -851,15 +961,15 @@ def k7_check(label: str, dst0, idx, src, plan) -> dict:
           f"({label}): {err:.3e} > {TOL}")
     dk, dp, dl = dst0.clone(), dst0.clone(), dst0.clone()
     idx_long = idx.long()
-    ms, parts = device_ms_per_call(
-        [lambda: lmb.scatter_add_rows(dk, idx, src, plan=plan)], reps=10,
-        parts=K7_PARTS)
+    t = device_ms({"kernel": {"calls": [lambda: lmb.scatter_add_rows(
+                       dk, idx, src, plan=plan)], "parts": K7_PARTS},
+                   "plain": [lambda: ref.scatter_add_rows(dp, idx, src)],
+                   "library": [lambda: dl.index_add_(0, idx_long, src)]},
+                  reps=10)
+    ms, parts = t["kernel"]
     out = {"max_abs_err": float((got - want).abs().max()),
            "max_rel_err": err, "ms": ms, **parts,
-           "plain_ms": device_ms_per_call(
-               [lambda: ref.scatter_add_rows(dp, idx, src)], reps=10),
-           "library_ms": device_ms_per_call(
-               [lambda: dl.index_add_(0, idx_long, src)], reps=10),
+           "plain_ms": t["plain"], "library_ms": t["library"],
            "events_ms": time_ms(lambda: lmb.scatter_add_rows(
                dk, idx, src, plan=plan), 20, 3)}
     out["bound_ms"], out["bound_by"], nbytes = scatter_bound_ms(idx, src)
@@ -881,7 +991,7 @@ def k7_check(label: str, dst0, idx, src, plan) -> dict:
 
 def k2_ctas(kind: str, live: int, A: int, H: int) -> tuple:
     """CTAs of K2's two launches on a level of ``live`` live slots (tiles
-    times the cluster's depth split, ``level_megastep_bwd.k2_split``)."""
+    times the cluster's depth split, ``level_megastep.k2_split``)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return tuple(g[0] * s for g, s in zip(
         lmb.k2_grid(kind, live, A, H), lmb.k2_splits(kind, live, A, H, sms)))
@@ -947,41 +1057,15 @@ def k2_level(case, bound) -> dict:
 
 def k2_device_ms(rows, reps: int = 10) -> None:
     """Device ms a call of K2 on each launching level of ``rows``
-    (``k2_level``'s), all in one ``torch.profiler`` session (one session
-    a level, hundreds a run, left CUPTI recording nothing): each level's
-    ``reps`` calls in turn, their ``k2_*`` kernels taken in launch order,
-    ``launches`` of them a call.  A session that lost a kernel is taken
-    again.  Sets each row's ``ms``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    (``k2_level``'s), every level in one ``device_ms`` session: its
+    ``k2_*`` kernels, ``launches`` of them a call.  Sets each row's
+    ``ms``."""
     timed = [r for r in rows if r["live"]]
-    for r in timed:
-        r["call"]()
-    torch.cuda.synchronize()
-    want = reps * sum(r["launches"] for r in timed)
-    for _attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(PRIMER_LAUNCHES):
-                torch.cuda._sleep(1000)
-            for r in timed:
-                for _ in range(reps):
-                    r["call"]()
-            torch.cuda.synchronize()
-        kernels = sorted((e for e in prof.events()
-                          if e.device_type == DeviceType.CUDA
-                          and "k2_" in e.name),
-                         key=lambda e: e.time_range.start)
-        if len(kernels) == want:
-            at = 0
-            for r in timed:
-                n = reps * r["launches"]
-                r["ms"] = sum(e.self_device_time_total
-                              for e in kernels[at:at + n]) / 1e3 / reps
-                at += n
-            return
-    fail(f"torch.profiler recorded {len(kernels)} K2 kernels for {want} "
-         f"launches in three sessions")
+    t = device_ms({i: {"calls": [r["call"]], "match": "k2_",
+                       "launches": r["launches"]}
+                   for i, r in enumerate(timed)}, reps=reps)
+    for i, r in enumerate(timed):
+        r["ms"] = t[i]
 
 
 def k2_print(label: str, r: dict) -> None:
@@ -1020,13 +1104,66 @@ def k2_summary(rows) -> dict:
 def k2_design(dev_sched) -> tuple:
     """(levels that launch, CUDA launches) of one K2 backward over a
     schedule, from its plan."""
-    work = [single for live, single in zip(dev_sched.bwd_live,
+    work = [single for live, single in zip(dev_sched.live,
                                            dev_sched.bwd_single) if live]
     return len(work), sum(2 if single else 3 for single in work)
 
 
 #: K2's instantiations in ``bwd_megastep_sm90.cu``: kind by template code.
 K2_KINDS = ("treelstm", "lstm", "gru", "treefc")
+
+
+def sass_counts(lib: str, label: str) -> dict:
+    """Where ``cuobjdump`` is on the machine, the counts in kernel
+    ``lib``'s SASS of the TF32 ``mma.sync`` (``HMMA.1688.F32.TF32``),
+    ``cp.async`` (``LDGSTS``) and ``ldmatrix`` (``LDSM``) the gathered
+    product runs on, each of which it must hold, and of float atomics
+    (``RED``/``ATOM`` on ``.F32``), which it must not; {} without it."""
+    cob = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cob).exists():
+        return {}
+    dump = subprocess.run([cob, "-sass", str(_build.library_path(lib))],
+                          capture_output=True, text=True, timeout=120).stdout
+    sass = {k: dump.count(k) for k in ("HMMA.1688.F32.TF32", "LDGSTS",
+                                       "LDSM")}
+    sass["float atomics"] = len(re.findall(
+        r"\b(?:RED|ATOMG?|ATOMS)\.[A-Z0-9.]*F32", dump))
+    check(all(sass[k] > 0 for k in ("HMMA.1688.F32.TF32", "LDGSTS", "LDSM")),
+          f"{label}'s SASS lacks the tensor-core product's instructions: "
+          f"{sass}")
+    check(sass["float atomics"] == 0, f"{label}'s SASS has float atomics: "
+          f"{sass}")
+    return sass
+
+
+def k1_build_report() -> dict:
+    """What ``nvcc -Xptxas -v`` said of K1's kernels (the product kernel
+    by arity, the leaf kernel): registers and spills, none of which may
+    spill; the product kernel's dynamic shared memory a CTA by arity; and
+    its SASS (``sass_counts``)."""
+    lib = "treelstm_megastep"
+    ptxas, key = {}, None
+    for line in _build.build_log(lib).splitlines():
+        m = re.search(r"Compiling entry function .*k1_(gates|leaf)_kernel"
+                      r"(?:ILi(\d)E)?", line)
+        if m:
+            key = m.group(1) + (f", A {m.group(2)}" if m.group(2) else "")
+        elif key and ("registers" in line or "spill stores" in line):
+            ptxas.setdefault(key, []).append(
+                line.replace("ptxas info    :", "").strip())
+    spills = [k for k, lines in ptxas.items() for ln in lines
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+    check(len(ptxas) == 5, f"K1's ptxas report names {len(ptxas)} kernels")
+    check(not spills, f"K1 spills registers: {spills}")
+    smem_of = ctypes.CDLL(str(_build.library_path(lib))) \
+        .treelstm_megastep_smem_bytes
+    smem = {a: smem_of(a) for a in (1, 2, 3, 4)}
+    sass = sass_counts(lib, "K1")
+    for k, lines in ptxas.items():
+        print(f"treelstm_megastep_sm90.cu, {k}: " + "; ".join(lines))
+    print(f"treelstm_megastep_sm90.cu: dynamic shared memory a product CTA "
+          f"by arity {smem}; SASS {sass or 'not read (no cuobjdump)'}")
+    return {"ptxas": ptxas, "smem": smem, "sass": sass}
 
 
 def k2_build_report() -> dict:
@@ -1058,20 +1195,7 @@ def k2_build_report() -> dict:
             (smem_of(i, a, 0), smem_of(i, a, 1))
             for i, k in enumerate(K2_KINDS)
             for a in ((1, 2, 3, 4) if k == "treelstm" else (1,))}
-    cob = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = {}
-    if Path(cob).exists():
-        dump = subprocess.run([cob, "-sass", str(_build.library_path(lib))],
-                              capture_output=True, text=True,
-                              timeout=120).stdout
-        sass = {"HMMA.1688.F32.TF32": dump.count("HMMA.1688.F32.TF32"),
-                "LDGSTS": dump.count("LDGSTS"), "LDSM": dump.count("LDSM"),
-                "float atomics": len(re.findall(
-                    r"\b(?:RED|ATOMG?|ATOMS)\.[A-Z0-9.]*F32", dump))}
-        check(sass["HMMA.1688.F32.TF32"] > 0, f"K2's SASS has no TF32 "
-              f"mma.sync: {sass}")
-        check(sass["float atomics"] == 0, f"K2's SASS has float atomics: "
-              f"{sass}")
+    sass = sass_counts(lib, "K2")
     for k, lines in ptxas.items():
         print(f"bwd_megastep_sm90.cu, {k}: " + "; ".join(lines))
     print(f"bwd_megastep_sm90.cu: dynamic shared memory a CTA (gates, "
@@ -1102,16 +1226,21 @@ def train_levels_phase() -> dict:
         scatters.append((dst.clone(), idx, rows, plan))
         return inner_sc(dst, idx, rows, plan=plan)
 
+    step = {}
     ops.bwd_megastep, ops.scatter_add_rows = tap_bwd, tap_sc
     try:
-        loss, fused = grads_of(ex, fn, params, b, y, "auto")
+        fwd = tapped_levels(lambda: step.update(
+            out=grads_of(ex, fn, params, b, y, "auto")))
     finally:
         ops.bwd_megastep, ops.scatter_add_rows = inner_bwd, inner_sc
+    loss, fused = step["out"]
     T, M = b.sched.T, b.sched.M
+    check(len(fwd) == T, f"{len(fwd)} forward levels for T={T}")
     check(len(levels) == T, f"{len(levels)} reverse levels for T={T}")
     check(len(scatters) == 1, f"{len(scatters)} scatters in a fused step")
 
-    torch.set_grad_enabled(False)          # re-runs of the backward's work
+    torch.set_grad_enabled(False)          # re-runs of the step's work
+    k1 = k1_levels(f"the training step's forward (T{T}xM{M})", fwd)
     rows = [k2_level(case, bwd_bound_ms) for case in levels]
     k2_device_ms(rows)
     print(f"train step: T{T}xM{M}, loss {loss:.6f}")
@@ -1167,7 +1296,7 @@ def train_levels_phase() -> dict:
     check(same, "two backward passes of the same step differ")
     print(f"fused vs op-by-op: worst {worst:.3e}; two backward passes "
           f"bitwise equal: {same}")
-    return {"bwd": bwd, "scatter": sc, "fused_vs_none": worst}
+    return {"fwd": k1, "bwd": bwd, "scatter": sc, "fused_vs_none": worst}
 
 
 def train_phase(card: str) -> dict:
@@ -1183,6 +1312,7 @@ def train_phase(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     lm.reset_launches()
     losses, step_s, pack_s, padded, work = [], [], [], 0, [0, 0]
+    fwd_cuda = 0
     t_all = time.perf_counter()
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1190,6 +1320,7 @@ def train_phase(card: str) -> dict:
         b = pipe.pack(graphs, inputs)
         t1 = time.perf_counter()
         work = [x + y for x, y in zip(work, k2_design(b.dev))]
+        fwd_cuda += sum(k1_designed(b.dev.M, live) for live in b.dev.live)
         loss, _acc = ex.train_step(fn, params, opt, b, _labels(labels),
                                    lr(opt.step))
         losses.append(float(loss))         # waits for the step's work
@@ -1198,8 +1329,11 @@ def train_phase(card: str) -> dict:
         padded += b.sched.T
     wall = time.perf_counter() - t_all
     launches = dict(lm.LAUNCHES)
+    k1_cuda = lm.CUDA_LAUNCHES["treelstm_megastep"]
     peak = torch.cuda.max_memory_allocated()
     check(bool(np.isfinite(losses).all()), f"non-finite losses: {losses}")
+    check(k1_cuda == fwd_cuda <= 2 * padded, f"{k1_cuda} K1 CUDA launches, "
+          f"designed {fwd_cuda} (at most 2 a level)")
     check(launches.get("treelstm_bwd_megastep", 0) == work[0],
           f"{launches.get('treelstm_bwd_megastep', 0)} reverse megastep "
           f"launches for {work[0]} levels with a live slot")
@@ -1222,6 +1356,7 @@ def train_phase(card: str) -> dict:
            "pack_p50_ms": float(np.percentile(np.asarray(pack_s) * 1e3, 50)),
            "max_memory_allocated_bytes": int(peak),
            "padded_levels": padded, "launches": launches,
+           "k1_cuda_launches": k1_cuda,
            "cache_hit_rate": stats["hit_rate"],
            "shapes": {f"T{t}xM{m}": n for (t, m, _a, _n), n
                       in pipe.census.counts().items()},
@@ -1240,7 +1375,7 @@ def train_phase(card: str) -> dict:
 
 #: Kernel-name patterns of the profiler breakdowns.
 PROFILE_GROUPS = {
-    "forward megastep (K1, K3-K5)": ("treelstm_megastep_kernel",
+    "forward megastep (K1, K3-K5)": ("k1_gates_kernel", "k1_leaf_kernel",
                                      "cell_megastep_kernel"),
     "K2 reverse megastep": ("k2_gates_kernel", "k2_hgrad_kernel",
                             "k2_runs_kernel"),
@@ -1405,9 +1540,9 @@ def cell_levels_check(kind: str, fn, params, d, ext, h_lo) -> dict:
     fwd, bwd, scatters = [], [], []
     inner = ops.level_megastep, ops.bwd_megastep, ops.scatter_add_rows
 
-    def tap_fwd(k, buf, *args):
+    def tap_fwd(k, buf, *args, **kw):
         fwd.append((k, buf) + args)
-        return inner[0](k, buf, *args)
+        return inner[0](k, buf, *args, **kw)
 
     def tap_bwd(k, g, *args, **kw):
         bwd.append(((k, g.clone()) + args, kw))
@@ -1640,50 +1775,76 @@ def check_scatter(dst, ids, rows, label: str) -> float:
 
 
 #: Spin kernels launched at the start of each profiler session of
-#: ``device_ms_per_call`` and left out of its sum.
+#: ``device_ms`` and left out of its sums.
 PRIMER_LAUNCHES = 8
 
 
-def device_ms_per_call(calls, reps: int = 5, parts=None):
-    """Mean time the card spends per call over ``calls`` (functions that
-    launch work), summed from ``torch.profiler``'s device times.  A K6
-    launch takes less device time than its host launch cost, so CUDA
-    events around back-to-back launches would time the host instead.
-    ``parts``: name → kernel-name patterns; then returns ``(ms, {name:
-    ms of the kernels matching it})``."""
+def device_ms(sets: dict, reps: int = 5) -> dict:
+    """Device ms a call of each of a phase's timed sets, all in ONE
+    ``torch.profiler`` session (one session a set, dozens a run, has left
+    CUPTI recording nothing).  ``sets``: name → a list of calls (functions
+    that launch work), or a dict with ``calls`` and any of ``reps``
+    (default ``reps``), ``parts`` (name → kernel-name patterns; the set's
+    value is then ``(ms, {part: ms})``), ``match`` (count only the kernels
+    whose name holds it) and ``launches`` (the kernels a call launches,
+    where that is known).  A launch shorter than the host's launch cost
+    would be timed by the host with CUDA events, so this sums the card's
+    own times.  The session opens with ``PRIMER_LAUNCHES`` spin kernels
+    (CUPTI can drop a session's first events) and puts one spin kernel
+    before each set and one after the last: a set's events are those
+    between its marks.  A session that lost events is taken again, twice
+    at most: a set must keep every launch where ``launches`` is given,
+    else at least 99 % of one device operation a call (a loss that biases
+    its mean low by as much)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for c in calls:
-        c()
+    specs = {k: v if isinstance(v, dict) else {"calls": v}
+             for k, v in sets.items()}
+    for sp in specs.values():
+        for c in sp["calls"]:
+            c()
     torch.cuda.synchronize()
-    n = reps * len(calls)
-    for _attempt in range(3):
+    lost = ""
+    for attempt in range(3):
+        if attempt:
+            print(f"device_ms: a profiler session lost events ({lost}); "
+                  f"taken again")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            # CUPTI can drop the first few events of a session: a primer
-            # of spin kernels, left out of the sum, takes that loss.
             for _ in range(PRIMER_LAUNCHES):
                 torch.cuda._sleep(1000)
-            for _ in range(reps):
-                for c in calls:
-                    c()
+            for sp in specs.values():
+                torch.cuda._sleep(1000)
+                for _ in range(sp.get("reps", reps)):
+                    for c in sp["calls"]:
+                        c()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        on_card = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and "spin_kernel" not in e.key]
-        # Every call puts at least one operation on the card; a session
-        # that recorded fewer lost events and is taken again, unless it
-        # lost at most 1 % of them, which biases the mean low by as much.
-        seen = sum(e.count for e in on_card)
-        if seen >= n - n // 100:
-            ms = sum(e.self_device_time_total for e in on_card) / 1e3 / n
-            if parts is None:
-                return ms
-            return ms, {k: sum(e.self_device_time_total for e in on_card
-                               if any(p in e.key for p in pats)) / 1e3 / n
-                        for k, pats in parts.items()}
-    fail(f"torch.profiler recorded {seen} device operations for {n} calls "
-         f"in three sessions")
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        if len(marks) < len(specs) + 1:
+            lost = f"{len(marks)} spin kernels for {len(specs) + 1} marks"
+            continue
+        marks = marks[len(marks) - len(specs) - 1:]
+        out = {}
+        for (name, sp), lo, hi in zip(specs.items(), marks, marks[1:]):
+            evs = [e for e in events[lo + 1:hi]
+                   if sp.get("match", "") in e.name]
+            n = sp.get("reps", reps) * len(sp["calls"])
+            want = n * sp["launches"] if "launches" in sp else n - n // 100
+            if len(evs) < want:
+                lost = f"{len(evs)} device operations for {want} ({name})"
+                break
+            ms = sum(e.self_device_time_total for e in evs) / 1e3 / n
+            out[name] = ms if "parts" not in sp else (ms, {
+                k: sum(e.self_device_time_total for e in evs
+                       if any(p in e.name for p in pats)) / 1e3 / n
+                for k, pats in sp["parts"].items()})
+        else:
+            return out
+    fail(f"torch.profiler lost events in three sessions: {lost}")
 
 
 def time_k6(op: str, cases) -> dict:
@@ -1713,9 +1874,9 @@ def time_k6(op: str, cases) -> dict:
         lib.append(lambda d=dl, i=li, r=lr: d.index_copy_(0, i, r))
         bounds.append(k6_bound_ms(ids.numel(), int(live.sum()),
                                   dst.shape[1], dst.element_size()))
-    return {"ms": device_ms_per_call(kern),
-            "plain_ms": device_ms_per_call(plain),
-            "library_ms": device_ms_per_call(lib),
+    t = device_ms({"kernel": kern, "plain": plain, "library": lib})
+    return {"ms": t["kernel"], "plain_ms": t["plain"],
+            "library_ms": t["library"],
             "issue_ms": float(np.mean([time_ms(k, 20, 3)
                                        for k in kern[:4]])),
             "bound_ms": float(np.mean([b[0] for b in bounds])),
@@ -1793,14 +1954,13 @@ def _cont_requests(graphs, inputs):
             for i, (g, x) in enumerate(zip(graphs, inputs))]
 
 
-def tapped_frontier_run(kind, make_engine, reqs) -> dict:
+def frontier_taps(make_engine, reqs) -> tuple:
     """One run of a continuous engine with taps on ``ops.frontier_megastep``
     and ``ops.gather_rows`` that keep, for every ``TAP_EVERY``-th tick, the
     staging block and the pulled-row arena as they were before the tick,
-    and for every row gather its source.  Each kept tick is then re-run
-    through the megastep of ``kind`` and K6b, and each gather through
-    K6a, against their plain versions, and timed beside their bounds and
-    (K6) the library call."""
+    and for the first 24 row gathers their source.  Returns ``(ticks,
+    gathers, engine)``: a tick is ``(snapshot or None, child_ids,
+    child_mask, node_mask, out_ids, ext_ids, weights)``."""
     ticks, gathers = [], []
     inner_f, inner_g = ops.frontier_megastep, ops.gather_rows
 
@@ -1830,15 +1990,26 @@ def tapped_frontier_run(kind, make_engine, reqs) -> dict:
     check(len(ticks) == eng.ticks, f"tapped {len(ticks)} frontier ticks, "
           f"the engine ran {eng.ticks}")
     check(all(r.status == "ok" for r in reqs), "a tapped request failed")
+    return ticks, gathers, eng
+
+
+def tapped_frontier_run(kind, make_engine, reqs) -> dict:
+    """``frontier_taps``, then each kept tick re-run through the megastep
+    of ``kind`` and K6b, and each gather through K6a, against their plain
+    versions, and timed beside their bounds and (K6) the library call."""
+    ticks, gathers, eng = frontier_taps(make_engine, reqs)
     R = eng.num_rows + 1
-    k_rows, s_cases = [], []
+    kw = {"sentinel": R - 1}
+    k_rows, s_cases, kern, plain = [], [], [], []
     worst_k, worst_s, worst_g = 0.0, 0.0, 0.0
     for snap, cids, cmask, nm, out, eids, w in ticks:
         if snap is None:
             continue
         stg, ext = snap
         M = cids.shape[0]
-        kw = {} if kind == "treelstm" else {"sentinel": R - 1}
+        case = (stg, cids, cmask, eids, nm, R, ext, w)
+        if kind == "treelstm":         # K1: repeatability, launches too
+            worst_k = max(worst_k, compare(case, **kw))
         got = lm.MEGASTEPS[kind](stg.clone(), cids, eids, nm, R, ext, *w,
                                  **kw)
         want = ref.level_megastep(kind, stg.clone(), cids, cmask, eids, nm,
@@ -1849,16 +2020,16 @@ def tapped_frontier_run(kind, make_engine, reqs) -> dict:
         check(bitwise_equal(got[:R], stg[:R]),
               f"{kind} megastep changed rows outside its staging block")
         kb, pb = stg.clone(), stg.clone()
-        case = (stg, cids, cmask, eids, nm, R, ext, w)
-        ms = time_ms(lambda: lm.MEGASTEPS[kind](kb, cids, eids, nm, R, ext,
-                                                *w, **kw), 10, 2)
-        plain_ms = time_ms(lambda: ref.level_megastep(
-            kind, pb, cids, cmask, eids, nm, R, ext, w), 10, 2)
+        kern.append(lambda kb=kb, c=case: lm.MEGASTEPS[kind](
+            kb, c[1], c[3], c[4], R, c[6], *c[7], **kw))
+        plain.append(lambda pb=pb, c=case: ref.level_megastep(
+            kind, pb, c[1], c[2], c[3], c[4], R, c[6], c[7]))
         if kind == "treelstm":
             b = bound_ms(case, sentinel=R - 1)
         else:
             b = cell_bound_ms(kind, (kind,) + case, False, sentinel=R - 1)
-        k_rows.append((ms, plain_ms, b[0], b[1], int((nm > 0).sum())))
+        k_rows.append((time_ms(kern[-1], 10, 2), b[0], b[1],
+                       int((nm > 0).sum())))
         staged = got[R:R + M]
         worst_s = max(worst_s, check_scatter(stg[:R], out, staged,
                                              f"{kind} frontier tick"))
@@ -1868,20 +2039,23 @@ def tapped_frontier_run(kind, make_engine, reqs) -> dict:
     check(worst_k <= TOL, f"{kind} frontier megastep disagrees with its "
           f"plain version: max_abs_err {worst_k:.3e} > {TOL}")
     mean = lambda rs, k: float(np.mean([r[k] for r in rs]))  # noqa: E731
+    dev_ms = device_ms({"kernel": kern, "plain": {"calls": plain,
+                                                  "reps": 2}})
     k = {"levels": len(k_rows), "max_abs_err": worst_k,
-         "ms": mean(k_rows, 0), "plain_ms": mean(k_rows, 1),
-         "bound_ms": mean(k_rows, 2),
-         "bound_by": max({r[3] for r in k_rows},
-                         key=lambda by: sum(r[2] for r in k_rows
-                                            if r[3] == by)),
-         "live_lanes": mean(k_rows, 4)}
+         "ms": dev_ms["kernel"], "events_ms": mean(k_rows, 0),
+         "plain_ms": dev_ms["plain"], "bound_ms": mean(k_rows, 1),
+         "bound_by": max({r[2] for r in k_rows},
+                         key=lambda by: sum(r[1] for r in k_rows
+                                            if r[2] == by)),
+         "live_lanes": mean(k_rows, 3)}
     sc = {**time_k6("scatter", s_cases), "max_abs_err": worst_s}
     ga = {**time_k6("gather", gathers), "max_abs_err": worst_g,
           "n_mean": float(np.mean([i.numel() for _s, i in gathers]))}
     print(f"{kind} frontier ticks (every {TAP_EVERY}th of {len(ticks)}, "
           f"{k['live_lanes']:.1f} live lanes of {ticks[0][1].shape[0]} on "
-          f"average): megastep {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} "
-          f"ms, bound {k['bound_ms']:.5f} ms by {k['bound_by']}, "
+          f"average): megastep {k['ms']:.4f} ms device (events "
+          f"{k['events_ms']:.4f}), plain {k['plain_ms']:.4f} ms, bound "
+          f"{k['bound_ms']:.5f} ms by {k['bound_by']}, "
           f"max_abs_err {worst_k:.3e}; device time per call: scatter_rows "
           f"{sc['ms']:.4f} ms, plain {sc['plain_ms']:.4f} ms, index_copy_ "
           f"{sc['library_ms']:.4f} ms, bound {sc['bound_ms']:.5f} ms "
@@ -1933,6 +2107,9 @@ def continuous_tree_phase(card: str) -> dict:
     check(launches == want, f"continuous launches {launches}, designed "
           f"{want} (one megastep and one row scatter a tick, one row "
           f"gather a retiring window)")
+    check(lm.CUDA_LAUNCHES["treelstm_megastep"] == eng.ticks,
+          f"{lm.CUDA_LAUNCHES['treelstm_megastep']} K1 CUDA launches for "
+          f"{eng.ticks} ticks (one a tick: the frontier has no live count)")
     check(tapped["ticks"] == eng.ticks, f"tapped run {tapped['ticks']} "
           f"ticks, main path {eng.ticks}")
     roots = np.stack([r.root_state for r in reqs])
@@ -2249,10 +2426,10 @@ def decode_phase(cell: str, card: str) -> dict:
 
     taps, inner = [], ops.level_megastep
 
-    def tap(k, buf, *args):
+    def tap(k, buf, *args, **kw):
         if eng2.ticks % TAP_EVERY == 0:
             taps.append((buf.clone(),) + args)
-        return inner(k, buf, *args)
+        return inner(k, buf, *args, **kw)
 
     ops.level_megastep = tap
     try:
@@ -2430,8 +2607,8 @@ def gate_timings(name: str, calls) -> dict:
         out["ms"] = float(np.mean([time_ms(k, 10, 2) for k in kern]))
         out["plain_ms"] = float(np.mean([time_ms(p, 10, 2) for p in plain]))
     else:
-        out["ms"] = device_ms_per_call(kern)
-        out["plain_ms"] = device_ms_per_call(plain)
+        t = device_ms({"kernel": kern, "plain": plain})
+        out["ms"], out["plain_ms"] = t["kernel"], t["plain"]
         out["issue_ms"] = float(np.mean([time_ms(k, 20, 3)
                                          for k in kern[:4]]))
     return out
@@ -3044,14 +3221,16 @@ def k11_by_fill(shape) -> dict:
             calls.append((q.to(torch.bfloat16), k, v))
         err = attn_check("decode_attention", calls[0], kw)
         kern = [lambda a=a: decattn.decode_attention(*a, **kw) for a in calls]
+        d = device_ms({
+            "kernel": kern,
+            "sdpa": [sdpa_call("decode_attention", a, kw) for a in calls],
+            "plain": {"calls": [lambda a=a: attn_plain("decode_attention",
+                                                       a, kw)
+                                for a in calls[:8]], "reps": 1}}, reps=3)
         t = {"copies": len(calls), "ns": ns, "max_abs_err": err[0],
              "bound_ms": attn_bound_ms("decode_attention", calls[0], kw)[0],
-             "ms": device_ms_per_call(kern, reps=3)}
-        t["sdpa_ms"] = device_ms_per_call(
-            [sdpa_call("decode_attention", a, kw) for a in calls], reps=3)
-        t["plain_ms"] = device_ms_per_call(
-            [lambda a=a: attn_plain("decode_attention", a, kw)
-             for a in calls[:8]], reps=1)
+             "ms": d["kernel"], "sdpa_ms": d["sdpa"],
+             "plain_ms": d["plain"]}
         out[n] = t
         del calls, kern
         print(f"decode_attention, every slot at {n} of {LM_MAX_LEN} rows "
@@ -3305,15 +3484,16 @@ def attn_timings(name: str, calls) -> dict:
     kern = [lambda a=a, kw=kw: attn_kernel(name)(*a, **kw) for a, kw in calls]
     plain = [lambda a=a, kw=kw: attn_plain(name, a, kw) for a, kw in calls]
     lib = [sdpa_call(name, a, kw) for a, kw in calls]
+    t = device_ms({"kernel": kern, "plain": {"calls": plain, "reps": 1},
+                   "library": lib}, reps=3)
     out = {"timed": len(calls),
            "max_abs_err": max(e[0] for e in errs),
            "max_rel_err": max(e[1] for e in errs),
            "bound_ms": float(np.mean([b[0] for b in bounds])),
            "flops": float(np.mean([b[2] for b in bounds])),
            "bytes": float(np.mean([b[3] for b in bounds])),
-           "ms": device_ms_per_call(kern, reps=3),
-           "plain_ms": device_ms_per_call(plain, reps=1),
-           "library_ms": device_ms_per_call(lib, reps=3),
+           "ms": t["kernel"], "plain_ms": t["plain"],
+           "library_ms": t["library"],
            "issue_ms": float(np.mean([time_ms(k, 5, 1) for k in kern[:8]]))}
     by_ops = sum(b[0] for b in bounds if b[1] == "operations")
     out["bound_by"] = ("operations" if by_ops >= sum(b[0] for b in bounds) / 2
@@ -3439,9 +3619,9 @@ def lm_serving_phase(card: str) -> dict:
     # route before the tf32 kernel) on the same copies.
     k10_calls = kept["flash_attention"]
     with k10_route("simt"):
-        timings["flash_attention"]["simt_bf16_ms"] = device_ms_per_call(
-            [lambda a=a, kw=kw: flash.flash_attention(*a, **kw)
-             for a, kw in k10_calls], reps=1)
+        timings["flash_attention"]["simt_bf16_ms"] = device_ms({"simt": [
+            lambda a=a, kw=kw: flash.flash_attention(*a, **kw)
+            for a, kw in k10_calls]}, reps=1)["simt"]
     del kept
     f32_calls = [(tuple(t.float() for t in a), kw) for a, kw in k10_calls]
     del k10_calls
@@ -3450,11 +3630,18 @@ def lm_serving_phase(card: str) -> dict:
         [attn_bound_ms("flash_attention", a, kw, fp32_fma=True)[0]
          for a, kw in f32_calls]))
     with k10_route("simt"):
-        tf32["simt_ms"] = device_ms_per_call(
-            [lambda a=a, kw=kw: flash.flash_attention(*a, **kw)
-             for a, kw in f32_calls], reps=1)
+        tf32["simt_ms"] = device_ms({"simt": [
+            lambda a=a, kw=kw: flash.flash_attention(*a, **kw)
+            for a, kw in f32_calls]}, reps=1)["simt"]
     del f32_calls
-    k10 = {}
+    k10, k10_sets = {}, {}
+
+    def simt(fn):
+        def call():
+            with k10_route("simt"):
+                fn()
+        return call
+
     for b in buckets:
         toks = torch.ones((1, b), dtype=torch.long, device=DEVICE)
         calls = []
@@ -3473,24 +3660,25 @@ def lm_serving_phase(card: str) -> dict:
             flash.flash_attention = orig
         a, kw = calls[0]
         a32 = tuple(t.float() for t in a)
-        k10[b] = {"ms": device_ms_per_call([lambda: orig(*a, **kw)], 10),
-                  "sdpa_ms": device_ms_per_call(
-                      [sdpa_call("flash_attention", a, kw)], 10),
-                  "bound_ms": attn_bound_ms("flash_attention", a, kw)[0],
-                  "f32_ms": device_ms_per_call([lambda: orig(*a32, **kw)],
-                                               10),
-                  "f32_sdpa_ms": device_ms_per_call(
-                      [sdpa_call("flash_attention", a32, kw)], 10),
+        k10[b] = {"bound_ms": attn_bound_ms("flash_attention", a, kw)[0],
                   "f32_bound_ms": attn_bound_ms("flash_attention", a32,
                                                 kw)[0],
                   "f32_bound_fma_ms": attn_bound_ms(
                       "flash_attention", a32, kw, fp32_fma=True)[0]}
-        with k10_route("simt"):
-            k10[b]["simt_ms"] = device_ms_per_call(
-                [lambda: orig(*a, **kw)], 3)
-            k10[b]["f32_simt_ms"] = device_ms_per_call(
-                [lambda: orig(*a32, **kw)], 3)
-        del calls, a32
+        k10_sets.update({
+            (b, "ms"): [lambda a=a, kw=kw: orig(*a, **kw)],
+            (b, "sdpa_ms"): [sdpa_call("flash_attention", a, kw)],
+            (b, "f32_ms"): [lambda a32=a32, kw=kw: orig(*a32, **kw)],
+            (b, "f32_sdpa_ms"): [sdpa_call("flash_attention", a32, kw)],
+            (b, "simt_ms"): {"calls": [simt(lambda a=a, kw=kw:
+                                            orig(*a, **kw))], "reps": 3},
+            (b, "f32_simt_ms"): {"calls": [simt(lambda a32=a32, kw=kw:
+                                                orig(*a32, **kw))],
+                                 "reps": 3}})
+        del calls
+    for (b, key), ms in device_ms(k10_sets, reps=10).items():
+        k10[b][key] = ms
+    del k10_sets
 
     k11_shape = (LM_SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.dh)
     k11_fills = k11_by_fill(k11_shape)
@@ -3799,25 +3987,28 @@ def k12_edges_check() -> dict:
           f"{worst[0]:.3e}, {worst[1]:.3e} of max |plain|; ops.ssd padded "
           f"and with an initial state within {K12_BARS[torch.float32]} of "
           f"the CPU composition; a backward refused")
-    by_len = {}
+    by_len, sets = {}, {}
     for L in K12_TIMED_LENS:
         a = (*k12_inputs(gen, 1, L, 32, 64, 128, torch.float32),
              min(128, L))
         _b, by, flops, nbytes = k12_bound_ms(a)
+        by_len[L] = {
+            "events_ms": time_ms(lambda: mssd.ssd_chunk_diag(*a), 20, 3),
+            "bound_ms": _b, "bound_by": by, "flops": flops, "bytes": nbytes}
         # 200 rounds: one launch is one profiler event, and a recording
         # may lose 1 % of them.
-        by_len[L] = {
-            "ms": device_ms_per_call([lambda: mssd.ssd_chunk_diag(*a)],
-                                     reps=200),
-            "events_ms": time_ms(lambda: mssd.ssd_chunk_diag(*a), 20, 3),
-            "plain_ms": device_ms_per_call([lambda: k12_plain(a)], reps=3),
-            "bound_ms": _b, "bound_by": by, "flops": flops, "bytes": nbytes}
-        t = by_len[L]
+        sets[L, "ms"] = {"calls": [lambda a=a: mssd.ssd_chunk_diag(*a)],
+                         "reps": 200}
+        sets[L, "plain_ms"] = {"calls": [lambda a=a: k12_plain(a)],
+                               "reps": 3}
+    for (L, key), ms in device_ms(sets).items():
+        by_len[L][key] = ms
+    for L, t in by_len.items():
         print(f"ssd_chunk_scan at {L} tokens: {t['ms']:.4f} ms (device), "
               f"{t['events_ms']:.4f} ms a call back to back (CUDA events), "
               f"plain {t['plain_ms']:.4f} ms (device), bound "
-              f"{t['bound_ms']:.5f} ms by {by} ({flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB)")
+              f"{t['bound_ms']:.5f} ms by {t['bound_by']} "
+              f"({t['flops'] / 1e9:.3f} GFLOP, {t['bytes'] / 1e6:.1f} MB)")
     return {"max_abs_err": worst[0], "max_rel_err": worst[1],
             "by_length": by_len}
 
@@ -3947,10 +4138,11 @@ def mamba_serving_phase(card: str) -> dict:
         "bytes": float(np.mean([b[3] for b in bounds])),
         # Ten rounds: a profiler recording may lose its first few events
         # (one K12 launch is one event); the loss must stay within 1 %.
-        "ms": device_ms_per_call([lambda a=a: mssd.ssd_chunk_diag(*a)
-                                  for a in kept], reps=10),
-        "plain_ms": device_ms_per_call([lambda a=a: k12_plain(a)
-                                        for a in kept], reps=1),
+        **device_ms({
+            "ms": {"calls": [lambda a=a: mssd.ssd_chunk_diag(*a)
+                             for a in kept], "reps": 10},
+            "plain_ms": {"calls": [lambda a=a: k12_plain(a) for a in kept],
+                         "reps": 1}}),
         "bound_by": ("operations" if by_ops >= sum(b[0] for b in bounds) / 2
                      else "bytes")}
     del kept
@@ -4037,6 +4229,7 @@ def main() -> None:
           f"{serve['launches']} launches")
     profile_phase()
     levels = train_levels_phase()
+    k1_build_report()
     k2_build_report()
     train = train_phase(dev["smi"])
     cells = [cell_train_phase(p, dev["smi"]) for p in CELL_PHASES]
@@ -4048,13 +4241,16 @@ def main() -> None:
     lmserve = lm_serving_phase(dev["smi"])
     mamba = mamba_serving_phase(dev["smi"])
     row = {"name": "treelstm_megastep", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/treelstm_megastep.cu",
+           "source": "src/repro_torch/kernels/csrc/treelstm_megastep_sm90.cu",
            "replaces": "src/repro/kernels/level_megastep.py:181",
            "launches": serve["launches"],
-           "max_abs_err": max(kern["max_abs_err"], served["max_abs_err"]),
-           "ms": served["ms"], "plain_ms": served["plain_ms"],
-           "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
-           "library_ms": None}
+           "max_abs_err": max(kern["max_abs_err"], served["max_abs_err"],
+                              levels["fwd"]["max_abs_err"],
+                              cont["megastep"]["max_abs_err"]),
+           "ms": served["ms"], "events_ms": served["events_ms"],
+           "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
+           "bound_by": served["bound_by"],
+           "bound_fma_ms": served["bound_fma_ms"], "library_ms": None}
     bwd, sc = levels["bwd"], levels["scatter"]
     rows = [row, k2_row("treelstm", bwd, train["launches"]), {
         "name": "scatter_add_rows", "route": "cuda",
@@ -4089,6 +4285,15 @@ def main() -> None:
             "bound_ms": part["bound_ms"], "bound_by": "bytes",
             "library_ms": part["library_ms"]})
     rows += opbyop["rows"] + lmserve["rows"] + mamba["rows"]
+    k1 = {"served levels": served, "the training step's levels":
+          levels["fwd"], "the tree frontier": cont["megastep"],
+          f"the synthetic M {M_FULL} level": kern["synthetic"]}
+    for label, part in k1.items():
+        print(f"K1 at {label}: {part['ms']:.4f} ms a launch (device; events "
+              f"{part['events_ms']:.4f}), plain {part['plain_ms']:.4f} ms, "
+              f"bound {part['bound_ms']:.5f} ms by {part['bound_by']}"
+              + (f"; {part['total_ms']:.4f} ms a step"
+                 if "training" in label else ""))
     frontier = {"treelstm_megastep at the tree frontier": cont["megastep"],
                 "lstm_megastep at the chain frontier": chains["megastep"],
                 **{f"{d['kind']}_megastep at a decode tick": d["tick"]

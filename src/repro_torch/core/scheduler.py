@@ -168,7 +168,9 @@ def _megastep_forward(spec: GateSpec, weights, sched: DeviceSchedule,
     for t in range(T):
         kops.level_megastep(spec.kind, buf, sched.child_ids[t],
                             sched.child_mask[t], sched.ext_ids[t],
-                            sched.node_mask[t], t * M, ext, weights)
+                            sched.node_mask[t], t * M, ext, weights,
+                            live=None if sched.live is None
+                            else sched.live[t])
     return buf
 
 
@@ -179,8 +181,8 @@ def _level_runs(sched: DeviceSchedule, t: int) -> Dict[str, Any]:
     names = ("sort_perm", "sorted_child_ids", "run_head")
     kw = {k: None if getattr(sched, k) is None else getattr(sched, k)[t]
           for k in names}
-    if sched.bwd_live is not None:
-        kw.update(live=sched.bwd_live[t], single=sched.bwd_single[t],
+    if sched.bwd_single is not None:
+        kw.update(live=sched.live[t], single=sched.bwd_single[t],
                   heads=sched.bwd_heads[t])
     return kw
 

@@ -265,20 +265,21 @@ class LevelSchedule:
 
     def to_device(self, device="cuda") -> "DeviceSchedule":
         """Copy the schedule to ``device`` (index tensors stay int32,
-        the width the kernels take).  A schedule with the backward's
+        the width the kernels take), with each level's live slot count
+        (:func:`level_live`, host values).  A schedule with the backward's
         sorted runs also gets its scatter-add plans
-        (:meth:`scatter_plans`), built once here for every step that
-        reuses the device schedule."""
+        (:meth:`scatter_plans`) and the reverse megastep's plans
+        (:meth:`bwd_plans`), built once here for every step that reuses
+        the device schedule."""
         def _t(x):
             return None if x is None else torch.from_numpy(
                 np.ascontiguousarray(x)).to(device)
 
         ext_plan, child_plans = (None, None) if self.sort_perm is None \
             else self.scatter_plans(device)
-        live = single = heads = None
+        single = heads = None
         if self.sort_perm is not None:
             plans = self.bwd_plans()
-            live = tuple(p[0] for p in plans)
             single = tuple(p[1] for p in plans)
             heads = _on_device([p[2] for p in plans], device)
         return DeviceSchedule(
@@ -294,7 +295,8 @@ class LevelSchedule:
             run_head=_t(self.run_head),
             ext_plan=ext_plan,
             child_plans=child_plans,
-            bwd_live=live,
+            live=tuple(int(n) for n in level_live(self.child_ids,
+                                                  self.sentinel_slot)),
             bwd_single=single,
             bwd_heads=heads,
         )
@@ -331,11 +333,14 @@ class DeviceSchedule:
     # on schedules without the sorted runs.
     ext_plan: Optional["ScatterPlan"] = None
     child_plans: Optional[Tuple["ScatterPlan", ...]] = None
-    # The reverse megastep's per-level plans (LevelSchedule.bwd_plans):
-    # the live slot count and the one-contribution flag as host values,
+    # Each level's live slot count (level_live) as host values: the grid
+    # of the forward megastep's product (K1) and of the reverse megastep
+    # (K2).  ``to_device`` sets it on every schedule.
+    live: Optional[Tuple[int, ...]] = None
+    # The rest of the reverse megastep's per-level plans
+    # (LevelSchedule.bwd_plans): the one-contribution flag as host values,
     # and the run heads of a level with several contributions to a row
     # (``None`` elsewhere); ``None`` on schedules without the sorted runs.
-    bwd_live: Optional[Tuple[int, ...]] = None
     bwd_single: Optional[Tuple[bool, ...]] = None
     bwd_heads: Optional[Tuple[Optional[torch.Tensor], ...]] = None
 
@@ -520,6 +525,15 @@ def _sorted_runs(child_ids: np.ndarray
     return perm, scids, head
 
 
+def level_live(child_ids: np.ndarray, sentinel: int) -> np.ndarray:
+    """One past the last slot with a child other than ``sentinel``, for
+    each level of ``child_ids`` (``[..., M, A]``; 0 where no slot has
+    one): the slots the megasteps' products cover."""
+    has = (np.asarray(child_ids) != sentinel).any(axis=-1)
+    last = has.shape[-1] - np.argmax(has[..., ::-1], axis=-1)
+    return np.where(has.any(axis=-1), last, 0)
+
+
 def level_bwd_plan(child_ids: np.ndarray, sentinel: int,
                    sorted_child_ids: Optional[np.ndarray] = None
                    ) -> Tuple[int, bool, Optional[np.ndarray]]:
@@ -527,8 +541,7 @@ def level_bwd_plan(child_ids: np.ndarray, sentinel: int,
     absent children at ``sentinel``, the largest row), read from the data
     alone:
 
-      - ``live``: one past the last slot with a child other than the
-        sentinel (0 when no slot has one); the kernel's grid covers
+      - ``live``: :func:`level_live`; the kernel's grid covers
         ``[0, live)``;
       - ``single``: every destination row other than the sentinel
         receives one contribution (``run_head`` all ones up to the
@@ -542,8 +555,7 @@ def level_bwd_plan(child_ids: np.ndarray, sentinel: int,
     ``sorted_child_ids``: the level's flat child ids in stable sorted
     order (the schedule's), else sorted here."""
     cids = np.asarray(child_ids)
-    has = (cids != sentinel).any(axis=1)
-    live = int(np.flatnonzero(has)[-1]) + 1 if has.any() else 0
+    live = int(level_live(cids, sentinel))
     scids = np.sort(cids.reshape(-1), kind="stable") \
         if sorted_child_ids is None else np.asarray(sorted_child_ids)
     n = int(np.count_nonzero(scids != sentinel))

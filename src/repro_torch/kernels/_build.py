@@ -6,9 +6,9 @@ interface (no PyTorch headers: seconds to build, not minutes), and
 loaded with ``ctypes``.  A source may hold several kernels' entry points
 (``KERNELS`` maps each kernel to its source); its library is built once.
 Libraries go to ``<checkout>/build/kernels/``, named by the hash of
-their source, of every shared header (``csrc/*.cuh``) and of the
-compiler flags, so an edited source or header is rebuilt and a stale
-library is never loaded.  :func:`build_all` starts one ``nvcc`` per
+their source, of the shared headers (``csrc/*.cuh``) it includes and of
+the compiler flags, so an edited source or header rebuilds the libraries
+that read it, and a stale library is never loaded.  :func:`build_all` starts one ``nvcc`` per
 missing library, all at once, and waits for every one.  A failed build
 raises; nothing falls back.
 """
@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -37,8 +38,8 @@ _CELL_FWD = [_P] * 7 + [_I] * 7 + [_P]
 _BWD = [_P] * 12 + [_I] * 13 + [_P, _P]
 KERNELS: Dict[str, Tuple[str, str, List]] = {
     "treelstm_megastep": (
-        "treelstm_megastep.cu", "treelstm_megastep_launch",
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        "treelstm_megastep_sm90.cu", "treelstm_megastep_sm90_launch",
+        [_P] * 7 + [_I] * 9 + [_P, _P]),
     "scatter_add_rows": (
         "scatter_add_rows.cu", "scatter_add_rows_launch",
         [_P] * 6 + [_I] * 4 + [_L] * 2 + [_P]),
@@ -96,11 +97,27 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def includes(path: Path) -> List[Path]:
+    """The headers of ``csrc/`` that ``path`` includes, directly or through
+    another of them, in sorted order."""
+    seen, todo = set(), [path]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_bytes()):
+            header = _CSRC / name.decode()
+            if header.is_file() and header not in seen:
+                seen.add(header)
+                todo.append(header)
+    return sorted(seen)
+
+
 def library_path(name: str) -> Path:
     """The library that holds kernel ``name``'s entry point."""
     src = _CSRC / KERNELS[name][0]
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(_CSRC.glob("*.cuh")):
+    for header in includes(src):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{src.stem}-{h.hexdigest()[:12]}.so"

@@ -53,8 +53,10 @@
 //       16; 64 for treefc, whose product has one lane) recomputes every
 //       gate lane of its columns -- X . W with X the gathered child rows
 //       (treelstm: hsum for the i/o/u lanes and each h_k for its f lane,
-//       one lane product per child) -- then runs the column-local
-//       cotangent math and writes the gate cotangents to the workspace.
+//       one lane product per child), the `Product` of
+//       gathered_product.cuh that the forward K1 runs too -- then runs the
+//       column-local cotangent math and writes the gate cotangents to the
+//       workspace.
 //       The c half of the child cotangent (treelstm, lstm) is column-local
 //       too: with one contribution a row it is added into g here, g[dest]
 //       = g[dest] + c, the single fp32 add a sorted run of one makes;
@@ -70,7 +72,7 @@
 // Filling the card: a level of Var-LSTM/GRU (128 slots) is 2 row tiles;
 // a Tree-LSTM level has tens of tiles.  So both products are split over
 // their depth (split-K) across a thread-block cluster of s = 1, 2, 4 or 8
-// CTAs, chosen by the host (level_megastep_bwd.py `k2_split`): about
+// CTAs, chosen by the host (level_megastep.py `k2_split`): about
 // eight warps an SM, then more while each rank keeps at least 8 chunks
 // and the launch at most sixteen warps an SM.  Rank r takes the chunks
 // [r n / s, (r+1) n / s) of the n chunks of BK = 32 along the depth.
@@ -113,40 +115,22 @@
 // 1.6 as TF32 products: 3.3 us, bound by operations; Tree-FC's level 1
 // (8,192 slots, A 2) 17 GFLOP: 0.104 ms.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "gathered_product.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
-
-constexpr int BM = 64;          // slots a tile
-constexpr int BK = 32;          // depth of a staged chunk
-constexpr int NSTAGE = 3;       // chunks in the ring
-constexpr int MAX_SPLIT = 8;    // the portable cluster size
-constexpr int MAX_A = 4;        // largest arity taken
-constexpr int LDA = BK + 4;     // floats a staged A/B row (4 mod 32)
 constexpr int NT_RUN = 128;     // threads of a run CTA
 
 enum Kind { TREELSTM = 0, LSTM = 1, GRU = 2, TREEFC = 3 };
 
-struct Args {
+struct Args : Level {
   float* g;
-  const float* buf;
-  const int* cid;
-  const int* eid;
-  const float* nm;
-  const float* ext;
-  const float* w;
-  const float* bias;
   const int* sort_perm;
   const int* scid;
   const int* heads;
   float* ws;
-  int M, A, H, offset, sentinel, live, single, nruns, split_a, split_b, wide;
-  long long g_stride, buf_stride, ext_stride;
+  int single, nruns, split_a, split_b;
+  long long g_stride;
 };
 
 // Shapes of one kind.  TA: the arity the treelstm kernels are built for
@@ -162,30 +146,27 @@ template <int KIND, int TA>
 struct Cfg {
   static constexpr int NQ = KIND == GRU ? 3 : (KIND == TREEFC ? 1 : 4);
   static constexpr int SW = (KIND == GRU || KIND == TREEFC) ? 1 : 2;
-  // Threads a CTA and 16-row blocks a warp (level_megastep_bwd.py
-  // K2_WARPS_A, K2_WARPS_B): pass (b) and treelstm's pass (a) run eight warps of 16
-  // slots x half the tile's columns; the other kinds' pass (a) four warps
-  // of 32 slots, twice the products for each operand split, and twice
-  // the CTAs a launch (measured on an H100: PERF.md §6).
+  // Threads a CTA (level_megastep_bwd.py K2_WARPS_A, K2_WARPS_B): pass
+  // (b) and treelstm's pass (a) run eight warps of 16 slots x half the
+  // tile's columns; the other kinds' pass (a) four warps of 32 slots,
+  // twice the products for each operand split, and twice the CTAs a
+  // launch (measured on an H100: PERF.md §6).
   static constexpr int NTA = KIND == TREELSTM ? 256 : 128;
-  static constexpr int MBA = BM / 16 / (NTA / 64);
   static constexpr int NTB = 256;
   static constexpr int MBB = BM / 16 / (NTB / 64);
-  // pass (a)
+  // pass (a): the gathered product of gathered_product.cuh, treelstm's in
+  // its child-sum shape (the f lane, 1, on each child's h).
   static constexpr int BJ = KIND == TREEFC ? 64 : 16;
-  static constexpr int JB = BJ / 16;       // n8 blocks a warp, per lane
-  static constexpr int NXA = KIND == TREELSTM ? TA : 1;
-  static constexpr int NACC = KIND == TREELSTM ? 3 + TA : NQ;
-  static constexpr int LDW = BJ + 8;       // 8 mod 32
-  static constexpr int STAGE_A = NXA * BM * LDA + NQ * BK * LDW;
-  static constexpr int LDPA = NACC * BJ + 4;
+  using ProdA = Product<NTA, KIND == TREELSTM ? TA : 1, NQ,
+                        KIND == TREELSTM ? 1 : -1, BJ>;
+  static constexpr int NACC = ProdA::NACC;
   static constexpr int NCH = KIND == TREELSTM ? TA : (KIND == TREEFC ? 0 : 1);
   static constexpr int NDA = KIND == TREELSTM ? TA : (KIND == LSTM ? MAX_A : 0);
   static constexpr int SIDE_A = (NQ + SW + NCH + NDA) * BJ;  // floats a row
-  static constexpr int P_A = BM * LDPA;
+  static constexpr int P_A = ProdA::P;
   static constexpr int END_A = P_A + BM * SIDE_A + NQ * BJ;
   static constexpr int SMEM_A =
-      4 * (NSTAGE * STAGE_A > END_A ? NSTAGE * STAGE_A : END_A);
+      4 * (ProdA::RING > END_A ? ProdA::RING : END_A);
   // pass (b)
   static constexpr int BN = KIND == TREELSTM ? 32 : 64;
   static constexpr int NB = BN / 16;       // n8 blocks a warp
@@ -202,155 +183,6 @@ struct Cfg {
   static constexpr int SMEM_B =
       4 * (NSTAGE * STAGE_B > END_B ? NSTAGE * STAGE_B : END_B);
 };
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Copies of 16 (or 4) bytes into shared memory; `in` false zero-fills.
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x4 blocks of 32-bit values (8x8 of b16) from shared memory.
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// x = big + small as TF32 operands (flash_attention_tf32.cu): big is
-// cvt.rna.tf32.f32(x) as two integer instructions; small = x - big is
-// exact in f32, rounded by the same add (the mma ignores an operand's 13
-// low bits).
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
-}
-
-// c += a b: a 16x8 TF32 (row), b 8x8 TF32 (col), c 16x8 fp32.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The three TF32 products of one k-step: small.big, big.small, big.big.
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ag)[4],
-                                     const uint32_t (&as)[4],
-                                     const uint32_t (&bg)[2],
-                                     const uint32_t (&bs)[2]) {
-  mma(c, as, bg[0], bg[1]);
-  mma(c, ag, bs[0], bs[1]);
-  mma(c, ag, bg[0], bg[1]);
-}
-
-__device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&g)[4],
-                                       uint32_t (&s)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) split(v[e], g[e], s[e]);
-}
-
-// A shared-memory address of this CTA as the same address in CTA `rank`
-// of the cluster, and a load from such an address.
-__device__ __forceinline__ uint32_t map_rank(const void* p, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(smem_addr(p)), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ float ld_cluster(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
-  return v;
-}
-
-// Rows [0, rows) of a tile of COLS floats a row into `dst` (LD floats a
-// row): columns [c, c + 4) (or element c) of row r from ptr(r, c)
-// (nullptr: zeros), columns at and past `cvalid` zero-filled.
-// `fallback` is a readable address for the copies that read nothing.
-template <int NT, int COLS, int LD, typename F>
-__device__ __forceinline__ void stage(float* dst, int rows, int cvalid,
-                                      bool wide, const float* fallback,
-                                      F ptr) {
-  const uint32_t base = smem_addr(dst);
-  if (wide) {
-    constexpr int CPR = COLS / 4;
-    for (int i = threadIdx.x; i < rows * CPR; i += NT) {
-      const int r = i / CPR, c = 4 * (i - r * CPR);
-      const float* p = c < cvalid ? ptr(r, c) : nullptr;
-      cp16(base + 4 * (r * LD + c), p ? p : fallback, p != nullptr);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * COLS; i += NT) {
-      const int r = i / COLS, c = i - r * COLS;
-      const float* p = c < cvalid ? ptr(r, c) : nullptr;
-      cp4(base + 4 * (r * LD + c), p ? p : fallback, p != nullptr);
-    }
-  }
-}
-
-// The sum over the cluster's s ranks, in rank order, of the float at
-// `off` bytes into each rank's partial tile (`pb`: its address in each
-// rank); every load is issued before the first add.
-__device__ __forceinline__ float rank_sum(const uint32_t (&pb)[MAX_SPLIT],
-                                          uint32_t off, int s) {
-  float v[MAX_SPLIT];
-#pragma unroll
-  for (int r = 0; r < MAX_SPLIT; ++r)
-    v[r] = r < s ? ld_cluster(pb[r] + off) : 0.0f;
-  float sum = v[0];
-#pragma unroll
-  for (int r = 1; r < MAX_SPLIT; ++r)
-    if (r < s) sum += v[r];
-  return sum;
-}
-
-// Loads the tile's child rows (-1 for the sentinel or a slot at or past
-// `live`), node mask and ext rows; returns whether a slot of the tile has a child
-// other than the sentinel.  Every thread of the CTA must call it.
-template <int NT>
-__device__ __forceinline__ int load_ids(int (*cid_s)[BM], float* nm_s,
-                                        int* eid_s, const Args& a, int m0) {
-  for (int i = threadIdx.x; i < BM * a.A; i += NT) {
-    const int m = i / a.A, x = i - m * a.A, gm = m0 + m;
-    const int row = gm < a.live ? a.cid[(size_t)gm * a.A + x] : a.sentinel;
-    cid_s[x][m] = row == a.sentinel ? -1 : row;
-  }
-  for (int i = threadIdx.x; i < BM; i += NT) {
-    nm_s[i] = m0 + i < a.M ? a.nm[m0 + i] : 0.0f;
-    eid_s[i] = m0 + i < a.live ? a.eid[m0 + i] : 0;
-  }
-  __syncthreads();
-  int kid = 0;
-  if (threadIdx.x < BM)
-    for (int x = 0; x < a.A; ++x) kid |= cid_s[x][threadIdx.x] >= 0;
-  return __syncthreads_or(kid);
-}
 
 // The workspace of one kind (level_megastep_bwd.py `workspace_numel`):
 // d, the gate cotangents [M, 3H | 4H | 3H | H]; df, treelstm's per-child
@@ -470,11 +302,13 @@ __device__ __forceinline__ void epilogue_a(const Args& a, const Ws& ws,
 }
 
 // Pass (a): recompute the gates of a tile of BM slots x BJ columns, its
-// depth split over the cluster; the cotangent epilogue.
+// depth split over the cluster (the gathered product); the cotangent
+// epilogue.
 template <int KIND, int TA>
 __global__ void __launch_bounds__(Cfg<KIND, TA>::NTA)
     k2_gates_kernel(const Args a) {
   using C = Cfg<KIND, TA>;
+  using Prod = typename C::ProdA;
   extern __shared__ __align__(128) float smem[];
   __shared__ int cid_s[MAX_A][BM];
   __shared__ float nm_s[BM];
@@ -492,132 +326,27 @@ __global__ void __launch_bounds__(Cfg<KIND, TA>::NTA)
   const int c_lo = rank * nc / s, c_hi = (rank + 1) * nc / s;
   const bool wide = a.wide != 0;
   const int wrow = KIND == TREEFC ? H : C::NQ * H;  // floats a W row
-
-  auto issue = [&](int c) {
-    if (c < c_hi) {
-      const int seg = c / cps, k0 = (c - seg * cps) * BK;
-      float* sx = smem + ((c - c_lo) % NSTAGE) * C::STAGE_A;
-      float* sw = sx + C::NXA * BM * LDA;
-#pragma unroll
-      for (int xi = 0; xi < C::NXA; ++xi) {
-        const int child = KIND == TREELSTM ? xi : (KIND == TREEFC ? seg : 0);
-        // The h half of a [c | h] row (treelstm, lstm); gru's and
-        // treefc's rows are h alone.
-        const int col = (KIND == LSTM || KIND == TREELSTM ? H : 0) + k0;
-        const int* ids = cid_s[child];
-        stage<C::NTA, BK, LDA>(sx + xi * BM * LDA, BM, H - k0, wide, a.buf,
-                       [&](int r, int cc) -> const float* {
-                         const int id = ids[r];
-                         return id >= 0 ? a.buf + (size_t)id * a.buf_stride
-                                              + col + cc : nullptr;
-                       });
-      }
-      const int wr0 = (KIND == TREEFC ? seg * H : 0) + k0;
-#pragma unroll
-      for (int q = 0; q < C::NQ; ++q) {
-        const float* wq = a.w + q * H + j0;
-        stage<C::NTA, C::BJ, C::LDW>(sw + q * BK * C::LDW, BK, H - j0, wide, a.w,
-                             [&](int r, int cc) -> const float* {
-                               return k0 + r < H
-                                   ? wq + (size_t)(wr0 + r) * wrow + cc
-                                   : nullptr;
-                             });
-      }
-    }
-    cp_commit();
-  };
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, t = lane & 3;
-  const int rw0 = 16 * C::MBA * (warp >> 1);
-  const int jw0 = (warp & 1) * (C::BJ / 2);
-  // ldmatrix: rows (lane & 7) + 8 ((lane >> 3) & 1) at column 4 (lane >> 4)
-  // give a0..a3 of a 16-row block.
-  const int aoff = ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDA + 4 * (lane >> 4);
-
-  float acc[C::NACC][C::MBA][C::JB][4];
-#pragma unroll
-  for (int q = 0; q < C::NACC; ++q)
-#pragma unroll
-    for (int mb = 0; mb < C::MBA; ++mb)
-#pragma unroll
-      for (int jb = 0; jb < C::JB; ++jb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[q][mb][jb][e] = 0.0f;
-
-  issue(c_lo);
-  issue(c_lo + 1);
-  for (int c = c_lo; c < c_hi; ++c) {
-    cp_wait<NSTAGE - 2>();               // chunk c has landed
-    __syncthreads();                     // and every warp is done with c - 1
-    issue(c + 2);
-    const float* sx = smem + ((c - c_lo) % NSTAGE) * C::STAGE_A;
-    const float* sw = sx + C::NXA * BM * LDA;
-    const uint32_t xaddr = smem_addr(sx) + 4 * aoff;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      uint32_t bg[C::NQ][C::JB][2], bs[C::NQ][C::JB][2];
-#pragma unroll
-      for (int q = 0; q < C::NQ; ++q)
-#pragma unroll
-        for (int jb = 0; jb < C::JB; ++jb) {
-          const float* p = sw + q * BK * C::LDW + (kk + t) * C::LDW + jw0 +
-                           8 * jb + gq;
-          split(p[0], bg[q][jb][0], bs[q][jb][0]);
-          split(p[4 * C::LDW], bg[q][jb][1], bs[q][jb][1]);
-        }
-#pragma unroll
-      for (int mb = 0; mb < C::MBA; ++mb) {
-        if (m0 + rw0 + 16 * mb >= a.live) continue;   // rows of no slot
-        const uint32_t ra = xaddr + 4 * ((rw0 + 16 * mb) * LDA + kk);
-        if constexpr (KIND == TREELSTM) {
-          // Each child's rows feed its f lane; their sum, in child order,
-          // feeds the i, o and u lanes.
-          float hs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-          for (int xi = 0; xi < TA; ++xi) {
-            uint32_t r[4], ag[4], as[4];
-            ldsm_x4(ra + 4 * xi * BM * LDA, r);
-            float v[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              v[e] = __uint_as_float(r[e]);
-              hs[e] = xi == 0 ? v[e] : hs[e] + v[e];
-            }
-            split4(v, ag, as);
-#pragma unroll
-            for (int jb = 0; jb < C::JB; ++jb)
-              mma3(acc[3 + xi][mb][jb], ag, as, bg[1][jb], bs[1][jb]);
-          }
-          uint32_t hg[4], hsm[4];
-          split4(hs, hg, hsm);
-#pragma unroll
-          for (int jb = 0; jb < C::JB; ++jb) {
-            mma3(acc[0][mb][jb], hg, hsm, bg[0][jb], bs[0][jb]);
-            mma3(acc[1][mb][jb], hg, hsm, bg[2][jb], bs[2][jb]);
-            mma3(acc[2][mb][jb], hg, hsm, bg[3][jb], bs[3][jb]);
-          }
-        } else {
-          uint32_t r[4], ag[4], as[4];
-          ldsm_x4(ra, r);
-          float v[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) v[e] = __uint_as_float(r[e]);
-          split4(v, ag, as);
-#pragma unroll
-          for (int q = 0; q < C::NQ; ++q)
-#pragma unroll
-            for (int jb = 0; jb < C::JB; ++jb)
-              mma3(acc[q][mb][jb], ag, as, bg[q][jb], bs[q][jb]);
-        }
-      }
-    }
-  }
-  cp_wait<0>();                          // no copy outlives the loop
-  __syncthreads();
+  // The h half of a [c | h] row (treelstm, lstm); gru's and treefc's rows
+  // are h alone.  Treelstm's operand x is child x; treefc's segment seg
+  // reads child seg against wc's rows [seg H, (seg + 1) H).
+  const int col = KIND == LSTM || KIND == TREELSTM ? H : 0;
+  Prod prod;
+  prod.run(smem, c_lo, c_hi, cps, H, H - j0, a.live - m0, wide, a.buf, a.w,
+           [&](int x, int seg, int r) -> const float* {
+             const int id =
+                 cid_s[KIND == TREELSTM ? x : (KIND == TREEFC ? seg : 0)][r];
+             return id >= 0 ? a.buf + (size_t)id * a.buf_stride + col
+                            : nullptr;
+           },
+           [&](int q, int seg) -> const float* {
+             return a.w + (size_t)(KIND == TREEFC ? seg * H : 0) * wrow +
+                    q * H + j0;
+           },
+           wrow);
 
   // The epilogue's inputs for this rank's rows, past the partial tile:
   // in flight while the partials are stored and the cluster meets.
+  const int tid = threadIdx.x;
   const int rows = BM / s, r0 = rank * rows;
   float* side = smem + C::P_A;
   float* sbias = side + BM * C::SIDE_A;
@@ -672,21 +401,7 @@ __global__ void __launch_bounds__(Cfg<KIND, TA>::NTA)
     cp_commit();
   }
 
-  // The partial tile, lane-major columns: P[row][q * BJ + jj].
-  float* P = smem;
-#pragma unroll
-  for (int q = 0; q < C::NACC; ++q)
-#pragma unroll
-    for (int mb = 0; mb < C::MBA; ++mb)
-#pragma unroll
-      for (int jb = 0; jb < C::JB; ++jb) {
-        const int row = rw0 + 16 * mb + gq;
-        const int col = q * C::BJ + jw0 + 8 * jb + 2 * t;
-        *reinterpret_cast<float2*>(P + row * C::LDPA + col) =
-            make_float2(acc[q][mb][jb][0], acc[q][mb][jb][1]);
-        *reinterpret_cast<float2*>(P + (row + 8) * C::LDPA + col) =
-            make_float2(acc[q][mb][jb][2], acc[q][mb][jb][3]);
-      }
+  prod.store(smem);
   cluster.sync();
   cp_wait<0>();                          // the side rows have landed
   __syncthreads();
@@ -694,8 +409,7 @@ __global__ void __launch_bounds__(Cfg<KIND, TA>::NTA)
   // Rank r: rows [r BM / s, (r + 1) BM / s) summed over the ranks in rank
   // order, then the epilogue.
   uint32_t pb[MAX_SPLIT];
-#pragma unroll
-  for (int r = 0; r < MAX_SPLIT; ++r) pb[r] = map_rank(P, r < s ? r : 0);
+  rank_bases(smem, s, pb);
   const Ws ws = workspace<KIND>(a);
   for (int i = tid; i < rows * C::BJ; i += C::NTA) {
     const int rr = i / C::BJ, jj = i % C::BJ;
@@ -703,8 +417,7 @@ __global__ void __launch_bounds__(Cfg<KIND, TA>::NTA)
     if (gm >= a.live || j >= H) continue;
     float v[C::NACC];
 #pragma unroll
-    for (int q = 0; q < C::NACC; ++q)
-      v[q] = rank_sum(pb, 4 * (row * C::LDPA + q * C::BJ + jj), s);
+    for (int q = 0; q < C::NACC; ++q) v[q] = Prod::value(pb, row, q, jj, s);
     epilogue_a<KIND, TA>(a, ws, v, cid_s, row, gm, j, jj, nm_s[row],
                          side + rr * C::SIDE_A, sbias);
   }
@@ -917,8 +630,7 @@ __global__ void __launch_bounds__(Cfg<KIND, TA>::NTB)
   __syncthreads();
 
   uint32_t pb[MAX_SPLIT];
-#pragma unroll
-  for (int r = 0; r < MAX_SPLIT; ++r) pb[r] = map_rank(P, r < s ? r : 0);
+  rank_bases(P, s, pb);
   auto reduce = [&](int plane, int row, int nn) {
     return rank_sum(pb, 4 * ((plane * BM + row) * C::LDPB + nn), s);
   };
@@ -979,26 +691,6 @@ k2_runs_kernel(float* __restrict__ g, long long g_stride,
   }
 }
 
-template <typename K>
-cudaError_t launch_cluster(K kern, dim3 grid, int threads, int cluster_x,
-                           int smem, const Args& a, cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster_x;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, a);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
 template <int KIND, int TA>
 int launch(const Args& a, cudaStream_t stream, int* launches) {
   using C = Cfg<KIND, TA>;
@@ -1040,10 +732,6 @@ int launch(const Args& a, cudaStream_t stream, int* launches) {
     ++*launches;
   }
   return 0;
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <int KIND>

@@ -1,8 +1,8 @@
 // The register-tiled fp32 gate product shared by the forward megasteps of
-// kinds lstm, gru and treefc (cell_megastep.cu), by the gate recompute of
-// their reverse megasteps (cell_bwd_megastep.cu) and by the fused LSTM
+// kinds lstm, gru and treefc (cell_megastep.cu) and by the fused LSTM
 // level step (lstm_level_fused.cu); the gate kernels (cell_gates.cu) use
-// its sigmoid and type conversions.  Hopper (sm_90a), CUDA cores, no TF32
+// its sigmoid and type conversions.  (The reverse megasteps run the
+// tensor-core product of gathered_product.cuh instead.)  Hopper (sm_90a), CUDA cores, no TF32
 // (the 1e-4 fp32 bar).
 //
 // A block owns a tile of BM slots x BN hidden columns.  For hidden column

@@ -3,8 +3,12 @@
 Port of the forward kernels of ``repro.kernels.level_megastep``, one
 wrapper per megastep kind (``GateSpec.kind``):
 
-  :func:`treelstm_megastep` (``csrc/treelstm_megastep.cu``) — the N-ary
-    child-sum Tree-LSTM level (K1);
+  :func:`treelstm_megastep` (``csrc/treelstm_megastep_sm90.cu``) — the
+    N-ary child-sum Tree-LSTM level (K1): its products on the TF32 tensor
+    cores, only for the slots with children (``live``), their depth split
+    over a cluster sized by :func:`k1_split`; the gathered product is
+    ``csrc/gathered_product.cuh``, the one the reverse megastep's pass (a)
+    runs too;
   :func:`lstm_megastep`, :func:`gru_megastep`, :func:`treefc_megastep`
     (``csrc/cell_megastep.cu``) — the arity-1 LSTM and GRU levels and
     the Tree-FC level (K3, K4, K5).
@@ -23,9 +27,11 @@ The wrappers take CUDA tensors only: they launch the kernel or raise.
 The choice of the plain version for CPU tensors is made once, in
 :func:`repro_torch.kernels.ops.level_megastep`.  ``LAUNCHES`` counts
 kernel launches (and nothing else), so a run can show that it went
-through the kernel; :func:`require_cuda`, :func:`check_arg` and
-:func:`launch_kernel` are shared with the backward's wrappers
-(``level_megastep_bwd.py``).
+through the kernel, and ``CUDA_LAUNCHES`` the CUDA launches of a
+wrapper whose call makes more than one; :func:`require_cuda`,
+:func:`check_arg`, :func:`launch_kernel` and the depth split of the
+gathered product (:func:`k2_split`, :func:`k2_chunks`) are shared with
+the backward's wrappers (``level_megastep_bwd.py``).
 
 The module also holds the analytic backward of one megastep
 (:func:`level_bwd`, :func:`level_param_grads`) in plain PyTorch, as the
@@ -36,6 +42,7 @@ scheduler's flat lazily batched parameter-gradient pass.
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -45,6 +52,9 @@ from repro_torch.kernels import _build
 
 #: kernel name → launches of that kernel in this process.
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+#: kernel name → the CUDA launches its counted calls made, for K1, whose
+#: call (one level) makes one or two.
+CUDA_LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 #: Largest arity the kernels take.
 MAX_ARITY = 4
@@ -79,6 +89,63 @@ def cell_hidden(kind: str, w: torch.Tensor, A: int) -> int:
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    CUDA_LAUNCHES.clear()
+
+
+# ---------------------------------------------------------------------------
+# The gathered product's tiles and depth split (``csrc/gathered_product.cuh``),
+# shared by K1 and K2's pass (a)
+# ---------------------------------------------------------------------------
+
+#: Slots a tile, depth of a staged chunk, the largest cluster splitting a
+#: depth (``BM``, ``BK``, ``MAX_SPLIT`` in ``csrc/gathered_product.cuh``).
+K2_BM, K2_BK, K2_MAX_SPLIT = 64, 32, 8
+#: K1's hidden columns a tile and warps a CTA (``BJ``, ``NT`` in
+#: ``csrc/treelstm_megastep_sm90.cu``): K2's treelstm pass (a) tile.
+K1_BJ, K1_WARPS = 16, 8
+
+
+def k2_split(tiles: int, chunks: int, sms: int, warps: int) -> int:
+    """CTAs of a cluster splitting a product's depth, a power of two up to
+    ``K2_MAX_SPLIT`` and the product's chunks: the least that gives the
+    launch about eight warps an SM (``sms``; 90 % of them), then twice
+    that while the launch keeps at most sixteen warps an SM and each rank
+    at least 8 chunks (below that the split's partials and the cluster's
+    reduce cost more than they save; measured on an H100, PERF.md §6).
+    Rank ``r`` of ``s`` takes chunks ``[r n / s, (r + 1) n / s)``
+    (:func:`k2_chunks`)."""
+    s = 1
+    while s < K2_MAX_SPLIT and 10 * tiles * s * warps < 72 * sms \
+            and 2 * s <= chunks:
+        s *= 2
+    while s < K2_MAX_SPLIT and 2 * tiles * s * warps <= 16 * sms \
+            and chunks >= 16 * s:
+        s *= 2
+    return s
+
+
+def k2_chunks(rank: int, s: int, n: int) -> range:
+    """The chunks of a product's ``n`` that rank ``rank`` of ``s`` takes."""
+    return range(rank * n // s, (rank + 1) * n // s)
+
+
+def k1_grid(live: int, H: int) -> Tuple[int, int, int]:
+    """``(tiles, chunks, warps)`` of K1's product over a level's ``live``
+    slots: its CTA tiles of ``K2_BM`` slots x ``K1_BJ`` columns, the
+    chunks of ``K2_BK`` along its depth H, and the warps of a CTA."""
+    return (-(-live // K2_BM) * -(-H // K1_BJ), -(-H // K2_BK), K1_WARPS)
+
+
+def k1_split(live: int, H: int, sms: int) -> int:
+    """The depth split of K1's product over ``live`` slots on a card of
+    ``sms`` SMs (:func:`k2_split` on its tiles and chunks); 1 where there
+    is no product."""
+    return k2_split(*k1_grid(live, H)[:2], sms, K1_WARPS) if live else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def packed_recurrent(ui: torch.Tensor, uf: torch.Tensor, uo: torch.Tensor,
@@ -143,23 +210,52 @@ def launch_kernel(name: str, device: torch.device, *args,
         LAUNCHES[key] += 1
 
 
+def block_rows(op: str, R: int, M: int, offset: int,
+               sentinel: Optional[int]) -> Tuple[int, int]:
+    """``(offset, sentinel)`` of a forward megastep writing rows
+    ``[offset, offset+M)`` of a buffer of ``R`` rows whose absent children
+    point at ``sentinel`` (default: the last row); raises unless both lie
+    in the buffer and the block does not cover the sentinel (it may lie
+    past it: the continuous engine's staging block)."""
+    offset = int(offset)
+    sentinel = R - 1 if sentinel is None else int(sentinel)
+    if not 0 <= sentinel < R:
+        raise ValueError(f"{op}: sentinel row {sentinel} outside a buffer "
+                         f"of {R} rows")
+    if offset < 0 or offset + M > R or offset <= sentinel < offset + M:
+        raise ValueError(f"{op}: rows [{offset}, {offset + M}) outside a "
+                         f"buffer of {R} rows or over its sentinel row "
+                         f"{sentinel}")
+    return offset, sentinel
+
+
 def treelstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
                       ext_ids: torch.Tensor, node_mask: torch.Tensor,
                       offset: int, ext: torch.Tensor, ui: torch.Tensor,
                       uf: torch.Tensor, uo: torch.Tensor, uu: torch.Tensor,
-                      b: torch.Tensor) -> torch.Tensor:
-    """One fused N-ary child-sum Tree-LSTM batching task, in place.
+                      b: torch.Tensor, *, sentinel: Optional[int] = None,
+                      live: Optional[int] = None) -> torch.Tensor:
+    """One fused N-ary child-sum Tree-LSTM batching task, in place (K1).
 
     ``buf``: ``[T*M+1, 2H]`` float32 node-state buffer; ``child_ids``:
-    ``[M, A]`` int32 buffer rows (absent children at the zero sentinel);
-    ``ext_ids``: ``[M]`` int32 rows of ``ext`` (``[R+1, 4H]``, the hoisted
-    projection); ``node_mask``: ``[M]`` float32; ``offset``: first row
-    written.  Returns ``buf``.
+    ``[M, A]`` int32 buffer rows (absent children at the zero row
+    ``sentinel``, default the last); ``ext_ids``: ``[M]`` int32 rows of
+    ``ext`` (``[R+1, 4H]``, the hoisted projection); ``node_mask``:
+    ``[M]`` float32; ``offset``: first row written, the block not over
+    the sentinel.  ``live``: one past the last slot with a child other
+    than the sentinel (the schedule's ``DeviceSchedule.live``, a host
+    value); the product runs over ``[0, live)`` and the leaf launch over
+    ``[live, M)``.  Without it the product's grid covers every slot, and a
+    tile with no child takes the leaf formula on the card: nothing is
+    copied from the card to find out.  Padding slots are written as
+    zeros.  One count in ``LAUNCHES``, one or two in ``CUDA_LAUNCHES``.
+    Returns ``buf``.
     """
     op = "treelstm_megastep"
     require_cuda(op, buf)
     M, A = child_ids.shape
     H = ui.shape[0]
+    R = buf.shape[0]
     dev = buf.device
     _check = functools.partial(check_arg, op)
     _check("buf", buf, torch.float32, (buf.shape[0], 2 * H), dev)
@@ -173,14 +269,17 @@ def treelstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
     if not 1 <= A <= MAX_ARITY:
         raise NotImplementedError(
             f"treelstm_megastep: arity {A} outside 1..{MAX_ARITY}")
-    offset = int(offset)
-    if offset < 0 or offset + M > buf.shape[0]:
-        raise ValueError(f"treelstm_megastep: rows [{offset}, {offset + M})"
-                         f" outside a buffer of {buf.shape[0]} rows")
+    offset, sentinel = block_rows(op, R, M, offset, sentinel)
+    live = M if live is None else int(live)
+    if not 0 <= live <= M:
+        raise ValueError(f"{op}: live={live} outside [0, {M}]")
+    n = ctypes.c_int(0)
     launch_kernel(op, dev, buf.data_ptr(), child_ids.data_ptr(),
                   ext_ids.data_ptr(), node_mask.data_ptr(), ext.data_ptr(),
-                  w.data_ptr(), b.data_ptr(), M, A, H, offset,
-                  buf.stride(0), ext.stride(0))
+                  w.data_ptr(), b.data_ptr(), M, A, H, offset, sentinel,
+                  buf.stride(0), ext.stride(0), live,
+                  k1_split(live, H, _sm_count(dev)), ctypes.addressof(n))
+    CUDA_LAUNCHES[op] += n.value
     return buf
 
 
@@ -206,15 +305,7 @@ def _cell_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
     _check("b", b, torch.float32, (G,), dev)
     if not 1 <= A <= MAX_ARITY:
         raise NotImplementedError(f"{op}: arity {A} outside 1..{MAX_ARITY}")
-    offset = int(offset)
-    sentinel = R - 1 if sentinel is None else int(sentinel)
-    if not 0 <= sentinel < R:
-        raise ValueError(f"{op}: sentinel row {sentinel} outside a buffer "
-                         f"of {R} rows")
-    if offset < 0 or offset + M > R or offset <= sentinel < offset + M:
-        raise ValueError(f"{op}: rows [{offset}, {offset + M}) outside a "
-                         f"buffer of {R} rows or over its sentinel row "
-                         f"{sentinel}")
+    offset, sentinel = block_rows(op, R, M, offset, sentinel)
     launch_kernel(op, dev, buf.data_ptr(), child_ids.data_ptr(),
                   ext_ids.data_ptr(), node_mask.data_ptr(), ext.data_ptr(),
                   w.data_ptr(), b.data_ptr(), M, A, H, offset, sentinel,
@@ -269,9 +360,8 @@ def treefc_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
 
 
 #: megastep kind → its kernel's wrapper, all called as
-#: ``fn(buf, child_ids, ext_ids, node_mask, offset, ext, *weights)``; the
-#: ``lstm``/``gru``/``treefc`` ones also take ``sentinel=`` (K1 reads the
-#: sentinel's zeros and needs none).
+#: ``fn(buf, child_ids, ext_ids, node_mask, offset, ext, *weights,
+#: sentinel=...)``; K1's also takes ``live=``.
 MEGASTEPS = {"treelstm": treelstm_megastep, "lstm": lstm_megastep,
              "gru": gru_megastep, "treefc": treefc_megastep}
 

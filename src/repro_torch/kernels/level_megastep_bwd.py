@@ -38,9 +38,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.structure import ScatterPlan, level_bwd_plan
-from repro_torch.kernels.level_megastep import (LAUNCHES, MAX_ARITY,
+from repro_torch.kernels.level_megastep import (K2_BK, K2_BM, LAUNCHES,
+                                                MAX_ARITY, _sm_count,
                                                 cell_hidden, check_arg,
-                                                launch_kernel,
+                                                k2_split, launch_kernel,
                                                 packed_recurrent,
                                                 require_cuda, widths)
 
@@ -51,12 +52,10 @@ from repro_torch.kernels.level_megastep import (LAUNCHES, MAX_ARITY,
 SCATTER_STRIPE = 128
 
 
-#: K2's tile: slots a tile, depth of a staged chunk, the largest cluster
-#: splitting a depth (``BM``, ``BK``, ``MAX_SPLIT`` in
-#: ``csrc/bwd_megastep_sm90.cu``).
-K2_BM, K2_BK, K2_MAX_SPLIT = 64, 32, 8
-#: Hidden columns a pass (a) tile, output columns a pass (b) tile, and
-#: pass (b)'s depth in segments of H, by kind (``Cfg`` there).
+#: K2's tiles are ``K2_BM`` slots, its chunks ``K2_BK`` deep, the
+#: gathered product's (``level_megastep``); by kind, the hidden columns a
+#: pass (a) tile, the output columns a pass (b) tile, and pass (b)'s depth
+#: in segments of H (``Cfg`` in ``csrc/bwd_megastep_sm90.cu``).
 K2_BJ = {"treelstm": 16, "lstm": 16, "gru": 16, "treefc": 64}
 K2_BN = {"treelstm": 32, "lstm": 64, "gru": 64, "treefc": 64}
 K2_SEGS = {"treelstm": 4, "lstm": 4, "gru": 3, "treefc": 1}
@@ -81,40 +80,11 @@ def k2_grid(kind: str, live: int, A: int, H: int):
              K2_WARPS_B))
 
 
-def k2_split(tiles: int, chunks: int, sms: int, warps: int) -> int:
-    """CTAs of a cluster splitting a pass's depth, a power of two up to
-    ``K2_MAX_SPLIT`` and the pass's chunks: the least that gives the
-    launch about eight warps an SM (``sms``; 90 % of them), then twice
-    that while the launch keeps at most sixteen warps an SM and each rank
-    at least 8 chunks (below that the split's partials and the cluster's
-    reduce cost more than they save; measured on an H100, PERF.md §6).
-    Rank ``r`` of ``s`` takes chunks ``[r n / s, (r + 1) n / s)``
-    (:func:`k2_chunks`)."""
-    s = 1
-    while s < K2_MAX_SPLIT and 10 * tiles * s * warps < 72 * sms \
-            and 2 * s <= chunks:
-        s *= 2
-    while s < K2_MAX_SPLIT and 2 * tiles * s * warps <= 16 * sms \
-            and chunks >= 16 * s:
-        s *= 2
-    return s
-
-
 def k2_splits(kind: str, live: int, A: int, H: int, sms: int) -> tuple:
     """The depth splits of K2's two passes over a level with ``live``
     live slots, on a card of ``sms`` SMs."""
     return tuple(k2_split(tiles, chunks, sms, warps)
                  for tiles, chunks, warps in k2_grid(kind, live, A, H))
-
-
-def k2_chunks(rank: int, s: int, n: int) -> range:
-    """The chunks of a pass's ``n`` that rank ``rank`` of ``s`` takes."""
-    return range(rank * n // s, (rank + 1) * n // s)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def workspace_numel(kind: str, M: int, A: int, H: int) -> int:
@@ -172,7 +142,7 @@ def bwd_megastep(kind: str, g: torch.Tensor, buf: torch.Tensor,
     ``workspace``: see :func:`bwd_workspace`; allocated here when omitted.
     ``live`` / ``single`` / ``heads``: the level's
     :func:`~repro_torch.core.structure.level_bwd_plan` (``DeviceSchedule.
-    bwd_live`` / ``bwd_single`` / ``bwd_heads``, host values but
+    live`` / ``bwd_single`` / ``bwd_heads``, host values but
     ``heads``, on ``g``'s device).  Without them the plan is built here
     from ``child_ids`` and ``sorted_child_ids`` copied to the host, which
     waits for the card.  A level with no live slot launches nothing.

@@ -90,11 +90,15 @@ def lstm_level_fused(h_prev: torch.Tensor, c_prev: torch.Tensor,
 def level_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
                    child_mask: torch.Tensor, ext_ids: torch.Tensor,
                    node_mask: torch.Tensor, offset: int, ext: torch.Tensor,
-                   weights: Tuple[torch.Tensor, ...]) -> torch.Tensor:
-    """One fused batching task: gather child rows out of ``buf``, run the
-    declared gate math, write rows ``[offset, offset+M)`` in place.
-    Returns ``buf``.  ``kind``/``weights`` come from the cell's
-    ``GateSpec``."""
+                   weights: Tuple[torch.Tensor, ...], *,
+                   live: Optional[int] = None) -> torch.Tensor:
+    """One fused batching task: gather child rows out of ``buf`` (its last
+    row the zero sentinel), run the declared gate math, write rows
+    ``[offset, offset+M)`` in place.  Returns ``buf``.  ``kind``/
+    ``weights`` come from the cell's ``GateSpec``.  ``live``: the level's
+    live slot count (``DeviceSchedule.live``), which the card's
+    ``treelstm`` kernel (K1) reads; K3-K5 cover every slot, and the plain
+    version ignores it."""
     if not buf.is_cuda:
         _tick("level_megastep", "ref")
         return ref.level_megastep(kind, buf, child_ids, child_mask, ext_ids,
@@ -103,7 +107,9 @@ def level_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
     if kernel is None:
         raise ValueError(f"unknown megastep gate kind: {kind!r}")
     _tick("level_megastep", "cuda")
-    return kernel(buf, child_ids, ext_ids, node_mask, offset, ext, *weights)
+    kw = {"live": live} if kind == "treelstm" else {}
+    return kernel(buf, child_ids, ext_ids, node_mask, offset, ext, *weights,
+                  **kw)
 
 
 def frontier_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
@@ -152,10 +158,9 @@ def frontier_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
                          f"are buf")
     if ext_ids is None:
         ext_ids = torch.arange(M, dtype=torch.int32, device=buf.device)
-    sentinel = {} if kind == "treelstm" else {"sentinel": R - 1}
     _tick("frontier_megastep", "cuda")
     kernel(staging, child_ids, ext_ids, node_mask, R, rows, *weights,
-           **sentinel)
+           sentinel=R - 1)
     return gsc.scatter_rows(buf, out_ids, staging[R:R + M])
 
 

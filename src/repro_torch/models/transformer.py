@@ -44,13 +44,16 @@ Params = Dict[str, Any]
 #: "ssm"}}``, every leaf ``[B, ...]``.
 Cache = List[Dict[str, Any]]
 
-#: What this port does not run yet, and the ROADMAP.md item that ports it.
+#: What this port does not run yet: the reference's code it is to port
+#: (ROADMAP.md queue 1 has the item).
 NOT_PORTED = {
-    "mla": "queue 1, item 3c (MLA through K11 at head dim 576)",
-    "moe": "queue 1, item 3b (MoE and the hybrid/MoE configs)",
-    "cross": "queue 1, item 9 (cross-attention and encoder-decoder LMs)",
-    "enc_dec": "queue 1, item 9 (cross-attention and encoder-decoder LMs)",
+    "mla": "repro/models/attention.py mla_* (MLA, with K11 at head dim 576)",
+    "moe": "repro/models/moe.py (MoE and the hybrid/MoE configs)",
+    "cross": "repro/models/attention.py cross_* and "
+             "repro/models/transformer.py TransformerLM.encode "
+             "(cross-attention and encoder-decoder LMs)",
 }
+NOT_PORTED["enc_dec"] = NOT_PORTED["cross"]
 
 
 def _attn_dims(cfg: ArchConfig) -> attn.AttnDims:
@@ -80,9 +83,11 @@ def check_ported(cfg: ArchConfig, desc: BlockDesc) -> None:
                  "cross" if desc.cross else None,
                  "enc_dec" if cfg.enc_dec else None):
         if what is not None:
+            port = NOT_PORTED.get(what)
             raise NotImplementedError(
-                f"{cfg.name}: {what!r} blocks are not ported yet "
-                f"(ROADMAP.md {NOT_PORTED.get(what, 'queue 1')})")
+                f"{cfg.name}: {what!r} blocks are not ported yet ("
+                + (f"the reference's {port}; " if port else "")
+                + "ROADMAP.md queue 1)")
 
 
 # ---------------------------------------------------------------------------

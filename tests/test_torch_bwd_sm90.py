@@ -114,13 +114,13 @@ def rank_sums(segs, H: int, s: int, planes: int, split3=True):
     are dealt to ``s`` ranks by ``k2_chunks``; each rank sums its chunks'
     k-steps of 8 into a zero partial a plane; the partials are added in
     rank order.  Returns the plane sums."""
-    bk = lmb.K2_BK
+    bk = lm.K2_BK
     chunks = [(seg, k0) for seg in range(len(segs)) for k0 in range(0, H, bk)]
     rows, cols = segs[0][0][1].shape[0], segs[0][0][2].shape[1]
     total = None
     for r in range(s):
         part = [torch.zeros(rows, cols) for _ in range(planes)]
-        for c in lmb.k2_chunks(r, s, len(chunks)):
+        for c in lm.k2_chunks(r, s, len(chunks)):
             seg, k0 = chunks[c]
             for plane, a, b in segs[seg]:
                 for k in range(k0, min(k0 + bk, H), 8):
@@ -450,7 +450,7 @@ def test_to_device_carries_the_plans():
     s = _schedule("dags")
     d = s.to_device("cpu")
     plans = s.bwd_plans()
-    assert d.bwd_live == tuple(p[0] for p in plans)
+    assert d.live == tuple(p[0] for p in plans)
     assert d.bwd_single == tuple(p[1] for p in plans)
     for (_l, single, heads), h in zip(plans, d.bwd_heads):
         if single:
@@ -458,7 +458,7 @@ def test_to_device_carries_the_plans():
         else:
             assert h.dtype == torch.int32 and h.tolist() == heads.tolist()
     plain = pack_batch([chain(4)], with_runs=False).to_device("cpu")
-    assert plain.bwd_live is None and plain.bwd_heads is None
+    assert plain.bwd_single is None and plain.bwd_heads is None
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -482,7 +482,7 @@ def test_split_fills_the_card(kind):
                         assert tiles * s * warps <= 16 * SMS
                         assert chunks >= 8 * s
                     dealt = [c for r in range(s)
-                             for c in lmb.k2_chunks(r, s, chunks)]
+                             for c in lm.k2_chunks(r, s, chunks)]
                     assert dealt == list(range(chunks))
     # A Var-LSTM / GRU level (128 slots, H 512): 2 row tiles, yet both
     # passes launch at least 512 warps (pass (b) at the cap of 8: 16 tiles
@@ -530,12 +530,12 @@ def test_wrapper_passes_the_plan_and_counts_launches(name, monkeypatch):
         kw = _level_runs(d, t)
         lmb.bwd_megastep("treelstm", g, buf, d.child_ids[t], d.ext_ids[t],
                          d.node_mask[t], t * s.M, ext, w, **kw)
-    work = [t for t in range(s.T) if d.bwd_live[t] > 0]
+    work = [t for t in range(s.T) if d.live[t] > 0]
     assert [a[15] for _op, a in calls] == [t * s.M for t in work]  # offsets
     cuda = 0
     for t, (_op, a) in zip(work, calls):
         live, single, nruns, sa, sb = a[20:25]
-        assert (live, bool(single)) == (d.bwd_live[t], d.bwd_single[t])
+        assert (live, bool(single)) == (d.live[t], d.bwd_single[t])
         assert (a[10] is None) == single
         assert nruns == (0 if single else d.bwd_heads[t].numel() - 1)
         assert (sa, sb) == lmb.k2_splits("treelstm", live, s.A, H, SMS)

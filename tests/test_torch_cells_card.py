@@ -130,7 +130,7 @@ def test_forward_and_reverse_kernels_match_plain_on_card(kind, family, h,
         assert _rel(got, want) <= TOL, ("forward", t)
         assert _rel(gotb, wantb) <= TOL, ("reverse", t)
         assert torch.equal(_bits(gotb), _bits(again)), t
-        live, single = d.bwd_live[t], d.bwd_single[t]
+        live, single = d.live[t], d.bwd_single[t]
         assert made == (0 if live == 0 else 2 if single else 3), t
         keep = torch.ones(buf.shape[0], dtype=torch.bool, device="cuda")
         keep[t * s.M:(t + 1) * s.M] = False
@@ -142,7 +142,7 @@ def test_forward_and_reverse_kernels_match_plain_on_card(kind, family, h,
         if not bool(d.node_mask[t].any()):        # an all-padding level
             assert not bool(got[t * s.M:(t + 1) * s.M].any())
     assert lm.LAUNCHES[f"{kind}_megastep"] == s.T
-    work = sum(1 for live in d.bwd_live if live)
+    work = sum(1 for live in d.live if live)
     assert lm.LAUNCHES[f"{kind}_bwd_megastep"] == 2 * work
     if family == "dag":
         assert not all(d.bwd_single), "no level with a run of several"
@@ -219,7 +219,7 @@ def test_training_gradients_repeat_bitwise_and_match_opbyop(kind):
     d = s.to_device("cuda")
     lm.reset_launches()
     first = _grads(fn, params, d, ext, cot, "auto")
-    work = sum(1 for live in d.bwd_live if live)
+    work = sum(1 for live in d.live if live)
     assert lm.LAUNCHES[f"{kind}_megastep"] == s.T
     assert lm.LAUNCHES[f"{kind}_bwd_megastep"] == work
     assert lm.LAUNCHES[f"{kind}_bwd_megastep.cuda_launches"] == 2 * work

@@ -183,6 +183,7 @@ def recorder(monkeypatch):
     monkeypatch.setattr(gsc, "launch_kernel", rec)
     monkeypatch.setattr(lm, "require_cuda", lambda op, t: None)
     monkeypatch.setattr(lm, "launch_kernel", rec)
+    monkeypatch.setattr(lm, "_sm_count", lambda dev: 132)   # K1's split
     lm.reset_launches()
     yield rec
     lm.reset_launches()
@@ -387,7 +388,7 @@ def test_staged_composition_launches_megastep_then_scatter(kind, recorder,
     """The card's leg of ``ops.frontier_megastep``, run on CPU tensors
     with the launches recorded: the level megastep writes the frontier's
     states into the staging block at offset R (the arena's sentinel, row
-    R-1, passed to the cell kinds), then the row scatter routes the
+    R-1, passed to every kind), then the row scatter routes the
     staged rows to ``out_ids`` — two launches; a staging tensor that does
     not start with the arena raises."""
     jfn, tfn, p, case = _frontier_case(kind, 0)
@@ -403,10 +404,7 @@ def test_staged_composition_launches_megastep_then_scatter(kind, recorder,
     (mname, margs), (sname, sargs) = recorder.calls
     assert mname == f"{kind}_megastep" and sname == "scatter_rows"
     assert margs[0] == staging.data_ptr()
-    if kind == "treelstm":
-        assert margs[10] == R                             # offset
-    else:
-        assert margs[10:12] == (R, R - 1)                 # offset, sentinel
+    assert margs[10:12] == (R, R - 1)                     # offset, sentinel
     assert sargs[0] == arena.data_ptr()
     assert sargs[1] == staging[R:R + M].data_ptr()
     assert sargs[3:5] == (M, R)

@@ -4,7 +4,11 @@ version (``repro_torch.kernels.ref.level_megastep``) against JAX
 ``treelstm_megastep`` in interpret mode, plus the port's dispatch rules.
 The hand-written CUDA kernel itself is held against the plain version
 by the ``gpu``-marked tests, which skip where there is no card (and need
-no JAX: the GPU machine has none, so the JAX tests skip there).
+no JAX: the GPU machine has none, so the JAX tests skip there): the
+schedules' levels, and ``EDGE_LEVELS`` (live counts at and across a
+tile's edge, leaves only, all padding, no live count), which
+``tests/test_torch_fwd_sm90.py`` also feeds to its emulation of the
+kernel.
 
 Tolerance: 1e-5 on the CPU (same fp32 math, summation order differs
 only inside the matmuls); 1e-4 for the kernel on the card, the
@@ -89,6 +93,56 @@ def _torch_args(c, device="cpu"):
 
 CASES = [("tree", 0, 1), ("tree", 1, 2), ("dag", 2, 1), ("dag", 3, 3),
          ("tree", 4, 0)]
+
+
+#: K1's edge levels: name → (M, live, real slots, child slot ranges);
+#: live None: the level is given no live count (the continuous
+#: frontier's case).  Tiles are 64 slots, so 63, 64 and 65 cross a tile's
+#: edge and "gap_tile" has a tile of no child between two with children.
+EDGE_LEVELS = {
+    "leaves": (70, 0, 60, ()),
+    "all_padding": (70, 0, 0, ()),
+    "live1": (70, 1, 70, ((0, 1),)),
+    "live63": (130, 63, 130, ((0, 63),)),
+    "live64": (130, 64, 130, ((0, 64),)),
+    "live65": (130, 65, 100, ((0, 65),)),
+    "liveM": (130, 130, 130, ((0, 130),)),
+    "gap_tile": (130, 130, 130, ((0, 10), (128, 130))),
+    "no_live_count": (130, None, 120, ((0, 20), (70, 90))),
+}
+
+
+def edge_level(name, a, h, seed=0):
+    """NumPy level ``name`` of ``EDGE_LEVELS`` at offset ``off`` of a
+    buffer whose rows below hold the children and whose last row is the
+    zero sentinel: slots in the child ranges get ``a`` children (a fifth
+    of them the sentinel, never all of a slot's), the first ``real`` slots
+    are real, the rest padding (ext rows at the zero sentinel row);
+    ``params`` as ``_case``'s."""
+    M, live, real, ranges = EDGE_LEVELS[name]
+    rng = np.random.default_rng(seed + 1000 * a + h)
+    off = 3 * M
+    R = off + M + 1
+    buf = (rng.standard_normal((R, 2 * h)) * 0.5).astype(np.float32)
+    buf[R - 1] = 0.0
+    cids = np.full((M, a), R - 1, np.int32)
+    for lo, hi in ranges:
+        cids[lo:hi] = rng.integers(0, off, size=(hi - lo, a))
+        miss = rng.random((hi - lo, a)) < 0.2
+        miss[:, 0] = False
+        cids[lo:hi][miss] = R - 1
+    n_ext = M + 8
+    ext = (rng.standard_normal((n_ext + 1, 4 * h)) * 0.5).astype(np.float32)
+    ext[n_ext] = 0.0
+    eids = rng.integers(0, n_ext, size=M).astype(np.int32)
+    eids[real:] = n_ext
+    nm = np.zeros(M, np.float32)
+    nm[:real] = 1.0
+    p = {k: (rng.standard_normal((h, h)) * h ** -0.5).astype(np.float32)
+         for k in ("ui", "uf", "uo", "uu")}
+    p["b"] = (rng.standard_normal(4 * h) * 0.1).astype(np.float32)
+    return dict(buf=buf, cids=cids, cmask=(cids != R - 1).astype(np.float32),
+                eids=eids, nmask=nm, off=off, ext=ext, params=p, live=live)
 
 
 @pytest.mark.parametrize("kind,seed,level", CASES)
@@ -214,6 +268,80 @@ def test_kernel_matches_plain_on_card(kind, seed, level):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("a,h", [(1, 72), (2, 72), (3, 5), (4, 72),
+                                 (2, 512)])
+@pytest.mark.parametrize("name", list(EDGE_LEVELS))
+def test_kernel_edge_levels_on_card(name, a, h):
+    """Every edge level through K1 with its live count: within the card's
+    bar of the plain version, two launches bitwise equal, rows outside
+    the block (the sentinel among them) bit-unchanged, and the CUDA
+    launches the design makes: the product where a slot has a child, the
+    leaf launch where the slots past ``live`` are, never more than 2."""
+    _need_card()
+    c = edge_level(name, a, h)
+    buf, cids, cmask, eids, nmask, off, ext, w = _torch_args(c, "cuda")
+    M = cids.shape[0]
+    live = M if c["live"] is None else c["live"]
+    want = tref.level_megastep("treelstm", buf.clone(), cids, cmask, eids,
+                               nmask, off, ext, w)
+    lm.reset_launches()
+    got = lm.treelstm_megastep(buf.clone(), cids, eids, nmask, off, ext, *w,
+                               live=c["live"])
+    made = lm.CUDA_LAUNCHES["treelstm_megastep"]
+    again = lm.treelstm_megastep(buf.clone(), cids, eids, nmask, off, ext,
+                                 *w, live=c["live"])
+    torch.cuda.synchronize()
+    assert lm.LAUNCHES["treelstm_megastep"] == 2
+    assert made == (live > 0) + (live < M) <= 2
+    assert float((got - want).abs().max()) <= CARD_TOL
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    keep = torch.ones(buf.shape[0], dtype=torch.bool, device="cuda")
+    keep[off:off + M] = False
+    assert torch.equal(got[keep].view(torch.int32),
+                       buf[keep].view(torch.int32))
+    pad = c["nmask"] == 0
+    assert not got[off:off + M][torch.from_numpy(pad).cuda()].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,seed", [("tree", 9), ("dag", 10)])
+def test_kernel_with_the_schedules_live_counts_on_card(kind, seed):
+    """Each level of a packed schedule with the live count ``to_device``
+    gives it, as the scheduler launches it: within the bar, and at most
+    two CUDA launches a level."""
+    _need_card()
+    rng = np.random.default_rng(seed)
+    graphs = [random_binary_tree(int(rng.integers(2, 40)), rng)
+              if kind == "tree" else
+              random_dag(int(rng.integers(4, 30)), rng, max_arity=3)
+              for _ in range(12)]
+    s = pack_batch(graphs, with_runs=False, pad_width=256)
+    d = s.to_device("cuda")
+    H = 72
+    R = s.T * s.M + 1
+    g = torch.Generator().manual_seed(seed)
+    buf = (torch.randn(R, 2 * H, generator=g) * 0.5).cuda()
+    buf[R - 1] = 0.0
+    ext = (torch.randn(s.K * s.N + 1, 4 * H, generator=g) * 0.5).cuda()
+    ext[-1] = 0.0
+    p = params_from_jax({k: (rng.standard_normal((H, H)) * H ** -0.5)
+                         .astype(np.float32) for k in ("ui", "uf", "uo", "uu")}
+                        | {"b": (rng.standard_normal(4 * H) * 0.1)
+                           .astype(np.float32)}, "cuda")
+    w = tuple(p[k] for k in ("ui", "uf", "uo", "uu", "b"))
+    for t in range(s.T):
+        args = (d.child_ids[t], d.ext_ids[t], d.node_mask[t], t * s.M, ext)
+        want = tref.level_megastep("treelstm", buf.clone(), args[0],
+                                   d.child_mask[t], *args[1:], w)
+        lm.reset_launches()
+        got = lm.treelstm_megastep(buf.clone(), *args, *w, live=d.live[t])
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= CARD_TOL, t
+        assert lm.CUDA_LAUNCHES["treelstm_megastep"] == \
+            (d.live[t] > 0) + (d.live[t] < s.M)
+
+
+@pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take():
     _need_card()
     c = _case("tree", 8)
@@ -224,3 +352,9 @@ def test_kernel_refuses_what_it_does_not_take():
         lm.treelstm_megastep(buf, cids.long(), eids, nmask, off, ext, *w)
     with pytest.raises(ValueError):
         lm.treelstm_megastep(buf, cids, eids, nmask, buf.shape[0], ext, *w)
+    with pytest.raises(ValueError, match="live"):
+        lm.treelstm_megastep(buf, cids, eids, nmask, off, ext, *w,
+                             live=cids.shape[0] + 1)
+    with pytest.raises(ValueError, match="sentinel"):
+        lm.treelstm_megastep(buf, cids, eids, nmask, off, ext, *w,
+                             sentinel=off)

@@ -345,8 +345,9 @@ def test_kind_widths_and_the_treefc_weight_check():
 def test_build_table_covers_every_kind(tmp_path, monkeypatch):
     """Each kind has a forward and a reverse kernel; kernels that share a
     source share its library; the library's name covers the shared
-    headers, so an edited header is never served by a stale library; and
-    a build that fails raises instead of falling back."""
+    headers its source includes, so an edited header is never served by a
+    stale library and rebuilds no library that does not read it; and a
+    build that fails raises instead of falling back."""
     for kind in ("treelstm", "lstm", "gru", "treefc"):
         for name in (f"{kind}_megastep", f"{kind}_bwd_megastep"):
             src = _build.KERNELS[name][0]
@@ -362,10 +363,20 @@ def test_build_table_covers_every_kind(tmp_path, monkeypatch):
             (csrc / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_build, "_CSRC", csrc)
     monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "build")
-    before = _build.library_path("gru_bwd_megastep")
+    names = ("gru_bwd_megastep", "treelstm_megastep", "lstm_megastep",
+             "flash_attention")
+    before = {n: _build.library_path(n) for n in names}
     (csrc / "cell_tile.cuh").write_text((csrc / "cell_tile.cuh").read_text()
                                         + "\n")
-    assert _build.library_path("gru_bwd_megastep") != before
+    after = {n: _build.library_path(n) for n in names}
+    assert after["lstm_megastep"] != before["lstm_megastep"]
+    assert after["gru_bwd_megastep"] == before["gru_bwd_megastep"]
+    assert after["flash_attention"] == before["flash_attention"]
+    (csrc / "gathered_product.cuh").write_text(
+        (csrc / "gathered_product.cuh").read_text() + "\n")
+    for n in ("gru_bwd_megastep", "treelstm_megastep"):
+        assert _build.library_path(n) != after[n], n
+    assert _build.library_path("lstm_megastep") == after["lstm_megastep"]
     monkeypatch.setattr(_build, "_nvcc", lambda: "false")
     monkeypatch.setattr(_build, "_LOADED", {})
     with pytest.raises(RuntimeError, match="build failed"):

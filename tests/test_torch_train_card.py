@@ -118,14 +118,14 @@ def test_reverse_megastep_matches_plain_on_card(kind, pads, h):
         touched[-1] = False                       # the sentinel is kept
         assert torch.equal(got[~touched].view(torch.int32),
                            g[~touched].view(torch.int32)), t
-        live, single = d.bwd_live[t], d.bwd_single[t]
+        live, single = d.live[t], d.bwd_single[t]
         assert made == (0 if live == 0 else 2 if single else 3), t
-    work = sum(1 for live in d.bwd_live if live)
+    work = sum(1 for live in d.live if live)
     assert lm.LAUNCHES["treelstm_bwd_megastep"] == 2 * work
     if kind == "dags":
         assert not all(d.bwd_single), "no level with a run of several"
     if kind == "one":
-        assert 1 in d.bwd_live, "no level of one live slot"
+        assert 1 in d.live, "no level of one live slot"
 
 
 @pytest.mark.gpu
@@ -149,7 +149,7 @@ def test_cuda_launches_a_level_follow_the_plan(kind, pads):
         made.append(_cuda_launches() - before)
     torch.cuda.synchronize()
     assert made == [0 if not live else 2 if single else 3
-                    for live, single in zip(d.bwd_live, d.bwd_single)]
+                    for live, single in zip(d.live, d.bwd_single)]
     assert made[0] == 0                           # the leaves
     if kind == "dags":
         assert 3 in made
@@ -279,7 +279,7 @@ def test_training_gradients_repeat_bitwise_and_match_opbyop(kind):
     fn, params, sched, ext, cot = _train_case(3, kind)
     lm.reset_launches()
     first = _grads(fn, params, sched, ext, cot, "auto")
-    work = [single for live, single in zip(sched.bwd_live, sched.bwd_single)
+    work = [single for live, single in zip(sched.live, sched.bwd_single)
             if live]
     assert lm.LAUNCHES["treelstm_bwd_megastep"] == len(work)
     assert _cuda_launches() == sum(2 if single else 3 for single in work)
