@@ -203,11 +203,14 @@ Phases, each of which must pass (any failure exits non-zero):
      SIMT route's path: every launch on it) exact too, its launches
      re-run and timed for the SIMT row;
   16. Mamba-2 serving — K12 ``ssd_chunk_scan`` against its plain version
-     on the card (f32 and bf16; chunks of 128, 37 and 1, N 16 and 128, 1,
-     30 and 32 heads, x/B/C strided views of one ``xBC`` tensor: within
-     1e-5 of max |plain| at f32 and 1e-2 with bf16 inputs; two launches
-     bitwise equal; ``ops.ssd`` with padding, ``D`` and an initial state
-     against the CPU composition; a backward refused); then mamba2-370m
+     on the card (f32 and bf16; chunks of 128, 100, 64, 39, 37, 8, 2 and
+     1, P 16, 48, 64 and 128, N 16, 40 and 128, 1 to 32 heads, x/B/C
+     strided views of one ``xBC`` tensor, two of them at a row stride no
+     multiple of 16 bytes: within 1e-5 of max |plain| at f32 and bf16;
+     two launches bitwise equal; ``ops.ssd`` with padding, ``D`` and an
+     initial state against the CPU composition; a backward refused); its
+     build report (ptxas registers and spills, shared memory, SASS); then
+     mamba2-370m
      at full width and depth (48 Mamba blocks, d_model 1,024, 32 heads of
      64, state 128, chunk 128, vocab 50,280; f32 weights from a CUDA
      ``torch.Generator`` seed 0) served by ``ServeEngine(pad_prompts=
@@ -218,7 +221,8 @@ Phases, each of which must pass (any failure exits non-zero):
      decode tick p50/p99, prefill ms by prompt length, peak memory.  A
      tapped re-run keeps every ``TAP_EVERY``-th K12 launch (re-run against
      the plain version, timed by ``torch.profiler`` beside its bound --
-     67 TFLOP/s fp32 against 3.35 TB/s) and every row of logits a token
+     three TF32 products an operation at 495 TFLOP/s, 67 TFLOP/s fp32
+     beside it, against 3.35 TB/s) and every row of logits a token
      was drawn from: each request teacher-forced through ``trunk`` in
      "train" mode must give logits within 1e-4 of max |logit| and the
      same token wherever its top-2 margin exceeds 2e-4.  A profile of
@@ -1113,6 +1117,29 @@ def k2_design(dev_sched) -> tuple:
 K2_KINDS = ("treelstm", "lstm", "gru", "treefc")
 
 
+def ptxas_report(lib: str, key_re: str, label,
+                 spill_free: str = "") -> dict:
+    """What ``nvcc -Xptxas -v`` said when kernel ``lib`` was built, by
+    entry function matching ``key_re`` (named ``label(match)``): its
+    registers and spills, printed a line each.  Where ``spill_free`` names
+    the kernel, none of them may spill."""
+    ptxas, key = {}, None
+    for line in _build.build_log(lib).splitlines():
+        m = re.search(r"Compiling entry function .*" + key_re, line)
+        if m:
+            key = label(m)
+        elif key and ("registers" in line or "spill stores" in line):
+            ptxas.setdefault(key, []).append(
+                line.replace("ptxas info    :", "").strip())
+    for k, lines in ptxas.items():
+        print(f"{_build.KERNELS[lib][0]}, {k}: " + "; ".join(lines))
+    spills = [k for k, lines in ptxas.items() for ln in lines
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+    check(not (spill_free and spills),
+          f"{spill_free} spills registers: {spills}")
+    return ptxas
+
+
 def sass_counts(lib: str, label: str) -> dict:
     """Where ``cuobjdump`` is on the machine, the counts in kernel
     ``lib``'s SASS of the TF32 ``mma.sync`` (``HMMA.1688.F32.TF32``),
@@ -1142,25 +1169,15 @@ def k1_build_report() -> dict:
     spill; the product kernel's dynamic shared memory a CTA by arity; and
     its SASS (``sass_counts``)."""
     lib = "treelstm_megastep"
-    ptxas, key = {}, None
-    for line in _build.build_log(lib).splitlines():
-        m = re.search(r"Compiling entry function .*k1_(gates|leaf)_kernel"
-                      r"(?:ILi(\d)E)?", line)
-        if m:
-            key = m.group(1) + (f", A {m.group(2)}" if m.group(2) else "")
-        elif key and ("registers" in line or "spill stores" in line):
-            ptxas.setdefault(key, []).append(
-                line.replace("ptxas info    :", "").strip())
-    spills = [k for k, lines in ptxas.items() for ln in lines
-              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+    ptxas = ptxas_report(
+        lib, r"k1_(gates|leaf)_kernel(?:ILi(\d)E)?",
+        lambda m: m.group(1) + (f", A {m.group(2)}" if m.group(2) else ""),
+        "K1")
     check(len(ptxas) == 5, f"K1's ptxas report names {len(ptxas)} kernels")
-    check(not spills, f"K1 spills registers: {spills}")
     smem_of = ctypes.CDLL(str(_build.library_path(lib))) \
         .treelstm_megastep_smem_bytes
     smem = {a: smem_of(a) for a in (1, 2, 3, 4)}
     sass = sass_counts(lib, "K1")
-    for k, lines in ptxas.items():
-        print(f"treelstm_megastep_sm90.cu, {k}: " + "; ".join(lines))
     print(f"treelstm_megastep_sm90.cu: dynamic shared memory a product CTA "
           f"by arity {smem}; SASS {sass or 'not read (no cuobjdump)'}")
     return {"ptxas": ptxas, "smem": smem, "sass": sass}
@@ -1174,21 +1191,16 @@ def k2_build_report() -> dict:
     SASS must hold and the float atomics (``RED``/``ATOM`` on ``.F32``)
     it must not."""
     lib = "treelstm_bwd_megastep"
-    ptxas, key = {}, None
-    for line in _build.build_log(lib).splitlines():
-        m = re.search(r"Compiling entry function .*k2_(gates|hgrad|runs)"
-                      r"_kernel(?:ILi(\d)ELi(\d)E)?", line)
-        if m:
-            kind = K2_KINDS[int(m.group(2))] if m.group(2) else "any"
-            key = f"{m.group(1)}, {kind}" + (
-                f", A {m.group(3)}" if kind == "treelstm" else "")
-        elif key and ("registers" in line or "spill stores" in line):
-            ptxas.setdefault(key, []).append(
-                line.replace("ptxas info    :", "").strip())
-    spills = [k for k, lines in ptxas.items() for ln in lines
-              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+
+    def label(m):
+        kind = K2_KINDS[int(m.group(2))] if m.group(2) else "any"
+        return f"{m.group(1)}, {kind}" + (
+            f", A {m.group(3)}" if kind == "treelstm" else "")
+
+    ptxas = ptxas_report(
+        lib, r"k2_(gates|hgrad|runs)_kernel(?:ILi(\d)ELi(\d)E)?", label,
+        "K2")
     check(len(ptxas) >= 9, f"K2's ptxas report names {len(ptxas)} kernels")
-    check(not spills, f"K2 spills registers: {spills}")
     smem_of = ctypes.CDLL(str(_build.library_path(lib))) \
         .bwd_megastep_smem_bytes
     smem = {f"{k}{f' A {a}' if k == 'treelstm' else ''}":
@@ -1196,10 +1208,34 @@ def k2_build_report() -> dict:
             for i, k in enumerate(K2_KINDS)
             for a in ((1, 2, 3, 4) if k == "treelstm" else (1,))}
     sass = sass_counts(lib, "K2")
-    for k, lines in ptxas.items():
-        print(f"bwd_megastep_sm90.cu, {k}: " + "; ".join(lines))
     print(f"bwd_megastep_sm90.cu: dynamic shared memory a CTA (gates, "
           f"hgrad) {smem}; SASS {sass or 'not read (no cuobjdump)'}")
+    return {"ptxas": ptxas, "smem": smem, "sass": sass}
+
+
+def k12_build_report() -> dict:
+    """What ``nvcc -Xptxas -v`` said of K12's kernels (by element type,
+    head-dim class, heads a y unit and row blocks a y unit): registers
+    and spills, none of which may spill; the dynamic shared memory a CTA
+    of each; and its SASS (``sass_counts``: the TF32 ``mma.sync``,
+    ``cp.async`` and ``ldmatrix`` it must hold, no float atomic)."""
+    lib = "ssd_chunk_scan"
+    ptxas = ptxas_report(
+        lib, r"ssd_chunk_sm90_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)"
+        r"ELi(\d)E",
+        lambda m: (f"{'f32' if m.group(1) == 'f' else 'bf16'}, P <= "
+                   f"{m.group(2)}, HG {m.group(3)}, R {m.group(4)}"),
+        "K12")
+    check(len(ptxas) == 20, f"K12's ptxas report names {len(ptxas)} "
+          "kernels, not 20")
+    smem_of = ctypes.CDLL(str(_build.library_path(lib))) \
+        .ssd_chunk_sm90_smem_bytes
+    smem = {f"P {p}, HG {hg}, R {r}": smem_of(p, hg, r)
+            for p in (32, 64, 128) for hg in ((1, 2) if p <= 64 else (1,))
+            for r in (1, 2)}
+    sass = sass_counts(lib, "K12")
+    print(f"ssd_chunk_sm90.cu: dynamic shared memory a CTA {smem}; SASS "
+          f"{sass or 'not read (no cuobjdump)'}")
     return {"ptxas": ptxas, "smem": smem, "sass": sass}
 
 
@@ -1386,7 +1422,7 @@ PROFILE_GROUPS = {
                           "flash_attention_sm90_kernel",
                           "flash_attention_tf32_kernel",
                           "decode_attention_kernel"),
-    "K12 SSD chunk scan": ("ssd_chunk_kernel",),
+    "K12 SSD chunk scan": ("ssd_chunk_sm90_kernel",),
     "matmul": ("gemm", "Gemm", "cutlass", "xmma", "nvjet"),
     "copy and fill": ("Memcpy", "Memset", "copy", "fill")}
 
@@ -1792,10 +1828,11 @@ def device_ms(sets: dict, reps: int = 5) -> dict:
     own times.  The session opens with ``PRIMER_LAUNCHES`` spin kernels
     (CUPTI can drop a session's first events) and puts one spin kernel
     before each set and one after the last: a set's events are those
-    between its marks.  A session that lost events is taken again, twice
-    at most: a set must keep every launch where ``launches`` is given,
-    else at least 99 % of one device operation a call (a loss that biases
-    its mean low by as much)."""
+    between its marks.  A session that lost events is taken again, four
+    times at most (CUPTI has lost most of a session's events three times
+    in a row on one set of K11's by-fill table): a set must keep every
+    launch where ``launches`` is given, else at least 99 % of one device
+    operation a call (a loss that biases its mean low by as much)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     specs = {k: v if isinstance(v, dict) else {"calls": v}
@@ -1805,7 +1842,7 @@ def device_ms(sets: dict, reps: int = 5) -> dict:
             c()
     torch.cuda.synchronize()
     lost = ""
-    for attempt in range(3):
+    for attempt in range(5):
         if attempt:
             print(f"device_ms: a profiler session lost events ({lost}); "
                   f"taken again")
@@ -1844,7 +1881,7 @@ def device_ms(sets: dict, reps: int = 5) -> dict:
                 for k, pats in sp["parts"].items()})
         else:
             return out
-    fail(f"torch.profiler lost events in three sessions: {lost}")
+    fail(f"torch.profiler lost events in five sessions: {lost}")
 
 
 def time_k6(op: str, cases) -> dict:
@@ -3103,14 +3140,7 @@ def k10_build_report(lib: str, key_re: str, label, dims,
     on the machine, the count of each SASS opcode of ``sass_ops`` in the
     library, none of which may be 0."""
     lib_path = _build.library_path(lib)
-    ptxas, key = {}, None
-    for line in _build.build_log(lib).splitlines():
-        m = re.search(r"Compiling entry function .*" + key_re, line)
-        if m:
-            key = label(m)
-        elif key and ("registers" in line or "spill stores" in line):
-            ptxas.setdefault(key, []).append(
-                line.replace("ptxas info    :", "").strip())
+    ptxas = ptxas_report(lib, key_re, label)
     smem_of = getattr(ctypes.CDLL(str(lib_path)), f"{lib}_smem_bytes")
     smem = {D: smem_of(D) for D in dims}
     cob = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -3122,8 +3152,6 @@ def k10_build_report(lib: str, key_re: str, label, dims,
         sass = {op: dump.count(op) for op in sass_ops}
         check(all(sass.values()), f"{lib}.cu's SASS lacks one of "
               f"{sass_ops}: {sass}")
-    for k, lines in ptxas.items():
-        print(f"{lib}.cu, {k}: " + "; ".join(lines))
     print(f"{lib}.cu: dynamic shared memory a CTA by head dim {smem}; SASS "
           f"{sass or 'not read (no cuobjdump)'}")
     return {"ptxas": ptxas, "smem": smem, "sass": sass}
@@ -3157,17 +3185,12 @@ def k11_build_report(shape) -> dict:
     launch K11 makes at ``shape`` = (B, Hq, Hkv, D) over granite's
     1,024-row cache: NS, the grid, heads a cluster, tile rows, shared
     memory a CTA."""
-    ptxas, key = {}, None
-    for line in _build.build_log("decode_attention").splitlines():
-        m = re.search(r"decode_attention_kernelI(\w+?)Li(\d+)ELb(\d)ELb(\d)E",
-                      line)
-        if m and "Compiling entry function" in line:
-            key = (f"{'bf16' if 'bfloat16' in m.group(1) else 'f32'}, GC "
+    ptxas = ptxas_report(
+        "decode_attention",
+        r"decode_attention_kernelI(\w+?)Li(\d+)ELb(\d)ELb(\d)E",
+        lambda m: (f"{'bf16' if 'bfloat16' in m.group(1) else 'f32'}, GC "
                    f"{m.group(2)}, "
-                   + ROUTES[2 if m.group(4) == "1" else int(m.group(3))])
-        elif key and ("registers" in line or "spill stores" in line):
-            ptxas.setdefault(key, []).append(
-                line.replace("ptxas info    :", "").strip())
+                   + ROUTES[2 if m.group(4) == "1" else int(m.group(3))]))
     B, Hq, Hkv, D = shape
     G = Hq // Hkv
     lib = ctypes.CDLL(str(_build.library_path("decode_attention")))
@@ -3178,8 +3201,6 @@ def k11_build_report(shape) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ns = decode_split.split_count(LM_MAX_LEN, B * Hkv * ngc, sms)
     grid = (B, Hkv, ngc * ns)
-    for k, lines in ptxas.items():
-        print(f"decode_attention.cu, {k}: " + "; ".join(lines))
     print(f"K11 at granite's decode shape (B {B}, Hq {Hq}, Hkv {Hkv}, D "
           f"{D}, bf16, cache {LM_MAX_LEN} rows, {sms} SMs): NS {ns}, grid "
           f"{grid} = {B * Hkv * ngc * ns} CTAs in clusters of {ns}, {gc} "
@@ -3861,13 +3882,20 @@ MAMBA_ARCH, MAMBA_EXTRA_PROMPTS = "mamba2-370m", (1, 2, 128, 256)
 #: plain version widens the same bf16 inputs to f32, so both sides do f32
 #: math on identical values and bf16 is held to the f32 bar.
 K12_BARS = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
-#: K12 edge cases (Bt, L, H, P, N, Q), each at f32 and bf16: a 1,024-token
-#: prefill, a 600-token prompt padded to 640, one head with a ragged chunk
-#: of 37 and N 16, chunks of one position, N 16 at 32 heads, and 20 chunks
-#: of 30 heads (head groups of 4 and 2).
-K12_EDGES = ((1, 1024, 32, 64, 128, 128), (1, 640, 32, 64, 128, 128),
-             (2, 74, 1, 64, 16, 37), (1, 5, 32, 64, 128, 1),
-             (1, 256, 32, 64, 16, 128), (1, 2560, 30, 16, 16, 128))
+#: K12 edge cases (Bt, L, H, P, N, Q, pad), each at f32 and bf16, x/B/C
+#: views of one ``xBC`` tensor of ``pad`` extra columns (1: a row stride no
+#: multiple of 16 bytes, so 4-byte copies): a 1,024-token prefill, a
+#: 600-token prompt padded to 640, one head with a ragged chunk of 37 and
+#: N 16, chunks of one position, N 16 at 32 heads, 20 chunks of 30 heads
+#: of 16, a 2-token and a 39-token prompt (one chunk of 2 and of 39), chunks
+#: of 8 of 5 heads of 16, P 128 in chunks of 64, and two at an odd stride
+#: (mamba2-370m's shapes; P 48 and N 40 in a chunk of 100).
+K12_EDGES = ((1, 1024, 32, 64, 128, 128, 0), (1, 640, 32, 64, 128, 128, 0),
+             (2, 74, 1, 64, 16, 37, 0), (1, 5, 32, 64, 128, 1, 0),
+             (1, 256, 32, 64, 16, 128, 0), (1, 2560, 30, 16, 16, 128, 0),
+             (1, 2, 32, 64, 128, 2, 0), (1, 39, 32, 64, 128, 39, 0),
+             (3, 24, 5, 16, 128, 8, 0), (1, 128, 4, 128, 128, 64, 0),
+             (1, 256, 32, 64, 128, 128, 1), (1, 100, 3, 48, 40, 100, 1))
 #: ``ops.ssd`` (padding to the chunk, K12, the cross-chunk code, ``D`` and
 #: an initial state) against the same composition on the CPU:
 #: (L, chunk, with an initial state).
@@ -3879,21 +3907,23 @@ K12_OPS_EDGES = ((600, 128, True), (37, 128, False), (1, 128, True))
 MAMBA_LOGIT_TOL = 1e-4
 MAMBA_MARGIN = 2 * MAMBA_LOGIT_TOL
 #: Prompt lengths whose prefill is timed; K12 is timed alone at the
-#: padded lengths of the first four of them (Q = min(128, L)).
+#: padded lengths of most of them and at 2 and 39 tokens (Q = min(128,
+#: L): a chunk of 2 and a ragged one-chunk prompt).
 MAMBA_PREFILL_LENS = (1, 16, 128, 256, 600, 1024)
-K12_TIMED_LENS = (16, 128, 640, 1024)
+K12_TIMED_LENS = (2, 16, 39, 128, 256, 640, 1024)
 
 
-def k12_inputs(gen, Bt, L, H, P, N, dtype):
-    """x, dt, A, B, C with x/B/C strided views of one ``xBC`` tensor, as
-    the model's conv output gives them."""
+def k12_inputs(gen, Bt, L, H, P, N, dtype, pad: int = 0):
+    """x, dt, A, B, C with x/B/C strided views of one ``xBC`` tensor (of
+    ``pad`` columns more), as the model's conv output gives them."""
     Din = H * P
-    xBC = torch.randn(Bt, L, Din + 2 * N, generator=gen).to(DEVICE, dtype)
+    xBC = torch.randn(Bt, L, Din + 2 * N + pad, generator=gen).to(DEVICE,
+                                                                 dtype)
     x = xBC[..., :Din].reshape(Bt, L, H, P)
     dt = torch.nn.functional.softplus(
         torch.randn(Bt, L, H, generator=gen) - 2.0).to(DEVICE)
     A = (-torch.exp(torch.randn(H, generator=gen) * 0.5)).to(DEVICE)
-    return x, dt, A, xBC[..., Din:Din + N], xBC[..., Din + N:]
+    return x, dt, A, xBC[..., Din:Din + N], xBC[..., Din + N:Din + 2 * N]
 
 
 def k12_plain(args):
@@ -3929,10 +3959,12 @@ def k12_check(args, twice: bool = True) -> tuple:
 def k12_bound_ms(args) -> tuple:
     """Least time of one K12 launch on ``args``: over the Q (Q + 1) / 2
     causal pairs j <= i of a chunk, ``C Bᵀ`` once a chunk (2 N a pair)
-    and, a head, ``y_diag`` (2 P a pair) and the state (2 Q P N) at 67
-    TFLOP/s fp32, against x, B, C and dt read once and y_diag and the
-    states written once (f32) at 3.35 TB/s.  Returns (bound_ms, bound_by,
-    flops, bytes)."""
+    and, a head, ``y_diag`` (2 P a pair) and the state (2 Q P N), as the
+    three TF32 products an operation that K12 runs on the tensor cores at
+    495 TFLOP/s, against x, B, C and dt read once and y_diag and the
+    states written once (f32) at 3.35 TB/s (``priced_ms``).  Returns
+    (bound_ms, bound_by, flops, bytes, bound_fma_ms), the last at the 67
+    TFLOP/s fp32-FMA rate."""
     x, dt, A, B, C, Q = args
     Bt, L, H, P = x.shape
     N, nc, e = B.shape[-1], L // Q, x.element_size()
@@ -3941,9 +3973,8 @@ def k12_bound_ms(args) -> tuple:
                                                   + 2 * Q * P * N)))
     nbytes = float(e * Bt * L * (H * P + 2 * N) + 4 * Bt * L * H
                    + 4 * Bt * L * H * P + 4 * Bt * nc * H * P * N)
-    t_op, t_by = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
-            else "bytes", flops, nbytes)
+    b_ms, b_by, fma_ms = priced_ms(flops, nbytes, True)
+    return b_ms, b_by, flops, nbytes, fma_ms
 
 
 def k12_edges_check() -> dict:
@@ -3956,8 +3987,8 @@ def k12_edges_check() -> dict:
     gen = torch.Generator().manual_seed(1212)
     worst = (0.0, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
-        for Bt, L, H, P, N, Q in K12_EDGES:
-            args = (*k12_inputs(gen, Bt, L, H, P, N, dtype), Q)
+        for Bt, L, H, P, N, Q, pad in K12_EDGES:
+            args = (*k12_inputs(gen, Bt, L, H, P, N, dtype, pad), Q)
             worst = tuple(map(max, worst, k12_check(args)))
     for L, chunk, init in K12_OPS_EDGES:
         x, dt, A, B, C = k12_inputs(gen, 1, L, 32, 64, 128, torch.float32)
@@ -3991,10 +4022,13 @@ def k12_edges_check() -> dict:
     for L in K12_TIMED_LENS:
         a = (*k12_inputs(gen, 1, L, 32, 64, 128, torch.float32),
              min(128, L))
-        _b, by, flops, nbytes = k12_bound_ms(a)
+        _b, by, flops, nbytes, fma = k12_bound_ms(a)
         by_len[L] = {
             "events_ms": time_ms(lambda: mssd.ssd_chunk_diag(*a), 20, 3),
-            "bound_ms": _b, "bound_by": by, "flops": flops, "bytes": nbytes}
+            "bound_ms": _b, "bound_by": by, "bound_fma_ms": fma,
+            "flops": flops, "bytes": nbytes,
+            "plan": mssd.ssd_plan(1, L // a[5], a[5], 32, 64, 128,
+                                  lm._sm_count(a[0].device))}
         # 200 rounds: one launch is one profiler event, and a recording
         # may lose 1 % of them.
         sets[L, "ms"] = {"calls": [lambda a=a: mssd.ssd_chunk_diag(*a)],
@@ -4007,8 +4041,10 @@ def k12_edges_check() -> dict:
         print(f"ssd_chunk_scan at {L} tokens: {t['ms']:.4f} ms (device), "
               f"{t['events_ms']:.4f} ms a call back to back (CUDA events), "
               f"plain {t['plain_ms']:.4f} ms (device), bound "
-              f"{t['bound_ms']:.5f} ms by {t['bound_by']} "
-              f"({t['flops'] / 1e9:.3f} GFLOP, {t['bytes'] / 1e6:.1f} MB)")
+              f"{t['bound_ms']:.5f} ms by {t['bound_by']} (fp32 FMA "
+              f"{t['bound_fma_ms']:.5f}; {t['flops'] / 1e9:.3f} GFLOP, "
+              f"{t['bytes'] / 1e6:.1f} MB); plan (HG, NS, R, CTAs) "
+              f"{t['plan']}")
     return {"max_abs_err": worst[0], "max_rel_err": worst[1],
             "by_length": by_len}
 
@@ -4045,6 +4081,7 @@ def mamba_serving_phase(card: str) -> dict:
     recompute), a profile of one warm tick, and the reduced model's f32
     exactness."""
     edges = k12_edges_check()
+    build = k12_build_report()
     torch.cuda.empty_cache()
     cfg = get_config(MAMBA_ARCH)
     model = TransformerLM(cfg)
@@ -4134,6 +4171,7 @@ def mamba_serving_phase(card: str) -> dict:
         "timed": len(kept), "max_abs_err": max(e[0] for e in errs),
         "max_rel_err": max(e[1] for e in errs),
         "bound_ms": float(np.mean([b[0] for b in bounds])),
+        "bound_fma_ms": float(np.mean([b[4] for b in bounds])),
         "flops": float(np.mean([b[2] for b in bounds])),
         "bytes": float(np.mean([b[3] for b in bounds])),
         # Ten rounds: a profiler recording may lose its first few events
@@ -4170,7 +4208,7 @@ def mamba_serving_phase(card: str) -> dict:
            "tick_p99_ms": float(np.percentile(decode_s, 99) * 1e3),
            "prefill_ms": prefill_ms, "peak_bytes": peak,
            "launches": launches, "edges": edges, "recompute": recompute,
-           "timings": timings, "profile": prof,
+           "timings": timings, "build": build, "profile": prof,
            "profile_prefill": prof_prefill, "exact_f32": exact,
            "card": card}
     print(f"Mamba-2 serving: {json.dumps(out)}")
@@ -4190,15 +4228,17 @@ def mamba_serving_phase(card: str) -> dict:
     t = timings
     print(f"ssd_chunk_scan on {t['timed']} kept launches: {t['ms']:.4f} ms a "
           f"launch (device), plain {t['plain_ms']:.4f}, bound "
-          f"{t['bound_ms']:.5f} ms by {t['bound_by']}; max_abs_err "
+          f"{t['bound_ms']:.5f} ms by {t['bound_by']} (fp32 FMA "
+          f"{t['bound_fma_ms']:.5f}); max_abs_err "
           f"{t['max_abs_err']:.3e} ({t['max_rel_err']:.3e} of max |plain|)")
     out["rows"] = [{
         "name": "ssd_chunk_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_sm90.cu",
         "replaces": mssd.REPLACES, "launches": launches["ssd_chunk_scan"],
         "max_abs_err": max(t["max_abs_err"], edges["max_abs_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None}]
+        "bound_by": t["bound_by"], "bound_fma_ms": t["bound_fma_ms"],
+        "library_ms": None}]
     return out
 
 

@@ -72,8 +72,8 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     "decode_attention": ("decode_attention.cu", "decode_attention_launch",
                          [_P] * 5 + [_I] * 5 + [_L] * 8 + [_F] + [_I] * 3
                          + [_P]),
-    "ssd_chunk_scan": ("ssd_chunk.cu", "ssd_chunk_launch",
-                       [_P] * 7 + [_I] * 7 + [_L] * 10 + [_I, _P]),
+    "ssd_chunk_scan": ("ssd_chunk_sm90.cu", "ssd_chunk_sm90_launch",
+                       [_P] * 7 + [_I] * 9 + [_L] * 10 + [_I, _P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -5,11 +5,12 @@ Port of ``repro.kernels.mamba_ssd``'s Pallas kernel (``ssd_chunk_scan``).
 The chunked SSD splits the sequence into chunks of ``Q`` positions:
 within a chunk the recurrence is computed in its quadratic dual form,
 and across chunks a linear recurrence carries the ``[P, N]`` state.
-``csrc/ssd_chunk.cu`` computes the within-chunk part (``y_diag`` and the
-chunk-final states, what ``ref.ssd_chunk_diag`` computes); its header
-states the bound and the design.  The cross-chunk recurrence stays plain
-PyTorch (``ref.ssd_combine``), as the reference keeps it in jnp outside
-the ``pallas_call``.
+``csrc/ssd_chunk_sm90.cu`` computes the within-chunk part (``y_diag`` and
+the chunk-final states, what ``ref.ssd_chunk_diag`` computes) on the TF32
+tensor cores with the 3xTF32 split; its header states the bound and the
+design.  :func:`ssd_plan` cuts a launch into the kernel's units.  The
+cross-chunk recurrence stays plain PyTorch (``ref.ssd_combine``), as the
+reference keeps it in jnp outside the ``pallas_call``.
 
 The wrapper takes CUDA tensors only: it launches the kernel or raises.
 The full SSD (the reference's ``ssd_chunk_scan``: padding, this launch
@@ -26,23 +27,55 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.flash_attention import refuse_grad
-from repro_torch.kernels.level_megastep import launch_kernel, require_cuda
+from repro_torch.kernels.level_megastep import (_sm_count, launch_kernel,
+                                                require_cuda)
 
 #: Element types of x, B and C; the largest chunk, head dim and state.
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_CHUNK, MAX_HEADDIM, MAX_STATE = 128, 128, 128
-#: SMs of an H100: the head group shrinks until the grid fills them.
-SMS = 132
+#: Rows of a y unit's row block, as in the kernel.
+ROW_TILE = 16
 REPLACES = "src/repro/kernels/mamba_ssd.py:62"
 
 
-def head_group(Bt: int, nc: int, H: int) -> int:
-    """Heads a CTA takes (it forms ``C Bᵀ`` once for all of them): the
-    heads split into the fewest groups that still put at least ``SMS``
-    CTAs in the grid (``Bt * nc`` a group), one head a CTA when even that
-    does not fill the card."""
-    groups = min(H, -(-SMS // max(Bt * nc, 1)))
-    return max(1, H // groups)
+def state_warps(P: int) -> Tuple[int, int]:
+    """(p-warps, n-warps) of a state unit's four warps: a p-warp a 16-row
+    block of ``P`` (up to four), the rest side by side along N."""
+    wp = min(4, -(-P // 16))
+    return wp, 4 // wp
+
+
+def ssd_plan(Bt: int, nc: int, Q: int, H: int, P: int, N: int,
+             sms: int) -> Tuple[int, int, int, int]:
+    """``(HG, NS, R, grid)``: the kernel's units for a launch of ``Bt``
+    sequences of ``nc`` chunks of ``Q`` positions, ``H`` heads of ``P``,
+    state ``N``, on a card of ``sms`` SMs.
+
+    A y unit is ``R`` row blocks of ``ROW_TILE`` rows (up to the chunk's
+    last row) of a (sequence, chunk, group of ``HG`` heads); its four warps
+    take a row block each over ``4 / R`` lanes of its 8-key blocks.  A
+    state unit is an N-range of ``8 ceil(ceil(N / 8) / NS)`` columns of a
+    (sequence, chunk, head).  ``NS`` starts at the fewest units that keep
+    a warp's state accumulator within 8 blocks of 8 columns and doubles,
+    while a unit keeps a block of 8 columns, until the grid holds ``sms``
+    CTAs.  One ``C Bᵀ`` serves two heads (``HG`` 2, P <= 64) where
+    one-head units already give two CTAs an SM, and a unit takes two row
+    blocks (``R`` 2, half the staging of B and x) where such units still
+    give two CTAs an SM."""
+    nrb = -(-Q // ROW_TILE)
+    nb = -(-N // 8)
+    _wp, wn = state_warps(P)
+    ns = -(-nb // (8 * wn))
+
+    def grid(hg: int, ns: int, r: int) -> int:
+        return Bt * nc * (-(-H // hg) * -(-nrb // r) + H * ns)
+
+    while grid(1, ns, 1) < sms and 2 * ns <= nb:
+        ns *= 2
+    ns = -(-nb // -(-nb // ns))          # no unit left without a column
+    hg = 2 if P <= 64 and H > 1 and grid(1, ns, 1) >= 2 * sms else 1
+    r = 2 if grid(hg, ns, 2) >= 2 * sms else 1
+    return hg, ns, r, grid(hg, ns, r)
 
 
 def _check(op: str, name: str, t: torch.Tensor, ndim: int, dtype,
@@ -104,10 +137,12 @@ def ssd_chunk_diag(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty((Bt, L, H, P), dtype=torch.float32, device=dev)
     states = torch.empty((Bt, nc, H, P, N), dtype=torch.float32, device=dev)
     if y.numel():
+        hg, ns, r, _grid = ssd_plan(Bt, nc, chunk, H, P, N,
+                                     _sm_count(dev))
         launch_kernel(op, dev, y.data_ptr(), states.data_ptr(),
                       x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                       B.data_ptr(), C.data_ptr(), Bt, L, H, P, N, chunk,
-                      head_group(Bt, nc, H),
+                      hg, ns, r,
                       x.stride(0), x.stride(1), x.stride(2),
                       dt.stride(0), dt.stride(1), dt.stride(2),
                       B.stride(0), B.stride(1), C.stride(0), C.stride(1),

@@ -214,12 +214,3 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x, dt, A, B, C, _, _ = _inputs(5, 1, 8, 2, 4, 3)
     with pytest.raises(ValueError, match="CUDA"):
         mssd.ssd_chunk_diag(*_t(x, dt, A, B, C), 8)
-
-
-@pytest.mark.parametrize("Bt,nc,H,want", [(1, 8, 32, 1), (1, 1, 32, 1),
-                                          (1, 20, 32, 4), (2, 33, 32, 16),
-                                          (3, 50, 7, 7)])
-def test_head_group_keeps_the_card_busy(Bt, nc, H, want):
-    hg = mssd.head_group(Bt, nc, H)
-    assert hg == want
-    assert hg == 1 or Bt * nc * -(-H // hg) >= mssd.SMS

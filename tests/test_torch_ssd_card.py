@@ -1,13 +1,16 @@
-"""The SSD chunk-scan kernel on the card: K12 ``ssd_chunk_diag`` against
-its plain version (``ref.ssd_chunk_diag``, float32 math on float32
-copies of the inputs) at edge shapes -- chunks of 1, 37 and 128, a
-sequence no multiple of the chunk (through ``ops.ssd``'s padding), state
-sizes 16 and 128, 1 and 32 heads, x/B/C as strided views cut from one
-``xBC`` tensor, bf16 inputs, an initial state -- two launches bitwise
-equal, the wrapper refusing a gradient and CPU tensors, and the launch
-counts of ``ServeEngine(pad_prompts=False)`` over a small Mamba-2 model
-on the card (one K12 a layer a prompt, none a tick) with its greedy
-tokens equal to a full recompute.  Every test here is ``gpu``-marked and
+"""The SSD chunk-scan kernel on the card: K12 ``ssd_chunk_diag``
+(``csrc/ssd_chunk_sm90.cu``) against its plain version
+(``ref.ssd_chunk_diag``, float32 math on float32 copies of the inputs) at
+edge shapes -- chunks of 1, 2, 8, 37, 39, 64, 100 and 128, a sequence no
+multiple of the chunk (through ``ops.ssd``'s padding), P 16, 48, 64 and
+128, state sizes 16, 40 and 128, 1 to 32 heads, x/B/C as strided views
+cut from one ``xBC`` tensor (also at a row stride no multiple of 16
+bytes), bf16 inputs, an initial state -- two launches bitwise equal, one
+CUDA launch a call (by ``torch.profiler``), the wrapper refusing a
+gradient and CPU tensors, and the launch counts of
+``ServeEngine(pad_prompts=False)`` over a small Mamba-2 model on the card
+(one K12 a layer a prompt, none a tick) with its greedy tokens equal to
+a full recompute.  Every test here is ``gpu``-marked and
 skips inside its body where there is no card; none needs JAX.
 
 Bar: 1e-5 of max |plain| (the kernel sums in another order), with bf16
@@ -43,13 +46,15 @@ def _need_card():
         pytest.skip("needs a CUDA card")
 
 
-def _inputs(seed, Bt, L, H, P, N, dtype):
-    """x, dt, A, B, C with x/B/C strided views of one ``xBC`` tensor."""
+def _inputs(seed, Bt, L, H, P, N, dtype, pad=0):
+    """x, dt, A, B, C with x/B/C strided views of one ``xBC`` tensor (of
+    ``pad`` columns more)."""
     g = torch.Generator().manual_seed(seed)
     Din = H * P
-    xBC = torch.randn(Bt, L, Din + 2 * N, generator=g).to("cuda", dtype)
+    xBC = torch.randn(Bt, L, Din + 2 * N + pad, generator=g).to("cuda",
+                                                               dtype)
     x = xBC[..., :Din].reshape(Bt, L, H, P)
-    B, C = xBC[..., Din:Din + N], xBC[..., Din + N:]
+    B, C = xBC[..., Din:Din + N], xBC[..., Din + N:Din + 2 * N]
     dt = torch.nn.functional.softplus(
         torch.randn(Bt, L, H, generator=g) - 2.0).cuda()
     A = (-torch.exp(torch.randn(H, generator=g) * 0.5)).cuda()
@@ -63,17 +68,24 @@ def _rel(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt_name", ["f32", "bf16"])
-@pytest.mark.parametrize("Bt,L,H,P,N,Q", [
-    (1, 1024, 32, 64, 128, 128),   # a mamba2-370m 1,024-token prefill
-    (1, 640, 32, 64, 128, 128),    # a 600-token prompt, padded
-    (2, 74, 1, 64, 16, 37),        # ragged chunk, one head, N 16
-    (1, 5, 32, 64, 128, 1),        # chunks of one position
-    (1, 2560, 30, 16, 16, 128),    # 20 chunks: head groups of 4 and 2
+@pytest.mark.parametrize("Bt,L,H,P,N,Q,pad", [
+    (1, 1024, 32, 64, 128, 128, 0),   # a mamba2-370m 1,024-token prefill
+    (1, 640, 32, 64, 128, 128, 0),    # a 600-token prompt, padded
+    (2, 74, 1, 64, 16, 37, 0),        # ragged chunk, one head, N 16
+    (1, 5, 32, 64, 128, 1, 0),        # chunks of one position
+    (1, 2560, 30, 16, 16, 128, 0),    # 20 chunks of 30 heads of 16
+    (1, 2, 32, 64, 128, 2, 0),        # a chunk of 2 (a 2-token prompt)
+    (1, 39, 32, 64, 128, 39, 0),      # a ragged one-chunk prompt
+    (3, 24, 5, 16, 128, 8, 0),        # chunks of 8, 5 heads of 16
+    (1, 128, 4, 128, 128, 64, 0),     # P 128 in chunks of 64
+    (1, 256, 32, 64, 128, 128, 1),    # row stride no multiple of 16 B
+    (1, 100, 3, 48, 40, 100, 1),      # P 48, N 40, odd stride
 ])
-def test_ssd_chunk_diag_matches_plain(dt_name, Bt, L, H, P, N, Q):
+def test_ssd_chunk_diag_matches_plain(dt_name, Bt, L, H, P, N, Q, pad):
     _need_card()
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt_name]
-    x, dt, A, B, C = _inputs(L + H, Bt, L, H, P, N, dtype)
+    x, dt, A, B, C = _inputs(L + H, Bt, L, H, P, N, dtype, pad)
+    assert pad == 0 or x.stride(1) % 4 != 0
     y1, s1 = mssd.ssd_chunk_diag(x, dt, A, B, C, Q)
     y2, s2 = mssd.ssd_chunk_diag(x, dt, A, B, C, Q)
     yp, sp = ref.ssd_chunk_diag(x.float(), dt, A, B.float(), C.float(), Q)
@@ -81,6 +93,28 @@ def test_ssd_chunk_diag_matches_plain(dt_name, Bt, L, H, P, N, Q):
     assert torch.equal(y1, y2) and torch.equal(s1, s2), "launches differ"
     assert torch.isfinite(y1).all() and torch.isfinite(s1).all()
     assert _rel(y1, yp) <= BARS[dtype] and _rel(s1, sp) <= BARS[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,Q", [(1, 1), (39, 39), (256, 128), (1024, 128)])
+def test_one_cuda_launch_a_call(L, Q):
+    """One CUDA kernel a call, by ``torch.profiler``: the K12 kernel and
+    nothing else (the outputs are allocated, not filled), counted once."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    x, dt, A, B, C = _inputs(L, 1, L, 32, 64, 128, torch.float32)
+    mssd.ssd_chunk_diag(x, dt, A, B, C, Q)        # built and warm
+    torch.cuda.synchronize()
+    lm.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):           # CUPTI can drop a session's first events
+            torch.cuda._sleep(1000)
+        mssd.ssd_chunk_diag(x, dt, A, B, C, Q)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type.name == "CUDA" and "spin_kernel" not in e.name]
+    assert len(names) == 1 and "ssd_chunk_sm90_kernel" in names[0], names
+    assert dict(lm.LAUNCHES) == {"ssd_chunk_scan": 1}
 
 
 @pytest.mark.gpu

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""K1 (the Tree-LSTM forward megastep) beside an earlier commit's K1 on the
-same inputs, in one run on one card.
+"""K1 (the Tree-LSTM forward megastep) or K12 (the Mamba-2 chunk scan)
+beside an earlier commit's on the same inputs, in one run on one card.
 
     git archive <commit> | tar -x -C build/parent
-    python3 tools/k1_parent_ab.py build/parent
+    python3 tools/k1_parent_ab.py build/parent          # K1
+    python3 tools/k1_parent_ab.py build/parent k12      # K12
 
-The directory holds a checkout of the earlier commit; its K1 source,
+K1.  The directory holds a checkout of the earlier commit; its K1 source,
 ``src/repro_torch/kernels/csrc/treelstm_megastep.cu`` (the fp32 SIMT
 kernel, entry point ``treelstm_megastep_launch``, no sentinel and no live
 count), is built with this checkout's ``nvcc`` flags.  Both kernels then
@@ -17,7 +18,20 @@ kernels against the plain version (1e-4), then both are timed by
 ``torch.profiler`` device time, every level in one session, this K1 and
 the earlier one in turns.  Prints the means a launch of each set (the
 served levels also by ``chip_smoke.K1_CLASSES``) and, last, one JSON line
-of them.  Needs a CUDA card and ``nvcc``; imports nothing of JAX.
+of them.
+
+K12.  The earlier K12 source, ``src/repro_torch/kernels/csrc/ssd_chunk.cu``
+(the fp32 SIMT kernel, entry point ``ssd_chunk_launch``, its head group
+by the rule that commit's ``mamba_ssd.head_group`` used), is built the
+same way.  Both kernels run on the launches ``chip_smoke.py``'s Mamba-2
+phase keeps (every ``TAP_EVERY``-th K12 launch of mamba2-370m serving
+its traffic) and on mamba2-370m's shapes at ``chip_smoke.K12_TIMED_LENS``
+(x/B/C views of one ``xBC`` tensor); each launch is checked for both
+against the plain version (``chip_smoke.K12_BARS``), then both are timed
+by ``torch.profiler`` device time in one session, in turns.  Prints the
+means a launch and, last, one JSON line of them.
+
+Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +51,8 @@ import torch  # noqa: E402
 
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import level_megastep as lm  # noqa: E402
+from repro_torch.kernels import mamba_ssd as mssd  # noqa: E402
+from repro_torch.models.transformer import TransformerLM  # noqa: E402
 
 #: The earlier entry point's arguments: buf, child_ids, ext_ids,
 #: node_mask, ext, w, bias; M, A, H, offset, buf_stride, ext_stride;
@@ -95,10 +111,132 @@ def level_sets() -> dict:
     return sets
 
 
+#: The earlier K12 entry point's arguments: y, states, x, dt, A, B, C;
+#: Bt, L, H, P, N, Q, HG; ten strides; bf16; stream.
+EARLIER_K12_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                    + [ctypes.c_longlong] * 10
+                    + [ctypes.c_int, ctypes.c_void_p])
+
+
+def earlier_head_group(Bt: int, nc: int, H: int) -> int:
+    """The earlier K12's heads a CTA: the fewest groups that still put 132
+    CTAs in the grid (``Bt * nc`` a group), one head a CTA when even that
+    does not fill the card."""
+    groups = min(H, -(-132 // max(Bt * nc, 1)))
+    return max(1, H // groups)
+
+
+def earlier_k12(checkout: Path):
+    """The earlier checkout's K12, built here, as ``fn(x, dt, A, B, C, Q)``
+    returning new ``(y_diag, states)``."""
+    src = checkout / "src" / "repro_torch" / "kernels" / "csrc" \
+        / "ssd_chunk.cu"
+    lib = _build.build_dir() / "earlier_ssd_chunk.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).ssd_chunk_launch
+    fn.argtypes, fn.restype = EARLIER_K12_ARGS, ctypes.c_int
+
+    def launch(x, dt, A, B, C, Q):
+        Bt, L, H, P = x.shape
+        N = B.shape[-1]
+        y = torch.empty((Bt, L, H, P), device=x.device)
+        st = torch.empty((Bt, L // Q, H, P, N), device=x.device)
+        rc = fn(y.data_ptr(), st.data_ptr(), x.data_ptr(), dt.data_ptr(),
+                A.data_ptr(), B.data_ptr(), C.data_ptr(), Bt, L, H, P, N, Q,
+                earlier_head_group(Bt, L // Q, H), x.stride(0), x.stride(1),
+                x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
+                B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+                int(x.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the earlier K12 failed with CUDA error {rc}")
+        return y, st
+
+    return launch
+
+
+def k12_sets() -> dict:
+    """set name → K12 launch arguments (x, dt, A, B, C, Q): the kept
+    launches of mamba2-370m serving ``chip_smoke.mamba_traffic`` and one
+    launch at each of ``chip_smoke.K12_TIMED_LENS``."""
+    cfg = cs.get_config(cs.MAMBA_ARCH)
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator(cs.DEVICE).manual_seed(0),
+                        cs.DEVICE)
+    kept, seen = [], [0]
+    inner = mssd.ssd_chunk_diag
+
+    def tap(x, dt, A, B, C, Q):
+        if seen[0] % cs.TAP_EVERY == 0:
+            kept.append(cs.k12_kept_args(x, dt, A, B, C, Q))
+        seen[0] += 1
+        return inner(x, dt, A, B, C, Q)
+
+    mssd.ssd_chunk_diag = tap
+    try:
+        cs.lm_serve(model, params, cs.mamba_traffic(cfg.vocab),
+                    prefill_kernel="ssd_chunk_scan", pad_prompts=False)
+    finally:
+        mssd.ssd_chunk_diag = inner
+    del model, params
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(1212)
+    sets = {"kept launches": kept}
+    for L in cs.K12_TIMED_LENS:
+        sets[f"{L} tokens"] = [(*cs.k12_inputs(gen, 1, L, 32, 64, 128,
+                                               torch.float32), min(128, L))]
+    return sets
+
+
+def k12_main(dev: dict, checkout: Path) -> None:
+    earlier = earlier_k12(checkout)
+    torch.set_grad_enabled(False)
+    sets = k12_sets()
+    timed = {}
+    for name, launches in sets.items():
+        for i, a in enumerate(launches):
+            want = cs.k12_plain(a)
+            for label, out in (("this", mssd.ssd_chunk_diag(*a)),
+                               ("earlier", earlier(*a))):
+                torch.cuda.synchronize()
+                for g, w, what in zip(out, want, ("y_diag", "states")):
+                    rel = float((g - w).abs().max()) / max(
+                        float(w.abs().max()), 1e-30)
+                    cs.check(rel <= cs.K12_BARS[a[0].dtype], f"{label} K12 "
+                             f"on {name} launch {i}: {what} {rel:.3e} of "
+                             f"max |plain|")
+        timed[name, "this"] = {
+            "calls": [lambda a=a: mssd.ssd_chunk_diag(*a) for a in launches],
+            "match": "ssd_chunk_sm90_kernel"}
+        timed[name, "earlier"] = {
+            "calls": [lambda a=a: earlier(*a) for a in launches],
+            "match": "ssd_chunk_kernel"}
+    ms = cs.device_ms(timed, reps=10)
+    out = {"card": dev["smi"]}
+    for name, launches in sets.items():
+        out[name] = {"launches": len(launches), "ms": ms[name, "this"],
+                     "earlier_ms": ms[name, "earlier"],
+                     "bound_ms": float(np.mean([cs.k12_bound_ms(a)[0]
+                                                for a in launches]))}
+        print(f"K12 {name} ({len(launches)}): this "
+              f"{out[name]['ms']:.4f} ms a launch, the earlier "
+              f"{out[name]['earlier_ms']:.4f} ms (device time), bound "
+              f"{out[name]['bound_ms']:.5f}")
+    print(dev["smi"])
+    print(json.dumps(out))
+
+
 def main(argv=None) -> None:
     args = sys.argv[1:] if argv is None else argv
-    cs.check(len(args) == 1, "usage: k1_parent_ab.py EARLIER_CHECKOUT")
+    cs.check(len(args) in (1, 2) and (len(args) == 1
+                                      or args[1] in ("k1", "k12")),
+             "usage: k1_parent_ab.py EARLIER_CHECKOUT [k1|k12]")
     dev = cs.device_phase()
+    if len(args) == 2 and args[1] == "k12":
+        k12_main(dev, Path(args[0]))
+        return
     earlier = earlier_k1(Path(args[0]))
     torch.set_grad_enabled(True)
     sets = level_sets()
