@@ -83,16 +83,25 @@ Phases, each of which must pass (any failure exits non-zero):
      main path is ``TRAIN_CELL_STEPS`` AdamW steps through
      ``execute_lazy`` with the launch counts set to 0 just before and
      read just after (one forward megastep kernel — K3, K4 or K5 — per
-     level and step, one reverse megastep of the matching kind per level
-     with a live slot and step, two CUDA launches each, one scatter-add
-     per step), step p50/p99 and peak memory; then, with the
-     params AdamW has moved, one step taken with taps on
+     level and step, K3/K4 making the CUDA launches the live counts
+     design: the product where a slot has a predecessor, the leaf launch
+     past the live count, at most 2 a level; one reverse megastep of the
+     matching kind per level with a live slot and step, two CUDA launches
+     each, one scatter-add per step), step p50/p99 and peak memory; then,
+     with the params AdamW has moved, one step taken with taps on
      ``ops.level_megastep``, ``ops.bwd_megastep`` and
      ``ops.scatter_add_rows``: every forward and reverse level and the
-     pulled-row scatter re-run through its kernel and its plain version
-     (error relative to max |plain| <= 1e-4, untouched rows
-     bit-unchanged; K2 and K7 as in phase 4), timed beside its data-aware
-     bound;
+     pulled-row scatter re-run through its kernel (with the keywords the
+     main path gave it: K3/K4 the level's live count) and its plain
+     version (error relative to max |plain| <= 1e-4, untouched rows
+     bit-unchanged; K3/K4 also two launches bitwise equal and their CUDA
+     launches as designed, timed by ``torch.profiler`` device time, every
+     level in one session, CUDA events beside, their bound the products
+     as three TF32 products at 495 TFLOP/s, the fp32-FMA figure beside
+     it; K5 by CUDA events at the fp32 rate; K2 and K7 as in phase 4),
+     timed beside its data-aware bound; K3/K4's ptxas lines (no spills),
+     shared memory and SASS (``HMMA.1688.F32.TF32``, ``LDGSTS``,
+     ``LDSM``, no float atomic);
      the fused gradients against ``fusion_mode="none"`` within 1e-4
      relative (T + 1 K7 launches in that backward); two backward passes
      bitwise equal; the scatter plans' build time; a ``torch.profiler``
@@ -120,11 +129,14 @@ Phases, each of which must pass (any failure exits non-zero):
      ``ContinuousBatchEngine(1024 rows, 64 lanes)``: p50/p99 latency,
      throughput and their ratios; roots within 1e-4 of solo scoring;
      ``TokenReadout`` tokens independent of the order requests run in;
-     a tapped run for the K3 frontier and K6 checks and times;
+     a tapped run for the K3 frontier (no live count; the checks of
+     phase 2, device time) and K6 checks and times;
   12. decode — ``VertexServeEngine`` (LSTM, then GRU, 128 slots) over 256
      Var-LSTM chains: one K3/K4 launch a tick, final states within 1e-4
      of ``execute`` on the card and of the plain path on the CPU,
-     ticks/s, per-launch times at M = 128, a profile;
+     ticks/s; every ``TAP_EVERY``-th tick re-run (no live count, as the
+     engine launches it) with the checks of phase 2 and timed at M = 128
+     by ``torch.profiler`` device time, events beside; a profile;
   13. the op-by-op leg (the paper's kernel-fusion ablation and serial
      baseline) — the gate kernels K8a ``lstm_gates``, K8b
      ``treelstm_gates`` and K9 ``lstm_level_fused`` against their plain
@@ -403,44 +415,58 @@ def schedule_level(graphs, t: int, H: int, gen: torch.Generator, dev,
             _weights(H, gen, dev)), d.live[t]
 
 
-def k1_designed(M: int, live) -> int:
-    """The CUDA launches K1 makes on a level of ``M`` slots given ``live``
-    (None: not given, and its product grid covers every slot): the
-    product where a slot may have a child, the leaf launch over ``[live,
-    M)``."""
+def fwd_designed(M: int, live) -> int:
+    """The CUDA launches K1, K3 or K4 makes on a level of ``M`` slots
+    given ``live`` (None: not given, and its product grid covers every
+    slot): the product where a slot may have a child, the leaf launch
+    over ``[live, M)``."""
     live = M if live is None else live
     return (live > 0) + (live < M)
 
 
-def compare(case, **kw) -> float:
-    """K1 on one level ``case`` with the keywords the main path gave it
-    (``live``, ``sentinel``) against its plain version: the max abs error
-    on the written block; rows outside the block (the sentinel among
-    them) bit-unchanged, finite values, a second launch bitwise equal, and
-    the CUDA launches of its design, at most 2."""
+#: The forward megasteps that take a live count: kind → (the name of its
+#: row, the kernel-name prefix its launches carry on the card).
+FWD_KERNELS = {"treelstm": ("K1", "k1_"), "lstm": ("K3", "k34_"),
+               "gru": ("K4", "k34_")}
+
+
+def compare_level(kind: str, case, **kw) -> tuple:
+    """K1, K3 or K4 (``kind``) on one level ``case`` with the keywords the
+    main path gave it (``live``, ``sentinel``) against its plain version:
+    the max abs error on the written block and that error relative to
+    max |plain|; rows outside the block (the sentinel among them)
+    bit-unchanged, finite values, a second launch bitwise equal, and the
+    CUDA launches of its design, at most 2 (at live 0 the leaf launch
+    alone)."""
     buf, cids, cmask, eids, nmask, off, ext, w = case
     M = cids.shape[0]
-    before = lm.CUDA_LAUNCHES["treelstm_megastep"]
-    got = lm.treelstm_megastep(buf.clone(), cids, eids, nmask, off, ext, *w,
+    op, name = f"{kind}_megastep", FWD_KERNELS[kind][0]
+    before = lm.CUDA_LAUNCHES[op]
+    got = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nmask, off, ext, *w,
+                             **kw)
+    made = lm.CUDA_LAUNCHES[op] - before
+    again = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nmask, off, ext, *w,
                                **kw)
-    made = lm.CUDA_LAUNCHES["treelstm_megastep"] - before
-    again = lm.treelstm_megastep(buf.clone(), cids, eids, nmask, off, ext,
-                                 *w, **kw)
-    want = ref.level_megastep("treelstm", buf.clone(), cids, cmask, eids,
-                              nmask, off, ext, w)
+    want = ref.level_megastep(kind, buf.clone(), cids, cmask, eids, nmask,
+                              off, ext, w)
     torch.cuda.synchronize()
     err = float((got[off:off + M] - want[off:off + M]).abs().max())
     outside = torch.ones(buf.shape[0], dtype=torch.bool, device=buf.device)
     outside[off:off + M] = False
     check(bitwise_equal(got[outside], buf[outside]),
-          "K1 changed rows outside [offset, offset+M)")
-    check(bool(torch.isfinite(got).all()), "K1 wrote non-finite values")
-    check(bitwise_equal(got, again), f"K1: two launches differ at offset "
-          f"{off}")
-    designed = k1_designed(M, kw.get("live"))
-    check(made == designed <= 2, f"K1 at offset {off}: {made} CUDA "
+          f"{name} changed rows outside [offset, offset+M)")
+    check(bool(torch.isfinite(got).all()), f"{name} wrote non-finite values")
+    check(bitwise_equal(got, again), f"{name}: two launches differ at "
+          f"offset {off}")
+    designed = fwd_designed(M, kw.get("live"))
+    check(made == designed <= 2, f"{name} at offset {off}: {made} CUDA "
           f"launches, designed {designed}")
-    return err
+    return err, err / max(float(want[off:off + M].abs().max()), 1e-30)
+
+
+def compare(case, **kw) -> float:
+    """K1 on one level through ``compare_level``: the max abs error."""
+    return compare_level("treelstm", case, **kw)[0]
 
 
 def time_ms(fn, n: int = 50, warmup: int = 5) -> float:
@@ -488,15 +514,15 @@ def bound_ms(case, sentinel=None) -> tuple:
     return b_ms, b_by, flops, nbytes, fma_ms
 
 
-def k1_times(cases, reps: int = 10) -> list:
-    """K1 and its plain version on each level of ``cases`` ((case, kw)
-    pairs, ``kw`` as the main path gave it), launched in place as the main
-    path does on a copy of the level's buffer (levels that share a buffer
-    share its copy: a level reads only rows that no re-run changes):
-    device ms a call by ``torch.profiler``, every level in one session,
-    with K1's CUDA-event ms beside (back to back, events time the host
-    where a launch is shorter than its cost).  Returns ``(ms, plain_ms,
-    events_ms)`` a level."""
+def fwd_times(cases, reps: int = 10, kind: str = "treelstm") -> list:
+    """K1 (or K3, K4: ``kind``) and its plain version on each level of
+    ``cases`` ((case, kw) pairs, ``kw`` as the main path gave it),
+    launched in place as the main path does on a copy of the level's
+    buffer (levels that share a buffer share its copy: a level reads only
+    rows that no re-run changes): device ms a call by ``torch.profiler``,
+    every level in one session, with the kernel's CUDA-event ms beside
+    (back to back, events time the host where a launch is shorter than
+    its cost).  Returns ``(ms, plain_ms, events_ms)`` a level."""
     copies, sets, events = {}, {}, []
     for i, (case, kw) in enumerate(cases):
         buf, cids, cmask, eids, nmask, off, ext, w = case
@@ -505,15 +531,16 @@ def k1_times(cases, reps: int = 10) -> list:
 
         def kern(kb=kb, case=case, kw=kw):
             _b, cids, _cm, eids, nmask, off, ext, w = case
-            lm.treelstm_megastep(kb, cids, eids, nmask, off, ext, *w, **kw)
+            lm.MEGASTEPS[kind](kb, cids, eids, nmask, off, ext, *w, **kw)
 
         def plain(pb=pb, case=case):
             _b, cids, cmask, eids, nmask, off, ext, w = case
-            ref.level_megastep("treelstm", pb, cids, cmask, eids, nmask,
-                               off, ext, w)
+            ref.level_megastep(kind, pb, cids, cmask, eids, nmask, off, ext,
+                               w)
 
-        sets[i, "kernel"] = {"calls": [kern], "match": "k1_", "launches":
-                             k1_designed(cids.shape[0], kw.get("live"))}
+        sets[i, "kernel"] = {"calls": [kern],
+                             "match": FWD_KERNELS[kind][1], "launches":
+                             fwd_designed(cids.shape[0], kw.get("live"))}
         sets[i, "plain"] = {"calls": [plain], "reps": 3}
         events.append(time_ms(kern, 10, 2))
     t = device_ms(sets, reps=reps)
@@ -554,7 +581,7 @@ def kernel_phase() -> dict:
     check(worst <= TOL, f"kernel disagrees with its plain version: "
           f"max_abs_err {worst:.3e} > {TOL}")
 
-    (ms, plain_ms, ev), = k1_times([(full, {})], reps=20)
+    (ms, plain_ms, ev), = fwd_times([(full, {})], reps=20)
     b_ms, b_by, flops, nbytes, fma_ms = bound_ms(full)
     print(f"timing synthetic H{H}_A2_M{M_FULL} (not a served shape): kernel "
           f"{ms:.4f} ms device ({ev:.4f} events), plain {plain_ms:.4f} ms, "
@@ -613,14 +640,14 @@ K1_CLASSES = {
 
 def k1_levels(label: str, levels) -> dict:
     """K1 on tapped levels ``levels`` ((case, kw) pairs): each compared
-    with its plain version (``compare``) and timed (``k1_times``) beside
+    with its plain version (``compare``) and timed (``fwd_times``) beside
     its bound; the means a launch over all of them and by
     ``K1_CLASSES``."""
     worst = max(compare(case, **kw) for case, kw in levels)
     check(worst <= TOL, f"K1 disagrees with its plain version on a level "
           f"of {label}: max_abs_err {worst:.3e} > {TOL}")
     rows = []
-    for (case, kw), (ms, plain_ms, ev) in zip(levels, k1_times(levels)):
+    for (case, kw), (ms, plain_ms, ev) in zip(levels, fwd_times(levels)):
         M = case[1].shape[0]
         live = M if kw.get("live") is None else kw["live"]
         b_ms, b_by, flops, _nb, fma_ms = bound_ms(case)
@@ -1183,6 +1210,30 @@ def k1_build_report() -> dict:
     return {"ptxas": ptxas, "smem": smem, "sass": sass}
 
 
+def k34_build_report() -> dict:
+    """What ``nvcc -Xptxas -v`` said of K3's and K4's kernels
+    (``cell_megastep_sm90.cu``: the product kernel and the leaf kernel of
+    each kind): registers and spills, none of which may spill; the product
+    kernel's dynamic shared memory a CTA by kind; and its SASS
+    (``sass_counts``)."""
+    lib = "lstm_megastep"
+    kinds = ("lstm", "gru")
+    ptxas = ptxas_report(
+        lib, r"k34_(gates|leaf)_kernel(?:ILi(\d)E)?",
+        lambda m: m.group(1) + (f", {kinds[int(m.group(2))]}"
+                                if m.group(2) else ""),
+        "K3/K4")
+    check(len(ptxas) == 4, f"K3/K4's ptxas report names {len(ptxas)} "
+          "kernels, not 4")
+    smem_of = ctypes.CDLL(str(_build.library_path(lib))) \
+        .cell_megastep_smem_bytes
+    smem = {k: smem_of(i) for i, k in enumerate(kinds)}
+    sass = sass_counts(lib, "K3/K4")
+    print(f"cell_megastep_sm90.cu: dynamic shared memory a product CTA "
+          f"by kind {smem}; SASS {sass or 'not read (no cuobjdump)'}")
+    return {"ptxas": ptxas, "smem": smem, "sass": sass}
+
+
 def k2_build_report() -> dict:
     """What ``nvcc -Xptxas -v`` said of each of K2's kernels (pass and
     kind, treelstm by arity): registers and spills, none of which may
@@ -1356,7 +1407,7 @@ def train_phase(card: str) -> dict:
         b = pipe.pack(graphs, inputs)
         t1 = time.perf_counter()
         work = [x + y for x, y in zip(work, k2_design(b.dev))]
-        fwd_cuda += sum(k1_designed(b.dev.M, live) for live in b.dev.live)
+        fwd_cuda += sum(fwd_designed(b.dev.M, live) for live in b.dev.live)
         loss, _acc = ex.train_step(fn, params, opt, b, _labels(labels),
                                    lr(opt.step))
         losses.append(float(loss))         # waits for the step's work
@@ -1412,6 +1463,7 @@ def train_phase(card: str) -> dict:
 #: Kernel-name patterns of the profiler breakdowns.
 PROFILE_GROUPS = {
     "forward megastep (K1, K3-K5)": ("k1_gates_kernel", "k1_leaf_kernel",
+                                     "k34_gates_kernel", "k34_leaf_kernel",
                                      "cell_megastep_kernel"),
     "K2 reverse megastep": ("k2_gates_kernel", "k2_hgrad_kernel",
                             "k2_runs_kernel"),
@@ -1432,16 +1484,24 @@ def profile_step(label: str, step) -> dict:
     time, time the card spent in kernels and copies (by group of
     ``PROFILE_GROUPS`` and the top ones) and the idle share.  ``step``
     must end in a device→host read; the profiler's own host overhead
-    inflates the wall time, so the idle share is an upper bound."""
+    inflates the wall time, so the idle share is an upper bound.  The
+    session waits ``profiler_guard_s()`` on the host at its ends, outside
+    the wall time, as ``device_ms`` does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
+    guard = profiler_guard_s()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(guard)
         t0 = time.perf_counter()
         step()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(guard)
+    offset = launch_offset_us(prof.events())
+    if offset is not None:
+        PROFILER_OFFSETS_US.append(offset)
     on_card = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
@@ -1517,12 +1577,14 @@ def cell_bound_ms(kind: str, case, reverse: bool, sentinel=None) -> tuple:
     """Least time for one level on the card, from this level's data: the
     multiply-adds its live slots need (an lstm/gru slot with a
     predecessor NG*H*H, a Tree-FC slot H*H per child it has; twice that
-    in reverse: recompute and child cotangents) at 67 TFLOP/s fp32 (in
-    reverse as three TF32 products at 495 TFLOP/s: K2 runs its products
-    on the tensor cores), against each input read once (distinct child
-    rows, the live slots' ext rows and, in reverse, their gradient rows;
-    the weight unless no slot needs it; bias, indices and runs) and the
-    block written once (in reverse: each touched row read and written
+    in reverse: recompute and child cotangents) as three TF32 products at
+    495 TFLOP/s where the kernel runs them on the tensor cores (K3, K4
+    and K2), at 67 TFLOP/s fp32 for K5 (still fp32 FMAs on the CUDA
+    cores), against each input read once (distinct child rows, the live
+    slots' ext rows -- in the lstm/gru forward a slot with no predecessor
+    needs only three lanes of its row -- and, in reverse, their gradient
+    rows; the weight unless no slot needs it; bias, indices and runs) and
+    the block written once (in reverse: each touched row read and written
     once) at 3.35 TB/s.  Absent children point at ``sentinel`` (default:
     the last row).  Returns (bound_ms, bound_by, flops, bytes,
     bound_fma_ms), the last at the 67 TFLOP/s fp32-FMA rate."""
@@ -1541,15 +1603,20 @@ def cell_bound_ms(kind: str, case, reverse: bool, sentinel=None) -> tuple:
         read = present if reverse else present[:, :1]
     flops = 2.0 * macs * (2 if reverse else 1)
     rows = torch.unique(cids[:, :read.shape[1]][read]).numel()
-    erows = torch.unique(eids[live]).numel()
+    if reverse or kind == "treefc":
+        lanes = torch.unique(eids[live]).numel() * G
+    else:
+        pred = present[:, 0]
+        lanes = (G * torch.unique(eids[live & pred]).numel()
+                 + 3 * H * torch.unique(eids[live & ~pred]).numel())
     weights = (w.numel() if flops > 0 else 0) + G
     if reverse:
         touched = torch.unique(cids[present]).numel()
-        nbytes = 4 * (rows * S + erows * G + int(live.sum()) * S + weights
+        nbytes = 4 * (rows * S + lanes + int(live.sum()) * S + weights
                       + M * (A + 2) + 3 * M * A + 2 * touched * S)
     else:
-        nbytes = 4 * (rows * S + erows * G + weights + M * (A + 2) + M * S)
-    b_ms, b_by, fma_ms = priced_ms(flops, nbytes, reverse)
+        nbytes = 4 * (rows * S + lanes + weights + M * (A + 2) + M * S)
+    b_ms, b_by, fma_ms = priced_ms(flops, nbytes, reverse or kind != "treefc")
     return b_ms, b_by, flops, nbytes, fma_ms
 
 
@@ -1577,7 +1644,7 @@ def cell_levels_check(kind: str, fn, params, d, ext, h_lo) -> dict:
     inner = ops.level_megastep, ops.bwd_megastep, ops.scatter_add_rows
 
     def tap_fwd(k, buf, *args, **kw):
-        fwd.append((k, buf) + args)
+        fwd.append(((k, buf) + args, kw))
         return inner[0](k, buf, *args, **kw)
 
     def tap_bwd(k, g, *args, **kw):
@@ -1602,32 +1669,49 @@ def cell_levels_check(kind: str, fn, params, d, ext, h_lo) -> dict:
     check(len(fwd) == T and len(bwd) == T and len(scatters) == 1,
           f"{kind}: {len(fwd)} forward / {len(bwd)} reverse levels and "
           f"{len(scatters)} scatters for T={T}")
-    check(all(c[0] == kind for c in fwd) and
+    check(all(c[0][0] == kind for c in fwd) and
           all(c[0][0] == kind for c in bwd), f"{kind}: another kind ran")
+    check(all(kw.get("live") == d.live[t] for t, (_c, kw) in enumerate(fwd)),
+          f"{kind}: the forward levels got other live counts than the "
+          f"schedule's")
 
     f_rows, f_err, f_abs = [], 0.0, 0.0
     with torch.no_grad():
-        for case in fwd:
+        if kind in FWD_KERNELS:
+            # K3/K4: each level with the keywords the main path gave it,
+            # timed by torch.profiler, every level in one session.
+            levels = [(c[1:], kw) for c, kw in fwd]
+            for lvl, kw in levels:
+                err, rel = compare_level(kind, lvl, **kw)
+                f_abs, f_err = max(f_abs, err), max(f_err, rel)
+            times = fwd_times(levels, kind=kind)
+        for i, (case, kw) in enumerate(fwd):
             _k, buf, cids, cmask, eids, nm, off, e, w = case
-            got = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nm, off, e, *w)
-            want = ref.level_megastep(kind, buf.clone(), cids, cmask, eids,
-                                      nm, off, e, w)
-            torch.cuda.synchronize()
-            f_err = max(f_err, rel_err(got, want))
-            f_abs = max(f_abs, float((got - want).abs().max()))
-            keep = torch.ones(buf.shape[0], dtype=torch.bool, device=DEVICE)
-            keep[off:off + cids.shape[0]] = False
-            check(bitwise_equal(got[keep], buf[keep]),
-                  f"{kind} forward kernel changed rows outside its block")
-            check(bool(torch.isfinite(got).all()),
-                  f"{kind} forward kernel wrote non-finite values")
-            kb, pb = buf.clone(), buf.clone()
-            ms = time_ms(lambda: lm.MEGASTEPS[kind](kb, cids, eids, nm, off,
-                                                    e, *w), n=10, warmup=2)
-            plain_ms = time_ms(lambda: ref.level_megastep(
-                kind, pb, cids, cmask, eids, nm, off, e, w), n=10, warmup=2)
+            if kind in FWD_KERNELS:
+                ms, plain_ms, ev = times[i]
+            else:
+                got = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nm, off, e,
+                                         *w)
+                want = ref.level_megastep(kind, buf.clone(), cids, cmask,
+                                          eids, nm, off, e, w)
+                torch.cuda.synchronize()
+                f_err = max(f_err, rel_err(got, want))
+                f_abs = max(f_abs, float((got - want).abs().max()))
+                keep = torch.ones(buf.shape[0], dtype=torch.bool,
+                                  device=DEVICE)
+                keep[off:off + cids.shape[0]] = False
+                check(bitwise_equal(got[keep], buf[keep]),
+                      f"{kind} forward kernel changed rows outside its block")
+                check(bool(torch.isfinite(got).all()),
+                      f"{kind} forward kernel wrote non-finite values")
+                kb, pb = buf.clone(), buf.clone()
+                ms = ev = time_ms(lambda: lm.MEGASTEPS[kind](
+                    kb, cids, eids, nm, off, e, *w), n=10, warmup=2)
+                plain_ms = time_ms(lambda: ref.level_megastep(
+                    kind, pb, cids, cmask, eids, nm, off, e, w), n=10,
+                    warmup=2)
             f_rows.append((ms, plain_ms) + cell_bound_ms(kind, case, False)
-                          + (off // M,))
+                          + (ev, off // M))
         b_rows = [k2_level(c, lambda c: cell_bound_ms(
             kind, (kind,) + c[0][1:2] + c[0][3:], True)) for c in bwd]
         k2_device_ms(b_rows)
@@ -1654,13 +1738,19 @@ def cell_levels_check(kind: str, fn, params, d, ext, h_lo) -> dict:
           f"|plain| > {TOL}")
     check(bwd_s["max_launches_a_level"] <= 2, f"{kind}: K2 made "
           f"{bwd_s['max_launches_a_level']} CUDA launches on a level")
-    fwd_s = {**_summary(f_rows), "max_rel_err": f_err, "max_abs_err": f_abs}
+    fwd_s = {**_summary(f_rows), "max_rel_err": f_err, "max_abs_err": f_abs,
+             "events_ms": float(np.mean([r[7] for r in f_rows])),
+             "bound_fma_ms": float(np.mean([r[6] for r in f_rows])),
+             "total_ms": float(sum(r[0] for r in f_rows))}
     sm = fwd_s
+    timer = "device" if kind in FWD_KERNELS else "events"
     print(f"{kind} forward: {sm['levels']} levels, error "
           f"{sm['max_rel_err']:.3e} of max |plain| (max abs "
           f"{sm['max_abs_err']:.3e}); mean per launch: kernel "
-          f"{sm['ms']:.4f} ms, plain {sm['plain_ms']:.4f} ms, bound "
-          f"{sm['bound_ms']:.5f} ms by {sm['bound_by']}")
+          f"{sm['ms']:.4f} ms ({timer}; events {sm['events_ms']:.4f}), "
+          f"plain {sm['plain_ms']:.4f} ms, bound {sm['bound_ms']:.5f} ms by "
+          f"{sm['bound_by']} (fp32 FMA {sm['bound_fma_ms']:.5f}); all levels "
+          f"{sm['total_ms']:.4f} ms")
     sm = bwd_s
     print(f"{kind} reverse: {sm['levels']} levels "
           f"({sm['launching_levels']} launching), error "
@@ -1713,9 +1803,16 @@ def cell_train_phase(phase: str, card: str) -> dict:
         losses.append(step())
         step_s.append(time.perf_counter() - t0)
     launches = dict(lm.LAUNCHES)
+    fwd_cuda = lm.CUDA_LAUNCHES[f"{kind}_megastep"]
     peak = torch.cuda.max_memory_allocated()
     T, n = d.T, TRAIN_CELL_STEPS
     check(bool(np.isfinite(losses).all()), f"{phase}: non-finite losses")
+    if kind in FWD_KERNELS:
+        # K3/K4: the product where a slot has a predecessor, the leaf
+        # launch past the live count, at most 2 a level.
+        designed = n * sum(fwd_designed(d.M, live) for live in d.live)
+        check(fwd_cuda == designed <= 2 * n * T, f"{phase}: {fwd_cuda} "
+              f"{kind}_megastep CUDA launches, designed {designed}")
     work, cuda = k2_design(d)
     want = {f"{kind}_megastep": n * T, f"{kind}_bwd_megastep": n * work,
             f"{kind}_bwd_megastep.cuda_launches": n * cuda,
@@ -1730,7 +1827,8 @@ def cell_train_phase(phase: str, card: str) -> dict:
            "step_p50_ms": float(np.percentile(ms, 50)),
            "step_p99_ms": float(np.percentile(ms, 99)),
            "max_memory_allocated_bytes": int(peak), "launches": launches,
-           "plan_ms": plan_build_ms(s), "card": card}
+           "fwd_cuda_launches": fwd_cuda, "plan_ms": plan_build_ms(s),
+           "card": card}
     print(f"{phase} losses: " + " ".join(f"{x:.6f}" for x in losses))
     print(f"{phase}: {json.dumps(out)}")
     out.update(cell_levels_check(kind, fn, params, d, ext, h_lo))
@@ -1814,6 +1912,45 @@ def check_scatter(dst, ids, rows, label: str) -> float:
 #: ``device_ms`` and left out of its sums.
 PRIMER_LAUNCHES = 8
 
+#: Seconds ``device_ms`` waits on the host after a profiler session opens,
+#: before its first launch, and again after its last synchronize, before
+#: the session closes.  The profiler drops a device event whose time falls
+#: outside the session's window on the host's clock, and the card's
+#: timestamps can trail the host's by more than a set takes to run late in
+#: a long process: a session then loses its first events, primer and marks
+#: included, and every retake lost the same ones.  A retake waits longer,
+#: by the lag that the lost session showed.
+PROFILER_GUARD_S = 0.01
+
+#: The least ``kernel start - its launch's start`` (µs) of each
+#: ``device_ms`` and ``profile_step`` session: below zero, the card's clock trails the host's
+#: by at least as much.  ``main`` prints their range.
+PROFILER_OFFSETS_US: list = []
+
+
+def launch_offset_us(events) -> float | None:
+    """The least time from a launch call's start to its kernel's start, in
+    µs, over a session's events (``prof.events()``), pairing each device
+    event with the host's launch call of the same correlation id; None
+    where no pair was kept.  A kernel cannot start before its launch, so
+    a negative value is a lag of the card's clock behind the host's."""
+    launch = {e.id: e.time_range.start for e in events
+              if e.device_type != torch.autograd.DeviceType.CUDA
+              and "LaunchKernel" in e.name}
+    offs = [e.time_range.start - launch[e.id] for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.id in launch]
+    return min(offs) if offs else None
+
+
+def profiler_guard_s() -> float:
+    """The host's wait at a profiler session's ends: ``PROFILER_GUARD_S``,
+    or 1.5 times the card's clock lag that the last session showed plus
+    10 ms, whichever is the longer."""
+    lag_us = max(0.0, -PROFILER_OFFSETS_US[-1]) if PROFILER_OFFSETS_US \
+        else 0.0
+    return max(PROFILER_GUARD_S, 1.5 * lag_us / 1e6 + 0.01)
+
 
 def device_ms(sets: dict, reps: int = 5) -> dict:
     """Device ms a call of each of a phase's timed sets, all in ONE
@@ -1825,14 +1962,18 @@ def device_ms(sets: dict, reps: int = 5) -> dict:
     whose name holds it) and ``launches`` (the kernels a call launches,
     where that is known).  A launch shorter than the host's launch cost
     would be timed by the host with CUDA events, so this sums the card's
-    own times.  The session opens with ``PRIMER_LAUNCHES`` spin kernels
-    (CUPTI can drop a session's first events) and puts one spin kernel
-    before each set and one after the last: a set's events are those
-    between its marks.  A session that lost events is taken again, four
-    times at most (CUPTI has lost most of a session's events three times
-    in a row on one set of K11's by-fill table): a set must keep every
-    launch where ``launches`` is given, else at least 99 % of one device
-    operation a call (a loss that biases its mean low by as much)."""
+    own times.  The session waits ``PROFILER_GUARD_S`` on the host after
+    it opens and before it closes, opens with ``PRIMER_LAUNCHES`` spin
+    kernels (CUPTI can drop a session's first events) and puts one spin
+    kernel before each set and one after the last: a set's events are
+    those between its marks.  A session that lost events is taken again,
+    four times at most, each time with a longer wait (at least twice the
+    last, and 1.5 times the card's clock lag that the lost session showed
+    plus 10 ms; the first wait allows for the lag of the session before):
+    a set must keep every launch where ``launches`` is given, else at least
+    99 % of one device operation a call (a loss that biases its mean low by
+    as much).  Where five sessions lost events, sets without ``parts`` are
+    timed by CUDA events (``time_ms``) instead, and the script says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     specs = {k: v if isinstance(v, dict) else {"calls": v}
@@ -1841,13 +1982,14 @@ def device_ms(sets: dict, reps: int = 5) -> dict:
         for c in sp["calls"]:
             c()
     torch.cuda.synchronize()
-    lost = ""
+    lost, guard = "", profiler_guard_s()
     for attempt in range(5):
         if attempt:
             print(f"device_ms: a profiler session lost events ({lost}); "
-                  f"taken again")
+                  f"taken again after a wait of {guard * 1e3:.0f} ms")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(guard)
             for _ in range(PRIMER_LAUNCHES):
                 torch.cuda._sleep(1000)
             for sp in specs.values():
@@ -1857,12 +1999,20 @@ def device_ms(sets: dict, reps: int = 5) -> dict:
                         c()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        events = sorted((e for e in prof.events()
+            time.sleep(guard)
+        all_events = prof.events()
+        offset = launch_offset_us(all_events)
+        if offset is not None:
+            PROFILER_OFFSETS_US.append(offset)
+        lag_s = max(0.0, -offset) / 1e6 if offset is not None else 0.0
+        events = sorted((e for e in all_events
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
         marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        guard = max(2 * guard, 1.5 * lag_s + 0.01)
         if len(marks) < len(specs) + 1:
-            lost = f"{len(marks)} spin kernels for {len(specs) + 1} marks"
+            lost = (f"{len(marks)} spin kernels for {len(specs) + 1} marks; "
+                    f"least launch-to-kernel time {offset} µs")
             continue
         marks = marks[len(marks) - len(specs) - 1:]
         out = {}
@@ -1872,7 +2022,8 @@ def device_ms(sets: dict, reps: int = 5) -> dict:
             n = sp.get("reps", reps) * len(sp["calls"])
             want = n * sp["launches"] if "launches" in sp else n - n // 100
             if len(evs) < want:
-                lost = f"{len(evs)} device operations for {want} ({name})"
+                lost = (f"{len(evs)} device operations for {want} ({name}); "
+                        f"least launch-to-kernel time {offset} µs")
                 break
             ms = sum(e.self_device_time_total for e in evs) / 1e3 / n
             out[name] = ms if "parts" not in sp else (ms, {
@@ -1881,7 +2032,15 @@ def device_ms(sets: dict, reps: int = 5) -> dict:
                 for k, pats in sp["parts"].items()})
         else:
             return out
-    fail(f"torch.profiler lost events in five sessions: {lost}")
+    check(not any("parts" in sp for sp in specs.values()),
+          f"torch.profiler lost events in five sessions: {lost}")
+    print(f"device_ms: torch.profiler lost events in five sessions "
+          f"({lost}); timed with CUDA events instead, over back-to-back "
+          f"calls (the host's launch cost included): "
+          + ", ".join(map(str, specs)))
+    return {name: time_ms(lambda cs=sp["calls"]: [c() for c in cs],
+                          n=sp.get("reps", reps), warmup=0)
+            / len(sp["calls"]) for name, sp in specs.items()}
 
 
 def time_k6(op: str, cases) -> dict:
@@ -2045,8 +2204,8 @@ def tapped_frontier_run(kind, make_engine, reqs) -> dict:
         stg, ext = snap
         M = cids.shape[0]
         case = (stg, cids, cmask, eids, nm, R, ext, w)
-        if kind == "treelstm":         # K1: repeatability, launches too
-            worst_k = max(worst_k, compare(case, **kw))
+        if kind in FWD_KERNELS:        # repeatability, launches too
+            worst_k = max(worst_k, compare_level(kind, case, **kw)[0])
         got = lm.MEGASTEPS[kind](stg.clone(), cids, eids, nm, R, ext, *w,
                                  **kw)
         want = ref.level_megastep(kind, stg.clone(), cids, cmask, eids, nm,
@@ -2076,8 +2235,10 @@ def tapped_frontier_run(kind, make_engine, reqs) -> dict:
     check(worst_k <= TOL, f"{kind} frontier megastep disagrees with its "
           f"plain version: max_abs_err {worst_k:.3e} > {TOL}")
     mean = lambda rs, k: float(np.mean([r[k] for r in rs]))  # noqa: E731
-    dev_ms = device_ms({"kernel": kern, "plain": {"calls": plain,
-                                                  "reps": 2}})
+    dev_ms = device_ms({"kernel": {"calls": kern,
+                                   "match": FWD_KERNELS[kind][1],
+                                   "launches": 1},
+                        "plain": {"calls": plain, "reps": 2}})
     k = {"levels": len(k_rows), "max_abs_err": worst_k,
          "ms": dev_ms["kernel"], "events_ms": mean(k_rows, 0),
          "plain_ms": dev_ms["plain"], "bound_ms": mean(k_rows, 1),
@@ -2475,24 +2636,16 @@ def decode_phase(cell: str, card: str) -> dict:
         _drain(eng2, reqs_of(DECODE_REQUESTS))
     finally:
         ops.level_megastep = inner
-    rows, worst = [], 0.0
-    for case in taps:
-        buf, cids, cmask, eids, nm, off, e, w = case
-        M = cids.shape[0]
-        got = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nm, off, e, *w)
-        ref_ = ref.level_megastep(kind, buf.clone(), cids, cmask, eids, nm,
-                                  off, e, w)
-        torch.cuda.synchronize()
-        worst = max(worst, float((got[off:off + M] - ref_[off:off + M])
-                                 .abs().max()))
-        kb, pb = buf.clone(), buf.clone()
-        ms = time_ms(lambda: lm.MEGASTEPS[kind](kb, cids, eids, nm, off, e,
-                                                *w), 10, 2)
-        plain_ms = time_ms(lambda: ref.level_megastep(
-            kind, pb, cids, cmask, eids, nm, off, e, w), 10, 2)
-        b = cell_bound_ms(kind, (kind,) + case, False)
-        rows.append((ms, plain_ms, b[0], b[1], int((nm > 0).sum())))
+    # Each kept tick as the engine launched it (no live count: the grid
+    # covers every slot), against its plain version, then timed by
+    # torch.profiler, every tick in one session, CUDA events beside.
+    worst = max(compare_level(kind, case)[0] for case in taps)
     check(worst <= TOL, f"decode {kind} megastep vs plain: {worst:.3e}")
+    ticks = [(case, {}) for case in taps]
+    times = fwd_times(ticks, kind=kind)
+    rows = [(ms, plain_ms) + cell_bound_ms(kind, (kind,) + case, False)
+            + (ev, int((case[4] > 0).sum()))
+            for case, (ms, plain_ms, ev) in zip(taps, times)]
     out = {"cell": cell, "kind": kind, "requests": DECODE_REQUESTS,
            "slots": DECODE_SLOTS, "ticks": eng.ticks,
            "ticks_per_s": eng.ticks / wall, "wall_s": wall,
@@ -2500,13 +2653,16 @@ def decode_phase(cell: str, card: str) -> dict:
            "err_vs_cpu": err_cpu, "card": card,
            "tick": {"timed": len(rows), "max_abs_err": worst,
                     **_summary(rows),
-                    "live_slots": float(np.mean([r[4] for r in rows]))}}
+                    "events_ms": float(np.mean([r[7] for r in rows])),
+                    "bound_fma_ms": float(np.mean([r[6] for r in rows])),
+                    "live_slots": float(np.mean([r[8] for r in rows]))}}
     t = out["tick"]
     print(f"decode {cell}: {json.dumps(out)}")
     print(f"decode {cell} ticks at M {DECODE_SLOTS} ({t['timed']} timed, "
           f"{t['live_slots']:.1f} live slots on average): {kind}_megastep "
-          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-          f"{t['bound_ms']:.5f} ms by {t['bound_by']}")
+          f"{t['ms']:.4f} ms device (events {t['events_ms']:.4f}), plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms by "
+          f"{t['bound_by']} (fp32 FMA {t['bound_fma_ms']:.5f})")
     profile_step(f"decode {cell}, 256 chains through a fresh engine",
                  lambda: _drain(VertexServeEngine(
                      fn, params, num_slots=DECODE_SLOTS, device=DEVICE),
@@ -4271,6 +4427,7 @@ def main() -> None:
     levels = train_levels_phase()
     k1_build_report()
     k2_build_report()
+    k34_build_report()
     train = train_phase(dev["smi"])
     cells = [cell_train_phase(p, dev["smi"]) for p in CELL_PHASES]
     k6_err = k6_phase()
@@ -4301,16 +4458,26 @@ def main() -> None:
             c["scatter"]["max_abs_err"] for c in cells]), "ms": sc["ms"],
         "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
         "bound_by": sc["bound_by"], "library_ms": sc["library_ms"]}]
+    others = {"lstm": [chains["megastep"], decode[0]["tick"]],
+              "gru": [decode[1]["tick"]]}
     for c in cells:
         k, part, name = c["kind"], c["fwd"], f"{c['kind']}_megastep"
-        rows += [{
+        row = {
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/cell_megastep.cu",
+            "source": "src/repro_torch/kernels/csrc/" + (
+                "cell_megastep.cu" if k == "treefc"
+                else "cell_megastep_sm90.cu"),
             "replaces": FORWARD_REPLACES[k], "launches": c["launches"][name],
-            "max_abs_err": part["max_abs_err"], "ms": part["ms"],
-            "plain_ms": part["plain_ms"], "bound_ms": part["bound_ms"],
-            "bound_by": part["bound_by"], "library_ms": None},
-            k2_row(k, c["bwd"], c["launches"])]
+            "max_abs_err": max([part["max_abs_err"]] + [
+                o["max_abs_err"] for o in others.get(k, [])]),
+            "ms": part["ms"], "plain_ms": part["plain_ms"],
+            "bound_ms": part["bound_ms"], "bound_by": part["bound_by"],
+            "library_ms": None}
+        if k in FWD_KERNELS:            # device time; events beside
+            row.update(cuda_launches=c["fwd_cuda_launches"],
+                       events_ms=part["events_ms"],
+                       bound_fma_ms=part["bound_fma_ms"])
+        rows += [row, k2_row(k, c["bwd"], c["launches"])]
     for name, part, replaces in (
             ("gather_rows", cont["gather"],
              "src/repro/kernels/gather_scatter.py:39"),
@@ -4334,6 +4501,17 @@ def main() -> None:
               f"bound {part['bound_ms']:.5f} ms by {part['bound_by']}"
               + (f"; {part['total_ms']:.4f} ms a step"
                  if "training" in label else ""))
+    for c in cells:
+        if c["kind"] in FWD_KERNELS:
+            part = c["fwd"]
+            print(f"{FWD_KERNELS[c['kind']][0]} at the {c['phase']} step's "
+                  f"{part['levels']} levels: {part['ms']:.4f} ms a launch "
+                  f"(device; events {part['events_ms']:.4f}), plain "
+                  f"{part['plain_ms']:.4f} ms, bound {part['bound_ms']:.5f} "
+                  f"ms by {part['bound_by']} (fp32 FMA "
+                  f"{part['bound_fma_ms']:.5f}); {part['total_ms']:.4f} ms "
+                  f"a step, {c['fwd_cuda_launches']} CUDA launches in "
+                  f"{c['steps']} steps")
     frontier = {"treelstm_megastep at the tree frontier": cont["megastep"],
                 "lstm_megastep at the chain frontier": chains["megastep"],
                 **{f"{d['kind']}_megastep at a decode tick": d["tick"]
@@ -4353,6 +4531,13 @@ def main() -> None:
           f"step's schedule), " + ", ".join(
               f"{c['phase']} {c['plan_ms']:.3f} ms" for c in cells)
           + " (host, once per schedule)")
+    if PROFILER_OFFSETS_US:
+        print(f"profiler sessions: {len(PROFILER_OFFSETS_US)}, least "
+              f"launch-to-kernel time from {min(PROFILER_OFFSETS_US):.1f} to "
+              f"{max(PROFILER_OFFSETS_US):.1f} µs (first "
+              f"{PROFILER_OFFSETS_US[0]:.1f}, last "
+              f"{PROFILER_OFFSETS_US[-1]:.1f}; below zero the card's clock "
+              f"trails the host's)")
     print(dev["smi"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,6 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 #: kernel name → (source file, C entry point, argtypes).  Every pointer
 #: and the stream are ``c_void_p`` and every stride ``c_longlong``, so
 #: ctypes never cuts them to 32 bits.
-_CELL_FWD = [_P] * 7 + [_I] * 7 + [_P]
 _BWD = [_P] * 12 + [_I] * 13 + [_P, _P]
 KERNELS: Dict[str, Tuple[str, str, List]] = {
     "treelstm_megastep": (
@@ -43,9 +42,12 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     "scatter_add_rows": (
         "scatter_add_rows.cu", "scatter_add_rows_launch",
         [_P] * 6 + [_I] * 4 + [_L] * 2 + [_P]),
-    **{f"{kind}_megastep": ("cell_megastep.cu", f"{kind}_megastep_launch",
-                            _CELL_FWD)
-       for kind in ("lstm", "gru", "treefc")},
+    **{f"{kind}_megastep": ("cell_megastep_sm90.cu",
+                            f"{kind}_megastep_sm90_launch",
+                            [_P] * 7 + [_I] * 9 + [_P, _P])
+       for kind in ("lstm", "gru")},
+    "treefc_megastep": ("cell_megastep.cu", "treefc_megastep_launch",
+                        [_P] * 7 + [_I] * 7 + [_P]),
     **{f"{kind}_bwd_megastep": ("bwd_megastep_sm90.cu",
                                 f"{kind}_bwd_megastep_launch", _BWD)
        for kind in ("treelstm", "lstm", "gru", "treefc")},

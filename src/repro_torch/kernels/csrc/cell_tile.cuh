@@ -1,23 +1,24 @@
-// The register-tiled fp32 gate product shared by the forward megasteps of
-// kinds lstm, gru and treefc (cell_megastep.cu) and by the fused LSTM
-// level step (lstm_level_fused.cu); the gate kernels (cell_gates.cu) use
-// its sigmoid and type conversions.  (The reverse megasteps run the
-// tensor-core product of gathered_product.cuh instead.)  Hopper (sm_90a), CUDA cores, no TF32
-// (the 1e-4 fp32 bar).
+// The register-tiled fp32 gate product shared by the Tree-FC forward
+// megastep (K5, cell_megastep.cu) and by the fused LSTM level step of the
+// op-by-op leg (K9, lstm_level_fused.cu); the gate kernels (K8,
+// cell_gates.cu) use its sigmoid and type conversions.  (The forward
+// megasteps K1, K3 and K4 and the reverse megastep K2 run the tensor-core
+// product of gathered_product.cuh instead.)  Hopper (sm_90a), CUDA cores,
+// no TF32 (the 1e-4 fp32 bar).
 //
 // A block owns a tile of BM slots x BN hidden columns.  For hidden column
 // j it accumulates the NG gate lanes j, H+j, ..., (NG-1)H+j of
 //
 //   X . W,   X[m, a*H + k] = buf[child_ids[m, a], h_off + k]   (a < KA)
 //
-// with W row-major [KA*H, NG*H]: lstm (NG 4, W = W_h [H, 4H], X = h half of
-// the predecessor row), gru (NG 3, W = W_h [H, 3H], X = the predecessor
-// row), treefc (NG 1, KA = A, W = wc [A*H, H], X = the A child rows side by
-// side; the concatenation never exists in memory).  Every lane of a column
-// lands in the same thread, so the gate epilogues stay column-local.  An
-// absent child points at the zero sentinel row; it is read as zeros
-// without a load.  The rows of X may be float or bf16 (TX); they are
-// widened to fp32 as they are staged, and the product stays fp32.
+// with W row-major [KA*H, NG*H]: treefc (NG 1, KA = A, W = wc [A*H, H],
+// X = the A child rows side by side; the concatenation never exists in
+// memory), the fused LSTM step (NG 4, KA 1, W = W_h [H, 4H], X = the
+// h_prev rows).  Every lane of a column lands in the same thread, so the
+// gate epilogues stay column-local.  An absent child points at the zero
+// sentinel row; it is read as zeros without a load.  The rows of X may be
+// float or bf16 (TX); they are widened to fp32 as they are staged, and the
+// product stays fp32.
 
 #pragma once
 
@@ -35,15 +36,6 @@ constexpr int NT = (BM / TM) * (BN / TN); // 256 threads
 constexpr int LDM = BM + 4;               // padded row of the slot-major tiles
 constexpr int LDN = BN + 4;               // padded row of the transposed weights
 constexpr int MAX_A = 4;                  // largest arity taken
-
-enum Kind { LSTM = 0, GRU = 1, TREEFC = 2 };
-
-// NG: gate lanes per hidden column (G = NG*H, the pulled row's width);
-// SM: state width in units of H (S = SM*H).
-template <int KIND> struct Traits;
-template <> struct Traits<LSTM> { static constexpr int NG = 4, SM = 2; };
-template <> struct Traits<GRU> { static constexpr int NG = 3, SM = 1; };
-template <> struct Traits<TREEFC> { static constexpr int NG = 1, SM = 1; };
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));

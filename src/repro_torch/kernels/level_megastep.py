@@ -9,9 +9,12 @@ wrapper per megastep kind (``GateSpec.kind``):
     over a cluster sized by :func:`k1_split`; the gathered product is
     ``csrc/gathered_product.cuh``, the one the reverse megastep's pass (a)
     runs too;
-  :func:`lstm_megastep`, :func:`gru_megastep`, :func:`treefc_megastep`
-    (``csrc/cell_megastep.cu``) — the arity-1 LSTM and GRU levels and
-    the Tree-FC level (K3, K4, K5).
+  :func:`lstm_megastep`, :func:`gru_megastep`
+    (``csrc/cell_megastep_sm90.cu``) — the LSTM and GRU levels (K3, K4):
+    the same design on the same product, over the predecessor's row, its
+    grid split by :func:`cell_split`;
+  :func:`treefc_megastep` (``csrc/cell_megastep.cu``) — the Tree-FC
+    level (K5), fp32 on the CUDA cores.
 
 Each source's header states its bound and design;
 :mod:`repro_torch.kernels._build` compiles the sources with ``nvcc`` for
@@ -52,8 +55,8 @@ from repro_torch.kernels import _build
 
 #: kernel name → launches of that kernel in this process.
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
-#: kernel name → the CUDA launches its counted calls made, for K1, whose
-#: call (one level) makes one or two.
+#: kernel name → the CUDA launches its counted calls made, for K1, K3 and
+#: K4, whose call (one level) makes one or two.
 CUDA_LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 #: Largest arity the kernels take.
@@ -141,6 +144,25 @@ def k1_split(live: int, H: int, sms: int) -> int:
     ``sms`` SMs (:func:`k2_split` on its tiles and chunks); 1 where there
     is no product."""
     return k2_split(*k1_grid(live, H)[:2], sms, K1_WARPS) if live else 1
+
+
+#: Warps of a K3/K4 CTA (``NT`` in ``csrc/cell_megastep_sm90.cu``): K2's
+#: lstm and gru pass (a); their tile is K1's (``K1_BJ`` columns).
+CELL_WARPS = 4
+
+
+def cell_grid(live: int, H: int) -> Tuple[int, int, int]:
+    """``(tiles, chunks, warps)`` of K3's or K4's product over a level's
+    ``live`` slots: K1's tiles and chunks, and the warps of a CTA."""
+    return k1_grid(live, H)[:2] + (CELL_WARPS,)
+
+
+def cell_split(live: int, H: int, sms: int) -> int:
+    """The depth split of K3's or K4's product over ``live`` slots on a
+    card of ``sms`` SMs (:func:`k2_split` on its tiles and chunks); 1
+    where there is no product."""
+    return k2_split(*cell_grid(live, H)[:2], sms, CELL_WARPS) if live \
+        else 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -286,7 +308,8 @@ def treelstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
 def _cell_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
                    ext_ids: torch.Tensor, node_mask: torch.Tensor,
                    offset: int, ext: torch.Tensor, w: torch.Tensor,
-                   b: torch.Tensor, sentinel: Optional[int]) -> torch.Tensor:
+                   b: torch.Tensor, sentinel: Optional[int],
+                   live: Optional[int] = None) -> torch.Tensor:
     op = f"{kind}_megastep"
     require_cuda(op, buf)
     M, A = child_ids.shape
@@ -306,18 +329,28 @@ def _cell_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
     if not 1 <= A <= MAX_ARITY:
         raise NotImplementedError(f"{op}: arity {A} outside 1..{MAX_ARITY}")
     offset, sentinel = block_rows(op, R, M, offset, sentinel)
-    launch_kernel(op, dev, buf.data_ptr(), child_ids.data_ptr(),
-                  ext_ids.data_ptr(), node_mask.data_ptr(), ext.data_ptr(),
-                  w.data_ptr(), b.data_ptr(), M, A, H, offset, sentinel,
-                  buf.stride(0), ext.stride(0))
+    args = (buf.data_ptr(), child_ids.data_ptr(), ext_ids.data_ptr(),
+            node_mask.data_ptr(), ext.data_ptr(), w.data_ptr(),
+            b.data_ptr(), M, A, H, offset, sentinel, buf.stride(0),
+            ext.stride(0))
+    if kind == "treefc":
+        launch_kernel(op, dev, *args)
+        return buf
+    live = M if live is None else int(live)
+    if not 0 <= live <= M:
+        raise ValueError(f"{op}: live={live} outside [0, {M}]")
+    n = ctypes.c_int(0)
+    launch_kernel(op, dev, *args, live, cell_split(live, H, _sm_count(dev)),
+                  ctypes.addressof(n))
+    CUDA_LAUNCHES[op] += n.value
     return buf
 
 
 def lstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
                   ext_ids: torch.Tensor, node_mask: torch.Tensor,
                   offset: int, ext: torch.Tensor, wh: torch.Tensor,
-                  b: torch.Tensor, *,
-                  sentinel: Optional[int] = None) -> torch.Tensor:
+                  b: torch.Tensor, *, sentinel: Optional[int] = None,
+                  live: Optional[int] = None) -> torch.Tensor:
     """One fused LSTM batching task, in place (K3).
 
     ``buf``: ``[T*M+1, 2H]`` float32 node-state buffer ``[c|h]``, its last
@@ -326,23 +359,29 @@ def lstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
     ``[4H]``.  The forget gate adds +1.0.  ``sentinel`` is the zero row
     absent children point at (default: the last row); the block written
     must not cover it, and may lie past it (the continuous engine's
-    staging block).  Returns ``buf``."""
+    staging block).  ``live``: one past the last slot with a child other
+    than the sentinel (``DeviceSchedule.live``, a host value); the
+    product runs over ``[0, live)`` and an elementwise launch over
+    ``[live, M)``.  Without it the product's grid covers every slot, and
+    a tile with no predecessor takes the formula of none on the card.
+    Padding slots are written as zeros.  One count in ``LAUNCHES``, one or
+    two in ``CUDA_LAUNCHES``.  Returns ``buf``."""
     return _cell_megastep("lstm", buf, child_ids, ext_ids, node_mask,
-                          offset, ext, wh, b, sentinel)
+                          offset, ext, wh, b, sentinel, live)
 
 
 def gru_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
                  ext_ids: torch.Tensor, node_mask: torch.Tensor,
                  offset: int, ext: torch.Tensor, wh: torch.Tensor,
-                 b: torch.Tensor, *,
-                 sentinel: Optional[int] = None) -> torch.Tensor:
+                 b: torch.Tensor, *, sentinel: Optional[int] = None,
+                 live: Optional[int] = None) -> torch.Tensor:
     """One fused GRU batching task, in place (K4): state ``h`` (``buf``
     ``[T*M+1, H]``), ``ext`` ``[R+1, 3H]`` (``z|r|n``), ``wh`` ``[H, 3H]``,
     ``b`` ``[3H]``; the reset gate multiplies the recurrent candidate
-    with its bias.  ``sentinel`` as for :func:`lstm_megastep`.  Returns
-    ``buf``."""
+    with its bias.  ``sentinel`` and ``live`` as for
+    :func:`lstm_megastep`.  Returns ``buf``."""
     return _cell_megastep("gru", buf, child_ids, ext_ids, node_mask,
-                          offset, ext, wh, b, sentinel)
+                          offset, ext, wh, b, sentinel, live)
 
 
 def treefc_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
@@ -361,7 +400,7 @@ def treefc_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
 
 #: megastep kind → its kernel's wrapper, all called as
 #: ``fn(buf, child_ids, ext_ids, node_mask, offset, ext, *weights,
-#: sentinel=...)``; K1's also takes ``live=``.
+#: sentinel=...)``; K1's, K3's and K4's also take ``live=``.
 MEGASTEPS = {"treelstm": treelstm_megastep, "lstm": lstm_megastep,
              "gru": gru_megastep, "treefc": treefc_megastep}
 

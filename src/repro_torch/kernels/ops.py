@@ -97,8 +97,9 @@ def level_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
     ``[offset, offset+M)`` in place.  Returns ``buf``.  ``kind``/
     ``weights`` come from the cell's ``GateSpec``.  ``live``: the level's
     live slot count (``DeviceSchedule.live``), which the card's
-    ``treelstm`` kernel (K1) reads; K3-K5 cover every slot, and the plain
-    version ignores it."""
+    ``treelstm``, ``lstm`` and ``gru`` kernels (K1, K3, K4) read to stop
+    their product there; K5 covers every slot, and the plain version
+    ignores it."""
     if not buf.is_cuda:
         _tick("level_megastep", "ref")
         return ref.level_megastep(kind, buf, child_ids, child_mask, ext_ids,
@@ -107,7 +108,7 @@ def level_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
     if kernel is None:
         raise ValueError(f"unknown megastep gate kind: {kind!r}")
     _tick("level_megastep", "cuda")
-    kw = {"live": live} if kind == "treelstm" else {}
+    kw = {} if kind == "treefc" else {"live": live}
     return kernel(buf, child_ids, ext_ids, node_mask, offset, ext, *weights,
                   **kw)
 

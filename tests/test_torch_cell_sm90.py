@@ -1,0 +1,357 @@
+"""K3 and K4, the LSTM and GRU forward megasteps
+(``csrc/cell_megastep_sm90.cu``), where no card is present: the depth
+split, the wrapper's launch arguments, the keyword ``ops`` passes, and
+the kernels' arithmetic emulated in plain PyTorch against the plain
+version, JAX's reference and the Pallas K3/K4.
+
+- ``emulate_cell_tf32x3`` repeats what the kernels compute on a level:
+  the product grid over the slots ``[0, live)`` (``live`` the host's, or
+  M without one), in tiles of ``K2_BM`` slots; a tile with no child other
+  than the sentinel takes the formula of a slot with no predecessor, as
+  do the slots ``[live, M)`` (the elementwise launch); in a tile with a
+  child, the predecessor's h (its whole row for gru) against each lane of
+  ``W_h``, the depth in chunks of ``K2_BK`` dealt to the ranks of the
+  cluster as ``cell_split`` and ``k2_chunks`` deal them, every k-step of 8
+  as three TF32 products (``cvt.rna`` on int32 bit views; small·big,
+  big·small, big·big) into the rank's fp32 sum, the ranks' sums added in
+  rank order; the epilogue in the kernel's order; padding written as
+  zeros.  The product's helpers are ``tests/test_torch_bwd_sm90.py``'s
+  (K2's lstm and gru pass (a) runs the same product), the levels
+  ``tests/test_torch_cells_card.py``'s ``CELL_EDGES``, which the ``gpu``
+  tests run through the kernels.
+- For lstm and gru at H 5 and 72, on levels of M 1, 63, 64, 65 and 128
+  with live 0, 1, 63, 64, M and none, padding slots, a second child
+  column, and a staging block past the sentinel: the emulation within
+  1e-5 of max |plain| of JAX's ``ref.level_megastep`` and (at fewer
+  shapes) of the Pallas K3/K4 in interpret mode.  Measured: 1.6e-8 to
+  1.6e-7 of max |JAX ref|.  One TF32 product a k-step without the split
+  gives 1.1e-4 to 1.7e-4 at H 72 and misses that bar, as
+  ``test_unsplit_tf32_misses_the_bar`` shows.  The emulation's sums round
+  as IEEE fp32 does; the tensor core's cut, which ``chip_smoke.py`` and
+  the ``gpu`` tests hold to the card's bar of 1e-4.
+"""
+
+import ctypes
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import level_megastep as jlm
+from repro.kernels import ref as jref
+from repro_torch.kernels import level_megastep as lm
+from repro_torch.kernels import level_megastep_bwd as lmb
+from repro_torch.kernels import ref
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = 1e-5
+SMS = 132                                 # an H100 SXM's SMs
+KINDS = ("lstm", "gru")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _test_module(name):
+    """Another test file of this directory, loaded as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f"_{name}", ROOT / "tests" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+rank_sums = _test_module("test_torch_bwd_sm90").rank_sums
+_card_tests = _test_module("test_torch_cells_card")
+EDGES = _card_tests.CELL_EDGES
+
+
+# ---------------------------------------------------------------------------
+# The kernels' arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+def emulate_cell_tf32x3(kind, buf, cids, eids, nm, off, ext, weights, *,
+                        live=None, sentinel=None, sms=SMS, split3=True):
+    """What K3 (``kind`` "lstm") or K4 ("gru") leaves in ``buf`` (a copy;
+    the inputs are left as they are) for one level, its depth split as the
+    kernel splits it on a card of ``sms`` SMs."""
+    out = buf.clone()
+    M = cids.shape[0]
+    sent = buf.shape[0] - 1 if sentinel is None else sentinel
+    L = M if live is None else live
+    wh, b = weights
+    H = wh.shape[0]
+    nq = 4 if kind == "lstm" else 3
+    sig = torch.sigmoid
+    x = ext[eids.long()]
+    xl = [x[:, q * H:(q + 1) * H] for q in range(nq)]
+    bl = [b[q * H:(q + 1) * H] for q in range(nq)]
+
+    def state(v, pv, rows):
+        """The epilogue at the slots ``rows`` from the products ``v`` (None:
+        no product) and the predecessor's c or h ``pv`` (None: zero)."""
+        xs = [xq[rows] for xq in xl]
+        if kind == "lstm":
+            if v is None:                     # f meets p_c = 0
+                ig = sig(xs[0] + bl[0])
+                og = sig(xs[2] + bl[2])
+                c = ig * torch.tanh(xs[3] + bl[3])
+            else:
+                ig = sig(xs[0] + v[0] + bl[0])
+                fg = sig(xs[1] + v[1] + bl[1] + 1.0)
+                og = sig(xs[2] + v[2] + bl[2])
+                ug = torch.tanh(xs[3] + v[3] + bl[3])
+                c = fg * pv + ig * ug
+            return torch.cat([c, og * torch.tanh(c)], 1)
+        if v is None:
+            z = sig(xs[0] + bl[0])
+            r = sig(xs[1] + bl[1])
+            return (1.0 - z) * torch.tanh(xs[2] + r * bl[2])
+        z = sig(xs[0] + (v[0] + bl[0]))
+        r = sig(xs[1] + (v[1] + bl[1]))
+        n = torch.tanh(xs[2] + r * (v[2] + bl[2]))
+        return (1.0 - z) * n + z * pv
+
+    st = state(None, None, slice(0, M))
+    if L:
+        ids = cids[:L].long()
+        has = ids != sent
+        tiles = torch.nn.functional.pad(has.any(1), (0, -L % lm.K2_BM))
+        use = tiles.reshape(-1, lm.K2_BM).any(1).repeat_interleave(
+            lm.K2_BM)[:L]
+        prev = torch.where(has[:, :1], buf[ids[:, 0]], torch.zeros(()))
+        opnd = prev[:, H:] if kind == "lstm" else prev
+        p = rank_sums([[(q, opnd, wh[:, q * H:(q + 1) * H])
+                        for q in range(nq)]], H, lm.cell_split(L, H, sms),
+                      nq, split3)
+        got = state(p, prev[:, :H], slice(0, L))
+        st[:L] = torch.where(use[:, None], got, st[:L])
+    keep = (nm != 0)[:, None]
+    out[off:off + M] = torch.where(keep, st * nm[:, None], 0.0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Levels
+# ---------------------------------------------------------------------------
+
+def _level(kind, name, h, seed=0):
+    return _card_tests.cell_edge_level(kind, name, h, seed)
+
+
+def _torch(c):
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    return (t(c["buf"]), t(c["cids"]), t(c["eids"]), t(c["nm"]), c["off"],
+            t(c["ext"]), tuple(t(w) for w in c["w"]))
+
+
+def _emulate(kind, c, **kw):
+    return emulate_cell_tf32x3(kind, *_torch(c), live=c["live"],
+                               sentinel=c["sentinel"], **kw).numpy()
+
+
+def _jax_ref(kind, c):
+    return np.asarray(jref.level_megastep(
+        kind, jnp.asarray(c["buf"]), jnp.asarray(c["cids"]),
+        jnp.asarray(c["cmask"]), jnp.asarray(c["eids"]),
+        jnp.asarray(c["nm"]), c["off"], jnp.asarray(c["ext"]),
+        tuple(jnp.asarray(w) for w in c["w"])))
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _outside_kept(c, got):
+    M = c["cids"].shape[0]
+    keep = np.ones(c["buf"].shape[0], bool)
+    keep[c["off"]:c["off"] + M] = False
+    np.testing.assert_array_equal(got[keep].view(np.int32),
+                                  c["buf"][keep].view(np.int32))
+
+
+@pytest.mark.parametrize("h", [5, 72])
+@pytest.mark.parametrize("name", list(EDGES))
+@pytest.mark.parametrize("kind", KINDS)
+def test_emulation_matches_jax_ref(kind, name, h):
+    c = _level(kind, name, h)
+    got = _emulate(kind, c)
+    want = _jax_ref(kind, c)
+    assert _rel(got, want) <= TOL
+    _outside_kept(c, got)
+    M, real = c["cids"].shape[0], int(c["nm"].sum())
+    assert not got[c["off"] + real:c["off"] + M].any()     # padding: zeros
+
+
+@pytest.mark.parametrize("kind,name,h", [
+    ("lstm", "M65_live64", 5), ("gru", "M65_live64", 5),
+    ("lstm", "M65_none", 24), ("gru", "staging_M64", 24),
+    ("lstm", "M1_live1", 5), ("gru", "M63_liveM", 5)], ids=str)
+def test_emulation_matches_jax_pallas_interpret(kind, name, h):
+    c = _level(kind, name, h)
+    fn = jlm.lstm_megastep if kind == "lstm" else jlm.gru_megastep
+    want = np.asarray(fn(
+        jnp.asarray(c["buf"]), jnp.asarray(c["cids"]), jnp.asarray(c["eids"]),
+        jnp.asarray(c["nm"]), jnp.int32(c["off"]), jnp.asarray(c["ext"]),
+        *(jnp.asarray(w) for w in c["w"]), interpret=True))
+    assert _rel(_emulate(kind, c), want) <= TOL
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("name", ["M128_liveM", "M128_none", "staging_M64"])
+def test_emulation_matches_plain_and_split_does_not_matter(kind, name):
+    """The emulation against the port's plain version, with the depth
+    split of a card of 132 SMs and with none (``sms=1``): both within the
+    bar, so the split only reorders fp32 sums."""
+    c = _level(kind, name, 72)
+    buf, cids, eids, nm, off, ext, w = _torch(c)
+    want = ref.level_megastep(kind, buf.clone(), cids,
+                              torch.from_numpy(c["cmask"]), eids, nm, off,
+                              ext, w)
+    assert lm.cell_split(c["live"] or cids.shape[0], 72, SMS) > 1
+    for sms in (SMS, 1):
+        got = emulate_cell_tf32x3(kind, buf, cids, eids, nm, off, ext, w,
+                                  live=c["live"], sentinel=c["sentinel"],
+                                  sms=sms)
+        assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_unsplit_tf32_misses_the_bar(kind):
+    """One TF32 product a k-step, as a plain TF32 kernel would do, misses
+    1e-5 of max |JAX ref|: the reason for the split."""
+    c = _level(kind, "M128_liveM", 72)
+    err = _rel(_emulate(kind, c, split3=False), _jax_ref(kind, c))
+    assert err > TOL, err
+    assert _rel(_emulate(kind, c), _jax_ref(kind, c)) <= TOL
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_slots_with_no_predecessor_take_no_product(kind):
+    """Slots past ``live`` and the slots of a tile with no child get the
+    formula of no predecessor: the same values whatever ``W_h`` holds, and
+    the same bits as the product path gives a slot whose predecessor is
+    the sentinel."""
+    c = _level(kind, "M128_none", 24)
+    got = _emulate(kind, c)
+    c["w"][0][...] = np.nan
+    again = _emulate(kind, c)
+    rows = slice(c["off"] + 64, c["off"] + 128)   # the tile of no child
+    np.testing.assert_array_equal(again[rows], got[rows])
+    assert np.isnan(again[c["off"]:c["off"] + 64]).any()
+    # A slot of a product tile whose predecessor is the sentinel.
+    c = _level(kind, "M128_liveM", 24)
+    sent = c["cids"][:, 0] == c["sentinel"]
+    assert sent.any()
+    buf, cids, eids, nm, off, ext, w = _torch(c)
+    prod = emulate_cell_tf32x3(kind, buf, cids, eids, nm, off, ext, w,
+                               live=128, sentinel=c["sentinel"])
+    leaf = emulate_cell_tf32x3(kind, buf, cids, eids, nm, off, ext, w,
+                               live=0, sentinel=c["sentinel"])
+    rows = torch.from_numpy(np.flatnonzero(sent)) + off
+    assert torch.equal(prod[rows].view(torch.int32),
+                       leaf[rows].view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The depth split
+# ---------------------------------------------------------------------------
+
+def test_cell_split_is_k2_pass_a_split():
+    """K3's and K4's product is K2's lstm and gru pass (a): the same
+    tiles, chunks, warps and split at every level size."""
+    for kind in KINDS:
+        for live in (1, 16, 44, 64, 65, 128, 2048):
+            for H in (5, 72, 512):
+                assert lm.cell_grid(live, H) == lmb.k2_grid(kind, live, 1,
+                                                            H)[0]
+                assert lm.cell_split(live, H, SMS) == lmb.k2_splits(
+                    kind, live, 1, H, SMS)[0]
+    assert lm.cell_split(0, 512, SMS) == 1
+    # A Var-LSTM level (128 slots) at H 512: 64 tiles, split 4 (256
+    # CTAs); 64 slots: 32 tiles, split 8.
+    assert lm.cell_grid(128, 512) == (64, 16, 4)
+    assert lm.cell_split(128, 512, SMS) == 4
+    assert lm.cell_grid(64, 512)[0] == 32 and lm.cell_split(64, 512, SMS) == 8
+
+
+# ---------------------------------------------------------------------------
+# The wrapper's launch, stubbed
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """K3's and K4's wrappers on CPU tensors with the launch recorded: the
+    fake entry point reports 1 CUDA launch where the level has a live
+    count of 0 or M and 2 else, as the kernel does."""
+    calls = []
+
+    def fake_launch(op, dev, *args, counts=()):
+        calls.append((op, args))
+        if op != "treefc_megastep":
+            M, live = args[7], args[14]
+            ctypes.c_int.from_address(args[-1]).value = \
+                (live > 0) + (live < M)
+        for key in counts or (op,):
+            lm.LAUNCHES[key] += 1
+
+    monkeypatch.setattr(lm, "require_cuda", lambda op, t: None)
+    monkeypatch.setattr(lm, "launch_kernel", fake_launch)
+    monkeypatch.setattr(lm, "_sm_count", lambda dev: SMS)
+    lm.reset_launches()
+    yield calls
+    lm.reset_launches()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_wrapper_passes_live_split_and_sentinel(fake_card, kind):
+    c = _level(kind, "M65_live64", 72)
+    buf, cids, eids, nm, off, ext, w = _torch(c)
+    R, M = buf.shape[0], cids.shape[0]
+    S, G = lm.widths(kind, 72)
+    op = f"{kind}_megastep"
+    fn = lm.MEGASTEPS[kind]
+    assert fn(buf, cids, eids, nm, off, ext, *w, live=64) is buf
+    fn(buf, cids, eids, nm, off, ext, *w)
+    fn(buf, cids, eids, nm, off, ext, *w, live=0, sentinel=c["sentinel"])
+    (o1, a1), (_, a2), (_, a3) = fake_card
+    assert o1 == op
+    assert a1[0] == buf.data_ptr() and a1[5] == w[0].data_ptr()
+    assert a1[6] == w[1].data_ptr()
+    assert a1[7:16] == (M, 1, 72, off, R - 1, S, G, 64,
+                        lm.cell_split(64, 72, SMS))
+    assert a2[14] == M                         # no count: every slot
+    assert a3[11] == c["sentinel"] and a3[14:16] == (0, 1)
+    assert lm.LAUNCHES[op] == 3
+    assert lm.CUDA_LAUNCHES[op] == 2 + 1 + 1
+    with pytest.raises(ValueError, match="live"):
+        fn(buf, cids, eids, nm, off, ext, *w, live=M + 1)
+    with pytest.raises(ValueError, match="sentinel"):
+        fn(buf, cids, eids, nm, off, ext, *w, sentinel=off)
+    assert lm.LAUNCHES[op] == 3
+
+
+def test_treefc_wrapper_takes_no_live(fake_card):
+    """K5 keeps its launch: no live count, no split, no launch count."""
+    rng = np.random.default_rng(0)
+    H, M, A = 8, 4, 2
+    buf = torch.from_numpy(rng.standard_normal((3 * M + 1, H))
+                           .astype(np.float32))
+    cids = torch.full((M, A), 3 * M, dtype=torch.int32)
+    args = (buf, cids, torch.zeros(M, dtype=torch.int32), torch.ones(M),
+            M, torch.zeros(M + 1, H), torch.zeros(A * H, H), torch.zeros(H))
+    lm.treefc_megastep(*args)
+    (op, a), = fake_card
+    assert op == "treefc_megastep" and len(a) == 14
+    with pytest.raises(TypeError):
+        lm.treefc_megastep(*args, live=1)

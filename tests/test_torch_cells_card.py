@@ -1,12 +1,17 @@
 """The ``lstm``, ``gru`` and ``treefc`` megastep kernels on the card: the
 forward kernels (K3, K4, K5) and the reverse megastep (K2) of each kind
 against their plain versions, at small widths and at the paper's H = 512,
-with M = 1 and all-padding levels; rows a launch does not touch
-bit-unchanged; training gradients that repeat bit for bit and match the
-op-by-op leg; and the refusals: a wrong arity, a too-small workspace and
-a failed build raise instead of falling back to the plain version.
-Every test here is ``gpu``-marked and skips inside its body where there
-is no card; none needs JAX, which the GPU machine lacks.
+with M = 1 and all-padding levels, K3 and K4 given the schedule's live
+counts; K3 and K4 on ``CELL_EDGES`` (live counts at and across a tile's
+edge, none, padding, a staging block past the sentinel), which
+``tests/test_torch_cell_sm90.py`` also feeds to its emulation of the
+kernels; rows a launch does not touch bit-unchanged; two launches
+bitwise equal; the CUDA launches of K3's and K4's design; training
+gradients that repeat bit for bit and match the op-by-op leg; and the
+refusals: a wrong arity, a too-small workspace and a failed build raise
+instead of falling back to the plain version.  Every test here is
+``gpu``-marked and skips inside its body where there is no card; none
+needs JAX, which the GPU machine lacks.
 
 Tolerance: the kernels' error relative to max |plain| <= 1e-4, the
 reference's fused-vs-unfused bar (``repro/core/scheduler.py:305``)."""
@@ -82,6 +87,69 @@ def _levels(kind, family, h, seed=0, dev="cuda", **pads):
             (f32(w), f32(b)))
 
 
+#: K3/K4 edge levels: name → (M, live, real slots, A, staging).  ``live``
+#: None: the level is given no live count (the decode engine, the chain
+#: frontier), and its children lie in the first third of the slots, so a
+#: 64-slot tile past them has none; slots ``[real, M)`` are padding;
+#: ``staging``: the block lies past the sentinel, as the continuous
+#: engine's staging block does.  Tiles are 64 slots.
+CELL_EDGES = {
+    "M1_live0": (1, 0, 1, 1, False), "M1_live1": (1, 1, 1, 1, False),
+    "M1_none": (1, None, 1, 1, False),
+    "M63_live1": (63, 1, 63, 1, False), "M63_liveM": (63, 63, 50, 1, False),
+    "M63_none": (63, None, 63, 1, False),
+    "M64_live0": (64, 0, 64, 1, False), "M64_live63": (64, 63, 64, 1, False),
+    "M64_liveM": (64, 64, 64, 2, False),
+    "M65_live64": (65, 64, 65, 1, False), "M65_liveM": (65, 65, 60, 1, False),
+    "M65_none": (65, None, 65, 2, False),
+    "M128_live0": (128, 0, 100, 1, False),
+    "M128_live1": (128, 1, 128, 1, False),
+    "M128_live63": (128, 63, 128, 1, False),
+    "M128_live64": (128, 64, 128, 1, False),
+    "M128_liveM": (128, 128, 90, 1, False),
+    "M128_none": (128, None, 128, 1, False),
+    "staging_M64": (64, None, 44, 1, True),
+    "staging_M128": (128, None, 128, 1, True),
+}
+
+
+def cell_edge_level(kind, name, h, seed=0):
+    """NumPy level ``name`` of ``CELL_EDGES`` for kind ``kind`` at width
+    ``h``: a buffer whose rows below the block hold the predecessors and
+    whose row ``sentinel`` is zero; slots before ``live`` get a
+    predecessor (a fifth of them the sentinel, never slot ``live - 1``'s;
+    with A 2 the second column too); the first ``real`` slots are real,
+    the rest padding (ext rows at the zero row); ``wh`` ``[h, G]`` and a
+    nonzero bias."""
+    M, live, real, a, staging = CELL_EDGES[name]
+    S, G = SM[kind] * h, GM[kind] * h
+    rng = np.random.default_rng(seed + sum(map(ord, name)) + h)
+    sent = 3 * M
+    off = sent + 1 if staging else 2 * M
+    R = off + M if staging else sent + 1
+    buf = (rng.standard_normal((R, S)) * 0.5).astype(np.float32)
+    buf[sent] = 0.0
+    lo = min(off, sent)                           # rows a child may be
+    hi = -(-M // 3) if live is None else live     # slots with a child
+    cids = np.full((M, a), sent, np.int32)
+    cids[:hi] = rng.integers(0, lo, size=(hi, a))
+    cids[:hi][rng.random((hi, a)) < 0.2] = sent
+    if hi:
+        cids[hi - 1, 0] = rng.integers(0, lo)
+    n_ext = M + 8
+    ext = (rng.standard_normal((n_ext + 1, G)) * 0.5).astype(np.float32)
+    ext[n_ext] = 0.0
+    eids = rng.integers(0, n_ext, size=M).astype(np.int32)
+    eids[real:] = n_ext
+    nm = np.zeros(M, np.float32)
+    nm[:real] = 1.0
+    wh = (rng.standard_normal((h, G)) * h ** -0.5).astype(np.float32)
+    b = (rng.standard_normal(G) * 0.3).astype(np.float32)
+    return dict(buf=buf, cids=cids, cmask=(cids != sent).astype(np.float32),
+                eids=eids, nm=nm, off=off, ext=ext, w=(wh, b), live=live,
+                sentinel=sent)
+
+
 def _rel(got, want):
     return float((got - want).abs().max()) \
         / max(float(want.abs().max()), 1e-30)
@@ -115,8 +183,13 @@ def test_forward_and_reverse_kernels_match_plain_on_card(kind, family, h,
         lvl = (d.child_ids[t], d.child_mask[t], d.ext_ids[t], d.node_mask[t],
                t * s.M, ext, w)
         want = ref.level_megastep(kind, buf.clone(), *lvl)
+        kw = {} if kind == "treefc" else {"live": d.live[t]}
+        cuda0 = lm.CUDA_LAUNCHES[f"{kind}_megastep"]
         got = lm.MEGASTEPS[kind](buf.clone(), d.child_ids[t], d.ext_ids[t],
-                                 d.node_mask[t], t * s.M, ext, *w)
+                                 d.node_mask[t], t * s.M, ext, *w, **kw)
+        if kw:
+            assert lm.CUDA_LAUNCHES[f"{kind}_megastep"] - cuda0 == \
+                (d.live[t] > 0) + (d.live[t] < s.M), t
         wantb = ref.bwd_megastep(kind, g.clone(), buf, *lvl)
         before = lm.LAUNCHES[launches]
         bargs = (buf, d.child_ids[t], d.ext_ids[t], d.node_mask[t], t * s.M,
@@ -146,6 +219,45 @@ def test_forward_and_reverse_kernels_match_plain_on_card(kind, family, h,
     assert lm.LAUNCHES[f"{kind}_bwd_megastep"] == 2 * work
     if family == "dag":
         assert not all(d.bwd_single), "no level with a run of several"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [5, 72, 512])
+@pytest.mark.parametrize("name", list(CELL_EDGES))
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_cell_edge_levels_on_card(kind, name, h):
+    """K3/K4 on ``CELL_EDGES`` with the keywords the main path gives them:
+    within 1e-4 of max |plain|, rows outside the block (the sentinel among
+    them) bit-unchanged, two launches bitwise equal, the CUDA launches of
+    the design (the product where a slot may have a predecessor, the
+    elementwise launch past ``live``), at most 2."""
+    _need_card()
+    c = cell_edge_level(kind, name, h)
+    f32 = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    buf, cids, eids, nm, ext = (f32(c[k]) for k in
+                                ("buf", "cids", "eids", "nm", "ext"))
+    w = tuple(f32(x) for x in c["w"])
+    M, off, live = cids.shape[0], c["off"], c["live"]
+    kw = {"sentinel": c["sentinel"], "live": live}
+    want = ref.level_megastep(kind, buf.clone(), cids, f32(c["cmask"]),
+                              eids, nm, off, ext, w)
+    lm.reset_launches()
+    got = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nm, off, ext, *w, **kw)
+    again = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nm, off, ext, *w,
+                               **kw)
+    torch.cuda.synchronize()
+    n = M if live is None else live
+    assert lm.LAUNCHES[f"{kind}_megastep"] == 2
+    assert lm.CUDA_LAUNCHES[f"{kind}_megastep"] == 2 * ((n > 0) + (n < M))
+    if c["nm"].any():
+        assert _rel(got, want) <= TOL
+    else:
+        assert not bool(got[off:off + M].any())
+    assert torch.equal(_bits(got), _bits(again))
+    keep = torch.ones(buf.shape[0], dtype=torch.bool, device="cuda")
+    keep[off:off + M] = False
+    assert torch.equal(_bits(got[keep]), _bits(buf[keep]))
+    assert not bool(got[off + int(c["nm"].sum()):off + M].any())
 
 
 @pytest.mark.gpu

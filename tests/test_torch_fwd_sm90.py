@@ -368,8 +368,8 @@ def test_wrapper_passes_live_split_and_sentinel(fake_card):
 
 def test_scheduler_and_ops_pass_live_to_the_card(monkeypatch):
     """``_megastep_forward`` hands each level's live count through
-    ``ops.level_megastep`` to K1 on the card, and none to the cell kinds'
-    kernels; on CPU tensors the plain version runs whatever it says."""
+    ``ops.level_megastep`` to K1 on the card; on CPU tensors the plain
+    version runs whatever it says."""
     rng = np.random.default_rng(3)
     s = pack_batch([random_binary_tree(int(rng.integers(2, 12)), rng)
                     for _ in range(6)], with_runs=False)
@@ -406,19 +406,24 @@ def test_scheduler_and_ops_pass_live_to_the_card(monkeypatch):
     assert torch.equal(got, plain)
 
 
-def test_ops_passes_no_live_to_the_cell_kinds(monkeypatch):
+@pytest.mark.parametrize("kind,passed", [("lstm", {"live": 1}),
+                                         ("gru", {"live": 1}),
+                                         ("treefc", {})])
+def test_ops_passes_no_live_to_the_cell_kinds(monkeypatch, kind, passed):
+    """``ops.level_megastep`` hands the level's live count to K3 and K4
+    (which stop their product there, as K1 does) and none to K5."""
     seen = []
 
-    def k3(buf, *args, **kw):
+    def kernel(buf, *args, **kw):
         seen.append(kw)
         return buf
 
-    monkeypatch.setitem(lm.MEGASTEPS, "lstm", k3)
+    monkeypatch.setitem(lm.MEGASTEPS, kind, kernel)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     buf = torch.zeros(5, 8)
-    ops.level_megastep("lstm", buf, torch.zeros(2, 1, dtype=torch.int32),
+    ops.level_megastep(kind, buf, torch.zeros(2, 1, dtype=torch.int32),
                        torch.zeros(2, 1), torch.zeros(2, dtype=torch.int32),
                        torch.zeros(2), 0, torch.zeros(3, 16),
                        (torch.zeros(4, 16), torch.zeros(16)), live=1)
     monkeypatch.undo()
-    assert seen == [{}]
+    assert seen == [passed]

@@ -353,7 +353,9 @@ def test_build_table_covers_every_kind(tmp_path, monkeypatch):
             src = _build.KERNELS[name][0]
             assert (_build._CSRC / src).is_file(), name
     assert _build.library_path("lstm_megastep") \
-        == _build.library_path("treefc_megastep")
+        == _build.library_path("gru_megastep")
+    assert _build.library_path("lstm_megastep") \
+        != _build.library_path("treefc_megastep")
     assert _build.library_path("lstm_megastep") \
         != _build.library_path("lstm_bwd_megastep")
     csrc = tmp_path / "csrc"
@@ -364,19 +366,19 @@ def test_build_table_covers_every_kind(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_CSRC", csrc)
     monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "build")
     names = ("gru_bwd_megastep", "treelstm_megastep", "lstm_megastep",
-             "flash_attention")
+             "treefc_megastep", "flash_attention")
     before = {n: _build.library_path(n) for n in names}
     (csrc / "cell_tile.cuh").write_text((csrc / "cell_tile.cuh").read_text()
                                         + "\n")
     after = {n: _build.library_path(n) for n in names}
-    assert after["lstm_megastep"] != before["lstm_megastep"]
-    assert after["gru_bwd_megastep"] == before["gru_bwd_megastep"]
-    assert after["flash_attention"] == before["flash_attention"]
+    assert after["treefc_megastep"] != before["treefc_megastep"]
+    for n in ("gru_bwd_megastep", "lstm_megastep", "flash_attention"):
+        assert after[n] == before[n], n
     (csrc / "gathered_product.cuh").write_text(
         (csrc / "gathered_product.cuh").read_text() + "\n")
-    for n in ("gru_bwd_megastep", "treelstm_megastep"):
+    for n in ("gru_bwd_megastep", "treelstm_megastep", "lstm_megastep"):
         assert _build.library_path(n) != after[n], n
-    assert _build.library_path("lstm_megastep") == after["lstm_megastep"]
+    assert _build.library_path("treefc_megastep") == after["treefc_megastep"]
     monkeypatch.setattr(_build, "_nvcc", lambda: "false")
     monkeypatch.setattr(_build, "_LOADED", {})
     with pytest.raises(RuntimeError, match="build failed"):

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""K1 (the Tree-LSTM forward megastep) or K12 (the Mamba-2 chunk scan)
-beside an earlier commit's on the same inputs, in one run on one card.
+"""K1 (the Tree-LSTM forward megastep), K3/K4 (the LSTM and GRU forward
+megasteps) or K12 (the Mamba-2 chunk scan) beside an earlier commit's on
+the same inputs, in one run on one card.
 
     git archive <commit> | tar -x -C build/parent
     python3 tools/k1_parent_ab.py build/parent          # K1
+    python3 tools/k1_parent_ab.py build/parent k3       # K3 (lstm)
+    python3 tools/k1_parent_ab.py build/parent k4       # K4 (gru)
     python3 tools/k1_parent_ab.py build/parent k12      # K12
 
 K1.  The directory holds a checkout of the earlier commit; its K1 source,
@@ -19,6 +22,22 @@ kernels against the plain version (1e-4), then both are timed by
 the earlier one in turns.  Prints the means a launch of each set (the
 served levels also by ``chip_smoke.K1_CLASSES``) and, last, one JSON line
 of them.
+
+K3 and K4.  The earlier source, ``src/repro_torch/kernels/csrc/
+cell_megastep.cu`` (the fp32 SIMT kernels, entry points
+``lstm_megastep_launch`` and ``gru_megastep_launch``, no live count), is
+built the same way.  Both kernels run, with the keywords the main path
+gives this checkout's kernel, on the levels ``chip_smoke.py`` launches
+them on: the forward levels of one Var-LSTM (K3) or GRU (K4) training
+step (the cell phase's setup, one step taken with a tap), every
+``TAP_EVERY``-th decode tick of ``VertexServeEngine`` (``chip_smoke``'s
+decode traffic, no live count) and, for K3, the continuous chain
+frontier's kept ticks (the LSTM-chain trace submitted at once, no live
+count, a staging block past the sentinel).  Each level is checked for
+both kernels against the plain version (1e-4 of max |plain|); then both
+are timed by ``torch.profiler`` device time, one session a set, this
+kernel and the earlier one in turns.  Prints the means a launch and the
+sum over the step's levels and, last, one JSON line of them.
 
 K12.  The earlier K12 source, ``src/repro_torch/kernels/csrc/ssd_chunk.cu``
 (the fp32 SIMT kernel, entry point ``ssd_chunk_launch``, its head group
@@ -109,6 +128,141 @@ def level_sets() -> dict:
     sets[f"synthetic M {cs.M_FULL}"] = [(cs.synthetic_level(
         cs.M_FULL, 2, cs.HIDDEN, gen, cs.DEVICE), {})]
     return sets
+
+
+#: The earlier K3/K4 entry points' arguments: buf, child_ids, ext_ids,
+#: node_mask, ext, w, bias; M, A, H, offset, sentinel, buf_stride,
+#: ext_stride; stream.
+EARLIER_CELL_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                     + [ctypes.c_void_p])
+
+
+def earlier_cell(checkout: Path, kind: str):
+    """The earlier checkout's K3 (``kind`` "lstm") or K4 ("gru"), built
+    here, as ``fn(buf, child_ids, ext_ids, node_mask, offset, ext,
+    weights, sentinel)`` writing ``buf`` in place."""
+    src = checkout / "src" / "repro_torch" / "kernels" / "csrc" \
+        / "cell_megastep.cu"
+    lib = _build.build_dir() / "earlier_cell_megastep.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    if not lib.exists():
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                        str(src)], check=True, capture_output=True)
+    fn = getattr(ctypes.CDLL(str(lib)), f"{kind}_megastep_launch")
+    fn.argtypes, fn.restype = EARLIER_CELL_ARGS, ctypes.c_int
+
+    def launch(buf, cids, eids, nmask, off, ext, w, sentinel):
+        M, A = cids.shape
+        rc = fn(buf.data_ptr(), cids.data_ptr(), eids.data_ptr(),
+                nmask.data_ptr(), ext.data_ptr(), w[0].data_ptr(),
+                w[1].data_ptr(), M, A, w[0].shape[0], off, sentinel,
+                buf.stride(0), ext.stride(0),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the earlier {kind}_megastep failed with "
+                               f"CUDA error {rc}")
+        return buf
+
+    return launch
+
+
+def cell_sets(kind: str) -> dict:
+    """set name → (case, kw) pairs of K3 (``kind`` "lstm") or K4 ("gru"),
+    as ``chip_smoke.py`` gathers them: one training step's forward
+    levels, the kept decode ticks and (K3) the chain frontier's kept
+    ticks."""
+    phase = "var_lstm" if kind == "lstm" else "gru"
+    _k, fn, params, d, ext, h_lo, _s = cs.cell_setup(phase)
+    sets = {f"{phase} step": cs.tapped_levels(
+        lambda: cs.cell_grads(fn, params, d, ext, h_lo))}
+    fn, params, graphs, xs = cs.decode_setup(kind)
+    taps, inner = [], cs.ops.level_megastep
+
+    def tap(k, buf, *args, **kw):
+        if eng.ticks % cs.TAP_EVERY == 0:
+            taps.append(((buf.clone(),) + args, kw))
+        return inner(k, buf, *args, **kw)
+
+    cs.ops.level_megastep = tap
+    try:
+        eng = cs.VertexServeEngine(fn, params, num_slots=cs.DECODE_SLOTS,
+                                   device=cs.DEVICE)
+        cs._drain(eng, [cs.VertexRequest(i, x) for i, x in enumerate(xs)])
+    finally:
+        cs.ops.level_megastep = inner
+    sets["decode ticks"] = taps
+    if kind == "lstm":
+        fn, params, _gen = cs.chain_setup()
+        _arr, lens = cs.poisson_trace(cs.TRACE_SEED, cs.TRACE_N,
+                                      cs.TRACE_RATE, cs.TRACE_LENGTHS)
+        ticks, _g, eng = cs.frontier_taps(
+            lambda: cs.cont_engine(fn, params, None, None, cs.CHAIN_ROWS,
+                                   cs.CHAIN_WIDTH),
+            cs.trace_requests(cs.ContinuousRequest, lens, fn.input_dim))
+        R = eng.num_rows + 1
+        sets["chain frontier"] = [
+            ((snap[0], cids, cmask, eids, nm, R, snap[1], w),
+             {"sentinel": R - 1})
+            for snap, cids, cmask, nm, _out, eids, w in ticks
+            if snap is not None]
+    return sets
+
+
+def cell_main(dev: dict, checkout: Path, kind: str) -> None:
+    earlier = earlier_cell(checkout, kind)
+    torch.set_grad_enabled(True)
+    sets = cell_sets(kind)
+    torch.set_grad_enabled(False)
+    name_k = cs.FWD_KERNELS[kind][0]
+    out = {"card": dev["smi"], "kernel": name_k}
+    for name, levels in sets.items():
+        timed, copies, bounds = {}, {}, []
+        for i, (case, kw) in enumerate(levels):
+            buf, cids, cmask, eids, nmask, off, ext, w = case
+            sent = kw.get("sentinel", buf.shape[0] - 1)
+            want = ref.level_megastep(kind, buf.clone(), cids, cmask, eids,
+                                      nmask, off, ext, w)
+            got = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nmask, off,
+                                     ext, *w, **kw)
+            old = earlier(buf.clone(), cids, eids, nmask, off, ext, w, sent)
+            torch.cuda.synchronize()
+            M = cids.shape[0]
+            scale = max(float(want[off:off + M].abs().max()), 1e-30)
+            for label, res in (("this", got), ("earlier", old)):
+                err = float((res[off:off + M] - want[off:off + M])
+                            .abs().max()) / scale
+                cs.check(err <= cs.TOL, f"{label} {name_k} on {name} level "
+                         f"{i}: {err:.3e} of max |plain| > {cs.TOL}")
+            kb, eb = copies.setdefault(buf.data_ptr(),
+                                       (buf.clone(), buf.clone()))
+            c = (cids, eids, nmask, off, ext)
+            timed[i, "this"] = {
+                "calls": [lambda kb=kb, c=c, w=w, kw=kw:
+                          lm.MEGASTEPS[kind](kb, *c, *w, **kw)],
+                "match": "k34_",
+                "launches": cs.fwd_designed(M, kw.get("live"))}
+            timed[i, "earlier"] = {
+                "calls": [lambda eb=eb, c=c, w=w, sent=sent:
+                          earlier(eb, *c, w, sent)],
+                "match": "cell_megastep_kernel", "launches": 1}
+            bounds.append(cs.cell_bound_ms(kind, (kind,) + case, False,
+                                           sentinel=sent)[0])
+        ms = cs.device_ms(timed, reps=10)
+        this = [ms[i, "this"] for i in range(len(levels))]
+        old = [ms[i, "earlier"] for i in range(len(levels))]
+        out[name] = {"levels": len(levels), "ms": float(np.mean(this)),
+                     "earlier_ms": float(np.mean(old)),
+                     "total_ms": float(np.sum(this)),
+                     "earlier_total_ms": float(np.sum(old)),
+                     "bound_ms": float(np.mean(bounds))}
+        print(f"{name_k} {name} ({len(levels)} levels): this "
+              f"{out[name]['ms']:.4f} ms a launch, the earlier "
+              f"{out[name]['earlier_ms']:.4f} ms (device time; all levels "
+              f"{out[name]['total_ms']:.4f} / "
+              f"{out[name]['earlier_total_ms']:.4f} ms), bound "
+              f"{out[name]['bound_ms']:.5f} ms")
+    print(dev["smi"])
+    print(json.dumps(out))
 
 
 #: The earlier K12 entry point's arguments: y, states, x, dt, A, B, C;
@@ -230,12 +384,15 @@ def k12_main(dev: dict, checkout: Path) -> None:
 
 def main(argv=None) -> None:
     args = sys.argv[1:] if argv is None else argv
-    cs.check(len(args) in (1, 2) and (len(args) == 1
-                                      or args[1] in ("k1", "k12")),
-             "usage: k1_parent_ab.py EARLIER_CHECKOUT [k1|k12]")
+    cs.check(len(args) in (1, 2) and (len(args) == 1 or args[1] in (
+        "k1", "k3", "k4", "k12")),
+             "usage: k1_parent_ab.py EARLIER_CHECKOUT [k1|k3|k4|k12]")
     dev = cs.device_phase()
     if len(args) == 2 and args[1] == "k12":
         k12_main(dev, Path(args[0]))
+        return
+    if len(args) == 2 and args[1] in ("k3", "k4"):
+        cell_main(dev, Path(args[0]), "lstm" if args[1] == "k3" else "gru")
         return
     earlier = earlier_k1(Path(args[0]))
     torch.set_grad_enabled(True)
@@ -264,7 +421,7 @@ def main(argv=None) -> None:
                 "calls": [lambda kb=kb, c=c, w=w, kw=kw:
                           lm.treelstm_megastep(kb, *c, *w, **kw)],
                 "match": "k1_",
-                "launches": cs.k1_designed(M, kw.get("live"))}
+                "launches": cs.fwd_designed(M, kw.get("live"))}
             timed[name, i, "earlier"] = {
                 "calls": [lambda eb=eb, c=c, w=w: earlier(eb, *c, w)],
                 "match": "treelstm_megastep_kernel", "launches": 1}
