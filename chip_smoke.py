@@ -83,25 +83,26 @@ Phases, each of which must pass (any failure exits non-zero):
      main path is ``TRAIN_CELL_STEPS`` AdamW steps through
      ``execute_lazy`` with the launch counts set to 0 just before and
      read just after (one forward megastep kernel — K3, K4 or K5 — per
-     level and step, K3/K4 making the CUDA launches the live counts
-     design: the product where a slot has a predecessor, the leaf launch
-     past the live count, at most 2 a level; one reverse megastep of the
+     level and step, each making the CUDA launches the live counts
+     design: the product where a slot has a child, the leaf launch past
+     the live count, at most 2 a level; one reverse megastep of the
      matching kind per level with a live slot and step, two CUDA launches
      each, one scatter-add per step), step p50/p99 and peak memory; then,
      with the params AdamW has moved, one step taken with taps on
      ``ops.level_megastep``, ``ops.bwd_megastep`` and
      ``ops.scatter_add_rows``: every forward and reverse level and the
      pulled-row scatter re-run through its kernel (with the keywords the
-     main path gave it: K3/K4 the level's live count) and its plain
+     main path gave it: K3/K4/K5 the level's live count) and its plain
      version (error relative to max |plain| <= 1e-4, untouched rows
-     bit-unchanged; K3/K4 also two launches bitwise equal and their CUDA
-     launches as designed, timed by ``torch.profiler`` device time, every
-     level in one session, CUDA events beside, their bound the products
-     as three TF32 products at 495 TFLOP/s, the fp32-FMA figure beside
-     it; K5 by CUDA events at the fp32 rate; K2 and K7 as in phase 4),
-     timed beside its data-aware bound; K3/K4's ptxas lines (no spills),
+     bit-unchanged, two launches bitwise equal and the CUDA launches as
+     designed, timed by ``torch.profiler`` device time, every level in
+     one session, CUDA events beside, the bound the products as three
+     TF32 products at 495 TFLOP/s, the fp32-FMA figure beside it, a level
+     of no product by bytes; K2 and K7 as in phase 4), timed beside its
+     data-aware bound, K5 also by level; the ptxas lines (no spills),
      shared memory and SASS (``HMMA.1688.F32.TF32``, ``LDGSTS``,
-     ``LDSM``, no float atomic);
+     ``LDSM``, no float atomic) of ``cell_megastep_sm90.cu`` (K3, K4, K5
+     and K9);
      the fused gradients against ``fusion_mode="none"`` within 1e-4
      relative (T + 1 K7 launches in that backward); two backward passes
      bitwise equal; the scatter plans' build time; a ``torch.profiler``
@@ -151,7 +152,9 @@ Phases, each of which must pass (any failure exits non-zero):
      with the "fused" LSTM (one K9 a tick, finals within 1e-4 of
      ``execute``); ``execute_serial`` on 8 parses beside the batched
      engine; each gate kernel re-run on its main path's own launches and
-     timed beside its bound;
+     timed by ``torch.profiler`` device time, every gate kernel in one
+     session, beside its bound (K9's product as three TF32 products at
+     495 TFLOP/s, the fp32-FMA figure beside it);
   15. LM serving — K10 ``flash_attention`` (bf16 on its wgmma route,
      ``flash_attention_sm90.cu``; f32 on its tf32 route,
      ``flash_attention_tf32.cu``; head dims neither takes on the SIMT
@@ -424,15 +427,15 @@ def fwd_designed(M: int, live) -> int:
     return (live > 0) + (live < M)
 
 
-#: The forward megasteps that take a live count: kind → (the name of its
-#: row, the kernel-name prefix its launches carry on the card).
-FWD_KERNELS = {"treelstm": ("K1", "k1_"), "lstm": ("K3", "k34_"),
-               "gru": ("K4", "k34_")}
+#: The forward megasteps, each taking a live count: kind → (the name of
+#: its row, the kernel-name prefix its launches carry on the card).
+FWD_KERNELS = {"treelstm": ("K1", "k1_"), "lstm": ("K3", "cell_"),
+               "gru": ("K4", "cell_"), "treefc": ("K5", "cell_")}
 
 
 def compare_level(kind: str, case, **kw) -> tuple:
-    """K1, K3 or K4 (``kind``) on one level ``case`` with the keywords the
-    main path gave it (``live``, ``sentinel``) against its plain version:
+    """K1, K3, K4 or K5 (``kind``) on one level ``case`` with the keywords
+    the main path gave it (``live``, ``sentinel``) against its plain version:
     the max abs error on the written block and that error relative to
     max |plain|; rows outside the block (the sentinel among them)
     bit-unchanged, finite values, a second launch bitwise equal, and the
@@ -514,15 +517,19 @@ def bound_ms(case, sentinel=None) -> tuple:
     return b_ms, b_by, flops, nbytes, fma_ms
 
 
-def fwd_times(cases, reps: int = 10, kind: str = "treelstm") -> list:
-    """K1 (or K3, K4: ``kind``) and its plain version on each level of
+def fwd_times(cases, reps: int = 10, kind: str = "treelstm",
+              k2_rows=()) -> list:
+    """K1 (or K3-K5: ``kind``) and its plain version on each level of
     ``cases`` ((case, kw) pairs, ``kw`` as the main path gave it),
     launched in place as the main path does on a copy of the level's
     buffer (levels that share a buffer share its copy: a level reads only
     rows that no re-run changes): device ms a call by ``torch.profiler``,
     every level in one session, with the kernel's CUDA-event ms beside
     (back to back, events time the host where a launch is shorter than
-    its cost).  Returns ``(ms, plain_ms, events_ms)`` a level."""
+    its cost).  ``k2_rows``: K2's levels (``k2_level``'s), timed in the
+    same session as ``k2_device_ms`` times them (each session a run takes
+    raises the odds that CUPTI drops a later one's events).  Returns
+    ``(ms, plain_ms, events_ms)`` a level."""
     copies, sets, events = {}, {}, []
     for i, (case, kw) in enumerate(cases):
         buf, cids, cmask, eids, nmask, off, ext, w = case
@@ -543,7 +550,11 @@ def fwd_times(cases, reps: int = 10, kind: str = "treelstm") -> list:
                              fwd_designed(cids.shape[0], kw.get("live"))}
         sets[i, "plain"] = {"calls": [plain], "reps": 3}
         events.append(time_ms(kern, 10, 2))
+    k2 = [r for r in k2_rows if r["live"]]
+    sets.update({("k2", i): k2_set(r) for i, r in enumerate(k2)})
     t = device_ms(sets, reps=reps)
+    for i, r in enumerate(k2):
+        r["ms"] = t["k2", i]
     return [(t[i, "kernel"], t[i, "plain"], events[i])
             for i in range(len(cases))]
 
@@ -1086,15 +1097,18 @@ def k2_level(case, bound) -> dict:
     return out
 
 
+def k2_set(r: dict) -> dict:
+    """The ``device_ms`` set of K2 on one launching level (``k2_level``'s
+    row): its ``k2_*`` kernels, ``launches`` of them a call."""
+    return {"calls": [r["call"]], "match": "k2_", "launches": r["launches"]}
+
+
 def k2_device_ms(rows, reps: int = 10) -> None:
     """Device ms a call of K2 on each launching level of ``rows``
-    (``k2_level``'s), every level in one ``device_ms`` session: its
-    ``k2_*`` kernels, ``launches`` of them a call.  Sets each row's
-    ``ms``."""
+    (``k2_level``'s), every level in one ``device_ms`` session.  Sets each
+    row's ``ms``."""
     timed = [r for r in rows if r["live"]]
-    t = device_ms({i: {"calls": [r["call"]], "match": "k2_",
-                       "launches": r["launches"]}
-                   for i, r in enumerate(timed)}, reps=reps)
+    t = device_ms({i: k2_set(r) for i, r in enumerate(timed)}, reps=reps)
     for i, r in enumerate(timed):
         r["ms"] = t[i]
 
@@ -1210,25 +1224,27 @@ def k1_build_report() -> dict:
     return {"ptxas": ptxas, "smem": smem, "sass": sass}
 
 
-def k34_build_report() -> dict:
-    """What ``nvcc -Xptxas -v`` said of K3's and K4's kernels
-    (``cell_megastep_sm90.cu``: the product kernel and the leaf kernel of
-    each kind): registers and spills, none of which may spill; the product
-    kernel's dynamic shared memory a CTA by kind; and its SASS
-    (``sass_counts``)."""
+def cell_build_report() -> dict:
+    """What ``nvcc -Xptxas -v`` said of the kernels of
+    ``cell_megastep_sm90.cu`` (K3, K4 and K5: the product kernel and the
+    leaf kernel of each kind; K9 at float and bf16 state): registers and
+    spills, none of which may spill; a product CTA's dynamic shared
+    memory by kind; and the SASS (``sass_counts``)."""
     lib = "lstm_megastep"
-    kinds = ("lstm", "gru")
+    kinds = ("lstm", "gru", "treefc")
     ptxas = ptxas_report(
-        lib, r"k34_(gates|leaf)_kernel(?:ILi(\d)E)?",
+        lib, r"(cell_gates|cell_leaf|k9_level)_kernelI(?:Li(\d)E|([ft]))E",
         lambda m: m.group(1) + (f", {kinds[int(m.group(2))]}"
-                                if m.group(2) else ""),
-        "K3/K4")
-    check(len(ptxas) == 4, f"K3/K4's ptxas report names {len(ptxas)} "
-          "kernels, not 4")
+                                if m.group(2) else
+                                ", f32" if m.group(3) == "f" else ", bf16"),
+        "K3-K5/K9")
+    check(len(ptxas) == 8, f"cell_megastep_sm90.cu's ptxas report names "
+          f"{len(ptxas)} kernels, not 8")
     smem_of = ctypes.CDLL(str(_build.library_path(lib))) \
         .cell_megastep_smem_bytes
-    smem = {k: smem_of(i) for i, k in enumerate(kinds)}
-    sass = sass_counts(lib, "K3/K4")
+    smem = {k: smem_of(i) for i, k in
+            enumerate(kinds + ("K9 f32", "K9 bf16"))}
+    sass = sass_counts(lib, "K3-K5/K9")
     print(f"cell_megastep_sm90.cu: dynamic shared memory a product CTA "
           f"by kind {smem}; SASS {sass or 'not read (no cuobjdump)'}")
     return {"ptxas": ptxas, "smem": smem, "sass": sass}
@@ -1463,8 +1479,8 @@ def train_phase(card: str) -> dict:
 #: Kernel-name patterns of the profiler breakdowns.
 PROFILE_GROUPS = {
     "forward megastep (K1, K3-K5)": ("k1_gates_kernel", "k1_leaf_kernel",
-                                     "k34_gates_kernel", "k34_leaf_kernel",
-                                     "cell_megastep_kernel"),
+                                     "cell_gates_kernel",
+                                     "cell_leaf_kernel"),
     "K2 reverse megastep": ("k2_gates_kernel", "k2_hgrad_kernel",
                             "k2_runs_kernel"),
     "K7 add": ("chunk_add_kernel",),
@@ -1578,9 +1594,8 @@ def cell_bound_ms(kind: str, case, reverse: bool, sentinel=None) -> tuple:
     multiply-adds its live slots need (an lstm/gru slot with a
     predecessor NG*H*H, a Tree-FC slot H*H per child it has; twice that
     in reverse: recompute and child cotangents) as three TF32 products at
-    495 TFLOP/s where the kernel runs them on the tensor cores (K3, K4
-    and K2), at 67 TFLOP/s fp32 for K5 (still fp32 FMAs on the CUDA
-    cores), against each input read once (distinct child rows, the live
+    495 TFLOP/s (K3-K5 and K2 run them on the tensor cores), against each
+    input read once (distinct child rows, the live
     slots' ext rows -- in the lstm/gru forward a slot with no predecessor
     needs only three lanes of its row -- and, in reverse, their gradient
     rows; the weight unless no slot needs it; bias, indices and runs) and
@@ -1616,7 +1631,7 @@ def cell_bound_ms(kind: str, case, reverse: bool, sentinel=None) -> tuple:
                       + M * (A + 2) + 3 * M * A + 2 * touched * S)
     else:
         nbytes = 4 * (rows * S + lanes + weights + M * (A + 2) + M * S)
-    b_ms, b_by, fma_ms = priced_ms(flops, nbytes, reverse or kind != "treefc")
+    b_ms, b_by, fma_ms = priced_ms(flops, nbytes, True)
     return b_ms, b_by, flops, nbytes, fma_ms
 
 
@@ -1677,52 +1692,33 @@ def cell_levels_check(kind: str, fn, params, d, ext, h_lo) -> dict:
 
     f_rows, f_err, f_abs = [], 0.0, 0.0
     with torch.no_grad():
-        if kind in FWD_KERNELS:
-            # K3/K4: each level with the keywords the main path gave it,
-            # timed by torch.profiler, every level in one session.
-            levels = [(c[1:], kw) for c, kw in fwd]
-            for lvl, kw in levels:
-                err, rel = compare_level(kind, lvl, **kw)
-                f_abs, f_err = max(f_abs, err), max(f_err, rel)
-            times = fwd_times(levels, kind=kind)
-        for i, (case, kw) in enumerate(fwd):
-            _k, buf, cids, cmask, eids, nm, off, e, w = case
-            if kind in FWD_KERNELS:
-                ms, plain_ms, ev = times[i]
-            else:
-                got = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nm, off, e,
-                                         *w)
-                want = ref.level_megastep(kind, buf.clone(), cids, cmask,
-                                          eids, nm, off, e, w)
-                torch.cuda.synchronize()
-                f_err = max(f_err, rel_err(got, want))
-                f_abs = max(f_abs, float((got - want).abs().max()))
-                keep = torch.ones(buf.shape[0], dtype=torch.bool,
-                                  device=DEVICE)
-                keep[off:off + cids.shape[0]] = False
-                check(bitwise_equal(got[keep], buf[keep]),
-                      f"{kind} forward kernel changed rows outside its block")
-                check(bool(torch.isfinite(got).all()),
-                      f"{kind} forward kernel wrote non-finite values")
-                kb, pb = buf.clone(), buf.clone()
-                ms = ev = time_ms(lambda: lm.MEGASTEPS[kind](
-                    kb, cids, eids, nm, off, e, *w), n=10, warmup=2)
-                plain_ms = time_ms(lambda: ref.level_megastep(
-                    kind, pb, cids, cmask, eids, nm, off, e, w), n=10,
-                    warmup=2)
-            f_rows.append((ms, plain_ms) + cell_bound_ms(kind, case, False)
-                          + (ev, off // M))
+        # Each level with the keywords the main path gave it, timed by
+        # torch.profiler, every forward and reverse level in one session.
+        levels = [(c[1:], kw) for c, kw in fwd]
+        rels = []
+        for lvl, kw in levels:
+            err, rel = compare_level(kind, lvl, **kw)
+            f_abs, f_err = max(f_abs, err), max(f_err, rel)
+            rels.append(rel)
         b_rows = [k2_level(c, lambda c: cell_bound_ms(
             kind, (kind,) + c[0][1:2] + c[0][3:], True)) for c in bwd]
-        k2_device_ms(b_rows)
+        times = fwd_times(levels, kind=kind, k2_rows=b_rows)
+        for (case, kw), (ms, plain_ms, ev), rel in zip(fwd, times, rels):
+            f_rows.append((ms, plain_ms) + cell_bound_ms(kind, case, False)
+                          + (ev, rel, case[6] // M, kw["live"]))
         check(scatters[0][3] is d.ext_plan, f"{kind}: the step's scatter "
               f"did not get the schedule's plan")
         sc = k7_check(f"{kind} pulled rows", *scatters[0])
     T_all = len(f_rows)
-    for r in f_rows[:2] + f_rows[T_all // 2:T_all // 2 + 1] + f_rows[-1:]:
-        print(f"  {kind} forward level {r[-1]:2d}: kernel {r[0]:.4f} ms, "
-              f"plain {r[1]:.4f} ms, bound {r[2]:.5f} ms by {r[3]} "
-              f"({r[4] / 1e9:.3f} GFLOP, {r[5] / 1e6:.2f} MB)")
+    # Every Tree-FC level (nine); the chains' first two, middle and last.
+    shown = f_rows if T_all <= 16 else (
+        f_rows[:2] + f_rows[T_all // 2:T_all // 2 + 1] + f_rows[-1:])
+    for r in shown:
+        print(f"  {kind} forward level {r[-2]:2d} (live {r[-1]}): kernel "
+              f"{r[0]:.4f} ms (events {r[7]:.4f}), plain {r[1]:.4f} ms, "
+              f"bound {r[2]:.5f} ms by {r[3]} (fp32 FMA {r[6]:.5f}; "
+              f"{r[4] / 1e9:.3f} GFLOP, {r[5] / 1e6:.2f} MB); error "
+              f"{r[8]:.3e} of max |plain|")
     timed = [r for r in b_rows if r["live"]]
     n_b = len(timed)
     shown = b_rows[:1] + timed[:1] + timed[n_b // 2:n_b // 2 + 1] \
@@ -1741,13 +1737,17 @@ def cell_levels_check(kind: str, fn, params, d, ext, h_lo) -> dict:
     fwd_s = {**_summary(f_rows), "max_rel_err": f_err, "max_abs_err": f_abs,
              "events_ms": float(np.mean([r[7] for r in f_rows])),
              "bound_fma_ms": float(np.mean([r[6] for r in f_rows])),
-             "total_ms": float(sum(r[0] for r in f_rows))}
+             "total_ms": float(sum(r[0] for r in f_rows)),
+             "by_level": [{"level": r[-2], "live": r[-1], "ms": r[0],
+                           "events_ms": r[7], "plain_ms": r[1],
+                           "bound_ms": r[2], "bound_by": r[3],
+                           "bound_fma_ms": r[6], "rel_err": r[8]}
+                          for r in f_rows]}
     sm = fwd_s
-    timer = "device" if kind in FWD_KERNELS else "events"
     print(f"{kind} forward: {sm['levels']} levels, error "
           f"{sm['max_rel_err']:.3e} of max |plain| (max abs "
           f"{sm['max_abs_err']:.3e}); mean per launch: kernel "
-          f"{sm['ms']:.4f} ms ({timer}; events {sm['events_ms']:.4f}), "
+          f"{sm['ms']:.4f} ms (device; events {sm['events_ms']:.4f}), "
           f"plain {sm['plain_ms']:.4f} ms, bound {sm['bound_ms']:.5f} ms by "
           f"{sm['bound_by']} (fp32 FMA {sm['bound_fma_ms']:.5f}); all levels "
           f"{sm['total_ms']:.4f} ms")
@@ -1807,12 +1807,11 @@ def cell_train_phase(phase: str, card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     T, n = d.T, TRAIN_CELL_STEPS
     check(bool(np.isfinite(losses).all()), f"{phase}: non-finite losses")
-    if kind in FWD_KERNELS:
-        # K3/K4: the product where a slot has a predecessor, the leaf
-        # launch past the live count, at most 2 a level.
-        designed = n * sum(fwd_designed(d.M, live) for live in d.live)
-        check(fwd_cuda == designed <= 2 * n * T, f"{phase}: {fwd_cuda} "
-              f"{kind}_megastep CUDA launches, designed {designed}")
+    # The product where a slot has a child, the leaf launch past the live
+    # count, at most 2 a level.
+    designed = n * sum(fwd_designed(d.M, live) for live in d.live)
+    check(fwd_cuda == designed <= 2 * n * T, f"{phase}: {fwd_cuda} "
+          f"{kind}_megastep CUDA launches, designed {designed}")
     work, cuda = k2_design(d)
     want = {f"{kind}_megastep": n * T, f"{kind}_bwd_megastep": n * work,
             f"{kind}_bwd_megastep.cuda_launches": n * cuda,
@@ -2204,8 +2203,7 @@ def tapped_frontier_run(kind, make_engine, reqs) -> dict:
         stg, ext = snap
         M = cids.shape[0]
         case = (stg, cids, cmask, eids, nm, R, ext, w)
-        if kind in FWD_KERNELS:        # repeatability, launches too
-            worst_k = max(worst_k, compare_level(kind, case, **kw)[0])
+        worst_k = max(worst_k, compare_level(kind, case, **kw)[0])
         got = lm.MEGASTEPS[kind](stg.clone(), cids, eids, nm, R, ext, *w,
                                  **kw)
         want = ref.level_megastep(kind, stg.clone(), cids, cmask, eids, nm,
@@ -2688,7 +2686,7 @@ GATE_KERNELS = {
     "treelstm_gates": ("src/repro/kernels/cell_kernels.py:86",
                        "cell_gates.cu"),
     "lstm_level_fused": ("src/repro/kernels/level_step.py:53",
-                         "lstm_level_fused.cu"),
+                         "cell_megastep_sm90.cu"),
 }
 GATE_WRAPPERS = {"lstm_gates": ck, "treelstm_gates": ck,
                  "lstm_level_fused": ls}
@@ -2748,10 +2746,14 @@ def gate_check(name: str, args, bf16_out: bool = False) -> float:
 def gate_bound_ms(name: str, args) -> tuple:
     """Least time for one launch of K8a/K8b/K9 on ``args``: each operand
     read once and each output written once at 3.35 TB/s, against the
-    arithmetic at 67 TFLOP/s fp32 -- K9's product 2*M*H*4H, and the gate
-    arithmetic (5 FLOPs an element for K8a and K9's epilogue, 3A + 2 for
-    K8b; transcendentals not counted).  Returns (bound_ms, bound_by,
-    flops, bytes)."""
+    arithmetic: the gate arithmetic (5 FLOPs an element for K8a and K9's
+    epilogue, 3A + 2 for K8b; transcendentals not counted) at 67 TFLOP/s
+    fp32, and K9's product, 2*M*H*4H, as the three TF32 products an
+    operation that keep f32 accuracy on the tensor cores at 495 TFLOP/s
+    (two for bf16 rows, exact in TF32).  Returns (bound_ms, bound_by,
+    flops, bytes, bound_fma_ms), the last with every FLOP at the 67
+    TFLOP/s fp32-FMA rate."""
+    prod, splits = 0.0, 3
     if name == "lstm_gates":
         gates, c_prev = args
         M, H = c_prev.shape
@@ -2770,21 +2772,25 @@ def gate_bound_ms(name: str, args) -> tuple:
         M, H = h_prev.shape
         e = h_prev.element_size()
         nbytes = M * H * 4 * e + (ext.numel() + wh.numel() + b.numel()) * 4
-        flops = 2.0 * M * H * 4 * H + 5.0 * M * H
-    t_op, t_by = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+        prod = 2.0 * M * H * 4 * H
+        flops = prod + 5.0 * M * H
+        splits = 2 if e == 2 else 3
+    t_op = (flops - prod) / PEAK_FP32_FLOPS + splits * prod / PEAK_TF32_FLOPS
+    t_by = nbytes / PEAK_BYTES
     return (max(t_op, t_by) * 1e3, "operations" if t_op >= t_by
-            else "bytes", flops, nbytes)
+            else "bytes", flops, nbytes,
+            max(flops / PEAK_FP32_FLOPS, t_by) * 1e3)
 
 
-def gate_timings(name: str, calls) -> dict:
+def gate_timings(name: str, calls, pending: list) -> dict:
     """Kernel ``name`` re-run on the main path's own launches (``calls``),
-    each against its plain version: the worst error, the mean time a
-    launch and the plain version's, the mean data-aware bound.  K8a/K8b
-    do a few microseconds of work behind ~20-50 us of host launch cost, so
-    their times are the card's own (``torch.profiler`` device time, as for
-    K6) and the CUDA-event time of back-to-back launches is kept beside
-    them as ``issue_ms``; K9 does enough work for CUDA events to time the
-    card."""
+    each against its plain version: the worst error, the mean data-aware
+    bound; the mean time a launch and the plain version's are set by
+    ``time_gates(pending)``, which times every gate kernel of the phase in
+    one session.  Each does a few microseconds of work behind ~20-50 us of
+    host launch cost, so the times are the card's own (``torch.profiler``
+    device time, as for K6) and the CUDA-event time of back-to-back
+    launches is kept beside them as ``issue_ms``."""
     worst = max(gate_check(name, a) for a in calls)
     kern = [lambda a=a: gate_kernel(name)(*a) for a in calls]
     plain = [lambda a=a: getattr(ref, name)(*a) for a in calls]
@@ -2792,19 +2798,28 @@ def gate_timings(name: str, calls) -> dict:
     out = {"timed": len(calls), "max_abs_err": worst,
            "bound_ms": float(np.mean([b[0] for b in bounds])),
            "flops": float(np.mean([b[2] for b in bounds])),
-           "bytes": float(np.mean([b[3] for b in bounds]))}
+           "bytes": float(np.mean([b[3] for b in bounds])),
+           "bound_fma_ms": float(np.mean([b[4] for b in bounds]))}
     by_ops = sum(b[0] for b in bounds if b[1] == "operations")
     out["bound_by"] = ("operations" if by_ops >= sum(b[0] for b in bounds) / 2
                        else "bytes")
-    if name == "lstm_level_fused":
-        out["ms"] = float(np.mean([time_ms(k, 10, 2) for k in kern]))
-        out["plain_ms"] = float(np.mean([time_ms(p, 10, 2) for p in plain]))
-    else:
-        t = device_ms({"kernel": kern, "plain": plain})
-        out["ms"], out["plain_ms"] = t["kernel"], t["plain"]
-        out["issue_ms"] = float(np.mean([time_ms(k, 20, 3)
-                                         for k in kern[:4]]))
+    out["issue_ms"] = float(np.mean([time_ms(k, 20, 3) for k in kern[:4]]))
+    pending.append((out, kern, plain))
     return out
+
+
+def time_gates(pending: list) -> None:
+    """Device ms a launch of each ``gate_timings`` entry of ``pending``
+    and of its plain version, all in one ``torch.profiler`` session (each
+    session a run takes raises the odds that CUPTI drops a later one's
+    events); sets each entry's ``ms`` and ``plain_ms``."""
+    sets = {}
+    for i, (_out, kern, plain) in enumerate(pending):
+        sets[i, "kernel"] = {"calls": kern, "launches": 1}
+        sets[i, "plain"] = plain
+    t = device_ms(sets)
+    for i, (out, _k, _p) in enumerate(pending):
+        out["ms"], out["plain_ms"] = t[i, "kernel"], t[i, "plain"]
 
 
 def gate_kernels_check() -> dict:
@@ -2870,7 +2885,7 @@ def _schedule_on(d, device):
         if isinstance(getattr(d, f.name), torch.Tensor)})
 
 
-def var_lstm_opbyop(card: str) -> dict:
+def var_lstm_opbyop(card: str, pending: list) -> dict:
     """The Var-LSTM batch (T54xM128) through ``execute(fusion_mode="none")``
     with ``cell_impl`` "pallas" (K8a a level) and "fused" (K9 a level),
     launch counts set to 0 just before and read just after: buffers within
@@ -2919,7 +2934,7 @@ def var_lstm_opbyop(card: str) -> dict:
               f"var_lstm {impl} bf16 vs the CPU: {float(diff.max()):.3e}")
         out[impl] = {"launches": launches[name], "forward_ms": ms,
                      "err_vs_k3": err, "bf16_err_vs_cpu": float(diff.max()),
-                     name: gate_timings(name, calls)}
+                     name: gate_timings(name, calls, pending)}
     print(f"var_lstm op by op: {json.dumps(out)}")
     print(f"var_lstm forward T{d.T}xM{d.M}: fused leg (K3) {k3_ms:.3f} ms, "
           f"op by op with K8a {out['pallas']['forward_ms']:.3f} ms, with K9 "
@@ -2927,7 +2942,7 @@ def var_lstm_opbyop(card: str) -> dict:
     return out
 
 
-def unfused_serve(card: str, serve: dict) -> dict:
+def unfused_serve(card: str, serve: dict, pending: list) -> dict:
     """The fusion ablation: the serving phase's 512 parses through
     ``StructureServeEngine`` on the op-by-op leg with the K8b gate cell:
     one K8b a padded level, every request ok, no degradation, roots within
@@ -2981,12 +2996,12 @@ def unfused_serve(card: str, serve: dict) -> dict:
     for k in ("requests_per_s", "batch_p50_ms", "batch_p99_ms"):
         out[f"fused_{k}"] = serve[k]
         out[f"{k}_unfused_over_fused"] = out[k] / serve[k]
-    out["treelstm_gates"] = gate_timings("treelstm_gates", calls)
+    out["treelstm_gates"] = gate_timings("treelstm_gates", calls, pending)
     print(f"unfused tree_lstm serving: {json.dumps(out)}")
     return out
 
 
-def unfused_decode(card: str, decode: dict) -> dict:
+def unfused_decode(card: str, decode: dict, pending: list) -> dict:
     """``VertexServeEngine`` on the op-by-op leg with the K9 LSTM cell over
     the decode phase's 256 chains: one K9 a tick, final states within 1e-4
     of ``execute``; ticks/s beside the K3 decode's.  A tapped run through
@@ -3020,7 +3035,8 @@ def unfused_decode(card: str, decode: dict) -> dict:
            "k3_ticks_per_s": decode["ticks_per_s"],
            "launches": launches["lstm_level_fused"], "err_vs_execute": err,
            "card": card,
-           "lstm_level_fused": gate_timings("lstm_level_fused", calls)}
+           "lstm_level_fused": gate_timings("lstm_level_fused", calls,
+                                            pending)}
     print(f"unfused decode: {json.dumps(out)}")
     return out
 
@@ -3067,9 +3083,11 @@ def serial_baseline(card: str, serve: dict) -> dict:
 
 def op_by_op_phase(card: str, serve: dict, decode: dict) -> dict:
     errs = gate_kernels_check()
-    chains = var_lstm_opbyop(card)
-    served = unfused_serve(card, serve)
-    dec = unfused_decode(card, decode)
+    pending = []                     # the gate kernels' timings, one session
+    chains = var_lstm_opbyop(card, pending)
+    served = unfused_serve(card, serve, pending)
+    dec = unfused_decode(card, decode, pending)
+    time_gates(pending)
     serial = serial_baseline(card, serve)
     k9 = chains["fused"]["lstm_level_fused"]
     rows = []
@@ -3088,7 +3106,7 @@ def op_by_op_phase(card: str, serve: dict, decode: dict) -> dict:
             "max_abs_err": max(errs[name], part["max_abs_err"]),
             "ms": part["ms"], "plain_ms": part["plain_ms"],
             "bound_ms": part["bound_ms"], "bound_by": part["bound_by"],
-            "library_ms": None})
+            "bound_fma_ms": part["bound_fma_ms"], "library_ms": None})
     for label, part in (("lstm_gates at a Var-LSTM level",
                          chains["pallas"]["lstm_gates"]),
                         ("treelstm_gates at a served level",
@@ -3100,7 +3118,8 @@ def op_by_op_phase(card: str, serve: dict, decode: dict) -> dict:
                  if "issue_ms" in part else "")
         print(f"{label}: {part['ms']:.4f} ms a launch, plain "
               f"{part['plain_ms']:.4f} ms, bound {part['bound_ms']:.5f} ms "
-              f"by {part['bound_by']} ({part['timed']} launches){issue}")
+              f"by {part['bound_by']} (fp32 FMA {part['bound_fma_ms']:.5f}; "
+              f"{part['timed']} launches){issue}")
     print(f"fusion ablation: unfused serving {served['requests_per_s']:.1f} "
           f"requests/s vs fused {served['fused_requests_per_s']:.1f} (x"
           f"{served['requests_per_s_unfused_over_fused']:.3f}); batch p50 "
@@ -4427,7 +4446,7 @@ def main() -> None:
     levels = train_levels_phase()
     k1_build_report()
     k2_build_report()
-    k34_build_report()
+    cell_build_report()
     train = train_phase(dev["smi"])
     cells = [cell_train_phase(p, dev["smi"]) for p in CELL_PHASES]
     k6_err = k6_phase()
@@ -4464,19 +4483,15 @@ def main() -> None:
         k, part, name = c["kind"], c["fwd"], f"{c['kind']}_megastep"
         row = {
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/" + (
-                "cell_megastep.cu" if k == "treefc"
-                else "cell_megastep_sm90.cu"),
+            "source": "src/repro_torch/kernels/csrc/cell_megastep_sm90.cu",
             "replaces": FORWARD_REPLACES[k], "launches": c["launches"][name],
+            "cuda_launches": c["fwd_cuda_launches"],
             "max_abs_err": max([part["max_abs_err"]] + [
                 o["max_abs_err"] for o in others.get(k, [])]),
-            "ms": part["ms"], "plain_ms": part["plain_ms"],
-            "bound_ms": part["bound_ms"], "bound_by": part["bound_by"],
-            "library_ms": None}
-        if k in FWD_KERNELS:            # device time; events beside
-            row.update(cuda_launches=c["fwd_cuda_launches"],
-                       events_ms=part["events_ms"],
-                       bound_fma_ms=part["bound_fma_ms"])
+            "ms": part["ms"], "events_ms": part["events_ms"],
+            "plain_ms": part["plain_ms"], "bound_ms": part["bound_ms"],
+            "bound_by": part["bound_by"],
+            "bound_fma_ms": part["bound_fma_ms"], "library_ms": None}
         rows += [row, k2_row(k, c["bwd"], c["launches"])]
     for name, part, replaces in (
             ("gather_rows", cont["gather"],
@@ -4502,16 +4517,20 @@ def main() -> None:
               + (f"; {part['total_ms']:.4f} ms a step"
                  if "training" in label else ""))
     for c in cells:
-        if c["kind"] in FWD_KERNELS:
-            part = c["fwd"]
-            print(f"{FWD_KERNELS[c['kind']][0]} at the {c['phase']} step's "
-                  f"{part['levels']} levels: {part['ms']:.4f} ms a launch "
-                  f"(device; events {part['events_ms']:.4f}), plain "
-                  f"{part['plain_ms']:.4f} ms, bound {part['bound_ms']:.5f} "
-                  f"ms by {part['bound_by']} (fp32 FMA "
-                  f"{part['bound_fma_ms']:.5f}); {part['total_ms']:.4f} ms "
-                  f"a step, {c['fwd_cuda_launches']} CUDA launches in "
-                  f"{c['steps']} steps")
+        part = c["fwd"]
+        print(f"{FWD_KERNELS[c['kind']][0]} at the {c['phase']} step's "
+              f"{part['levels']} levels: {part['ms']:.4f} ms a launch "
+              f"(device; events {part['events_ms']:.4f}), plain "
+              f"{part['plain_ms']:.4f} ms, bound {part['bound_ms']:.5f} "
+              f"ms by {part['bound_by']} (fp32 FMA "
+              f"{part['bound_fma_ms']:.5f}); {part['total_ms']:.4f} ms "
+              f"a step, {c['fwd_cuda_launches']} CUDA launches in "
+              f"{c['steps']} steps")
+        if c["kind"] == "treefc":
+            print("K5 by level: " + "; ".join(
+                f"{r['level']} (live {r['live']}) {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.5f} by {r['bound_by']}, error "
+                f"{r['rel_err']:.2e}" for r in part["by_level"]))
     frontier = {"treelstm_megastep at the tree frontier": cont["megastep"],
                 "lstm_megastep at the chain frontier": chains["megastep"],
                 **{f"{d['kind']}_megastep at a decode tick": d["tick"]

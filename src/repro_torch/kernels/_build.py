@@ -45,9 +45,7 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     **{f"{kind}_megastep": ("cell_megastep_sm90.cu",
                             f"{kind}_megastep_sm90_launch",
                             [_P] * 7 + [_I] * 9 + [_P, _P])
-       for kind in ("lstm", "gru")},
-    "treefc_megastep": ("cell_megastep.cu", "treefc_megastep_launch",
-                        [_P] * 7 + [_I] * 7 + [_P]),
+       for kind in ("lstm", "gru", "treefc")},
     **{f"{kind}_bwd_megastep": ("bwd_megastep_sm90.cu",
                                 f"{kind}_bwd_megastep_launch", _BWD)
        for kind in ("treelstm", "lstm", "gru", "treefc")},
@@ -58,8 +56,8 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
                    [_P] * 4 + [_I] * 6 + [_P]),
     "treelstm_gates": ("cell_gates.cu", "treelstm_gates_launch",
                        [_P] * 8 + [_I] * 14 + [_P]),
-    "lstm_level_fused": ("lstm_level_fused.cu", "lstm_level_fused_launch",
-                         [_P] * 7 + [_I] * 6 + [_P]),
+    "lstm_level_fused": ("cell_megastep_sm90.cu", "lstm_level_fused_launch",
+                         [_P] * 7 + [_I] * 7 + [_P]),
     "flash_attention": ("flash_attention.cu", "flash_attention_launch",
                         [_P] * 4 + [_I] * 6 + [_L] * 9 + [_F] + [_I] * 3
                         + [_P]),

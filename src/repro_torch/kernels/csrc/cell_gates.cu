@@ -35,18 +35,31 @@
 // (5 + 2A) * M * H elements plus the mask: 4.7 MB for a served Tree-LSTM
 // level of M = 256 slots at A = 2, H = 512 (1.4 us).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "cell_tile.cuh"   // sigmoid_f, to_f32, from_f32
-
 namespace {
 
-using cell::from_f32;
-using cell::sigmoid_f;
-using cell::to_f32;
-
 constexpr int NT = 256;   // threads per block
+
+__device__ __forceinline__ float sigmoid_f(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// Widening loads and narrowing stores for the two element types.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);   // round to nearest even, as .to(bf16)
+}
 
 // V elements of type T in one aligned load or store.
 template <typename T, int V> struct alignas(sizeof(T) * V) Pack { T v[V]; };

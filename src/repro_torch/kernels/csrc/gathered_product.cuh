@@ -1,7 +1,8 @@
 // The gathered product of the level megasteps on Hopper (sm_90a), on the
 // TF32 tensor cores with the 3xTF32 split: the one copy that the forward
-// Tree-LSTM megastep (K1, treelstm_megastep_sm90.cu) and the reverse
-// megastep's pass (a) (K2, bwd_megastep_sm90.cu) both run.
+// megasteps (K1, treelstm_megastep_sm90.cu; K3, K4 and K5,
+// cell_megastep_sm90.cu), the fused LSTM level step (K9, the same file)
+// and the reverse megastep's pass (a) (K2, bwd_megastep_sm90.cu) run.
 //
 // `Product` forms X . W for a tile of BM = 64 slots x BJ columns of NQ
 // weight lanes over a range of the depth's chunks, X rows gathered by the
@@ -19,7 +20,21 @@
 //     runs as small.big + big.small + big.big, three TF32
 //     mma.sync.m16n8k8 into an fp32 accumulator: about 21 bits of each
 //     operand, which holds the fp32 bar of 1e-4 (one TF32 product keeps
-//     11 bits and misses it);
+//     11 bits and misses it).  A chunk's k-steps accumulate from zero and
+//     the chunk's sum is added to the running one by a rounded fp32 add:
+//     the tensor core cuts the fp32 sums it accumulates, so one chain of
+//     every k-step of a deep product (Tree-FC's depth of 1,024 is 384
+//     mma a sum) drifts by as many cuts;
+//   - bf16 operand rows (TX = uint16_t, a bf16 value's bits; K9's bf16
+//     state): cp.async cannot widen, so the raw bf16 rows are staged (16
+//     bytes a thread where it can, else by plain 2-byte loads and stores,
+//     cp.async having no 2-byte copy) into rows of BK + 8 halfwords, and
+//     each fragment element is widened at its load by a shift.  A bf16
+//     value is exact in TF32 (8 bits of mantissa against 10), so its
+//     small part is zero and a k-step runs two products, big.small +
+//     big.big: the bits the three would give.  Staging raw rows keeps the
+//     copies asynchronous and halves their bytes; widening while staging
+//     would need plain loads through registers on every chunk;
 //   - the depth split: the host splits the depth over a thread-block
 //     cluster of s = 1, 2, 4 or 8 CTAs (level_megastep.py `k2_split`);
 //     rank r runs chunks [r n / s, (r + 1) n / s).  After its loop each
@@ -143,27 +158,37 @@ __device__ __forceinline__ float ld_cluster(uint32_t addr) {
   return v;
 }
 
-// Rows [0, rows) of a tile of COLS floats a row into `dst` (LD floats a
-// row): columns [c, c + 4) (or element c) of row r from ptr(r, c)
-// (nullptr: zeros), columns at and past `cvalid` zero-filled.
-// `fallback` is a readable address for the copies that read nothing.
-template <int NT, int COLS, int LD, typename F>
-__device__ __forceinline__ void stage(float* dst, int rows, int cvalid,
-                                      bool wide, const float* fallback,
-                                      F ptr) {
+// Rows [0, rows) of a tile of COLS elements of T a row into `dst` (LD
+// elements a row): columns [c, c + 16 / sizeof(T)) (or element c) of row
+// r from ptr(r, c) (nullptr: zeros), columns at and past `cvalid`
+// zero-filled.  `fallback` is a readable address for the copies that read
+// nothing.  T is float, or uint16_t for a bf16 value's bits: cp.async has
+// no 2-byte copy, so a narrow bf16 tile is staged by plain loads and
+// stores, which the CTA sees after its next barrier as it sees a landed
+// copy.
+template <int NT, int COLS, int LD, typename T, typename F>
+__device__ __forceinline__ void stage(T* dst, int rows, int cvalid,
+                                      bool wide, const T* fallback, F ptr) {
+  constexpr int E = sizeof(T);
   const uint32_t base = smem_addr(dst);
   if (wide) {
-    constexpr int CPR = COLS / 4;
+    constexpr int V = 16 / E, CPR = COLS / V;
     for (int i = threadIdx.x; i < rows * CPR; i += NT) {
-      const int r = i / CPR, c = 4 * (i - r * CPR);
-      const float* p = c < cvalid ? ptr(r, c) : nullptr;
-      cp16(base + 4 * (r * LD + c), p ? p : fallback, p != nullptr);
+      const int r = i / CPR, c = V * (i - r * CPR);
+      const T* p = c < cvalid ? ptr(r, c) : nullptr;
+      cp16(base + E * (r * LD + c), p ? p : fallback, p != nullptr);
+    }
+  } else if constexpr (E == 4) {
+    for (int i = threadIdx.x; i < rows * COLS; i += NT) {
+      const int r = i / COLS, c = i - r * COLS;
+      const T* p = c < cvalid ? ptr(r, c) : nullptr;
+      cp4(base + 4 * (r * LD + c), p ? p : fallback, p != nullptr);
     }
   } else {
     for (int i = threadIdx.x; i < rows * COLS; i += NT) {
       const int r = i / COLS, c = i - r * COLS;
-      const float* p = c < cvalid ? ptr(r, c) : nullptr;
-      cp4(base + 4 * (r * LD + c), p ? p : fallback, p != nullptr);
+      const T* p = c < cvalid ? ptr(r, c) : nullptr;
+      dst[r * LD + c] = p ? *p : T(0);
     }
   }
 }
@@ -231,23 +256,41 @@ __device__ __forceinline__ int load_ids(int (*cid_s)[BM], float* nm_s,
 }
 
 // X . W over chunks [c_lo, c_hi) for a tile of BM slots x BJ columns, in
-// a CTA of NT threads (see the head of this file for NX, NQ and PER).
-// acc[q] holds lane q's sums (PER < 0), or the operands' sum against lane
-// q (q < PER) or q + 1 (q >= PER, up to NQ - 2) and operand x against
-// lane PER at acc[NQ - 1 + x].
-template <int NT, int NX, int NQ, int PER, int BJ>
+// a CTA of NT threads (see the head of this file for NX, NQ and PER), X's
+// rows of TX (float, or uint16_t: bf16 bits).  acc[q] holds lane q's sums
+// (PER < 0), or the operands' sum against lane q (q < PER) or q + 1 (q >=
+// PER, up to NQ - 2) and operand x against lane PER at acc[NQ - 1 + x].
+template <int NT, int NX, int NQ, int PER, int BJ, typename TX = float>
 struct Product {
   static_assert(PER >= 0 || NX == 1, "one operand feeds every lane");
+  static_assert(sizeof(TX) == 4 || PER < 0, "bf16 rows: one operand");
+  static constexpr bool BF16 = sizeof(TX) == 2;
   static constexpr int MB = BM / 16 / (NT / 64);   // 16-row blocks a warp
   static constexpr int JB = BJ / 16;               // n8 blocks a warp, a lane
   static constexpr int NACC = PER >= 0 ? NQ - 1 + NX : NQ;
   static constexpr int LDW = BJ + 8;               // 8 mod 32
-  static constexpr int STAGE = NX * BM * LDA + NQ * BK * LDW;   // floats
+  // Elements of a staged X row: f32 rows padded to 4 mod 32 words for
+  // ldmatrix; bf16 rows to 20 words (16-byte copies, and the eight rows
+  // of a fragment's scalar loads on distinct banks).
+  static constexpr int LDX = BF16 ? BK + 8 : LDA;
+  static constexpr int XF = NX * BM * LDX * (int)sizeof(TX) / 4;  // floats
+  static constexpr int STAGE = XF + NQ * BK * LDW;                // floats
   static constexpr int RING = NSTAGE * STAGE;
   static constexpr int LDP = NACC * BJ + 4;        // a partial tile's row
   static constexpr int P = BM * LDP;               // floats of the tile
 
   float acc[NACC][MB][JB][4];
+
+  __device__ __forceinline__ static void zero(float (&a)[NACC][MB][JB][4]) {
+#pragma unroll
+    for (int q = 0; q < NACC; ++q)
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+        for (int jb = 0; jb < JB; ++jb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[q][mb][jb][e] = 0.0f;
+  }
 
   // The loop.  `smem`: the ring (RING floats).  The depth is cut into
   // segments of H, each into `cps` chunks of BK.  `ncols`: the tile's
@@ -262,18 +305,19 @@ struct Product {
   __device__ __forceinline__ void run(float* smem, int c_lo, int c_hi,
                                       int cps, int H, int ncols, int nlive,
                                       bool wide,
-                                      const float* xfb, const float* wfb,
+                                      const TX* xfb, const float* wfb,
                                       XR xrow, WL wlane, long long wstride) {
     auto issue = [&](int c) {
       if (c < c_hi) {
         const int seg = c / cps, k0 = (c - seg * cps) * BK;
-        float* sx = smem + ((c - c_lo) % NSTAGE) * STAGE;
-        float* sw = sx + NX * BM * LDA;
+        float* sxf = smem + ((c - c_lo) % NSTAGE) * STAGE;
+        TX* sx = reinterpret_cast<TX*>(sxf);
+        float* sw = sxf + XF;
 #pragma unroll
         for (int x = 0; x < NX; ++x)
-          stage<NT, BK, LDA>(sx + x * BM * LDA, BM, H - k0, wide, xfb,
-                             [&](int r, int cc) -> const float* {
-                               const float* p = xrow(x, seg, r);
+          stage<NT, BK, LDX>(sx + x * BM * LDX, BM, H - k0, wide, xfb,
+                             [&](int r, int cc) -> const TX* {
+                               const TX* p = xrow(x, seg, r);
                                return p ? p + k0 + cc : nullptr;
                              });
 #pragma unroll
@@ -299,23 +343,17 @@ struct Product {
     const int aoff =
         ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDA + 4 * (lane >> 4);
 
-#pragma unroll
-    for (int q = 0; q < NACC; ++q)
-#pragma unroll
-      for (int mb = 0; mb < MB; ++mb)
-#pragma unroll
-        for (int jb = 0; jb < JB; ++jb)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[q][mb][jb][e] = 0.0f;
-
+    zero(acc);
     issue(c_lo);
     issue(c_lo + 1);
     for (int c = c_lo; c < c_hi; ++c) {
+      float part[NACC][MB][JB][4];          // the chunk's sums (see head)
+      zero(part);
       cp_wait<NSTAGE - 2>();               // chunk c has landed
       __syncthreads();                     // and every warp is done with c - 1
       issue(c + 2);
       const float* sx = smem + ((c - c_lo) % NSTAGE) * STAGE;
-      const float* sw = sx + NX * BM * LDA;
+      const float* sw = sx + XF;
       const uint32_t xaddr = smem_addr(sx) + 4 * aoff;
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 8) {
@@ -333,7 +371,23 @@ struct Product {
         for (int mb = 0; mb < MB; ++mb) {
           if (rw0 + 16 * mb >= nlive) continue;   // rows of no slot
           const uint32_t ra = xaddr + 4 * ((rw0 + 16 * mb) * LDA + kk);
-          if constexpr (PER >= 0) {
+          if constexpr (BF16) {
+            // a0..a3 of the block: rows gq, gq + 8 at columns t, t + 4,
+            // each bf16 widened by a shift: a TF32 value with no small
+            // part, so big.small + big.big.
+            const uint16_t* xa = reinterpret_cast<const uint16_t*>(sx) +
+                                 (rw0 + 16 * mb + gq) * LDX + kk + t;
+            const uint32_t ag[4] = {
+                (uint32_t)xa[0] << 16, (uint32_t)xa[8 * LDX] << 16,
+                (uint32_t)xa[4] << 16, (uint32_t)xa[8 * LDX + 4] << 16};
+#pragma unroll
+            for (int q = 0; q < NQ; ++q)
+#pragma unroll
+              for (int jb = 0; jb < JB; ++jb) {
+                mma(part[q][mb][jb], ag, bs[q][jb][0], bs[q][jb][1]);
+                mma(part[q][mb][jb], ag, bg[q][jb][0], bg[q][jb][1]);
+              }
+          } else if constexpr (PER >= 0) {
             // Each operand feeds lane PER; their sum, in operand order,
             // the other lanes.
             float hs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -350,7 +404,7 @@ struct Product {
               split4(v, ag, as);
 #pragma unroll
               for (int jb = 0; jb < JB; ++jb)
-                mma3(acc[NQ - 1 + x][mb][jb], ag, as, bg[PER][jb],
+                mma3(part[NQ - 1 + x][mb][jb], ag, as, bg[PER][jb],
                      bs[PER][jb]);
             }
             uint32_t hg[4], hsm[4];
@@ -360,7 +414,7 @@ struct Product {
               if (q == PER) continue;
 #pragma unroll
               for (int jb = 0; jb < JB; ++jb)
-                mma3(acc[q < PER ? q : q - 1][mb][jb], hg, hsm, bg[q][jb],
+                mma3(part[q < PER ? q : q - 1][mb][jb], hg, hsm, bg[q][jb],
                      bs[q][jb]);
             }
           } else {
@@ -374,10 +428,18 @@ struct Product {
             for (int q = 0; q < NQ; ++q)
 #pragma unroll
               for (int jb = 0; jb < JB; ++jb)
-                mma3(acc[q][mb][jb], ag, as, bg[q][jb], bs[q][jb]);
+                mma3(part[q][mb][jb], ag, as, bg[q][jb], bs[q][jb]);
           }
         }
       }
+    #pragma unroll
+      for (int q = 0; q < NACC; ++q)
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+          for (int jb = 0; jb < JB; ++jb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[q][mb][jb][e] += part[q][mb][jb][e];
     }
     cp_wait<0>();                          // no copy outlives the loop
     __syncthreads();

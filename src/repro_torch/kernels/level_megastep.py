@@ -9,12 +9,11 @@ wrapper per megastep kind (``GateSpec.kind``):
     over a cluster sized by :func:`k1_split`; the gathered product is
     ``csrc/gathered_product.cuh``, the one the reverse megastep's pass (a)
     runs too;
-  :func:`lstm_megastep`, :func:`gru_megastep`
-    (``csrc/cell_megastep_sm90.cu``) — the LSTM and GRU levels (K3, K4):
-    the same design on the same product, over the predecessor's row, its
-    grid split by :func:`cell_split`;
-  :func:`treefc_megastep` (``csrc/cell_megastep.cu``) — the Tree-FC
-    level (K5), fp32 on the CUDA cores.
+  :func:`lstm_megastep`, :func:`gru_megastep`, :func:`treefc_megastep`
+    (``csrc/cell_megastep_sm90.cu``) — the LSTM, GRU and Tree-FC levels
+    (K3, K4, K5): the same design on the same product, over the
+    predecessor's row (K5: over each child's row against its segment of
+    the concat weight), its depth split by :func:`cell_split`.
 
 Each source's header states its bound and design;
 :mod:`repro_torch.kernels._build` compiles the sources with ``nvcc`` for
@@ -55,8 +54,8 @@ from repro_torch.kernels import _build
 
 #: kernel name → launches of that kernel in this process.
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
-#: kernel name → the CUDA launches its counted calls made, for K1, K3 and
-#: K4, whose call (one level) makes one or two.
+#: kernel name → the CUDA launches its counted calls made, for K1 and
+#: K3–K5, whose call (one level) makes one or two.
 CUDA_LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 #: Largest arity the kernels take.
@@ -97,7 +96,7 @@ def reset_launches() -> None:
 
 # ---------------------------------------------------------------------------
 # The gathered product's tiles and depth split (``csrc/gathered_product.cuh``),
-# shared by K1 and K2's pass (a)
+# shared by K1, K3–K5, K9 and K2's pass (a)
 # ---------------------------------------------------------------------------
 
 #: Slots a tile, depth of a staged chunk, the largest cluster splitting a
@@ -146,23 +145,34 @@ def k1_split(live: int, H: int, sms: int) -> int:
     return k2_split(*k1_grid(live, H)[:2], sms, K1_WARPS) if live else 1
 
 
-#: Warps of a K3/K4 CTA (``NT`` in ``csrc/cell_megastep_sm90.cu``): K2's
-#: lstm and gru pass (a); their tile is K1's (``K1_BJ`` columns).
+#: Warps of a K3/K4/K5/K9 CTA (``NT`` in ``csrc/cell_megastep_sm90.cu``):
+#: K2's lstm, gru and treefc pass (a); K3's, K4's and K9's tile is K1's
+#: (``K1_BJ`` columns), K5's ``TREEFC_BJ`` columns (``Cfg::BJ`` there).
 CELL_WARPS = 4
+TREEFC_BJ = 64
 
 
-def cell_grid(live: int, H: int) -> Tuple[int, int, int]:
-    """``(tiles, chunks, warps)`` of K3's or K4's product over a level's
-    ``live`` slots: K1's tiles and chunks, and the warps of a CTA."""
+def cell_grid(live: int, H: int, kind: str = "lstm",
+              A: int = 1) -> Tuple[int, int, int]:
+    """``(tiles, chunks, warps)`` of the product of K3, K4 or K9 (any
+    ``kind`` but "treefc") or K5 over ``live`` slots (rows): K1's tiles
+    and chunks, or for K5 tiles of ``TREEFC_BJ`` columns and ``A``
+    segments of chunks, one a child (K2's treefc pass (a)); and the warps
+    of a CTA."""
+    if kind == "treefc":
+        return (-(-live // K2_BM) * -(-H // TREEFC_BJ),
+                A * -(-H // K2_BK), CELL_WARPS)
     return k1_grid(live, H)[:2] + (CELL_WARPS,)
 
 
-def cell_split(live: int, H: int, sms: int) -> int:
-    """The depth split of K3's or K4's product over ``live`` slots on a
-    card of ``sms`` SMs (:func:`k2_split` on its tiles and chunks); 1
-    where there is no product."""
-    return k2_split(*cell_grid(live, H)[:2], sms, CELL_WARPS) if live \
-        else 1
+def cell_split(live: int, H: int, sms: int, kind: str = "lstm",
+               A: int = 1) -> int:
+    """The depth split of the product of K3, K4, K9 or K5 (``kind``,
+    ``A`` as for :func:`cell_grid`) over ``live`` slots on a card of
+    ``sms`` SMs (:func:`k2_split` on its tiles and chunks); 1 where there
+    is no product."""
+    return k2_split(*cell_grid(live, H, kind, A)[:2], sms, CELL_WARPS) \
+        if live else 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -329,18 +339,15 @@ def _cell_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
     if not 1 <= A <= MAX_ARITY:
         raise NotImplementedError(f"{op}: arity {A} outside 1..{MAX_ARITY}")
     offset, sentinel = block_rows(op, R, M, offset, sentinel)
-    args = (buf.data_ptr(), child_ids.data_ptr(), ext_ids.data_ptr(),
-            node_mask.data_ptr(), ext.data_ptr(), w.data_ptr(),
-            b.data_ptr(), M, A, H, offset, sentinel, buf.stride(0),
-            ext.stride(0))
-    if kind == "treefc":
-        launch_kernel(op, dev, *args)
-        return buf
     live = M if live is None else int(live)
     if not 0 <= live <= M:
         raise ValueError(f"{op}: live={live} outside [0, {M}]")
     n = ctypes.c_int(0)
-    launch_kernel(op, dev, *args, live, cell_split(live, H, _sm_count(dev)),
+    launch_kernel(op, dev, buf.data_ptr(), child_ids.data_ptr(),
+                  ext_ids.data_ptr(), node_mask.data_ptr(), ext.data_ptr(),
+                  w.data_ptr(), b.data_ptr(), M, A, H, offset, sentinel,
+                  buf.stride(0), ext.stride(0), live,
+                  cell_split(live, H, _sm_count(dev), kind, A),
                   ctypes.addressof(n))
     CUDA_LAUNCHES[op] += n.value
     return buf
@@ -363,7 +370,7 @@ def lstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
     than the sentinel (``DeviceSchedule.live``, a host value); the
     product runs over ``[0, live)`` and an elementwise launch over
     ``[live, M)``.  Without it the product's grid covers every slot, and
-    a tile with no predecessor takes the formula of none on the card.
+    a tile with no child takes the formula of none on the card.
     Padding slots are written as zeros.  One count in ``LAUNCHES``, one or
     two in ``CUDA_LAUNCHES``.  Returns ``buf``."""
     return _cell_megastep("lstm", buf, child_ids, ext_ids, node_mask,
@@ -387,20 +394,21 @@ def gru_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
 def treefc_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
                     ext_ids: torch.Tensor, node_mask: torch.Tensor,
                     offset: int, ext: torch.Tensor, wc: torch.Tensor,
-                    b: torch.Tensor, *,
-                    sentinel: Optional[int] = None) -> torch.Tensor:
+                    b: torch.Tensor, *, sentinel: Optional[int] = None,
+                    live: Optional[int] = None) -> torch.Tensor:
     """One fused Tree-FC batching task, in place (K5): state ``h``
     (``buf`` ``[T*M+1, H]``), ``ext`` ``[R+1, H]``, the concat weight
     ``wc`` ``[A*H, H]`` (raises unless it has ``A*H`` rows), ``b``
-    ``[H]``.  ``sentinel`` as for :func:`lstm_megastep`.  Returns
+    ``[H]``; the product runs over each child's segment of ``wc``.
+    ``sentinel`` and ``live`` as for :func:`lstm_megastep`.  Returns
     ``buf``."""
     return _cell_megastep("treefc", buf, child_ids, ext_ids, node_mask,
-                          offset, ext, wc, b, sentinel)
+                          offset, ext, wc, b, sentinel, live)
 
 
 #: megastep kind → its kernel's wrapper, all called as
 #: ``fn(buf, child_ids, ext_ids, node_mask, offset, ext, *weights,
-#: sentinel=...)``; K1's, K3's and K4's also take ``live=``.
+#: sentinel=..., live=...)``.
 MEGASTEPS = {"treelstm": treelstm_megastep, "lstm": lstm_megastep,
              "gru": gru_megastep, "treefc": treefc_megastep}
 

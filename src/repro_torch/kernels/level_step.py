@@ -8,12 +8,16 @@ Port of ``repro.kernels.level_step``.  A batching task of an LSTM cell is
 
 and the op-by-op leg with ``cell_impl="pallas"`` writes ``gates`` to
 device memory between the product and the gate kernel (K8a).
-:func:`lstm_level_fused` keeps them in registers: ``csrc/lstm_level_fused.cu``
-runs the product as K3's register-tiled SGEMM (``csrc/cell_tile.cuh``)
-and the gates in its epilogue; the source's header states the bound and
-the design.  Unlike K3 it neither gathers the predecessor rows nor writes
-the level's block: it takes the gathered halves ``h_prev``/``c_prev``
-(strided views, float32 or bf16) and returns ``(c, h)`` as new tensors.
+:func:`lstm_level_fused` keeps them in registers: in
+``csrc/cell_megastep_sm90.cu`` it runs K3's product (the gathered product
+of ``csrc/gathered_product.cuh``: TF32 tensor cores with the 3xTF32
+split, the depth split over a cluster sized by
+``level_megastep.cell_split``) and K3's LSTM epilogue; the source's
+header states the bound and the design.  Unlike K3 it neither gathers the
+predecessor rows nor writes the level's block: it reads the gathered
+halves ``h_prev``/``c_prev`` in place (strided views, float32 or bf16;
+bf16 rows are staged raw and widened at the fragment load, two TF32
+products a k-step) and returns ``(c, h)`` as new tensors.
 
 The wrapper takes CUDA tensors only: it launches the kernel or raises.
 The plain version for CPU tensors (``ref.lstm_level_fused``) is chosen
@@ -29,7 +33,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.cell_kernels import check_view, no_vjp
-from repro_torch.kernels.level_megastep import (check_arg, launch_kernel,
+from repro_torch.kernels.level_megastep import (_sm_count, cell_split,
+                                                check_arg, launch_kernel,
                                                 require_cuda)
 
 
@@ -45,7 +50,8 @@ class _LSTMLevelFused(torch.autograd.Function):
                           ext_proj.data_ptr(), wh.data_ptr(), b.data_ptr(),
                           M, H, h_prev.stride(0), c_prev.stride(0),
                           ext_proj.stride(0),
-                          int(h_prev.dtype == torch.bfloat16))
+                          int(h_prev.dtype == torch.bfloat16),
+                          cell_split(M, H, _sm_count(h_prev.device)))
         return c, h
 
     @staticmethod

@@ -96,9 +96,8 @@ def level_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
     row the zero sentinel), run the declared gate math, write rows
     ``[offset, offset+M)`` in place.  Returns ``buf``.  ``kind``/
     ``weights`` come from the cell's ``GateSpec``.  ``live``: the level's
-    live slot count (``DeviceSchedule.live``), which the card's
-    ``treelstm``, ``lstm`` and ``gru`` kernels (K1, K3, K4) read to stop
-    their product there; K5 covers every slot, and the plain version
+    live slot count (``DeviceSchedule.live``), which the card's kernels
+    (K1, K3, K4, K5) read to stop their product there; the plain version
     ignores it."""
     if not buf.is_cuda:
         _tick("level_megastep", "ref")
@@ -108,9 +107,8 @@ def level_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
     if kernel is None:
         raise ValueError(f"unknown megastep gate kind: {kind!r}")
     _tick("level_megastep", "cuda")
-    kw = {} if kind == "treefc" else {"live": live}
     return kernel(buf, child_ids, ext_ids, node_mask, offset, ext, *weights,
-                  **kw)
+                  live=live)
 
 
 def frontier_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,

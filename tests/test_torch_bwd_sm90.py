@@ -10,7 +10,9 @@ against the plain version, JAX's reference and the Pallas K2.
   dealt to the ranks of the cluster as ``k2_split`` and ``k2_chunks``
   deal them; every k-step of 8 as three TF32 products (``cvt.rna`` on
   int32 bit views; small·big, big·small, big·big, in that order) into the
-  rank's fp32 sum; the ranks' sums added in rank order; the epilogue's
+  rank's fp32 sum (in pass (a), the shared product's, into the chunk's
+  sum, then added to the rank's); the ranks' sums added in rank order;
+  the epilogue's
   formulas in the kernel's order; then each child's cotangent added into
   ``g`` by one fp32 add (one contribution a row), or the run pass's sums
   in sorted order.
@@ -97,23 +99,31 @@ def split(x: torch.Tensor):
 def mma3(acc, a, b, split3=True):
     """``acc`` + one k-step's ``a @ b`` as the kernel's three TF32
     products, small·big, big·small, big·big, each added in fp32 (one
-    unsplit TF32 product where ``split3`` is False)."""
+    unsplit TF32 product where ``split3`` is False; with ``split3``
+    "bf16", ``a`` holds bf16 values, exact in TF32, and the step is the
+    bf16 route's two products, big·small and big·big)."""
     if not split3:
         return acc + tf32(a) @ tf32(b)
     ag, as_ = split(a)
     bg, bs = split(b)
+    if split3 == "bf16":
+        assert not as_.any(), "a bf16 value has no small part"
+        return (acc + ag @ bs) + ag @ bg
     for x, y in ((as_, bg), (ag, bs), (ag, bg)):
         acc = acc + x @ y
     return acc
 
 
-def rank_sums(segs, H: int, s: int, planes: int, split3=True):
+def rank_sums(segs, H: int, s: int, planes: int, split3=True,
+              chunk_sums=False):
     """The kernel's depth split of one product: ``segs[seg]`` is a list of
     ``(plane, A [rows, H], B [H, N])``, the products a chunk of segment
     ``seg`` feeds.  The segments' chunks of ``K2_BK`` (the last cut at H)
     are dealt to ``s`` ranks by ``k2_chunks``; each rank sums its chunks'
-    k-steps of 8 into a zero partial a plane; the partials are added in
-    rank order.  Returns the plane sums."""
+    k-steps of 8 into a zero partial a plane (with ``chunk_sums``, each
+    chunk's k-steps into a zero sum that is then added to the partial:
+    ``gathered_product.cuh``'s fresh accumulator a chunk); the partials
+    are added in rank order.  Returns the plane sums."""
     bk = lm.K2_BK
     chunks = [(seg, k0) for seg in range(len(segs)) for k0 in range(0, H, bk)]
     rows, cols = segs[0][0][1].shape[0], segs[0][0][2].shape[1]
@@ -123,10 +133,11 @@ def rank_sums(segs, H: int, s: int, planes: int, split3=True):
         for c in lm.k2_chunks(r, s, len(chunks)):
             seg, k0 = chunks[c]
             for plane, a, b in segs[seg]:
+                acc = torch.zeros(rows, cols) if chunk_sums else part[plane]
                 for k in range(k0, min(k0 + bk, H), 8):
                     k1 = min(k + 8, H)
-                    part[plane] = mma3(part[plane], a[:, k:k1], b[k:k1],
-                                       split3)
+                    acc = mma3(acc, a[:, k:k1], b[k:k1], split3)
+                part[plane] = part[plane] + acc if chunk_sums else acc
         total = part if total is None else [t + p for t, p in
                                             zip(total, part)]
     return total
@@ -164,7 +175,7 @@ def emulate_bwd_tf32x3(kind, g, buf, cids, eids, nm, off, ext, weights, *,
             hs = hs + hk[:, k]
         segs = [[(0, hs, ui), (1, hs, uo), (2, hs, uu)]
                 + [(3 + k, hk[:, k], uf) for k in range(A)]]
-        p = rank_sums(segs, H, sa, 3 + A, split3)
+        p = rank_sums(segs, H, sa, 3 + A, split3, chunk_sums=True)
         ig = sig(x[:, :H] + p[0] + b[:H])
         og = sig(x[:, 2 * H:3 * H] + p[1] + b[2 * H:3 * H])
         ug = torch.tanh(x[:, 3 * H:] + p[2] + b[3 * H:])
@@ -190,7 +201,8 @@ def emulate_bwd_tf32x3(kind, g, buf, cids, eids, nm, off, ext, weights, *,
         wh, b = weights
         prev = rows[:, 0]
         p = rank_sums([[(q, prev[:, H:], wh[:, q * H:(q + 1) * H])
-                        for q in range(4)]], H, sa, 4, split3)
+                        for q in range(4)]], H, sa, 4, split3,
+                      chunk_sums=True)
         ig = sig(x[:, :H] + p[0] + b[:H])
         fg = sig(x[:, H:2 * H] + p[1] + b[H:2 * H] + 1.0)
         og = sig(x[:, 2 * H:3 * H] + p[2] + b[2 * H:3 * H])
@@ -210,7 +222,8 @@ def emulate_bwd_tf32x3(kind, g, buf, cids, eids, nm, off, ext, weights, *,
         wh, b = weights
         prev = rows[:, 0]
         p = rank_sums([[(q, prev, wh[:, q * H:(q + 1) * H])
-                        for q in range(3)]], H, sa, 3, split3)
+                        for q in range(3)]], H, sa, 3, split3,
+                      chunk_sums=True)
         z = sig(x[:, :H] + (p[0] + b[:H]))
         r = sig(x[:, H:2 * H] + (p[1] + b[H:2 * H]))
         hn = p[2] + b[2 * H:]
@@ -227,7 +240,8 @@ def emulate_bwd_tf32x3(kind, g, buf, cids, eids, nm, off, ext, weights, *,
     else:
         wc, b = weights
         p = rank_sums([[(0, rows[:, k], wc[k * H:(k + 1) * H])]
-                       for k in range(A)], H, sa, 1, split3)
+                       for k in range(A)], H, sa, 1, split3,
+                      chunk_sums=True)
         hy = torch.tanh(p[0] + x + b)
         d_pre = gs * nmk * (1 - hy * hy)
         q = rank_sums([[(0, d_pre, wc.T)]], H, sb, 1, split3)

@@ -395,15 +395,17 @@ def test_ops_dispatch_by_device_and_wrappers_refuse_cpu():
 
 
 def test_build_table_holds_the_gate_kernels():
-    """K8a and K8b share one source, K9 has its own, and both are built
-    with the others from the checkout."""
+    """K8a and K8b share one source; K9 shares K3's (whose product and
+    epilogue it runs), and every one is built with the others from the
+    checkout."""
     assert _build.KERNELS["lstm_gates"][0] \
         == _build.KERNELS["treelstm_gates"][0] == "cell_gates.cu"
-    assert _build.KERNELS["lstm_level_fused"][0] == "lstm_level_fused.cu"
+    assert _build.KERNELS["lstm_level_fused"][0] \
+        == _build.KERNELS["lstm_megastep"][0] == "cell_megastep_sm90.cu"
     for name in ("lstm_gates", "treelstm_gates", "lstm_level_fused"):
         src, entry, argtypes = _build.KERNELS[name]
         text = (_build._CSRC / src).read_text()
         assert f'extern "C" int {entry}(' in text
         assert argtypes[-1] is _build._P                  # the stream
-    assert "cell_tile.cuh" in (_build._CSRC / "lstm_level_fused.cu") \
-        .read_text()
+    assert "gathered_product.cuh" in (_build._CSRC / "cell_megastep_sm90.cu"
+                                      ).read_text()

@@ -114,9 +114,14 @@ def test_treelstm_gates_matches_plain(m, a, h, state_dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,h", [(1, 8), (3, 16), (64, 64), (130, 128),
-                                 (70, 72), (128, 512)])
+                                 (70, 72), (128, 512), (7, 5)])
 @pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
 def test_lstm_level_fused_matches_plain(m, h, state_dtype):
+    """K9 on the strided halves of a gathered ``[M, 2H]`` state: 16-byte
+    copies where H and the views allow, and at H 5 (views 20 or 10 bytes
+    off a 16-byte boundary) the narrow copies, the bf16 rows by plain
+    loads; a partial last tile at M 3, 7, 70 and 130; one launch a call,
+    two bitwise equal."""
     _need_card()
     gen = torch.Generator().manual_seed(m * 3 + h)
     state = _randn(gen, m, 2 * h, dtype=BF16[state_dtype])

@@ -1,12 +1,13 @@
 """The ``lstm``, ``gru`` and ``treefc`` megastep kernels on the card: the
 forward kernels (K3, K4, K5) and the reverse megastep (K2) of each kind
 against their plain versions, at small widths and at the paper's H = 512,
-with M = 1 and all-padding levels, K3 and K4 given the schedule's live
-counts; K3 and K4 on ``CELL_EDGES`` (live counts at and across a tile's
-edge, none, padding, a staging block past the sentinel), which
+with M = 1 and all-padding levels, the forward kernels given the
+schedule's live counts; K3, K4 and K5 on ``CELL_EDGES`` (live counts at
+and across a tile's edge, none, padding, a staging block past the
+sentinel; K5 with two children a slot), which
 ``tests/test_torch_cell_sm90.py`` also feeds to its emulation of the
 kernels; rows a launch does not touch bit-unchanged; two launches
-bitwise equal; the CUDA launches of K3's and K4's design; training
+bitwise equal; the CUDA launches of the forward kernels' design; training
 gradients that repeat bit for bit and match the op-by-op leg; and the
 refusals: a wrong arity, a too-small workspace and a failed build raise
 instead of falling back to the plain version.  Every test here is
@@ -87,12 +88,13 @@ def _levels(kind, family, h, seed=0, dev="cuda", **pads):
             (f32(w), f32(b)))
 
 
-#: K3/K4 edge levels: name → (M, live, real slots, A, staging).  ``live``
-#: None: the level is given no live count (the decode engine, the chain
-#: frontier), and its children lie in the first third of the slots, so a
-#: 64-slot tile past them has none; slots ``[real, M)`` are padding;
+#: K3/K4/K5 edge levels: name → (M, live, real slots, A, staging).
+#: ``live`` None: the level is given no live count (the decode engine, the
+#: chain frontier), and its children lie in the first third of the slots,
+#: so a 64-slot tile past them has none; slots ``[real, M)`` are padding;
 #: ``staging``: the block lies past the sentinel, as the continuous
-#: engine's staging block does.  Tiles are 64 slots.
+#: engine's staging block does.  Tiles are 64 slots.  K5 (``treefc``)
+#: takes every level with A 2, as a Tree-FC batch packs it.
 CELL_EDGES = {
     "M1_live0": (1, 0, 1, 1, False), "M1_live1": (1, 1, 1, 1, False),
     "M1_none": (1, None, 1, 1, False),
@@ -119,9 +121,11 @@ def cell_edge_level(kind, name, h, seed=0):
     whose row ``sentinel`` is zero; slots before ``live`` get a
     predecessor (a fifth of them the sentinel, never slot ``live - 1``'s;
     with A 2 the second column too); the first ``real`` slots are real,
-    the rest padding (ext rows at the zero row); ``wh`` ``[h, G]`` and a
-    nonzero bias."""
+    the rest padding (ext rows at the zero row); ``wh`` ``[h, G]`` (for
+    ``treefc`` ``wc`` ``[A·h, h]``, A 2) and a nonzero bias."""
     M, live, real, a, staging = CELL_EDGES[name]
+    if kind == "treefc":
+        a = 2
     S, G = SM[kind] * h, GM[kind] * h
     rng = np.random.default_rng(seed + sum(map(ord, name)) + h)
     sent = 3 * M
@@ -143,7 +147,8 @@ def cell_edge_level(kind, name, h, seed=0):
     eids[real:] = n_ext
     nm = np.zeros(M, np.float32)
     nm[:real] = 1.0
-    wh = (rng.standard_normal((h, G)) * h ** -0.5).astype(np.float32)
+    rows = a * h if kind == "treefc" else h
+    wh = (rng.standard_normal((rows, G)) * rows ** -0.5).astype(np.float32)
     b = (rng.standard_normal(G) * 0.3).astype(np.float32)
     return dict(buf=buf, cids=cids, cmask=(cids != sent).astype(np.float32),
                 eids=eids, nm=nm, off=off, ext=ext, w=(wh, b), live=live,
@@ -183,13 +188,15 @@ def test_forward_and_reverse_kernels_match_plain_on_card(kind, family, h,
         lvl = (d.child_ids[t], d.child_mask[t], d.ext_ids[t], d.node_mask[t],
                t * s.M, ext, w)
         want = ref.level_megastep(kind, buf.clone(), *lvl)
-        kw = {} if kind == "treefc" else {"live": d.live[t]}
         cuda0 = lm.CUDA_LAUNCHES[f"{kind}_megastep"]
         got = lm.MEGASTEPS[kind](buf.clone(), d.child_ids[t], d.ext_ids[t],
-                                 d.node_mask[t], t * s.M, ext, *w, **kw)
-        if kw:
-            assert lm.CUDA_LAUNCHES[f"{kind}_megastep"] - cuda0 == \
-                (d.live[t] > 0) + (d.live[t] < s.M), t
+                                 d.node_mask[t], t * s.M, ext, *w,
+                                 live=d.live[t])
+        again = lm.MEGASTEPS[kind](buf.clone(), d.child_ids[t],
+                                   d.ext_ids[t], d.node_mask[t], t * s.M,
+                                   ext, *w, live=d.live[t])
+        assert lm.CUDA_LAUNCHES[f"{kind}_megastep"] - cuda0 == \
+            2 * ((d.live[t] > 0) + (d.live[t] < s.M)), t
         wantb = ref.bwd_megastep(kind, g.clone(), buf, *lvl)
         before = lm.LAUNCHES[launches]
         bargs = (buf, d.child_ids[t], d.ext_ids[t], d.node_mask[t], t * s.M,
@@ -197,12 +204,13 @@ def test_forward_and_reverse_kernels_match_plain_on_card(kind, family, h,
         gotb = lmb.bwd_megastep(kind, g.clone(), *bargs, workspace=ws,
                                 **tsch._level_runs(d, t))
         made = lm.LAUNCHES[launches] - before
-        again = lmb.bwd_megastep(kind, g.clone(), *bargs, workspace=ws,
-                                 **tsch._level_runs(d, t))
+        againb = lmb.bwd_megastep(kind, g.clone(), *bargs, workspace=ws,
+                                  **tsch._level_runs(d, t))
         torch.cuda.synchronize()
         assert _rel(got, want) <= TOL, ("forward", t)
         assert _rel(gotb, wantb) <= TOL, ("reverse", t)
-        assert torch.equal(_bits(gotb), _bits(again)), t
+        assert torch.equal(_bits(got), _bits(again)), ("forward", t)
+        assert torch.equal(_bits(gotb), _bits(againb)), t
         live, single = d.live[t], d.bwd_single[t]
         assert made == (0 if live == 0 else 2 if single else 3), t
         keep = torch.ones(buf.shape[0], dtype=torch.bool, device="cuda")
@@ -214,7 +222,7 @@ def test_forward_and_reverse_kernels_match_plain_on_card(kind, family, h,
         assert torch.equal(_bits(gotb[~touched]), _bits(g[~touched])), t
         if not bool(d.node_mask[t].any()):        # an all-padding level
             assert not bool(got[t * s.M:(t + 1) * s.M].any())
-    assert lm.LAUNCHES[f"{kind}_megastep"] == s.T
+    assert lm.LAUNCHES[f"{kind}_megastep"] == 2 * s.T
     work = sum(1 for live in d.live if live)
     assert lm.LAUNCHES[f"{kind}_bwd_megastep"] == 2 * work
     if family == "dag":
@@ -224,9 +232,9 @@ def test_forward_and_reverse_kernels_match_plain_on_card(kind, family, h,
 @pytest.mark.gpu
 @pytest.mark.parametrize("h", [5, 72, 512])
 @pytest.mark.parametrize("name", list(CELL_EDGES))
-@pytest.mark.parametrize("kind", ["lstm", "gru"])
+@pytest.mark.parametrize("kind", ["lstm", "gru", "treefc"])
 def test_cell_edge_levels_on_card(kind, name, h):
-    """K3/K4 on ``CELL_EDGES`` with the keywords the main path gives them:
+    """K3/K4/K5 on ``CELL_EDGES`` with the keywords the main path gives them:
     within 1e-4 of max |plain|, rows outside the block (the sentinel among
     them) bit-unchanged, two launches bitwise equal, the CUDA launches of
     the design (the product where a slot may have a predecessor, the

@@ -12,7 +12,8 @@ PyTorch against the plain version, JAX's reference and the Pallas K1.
   chunks of ``K2_BK`` dealt to the ranks of the cluster as ``k1_split``
   and ``k2_chunks`` deal them, every k-step of 8 as three TF32 products
   (``cvt.rna`` on int32 bit views; small·big, big·small, big·big) into
-  the rank's fp32 sum, the ranks' sums added in rank order; hsum summed
+  the chunk's fp32 sum, which is added to the rank's, the ranks' sums
+  added in rank order; hsum summed
   in child order; the epilogue in the kernel's order; padding written as
   zeros.  The product's helpers are ``tests/test_torch_bwd_sm90.py``'s
   (K2's pass (a) runs the same product), the levels
@@ -118,7 +119,8 @@ def emulate_fwd_tf32x3(buf, cids, eids, nm, off, ext, weights, *, live=None,
             hs = hs + hk[:, k]
         p = rank_sums([[(0, hs, ui), (1, hs, uo), (2, hs, uu)]
                        + [(3 + k, hk[:, k], uf) for k in range(A)]],
-                      H, lm.k1_split(L, H, sms), 3 + A, split3)
+                      H, lm.k1_split(L, H, sms), 3 + A, split3,
+                      chunk_sums=True)
         ig = sig(xi[:L] + p[0] + bi)
         og = sig(xo[:L] + p[1] + bo)
         ug = torch.tanh(xu[:L] + p[2] + bu)
@@ -408,10 +410,10 @@ def test_scheduler_and_ops_pass_live_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("kind,passed", [("lstm", {"live": 1}),
                                          ("gru", {"live": 1}),
-                                         ("treefc", {})])
+                                         ("treefc", {"live": 1})])
 def test_ops_passes_no_live_to_the_cell_kinds(monkeypatch, kind, passed):
-    """``ops.level_megastep`` hands the level's live count to K3 and K4
-    (which stop their product there, as K1 does) and none to K5."""
+    """``ops.level_megastep`` hands the level's live count to K3, K4 and
+    K5, which stop their product there, as K1 does."""
     seen = []
 
     def kernel(buf, *args, **kw):

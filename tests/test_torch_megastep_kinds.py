@@ -353,9 +353,8 @@ def test_build_table_covers_every_kind(tmp_path, monkeypatch):
             src = _build.KERNELS[name][0]
             assert (_build._CSRC / src).is_file(), name
     assert _build.library_path("lstm_megastep") \
-        == _build.library_path("gru_megastep")
-    assert _build.library_path("lstm_megastep") \
-        != _build.library_path("treefc_megastep")
+        == _build.library_path("gru_megastep") \
+        == _build.library_path("treefc_megastep")
     assert _build.library_path("lstm_megastep") \
         != _build.library_path("lstm_bwd_megastep")
     csrc = tmp_path / "csrc"
@@ -366,19 +365,21 @@ def test_build_table_covers_every_kind(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_CSRC", csrc)
     monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "build")
     names = ("gru_bwd_megastep", "treelstm_megastep", "lstm_megastep",
-             "treefc_megastep", "flash_attention")
+             "treefc_megastep", "flash_attention", "lstm_gates")
     before = {n: _build.library_path(n) for n in names}
-    (csrc / "cell_tile.cuh").write_text((csrc / "cell_tile.cuh").read_text()
-                                        + "\n")
+    (csrc / "cell_megastep_sm90.cu").write_text(
+        (csrc / "cell_megastep_sm90.cu").read_text() + "\n")
     after = {n: _build.library_path(n) for n in names}
     assert after["treefc_megastep"] != before["treefc_megastep"]
-    for n in ("gru_bwd_megastep", "lstm_megastep", "flash_attention"):
+    for n in ("gru_bwd_megastep", "treelstm_megastep", "flash_attention"):
         assert after[n] == before[n], n
     (csrc / "gathered_product.cuh").write_text(
         (csrc / "gathered_product.cuh").read_text() + "\n")
-    for n in ("gru_bwd_megastep", "treelstm_megastep", "lstm_megastep"):
+    for n in ("gru_bwd_megastep", "treelstm_megastep", "lstm_megastep",
+              "treefc_megastep"):
         assert _build.library_path(n) != after[n], n
-    assert _build.library_path("treefc_megastep") == after["treefc_megastep"]
+    for n in ("flash_attention", "lstm_gates"):
+        assert _build.library_path(n) == after[n], n
     monkeypatch.setattr(_build, "_nvcc", lambda: "false")
     monkeypatch.setattr(_build, "_LOADED", {})
     with pytest.raises(RuntimeError, match="build failed"):

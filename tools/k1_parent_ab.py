@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""K1 (the Tree-LSTM forward megastep), K3/K4 (the LSTM and GRU forward
-megasteps) or K12 (the Mamba-2 chunk scan) beside an earlier commit's on
-the same inputs, in one run on one card.
+"""K1 (the Tree-LSTM forward megastep), K3/K4/K5 (the LSTM, GRU and
+Tree-FC forward megasteps), K9 (the fused LSTM level step) or K12 (the
+Mamba-2 chunk scan) beside an earlier commit's on the same inputs, in one
+run on one card.
 
     git archive <commit> | tar -x -C build/parent
     python3 tools/k1_parent_ab.py build/parent          # K1
     python3 tools/k1_parent_ab.py build/parent k3       # K3 (lstm)
     python3 tools/k1_parent_ab.py build/parent k4       # K4 (gru)
+    python3 tools/k1_parent_ab.py build/parent k5       # K5 (treefc)
+    python3 tools/k1_parent_ab.py build/parent k9       # K9
     python3 tools/k1_parent_ab.py build/parent k12      # K12
 
 K1.  The directory holds a checkout of the earlier commit; its K1 source,
@@ -23,21 +26,34 @@ the earlier one in turns.  Prints the means a launch of each set (the
 served levels also by ``chip_smoke.K1_CLASSES``) and, last, one JSON line
 of them.
 
-K3 and K4.  The earlier source, ``src/repro_torch/kernels/csrc/
+K3, K4 and K5.  The earlier source, ``src/repro_torch/kernels/csrc/
 cell_megastep.cu`` (the fp32 SIMT kernels, entry points
-``lstm_megastep_launch`` and ``gru_megastep_launch``, no live count), is
-built the same way.  Both kernels run, with the keywords the main path
-gives this checkout's kernel, on the levels ``chip_smoke.py`` launches
-them on: the forward levels of one Var-LSTM (K3) or GRU (K4) training
-step (the cell phase's setup, one step taken with a tap), every
+``lstm_megastep_launch``, ``gru_megastep_launch`` or
+``treefc_megastep_launch``, no live count; up to 05ae0b5 it held the
+first two, from 1e9f1b9 the third alone), is built the same way.  Both
+kernels run, with the keywords the main path gives this checkout's
+kernel, on the levels ``chip_smoke.py`` launches them on: the forward
+levels of one Var-LSTM (K3), GRU (K4) or Tree-FC (K5) training step (the
+cell phase's setup, one step taken with a tap), for K3 and K4 every
 ``TAP_EVERY``-th decode tick of ``VertexServeEngine`` (``chip_smoke``'s
 decode traffic, no live count) and, for K3, the continuous chain
 frontier's kept ticks (the LSTM-chain trace submitted at once, no live
 count, a staging block past the sentinel).  Each level is checked for
 both kernels against the plain version (1e-4 of max |plain|); then both
 are timed by ``torch.profiler`` device time, one session a set, this
-kernel and the earlier one in turns.  Prints the means a launch and the
-sum over the step's levels and, last, one JSON line of them.
+kernel and the earlier one in turns.  Prints the means a launch, the sum
+over the step's levels and, for K5, each level's times; last, one JSON
+line of them.
+
+K9.  The earlier source, ``src/repro_torch/kernels/csrc/
+lstm_level_fused.cu`` (the fp32 SIMT kernel, entry point
+``lstm_level_fused_launch`` without a split), is built the same way.
+Both kernels run on the launches ``chip_smoke.py``'s op-by-op phase
+keeps: the Var-LSTM forward's levels with ``cell_impl`` "fused", every
+tick of the unfused decode, and those levels' operands with a bf16
+state; each launch is checked for both against the plain version (1e-4
+of max |plain|, bf16 3e-2), then both are timed by ``torch.profiler``
+device time, one session a set, in turns.
 
 K12.  The earlier K12 source, ``src/repro_torch/kernels/csrc/ssd_chunk.cu``
 (the fp32 SIMT kernel, entry point ``ssd_chunk_launch``, its head group
@@ -56,6 +72,8 @@ Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -70,6 +88,7 @@ import torch  # noqa: E402
 
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import level_megastep as lm  # noqa: E402
+from repro_torch.kernels import level_step as ls  # noqa: E402
 from repro_torch.kernels import mamba_ssd as mssd  # noqa: E402
 from repro_torch.models.transformer import TransformerLM  # noqa: E402
 
@@ -79,17 +98,25 @@ from repro_torch.models.transformer import TransformerLM  # noqa: E402
 EARLIER_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
+def earlier_library(checkout: Path, source: str) -> ctypes.CDLL:
+    """The earlier checkout's ``csrc/<source>``, built here with this
+    checkout's ``nvcc`` flags (once for a source's content)."""
+    src = checkout / "src" / "repro_torch" / "kernels" / "csrc" / source
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    lib = _build.build_dir() / f"earlier_{src.stem}-{tag}.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    if not lib.exists():
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                        str(src)], check=True, capture_output=True)
+    return ctypes.CDLL(str(lib))
+
+
 def earlier_k1(checkout: Path):
     """The earlier checkout's K1, built here, as ``fn(buf, child_ids,
     ext_ids, node_mask, offset, ext, weights)`` writing ``buf`` in
     place."""
-    src = checkout / "src" / "repro_torch" / "kernels" / "csrc" \
-        / "treelstm_megastep.cu"
-    lib = _build.build_dir() / "earlier_treelstm_megastep.so"
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    str(src)], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib)).treelstm_megastep_launch
+    fn = earlier_library(checkout, "treelstm_megastep.cu") \
+        .treelstm_megastep_launch
     fn.argtypes, fn.restype = EARLIER_ARGS, ctypes.c_int
 
     def launch(buf, cids, eids, nmask, off, ext, w):
@@ -130,7 +157,7 @@ def level_sets() -> dict:
     return sets
 
 
-#: The earlier K3/K4 entry points' arguments: buf, child_ids, ext_ids,
+#: The earlier K3/K4/K5 entry points' arguments: buf, child_ids, ext_ids,
 #: node_mask, ext, w, bias; M, A, H, offset, sentinel, buf_stride,
 #: ext_stride; stream.
 EARLIER_CELL_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
@@ -138,25 +165,19 @@ EARLIER_CELL_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
 
 
 def earlier_cell(checkout: Path, kind: str):
-    """The earlier checkout's K3 (``kind`` "lstm") or K4 ("gru"), built
-    here, as ``fn(buf, child_ids, ext_ids, node_mask, offset, ext,
-    weights, sentinel)`` writing ``buf`` in place."""
-    src = checkout / "src" / "repro_torch" / "kernels" / "csrc" \
-        / "cell_megastep.cu"
-    lib = _build.build_dir() / "earlier_cell_megastep.so"
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    if not lib.exists():
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                        str(src)], check=True, capture_output=True)
-    fn = getattr(ctypes.CDLL(str(lib)), f"{kind}_megastep_launch")
+    """The earlier checkout's K3 (``kind`` "lstm"), K4 ("gru") or K5
+    ("treefc"), built here, as ``fn(buf, child_ids, ext_ids, node_mask,
+    offset, ext, weights, sentinel)`` writing ``buf`` in place."""
+    fn = getattr(earlier_library(checkout, "cell_megastep.cu"),
+                 f"{kind}_megastep_launch")
     fn.argtypes, fn.restype = EARLIER_CELL_ARGS, ctypes.c_int
 
     def launch(buf, cids, eids, nmask, off, ext, w, sentinel):
         M, A = cids.shape
         rc = fn(buf.data_ptr(), cids.data_ptr(), eids.data_ptr(),
                 nmask.data_ptr(), ext.data_ptr(), w[0].data_ptr(),
-                w[1].data_ptr(), M, A, w[0].shape[0], off, sentinel,
-                buf.stride(0), ext.stride(0),
+                w[1].data_ptr(), M, A, lm.cell_hidden(kind, w[0], A), off,
+                sentinel, buf.stride(0), ext.stride(0),
                 torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"the earlier {kind}_megastep failed with "
@@ -167,14 +188,16 @@ def earlier_cell(checkout: Path, kind: str):
 
 
 def cell_sets(kind: str) -> dict:
-    """set name → (case, kw) pairs of K3 (``kind`` "lstm") or K4 ("gru"),
-    as ``chip_smoke.py`` gathers them: one training step's forward
-    levels, the kept decode ticks and (K3) the chain frontier's kept
-    ticks."""
-    phase = "var_lstm" if kind == "lstm" else "gru"
+    """set name → (case, kw) pairs of K3 (``kind`` "lstm"), K4 ("gru") or
+    K5 ("treefc"), as ``chip_smoke.py`` gathers them: one training step's
+    forward levels, (K3, K4) the kept decode ticks and (K3) the chain
+    frontier's kept ticks."""
+    phase = {"lstm": "var_lstm", "gru": "gru", "treefc": "tree_fc"}[kind]
     _k, fn, params, d, ext, h_lo, _s = cs.cell_setup(phase)
     sets = {f"{phase} step": cs.tapped_levels(
         lambda: cs.cell_grads(fn, params, d, ext, h_lo))}
+    if kind == "treefc":
+        return sets
     fn, params, graphs, xs = cs.decode_setup(kind)
     taps, inner = [], cs.ops.level_megastep
 
@@ -239,7 +262,7 @@ def cell_main(dev: dict, checkout: Path, kind: str) -> None:
             timed[i, "this"] = {
                 "calls": [lambda kb=kb, c=c, w=w, kw=kw:
                           lm.MEGASTEPS[kind](kb, *c, *w, **kw)],
-                "match": "k34_",
+                "match": cs.FWD_KERNELS[kind][1],
                 "launches": cs.fwd_designed(M, kw.get("live"))}
             timed[i, "earlier"] = {
                 "calls": [lambda eb=eb, c=c, w=w, sent=sent:
@@ -260,6 +283,111 @@ def cell_main(dev: dict, checkout: Path, kind: str) -> None:
               f"{out[name]['earlier_ms']:.4f} ms (device time; all levels "
               f"{out[name]['total_ms']:.4f} / "
               f"{out[name]['earlier_total_ms']:.4f} ms), bound "
+              f"{out[name]['bound_ms']:.5f} ms")
+        if kind == "treefc":                     # K5 by level
+            out[name]["by_level"] = [
+                {"level": i, "live": kw.get("live"), "ms": t, "earlier_ms": o,
+                 "bound_ms": b}
+                for i, ((_c, kw), t, o, b) in enumerate(
+                    zip(levels, this, old, bounds))]
+            for r in out[name]["by_level"]:
+                print(f"  level {r['level']} (live {r['live']}): this "
+                      f"{r['ms']:.4f} ms, the earlier {r['earlier_ms']:.4f} "
+                      f"ms, bound {r['bound_ms']:.5f} ms")
+    print(dev["smi"])
+    print(json.dumps(out))
+
+
+#: The earlier K9 entry point's arguments: c_out, h_out, h_prev, c_prev,
+#: ext, w, bias; M, H, h_stride, c_stride, ext_stride, state_bf16; stream.
+EARLIER_K9_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
+
+
+def earlier_k9(checkout: Path):
+    """The earlier checkout's K9, built here, as ``fn(h_prev, c_prev,
+    ext_proj, wh, b) -> (c, h)``."""
+    fn = earlier_library(checkout, "lstm_level_fused.cu") \
+        .lstm_level_fused_launch
+    fn.argtypes, fn.restype = EARLIER_K9_ARGS, ctypes.c_int
+
+    def launch(h_prev, c_prev, ext, wh, b):
+        M, H = h_prev.shape
+        c = torch.empty((M, H), dtype=h_prev.dtype, device=h_prev.device)
+        h = torch.empty_like(c)
+        rc = fn(c.data_ptr(), h.data_ptr(), h_prev.data_ptr(),
+                c_prev.data_ptr(), ext.data_ptr(), wh.data_ptr(),
+                b.data_ptr(), M, H, h_prev.stride(0), c_prev.stride(0),
+                ext.stride(0), int(h_prev.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the earlier K9 failed with CUDA error {rc}")
+        return c, h
+
+    return launch
+
+
+def k9_sets() -> dict:
+    """set name → K9's argument tuples, as ``chip_smoke.py``'s op-by-op
+    phase keeps them: the Var-LSTM forward's levels with ``cell_impl``
+    "fused", every tick of the unfused decode, and the levels' operands
+    with the state in bf16 (the halves of one ``[M, 2H]`` tensor)."""
+    _k, fn, params, d, ext, _h, _s = cs.cell_setup("var_lstm")
+    fused = dataclasses.replace(fn, cell_impl="fused")
+    with cs.tapped("lstm_level_fused") as levels:
+        cs.execute(fused, params, d, ext, fusion_mode="none")
+    fn, params, _graphs, xs = cs.decode_setup("lstm", impl="fused")
+    with cs.tapped("lstm_level_fused") as ticks:
+        cs._drain(cs.VertexServeEngine(fn, params,
+                                       num_slots=cs.DECODE_SLOTS,
+                                       fusion_mode="none", device=cs.DEVICE),
+                  [cs.VertexRequest(i, x) for i, x in enumerate(xs)])
+    bf16 = []
+    for hp, cp, e, wh, b in levels:
+        H = hp.shape[1]
+        state = torch.cat([cp, hp], 1).bfloat16()
+        bf16.append((state[:, H:], state[:, :H], e, wh, b))
+    return {"var_lstm fused levels": levels, "decode ticks": ticks,
+            "var_lstm levels, bf16 state": bf16}
+
+
+def k9_main(dev: dict, checkout: Path) -> None:
+    earlier = earlier_k9(checkout)
+    sets = k9_sets()
+    out = {"card": dev["smi"], "kernel": "K9"}
+    for name, calls in sets.items():
+        timed, bounds = {}, []
+        for i, args in enumerate(calls):
+            want = ref.lstm_level_fused(*args)
+            got = ls.lstm_level_fused(*args)
+            old = earlier(*args)
+            torch.cuda.synchronize()
+            for label, res in (("this", got), ("earlier", old)):
+                for g, w in zip(res, want):
+                    g, w = g.float(), w.float()
+                    diff = (g - w).abs()
+                    ok = (bool((diff <= cs.BF16_TOL + cs.BF16_TOL * w.abs())
+                               .all()) if args[0].dtype == torch.bfloat16
+                          else float(diff.max())
+                          <= cs.TOL * float(w.abs().max()))
+                    cs.check(ok, f"{label} K9 on {name} launch {i}: max abs "
+                             f"err {float(diff.max()):.3e}")
+            timed[i, "this"] = {
+                "calls": [lambda a=args: ls.lstm_level_fused(*a)],
+                "match": "k9_", "launches": 1}
+            timed[i, "earlier"] = {
+                "calls": [lambda a=args: earlier(*a)],
+                "match": "lstm_level_fused_kernel", "launches": 1}
+            bounds.append(cs.gate_bound_ms("lstm_level_fused", args)[0])
+        ms = cs.device_ms(timed, reps=10)
+        this = [ms[i, "this"] for i in range(len(calls))]
+        old = [ms[i, "earlier"] for i in range(len(calls))]
+        out[name] = {"launches": len(calls), "ms": float(np.mean(this)),
+                     "earlier_ms": float(np.mean(old)),
+                     "bound_ms": float(np.mean(bounds))}
+        print(f"K9 {name} ({len(calls)} launches): this "
+              f"{out[name]['ms']:.4f} ms a launch, the earlier "
+              f"{out[name]['earlier_ms']:.4f} ms (device time), bound "
               f"{out[name]['bound_ms']:.5f} ms")
     print(dev["smi"])
     print(json.dumps(out))
@@ -283,13 +411,7 @@ def earlier_head_group(Bt: int, nc: int, H: int) -> int:
 def earlier_k12(checkout: Path):
     """The earlier checkout's K12, built here, as ``fn(x, dt, A, B, C, Q)``
     returning new ``(y_diag, states)``."""
-    src = checkout / "src" / "repro_torch" / "kernels" / "csrc" \
-        / "ssd_chunk.cu"
-    lib = _build.build_dir() / "earlier_ssd_chunk.so"
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    str(src)], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib)).ssd_chunk_launch
+    fn = earlier_library(checkout, "ssd_chunk.cu").ssd_chunk_launch
     fn.argtypes, fn.restype = EARLIER_K12_ARGS, ctypes.c_int
 
     def launch(x, dt, A, B, C, Q):
@@ -384,15 +506,20 @@ def k12_main(dev: dict, checkout: Path) -> None:
 
 def main(argv=None) -> None:
     args = sys.argv[1:] if argv is None else argv
+    cells = {"k3": "lstm", "k4": "gru", "k5": "treefc"}
     cs.check(len(args) in (1, 2) and (len(args) == 1 or args[1] in (
-        "k1", "k3", "k4", "k12")),
-             "usage: k1_parent_ab.py EARLIER_CHECKOUT [k1|k3|k4|k12]")
+        "k1", "k9", "k12", *cells)),
+             "usage: k1_parent_ab.py EARLIER_CHECKOUT [k1|k3|k4|k5|k9|k12]")
     dev = cs.device_phase()
     if len(args) == 2 and args[1] == "k12":
         k12_main(dev, Path(args[0]))
         return
-    if len(args) == 2 and args[1] in ("k3", "k4"):
-        cell_main(dev, Path(args[0]), "lstm" if args[1] == "k3" else "gru")
+    if len(args) == 2 and args[1] == "k9":
+        torch.set_grad_enabled(False)
+        k9_main(dev, Path(args[0]))
+        return
+    if len(args) == 2 and args[1] in cells:
+        cell_main(dev, Path(args[0]), cells[args[1]])
         return
     earlier = earlier_k1(Path(args[0]))
     torch.set_grad_enabled(True)
