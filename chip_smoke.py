@@ -114,13 +114,17 @@ Phases, each of which must pass (any failure exits non-zero):
   10. continuous Tree-LSTM serving — the serving phase's 512 parses
      submitted at once to ``ContinuousBatchEngine`` (4,096 arena rows,
      256 lanes, ``ClassificationHead(1024, 5)``, nonzero biases): a
-     tapped run re-runs every ``TAP_EVERY``-th tick's megastep (K1, with
-     the checks of phase 2, timed by ``torch.profiler``) and row scatter
-     and every root gather against their plain versions and times them;
-     the main path, launch counts set to 0 just before and read just
-     after, must launch one megastep (one CUDA launch: the frontier has
-     no live count) and one row scatter a tick and one row gather a
-     retiring window; every request ``ok``, no
+     tapped run checks every tick's contract (its stored rows unique and
+     none read by the tick; one read of the card at the end) and re-runs
+     every ``TAP_EVERY``-th tick's megastep (K1 storing each lane's row
+     at its arena id: within 1e-4 of max |plain|, rows no lane names
+     bit-unchanged, two launches bitwise equal, one CUDA launch; timed by
+     ``torch.profiler``; ``tools/k1_parent_ab.py ... k6b`` times it beside
+     the earlier commit's two launches) and every root gather against
+     their plain versions and times them; the main path, launch counts
+     set to 0 just before and read just after, must launch one megastep
+     a tick (one CUDA launch: the frontier has no live count) and no row
+     scatter, and one row gather a retiring window; every request ``ok``, no
      degradation; roots and logits within 1e-4 of solo scoring on the
      card and of the plain path on the CPU (bitwise-equal roots
      counted); requests/s, latency, occupancy; host spans and a profile;
@@ -130,8 +134,14 @@ Phases, each of which must pass (any failure exits non-zero):
      ``ContinuousBatchEngine(1024 rows, 64 lanes)``: p50/p99 latency,
      throughput and their ratios; roots within 1e-4 of solo scoring;
      ``TokenReadout`` tokens independent of the order requests run in;
-     a tapped run for the K3 frontier (no live count; the checks of
-     phase 2, device time) and K6 checks and times;
+     one megastep and one CUDA launch a continuous tick, no row scatter;
+     a tapped run for the K3 frontier (the checks of phase 10) and K6a
+     checks and times; the same chains submitted at once to the engine's
+     op-by-op leg (``fusion_mode="none"``: the cell in plain ops, one K6b
+     row scatter a tick, the main path of K6b), launch counts set to 0
+     just before and read just after, roots within 1e-4 of the fused
+     engine's, every ``TAP_EVERY``-th tick's scatter kept and re-run
+     against its plain version (bit for bit) and timed for K6b's row;
   12. decode — ``VertexServeEngine`` (LSTM, then GRU, 128 slots) over 256
      Var-LSTM chains: one K3/K4 launch a tick, final states within 1e-4
      of ``execute`` on the card and of the plain path on the CPU,
@@ -155,24 +165,25 @@ Phases, each of which must pass (any failure exits non-zero):
      timed by ``torch.profiler`` device time, every gate kernel in one
      session, beside its bound (K9's product as three TF32 products at
      495 TFLOP/s, the fp32-FMA figure beside it);
-  15. LM serving — K10 ``flash_attention`` (bf16 on its wgmma route,
-     ``flash_attention_sm90.cu``; f32 on its tf32 route,
-     ``flash_attention_tf32.cu``; head dims neither takes on the SIMT
-     route, ``flash_attention.cu``) and K11
+  15. LM serving — K10 ``flash_attention`` (bf16 with D % 16 == 0 on
+     its wgmma route, ``flash_attention_sm90.cu``; f32 and every other
+     bf16 head dim on its tf32 route, ``flash_attention_tf32.cu``) and
+     K11
      ``decode_attention`` against their plain versions on the card (f32
      and bf16; Sq 1, 63, 65, 127 and 129, Sq != Sk without ``causal``,
      windows of 24, 50 and 100, Hq = Hkv and GQA groups 2, 4, 8 and 12,
-     head dims 16/20/32/40/64/80/128/160/256, Sq > Sk (zero rows), a
-     2,048-token
-     prefill, ``kv_len`` 0, 1 and ragged, a 4,096-row cache, a window
+     head dims 7/16/20/32/36/40/64/80/100/128/160/256, Sq > Sk (zero
+     rows), a 2,048-token prefill, a 1,024-token one at head dim 100, ``kv_len`` 0, 1 and ragged, a 4,096-row cache, a window
      across K11's split, cache rows not 16-byte aligned: within 1e-5 of
      max |plain| at f32 and 1e-2 at bf16, the plain version computing in
      f32; two launches bitwise equal; each K10 launch on the route its
      operands choose); the wgmma kernel's registers, spills and shared
      memory, and ``HGMMA`` and ``UTMALDG`` in its SASS where
      ``cuobjdump`` is there; the tf32 kernel's registers, spills and
-     shared memory by instantiation and ``HMMA.1688.F32.TF32`` in its
-     SASS; K11's registers and spills by instantiation
+     shared memory by instantiation (f32 and bf16) and
+     ``HMMA.1688.F32.TF32`` in its SASS; the ragged head dims' cases at
+     real length timed beside SDPA and the bound; K11's registers and
+     spills by instantiation
      and the split (NS, grid, tile, shared memory) at granite's shape;
      then
      granite-3-8b at full width and depth (40 layers, d_model 4,096,
@@ -185,10 +196,9 @@ Phases, each of which must pass (any failure exits non-zero):
      K11 a tick; every request ``ok``; tokens/s, decode tick p50/p99,
      prefill ms a bucket, peak memory; every K10 launch on the wgmma
      route.  K10 and SDPA by ``torch.profiler`` device time on each
-     bucket's first-layer launch, beside the SIMT kernel on the same
-     launch (K10 before its redesign), and on its f32 copy the tf32
-     route, the SIMT kernel and SDPA at f32 beside the bound (three TF32
-     products at 495 TFLOP/s; fp32 FMAs at 67 as an extra figure).  A
+     bucket's first-layer launch, and on its f32 copy the tf32 route and
+     SDPA at f32 beside the bound (three TF32 products at 495 TFLOP/s;
+     fp32 FMAs at 67 as an extra figure).  A
      tapped re-run of the same traffic keeps every ``TAP_EVERY``-th
      K10/K11 launch (re-run against the plain version and timed by
      ``torch.profiler`` beside the bound -- bf16 at 989 TFLOP/s against
@@ -212,11 +222,11 @@ Phases, each of which must pass (any failure exits non-zero):
      (the tf32 route's path, its launches counted from 0, every one on
      that route, each re-run against the plain version at the shapes the
      path gave it) must give a full recompute's greedy tokens exactly; the
-     tf32 route timed on the kept granite launches' f32 copies beside the
-     SIMT kernel (its route before the redesign), SDPA at f32, the plain
-     version and the bound; the same reduced model at head dim 20 (the
-     SIMT route's path: every launch on it) exact too, its launches
-     re-run and timed for the SIMT row;
+     tf32 route timed on the kept granite launches' f32 copies beside
+     SDPA at f32, the plain version and the bound; the same reduced model
+     at the ragged head dim 20 (every launch on the tf32 route, its last
+     8-column block zero-padded) exact too, its launches re-run against
+     the plain version and timed;
   16. Mamba-2 serving — K12 ``ssd_chunk_scan`` against its plain version
      on the card (f32 and bf16; chunks of 128, 100, 64, 39, 37, 8, 2 and
      1, P 16, 48, 64 and 128, N 16, 40 and 128, 1 to 32 heads, x/B/C
@@ -435,7 +445,7 @@ FWD_KERNELS = {"treelstm": ("K1", "k1_"), "lstm": ("K3", "cell_"),
 
 def compare_level(kind: str, case, **kw) -> tuple:
     """K1, K3, K4 or K5 (``kind``) on one level ``case`` with the keywords
-    the main path gave it (``live``, ``sentinel``) against its plain version:
+    the main path gave it (``live``) against its plain version:
     the max abs error on the written block and that error relative to
     max |plain|; rows outside the block (the sentinel among them)
     bit-unchanged, finite values, a second launch bitwise equal, and the
@@ -486,7 +496,7 @@ def time_ms(fn, n: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / n
 
 
-def bound_ms(case, sentinel=None) -> tuple:
+def bound_ms(case) -> tuple:
     """Least time for K1's level on the card, from this level's data: the
     multiply-adds its live slots need (h_k·U_f for each child a slot has,
     and hsum·U_i/U_o/U_u for a slot with any child; a leaf needs none),
@@ -494,16 +504,14 @@ def bound_ms(case, sentinel=None) -> tuple:
     tensor cores), against each input read once (distinct child rows, the
     ext rows of live slots -- a leaf's i, o and u lanes only --, the
     weights unless no slot needs them, the bias, the indices) and the
-    block written once, at 3.35 TB/s.  Absent children point at
-    ``sentinel`` (default: the buffer's last row).  Returns (bound_ms,
-    bound_by, flops, bytes, bound_fma_ms), the last at the 67 TFLOP/s
-    fp32-FMA rate."""
+    block written once, at 3.35 TB/s.  Absent children point at the
+    buffer's last row.  Returns (bound_ms, bound_by, flops, bytes,
+    bound_fma_ms), the last at the 67 TFLOP/s fp32-FMA rate."""
     buf, cids, cmask, eids, nmask, off, ext, w = case
     M, A = cids.shape
     H = w[0].shape[0]
     live = nmask != 0
-    sentinel = buf.shape[0] - 1 if sentinel is None else sentinel
-    present = (cids != sentinel) & live[:, None]
+    present = (cids != buf.shape[0] - 1) & live[:, None]
     n_child = present.sum(dim=1)
     inner = n_child > 0
     flops = float((n_child + 3 * inner).sum()) * H * H * 2
@@ -1589,7 +1597,7 @@ def cell_grads(fn, params, d, ext, h_lo, fusion_mode: str = "auto"):
     return loss.detach(), grads
 
 
-def cell_bound_ms(kind: str, case, reverse: bool, sentinel=None) -> tuple:
+def cell_bound_ms(kind: str, case, reverse: bool) -> tuple:
     """Least time for one level on the card, from this level's data: the
     multiply-adds its live slots need (an lstm/gru slot with a
     predecessor NG*H*H, a Tree-FC slot H*H per child it has; twice that
@@ -1600,16 +1608,15 @@ def cell_bound_ms(kind: str, case, reverse: bool, sentinel=None) -> tuple:
     needs only three lanes of its row -- and, in reverse, their gradient
     rows; the weight unless no slot needs it; bias, indices and runs) and
     the block written once (in reverse: each touched row read and written
-    once) at 3.35 TB/s.  Absent children point at ``sentinel`` (default:
-    the last row).  Returns (bound_ms, bound_by, flops, bytes,
+    once) at 3.35 TB/s.  Absent children point at the last row.  Returns
+    (bound_ms, bound_by, flops, bytes,
     bound_fma_ms), the last at the 67 TFLOP/s fp32-FMA rate."""
     _k, lead, cids, _cmask, eids, nmask, _off, _ext, (w, _b) = case
     M, A = cids.shape
     H = w.shape[1] if kind == "treefc" else w.shape[0]
     S, G = lm.widths(kind, H)
     live = nmask != 0
-    sentinel = lead.shape[0] - 1 if sentinel is None else sentinel
-    present = (cids != sentinel) & live[:, None]
+    present = (cids != lead.shape[0] - 1) & live[:, None]
     if kind == "treefc":
         macs = float(present.sum()) * H * H
         read = present
@@ -2152,21 +2159,23 @@ def _cont_requests(graphs, inputs):
 def frontier_taps(make_engine, reqs) -> tuple:
     """One run of a continuous engine with taps on ``ops.frontier_megastep``
     and ``ops.gather_rows`` that keep, for every ``TAP_EVERY``-th tick, the
-    staging block and the pulled-row arena as they were before the tick,
-    and for the first 24 row gathers their source.  Returns ``(ticks,
-    gathers, engine)``: a tick is ``(snapshot or None, child_ids,
-    child_mask, node_mask, out_ids, ext_ids, weights)``."""
-    ticks, gathers = [], []
+    arena and the pulled-row arena as they were before the tick, and for
+    the first 24 row gathers their source; every tick's contract
+    (``ops.frontier_contract_holds``: its stored rows unique, none a row
+    it reads) is checked on the card and read once, after the run.
+    Returns ``(ticks, gathers, engine)``: a tick is ``(snapshot or None,
+    child_ids, child_mask, node_mask, out_ids, ext_ids, weights)``."""
+    ticks, gathers, held = [], [], []
     inner_f, inner_g = ops.frontier_megastep, ops.gather_rows
 
-    def tap_f(k, buf, cids, cmask, rows, nm, out, w, *, ext_ids=None,
-              staging=None):
+    def tap_f(k, buf, cids, cmask, rows, nm, out, w, *, ext_ids=None):
         snap = None
         if len(ticks) % TAP_EVERY == 0:
-            snap = (staging.clone(), rows.clone())
+            snap = (buf.clone(), rows.clone())
+        held.append(ops.frontier_contract_holds(cids, out, buf.shape[0]))
         ticks.append((snap, cids, cmask, nm, out, ext_ids, w))
         return inner_f(k, buf, cids, cmask, rows, nm, out, w,
-                       ext_ids=ext_ids, staging=staging)
+                       ext_ids=ext_ids)
 
     def tap_g(src, idx):
         if len(gathers) < 24:
@@ -2185,83 +2194,91 @@ def frontier_taps(make_engine, reqs) -> tuple:
     check(len(ticks) == eng.ticks, f"tapped {len(ticks)} frontier ticks, "
           f"the engine ran {eng.ticks}")
     check(all(r.status == "ok" for r in reqs), "a tapped request failed")
+    check(bool(torch.stack(held).all()), f"a frontier tick stores a row it "
+          f"reads, or one row twice: {int((~torch.stack(held)).sum())} of "
+          f"{len(held)} ticks break the contract")
     return ticks, gathers, eng
 
 
 def tapped_frontier_run(kind, make_engine, reqs) -> dict:
-    """``frontier_taps``, then each kept tick re-run through the megastep
-    of ``kind`` and K6b, and each gather through K6a, against their plain
-    versions, and timed beside their bounds and (K6) the library call."""
+    """``frontier_taps``, then each kept tick re-run through the frontier
+    megastep of ``kind`` (the rows stored at ``out_ids``: one launch) and
+    each gather through K6a, against their plain versions; device times,
+    the bounds and (K6a) the library call.  The two-launch composition
+    the tick folds is timed beside it by ``tools/k1_parent_ab.py ... k6b``
+    from the earlier commit's own sources."""
     ticks, gathers, eng = frontier_taps(make_engine, reqs)
     R = eng.num_rows + 1
-    kw = {"sentinel": R - 1}
-    k_rows, s_cases, kern, plain = [], [], [], []
-    worst_k, worst_s, worst_g = 0.0, 0.0, 0.0
+    name = f"{kind}_megastep"
+    k_rows, fold, plain = [], [], []
+    worst_k, worst_g, kept = 0.0, 0.0, 0
     for snap, cids, cmask, nm, out, eids, w in ticks:
         if snap is None:
             continue
-        stg, ext = snap
-        M = cids.shape[0]
-        case = (stg, cids, cmask, eids, nm, R, ext, w)
-        worst_k = max(worst_k, compare_level(kind, case, **kw)[0])
-        got = lm.MEGASTEPS[kind](stg.clone(), cids, eids, nm, R, ext, *w,
-                                 **kw)
-        want = ref.level_megastep(kind, stg.clone(), cids, cmask, eids, nm,
-                                  R, ext, w)
+        arena, ext = snap
+        n0 = lm.CUDA_LAUNCHES[name]
+        got = lm.MEGASTEPS[kind](arena.clone(), cids, eids, nm, 0, ext, *w,
+                                 out_ids=out)
+        again = lm.MEGASTEPS[kind](arena.clone(), cids, eids, nm, 0, ext,
+                                   *w, out_ids=out)
+        want = ref.frontier_megastep(kind, arena.clone(), cids, cmask,
+                                     ext.index_select(0, eids), nm, out, w)
         torch.cuda.synchronize()
-        worst_k = max(worst_k, float((got[R:R + M] - want[R:R + M])
-                                     .abs().max()))
-        check(bitwise_equal(got[:R], stg[:R]),
-              f"{kind} megastep changed rows outside its staging block")
-        kb, pb = stg.clone(), stg.clone()
-        kern.append(lambda kb=kb, c=case: lm.MEGASTEPS[kind](
-            kb, c[1], c[3], c[4], R, c[6], *c[7], **kw))
-        plain.append(lambda pb=pb, c=case: ref.level_megastep(
-            kind, pb, c[1], c[2], c[3], c[4], R, c[6], c[7]))
-        if kind == "treelstm":
-            b = bound_ms(case, sentinel=R - 1)
-        else:
-            b = cell_bound_ms(kind, (kind,) + case, False, sentinel=R - 1)
-        k_rows.append((time_ms(kern[-1], 10, 2), b[0], b[1],
+        check(lm.CUDA_LAUNCHES[name] - n0 == 2, f"{kind} frontier tick: "
+              f"{lm.CUDA_LAUNCHES[name] - n0} CUDA launches for two ticks")
+        err = float((got - want).abs().max())
+        scale = max(float(want.abs().max()), 1e-30)
+        worst_k = max(worst_k, err)
+        check(err <= TOL * scale, f"{kind} frontier megastep disagrees "
+              f"with its plain version: {err:.3e} > {TOL} x max |plain| "
+              f"{scale:.3e}")
+        check(bitwise_equal(got, again), f"{kind} frontier megastep: two "
+              f"launches on the same tick differ")
+        named = torch.zeros(R, dtype=torch.bool, device=arena.device)
+        named[out[(out >= 0) & (out < R)].long()] = True
+        check(bitwise_equal(got[~named], arena[~named]),
+              f"{kind} frontier megastep changed rows no lane names")
+        kept += 1
+        fb, pb = arena.clone(), arena.clone()
+        fold.append(lambda fb=fb, c=(cids, eids, nm, ext, out, w):
+                    lm.MEGASTEPS[kind](fb, c[0], c[1], c[2], 0, c[3], *c[5],
+                                       out_ids=c[4]))
+        plain.append(lambda pb=pb, c=(cids, cmask, ext.index_select(0, eids),
+                                      nm, out, w):
+                     ref.frontier_megastep(kind, pb, *c))
+        case = (arena, cids, cmask, eids, nm, 0, ext, w)
+        b = bound_ms(case) if kind == "treelstm" \
+            else cell_bound_ms(kind, (kind,) + case, False)
+        k_rows.append((time_ms(fold[-1], 10, 2), b[0], b[1],
                        int((nm > 0).sum())))
-        staged = got[R:R + M]
-        worst_s = max(worst_s, check_scatter(stg[:R], out, staged,
-                                             f"{kind} frontier tick"))
-        s_cases.append((stg[:R], out, staged))
     for src, idx in gathers:
         worst_g = max(worst_g, check_gather(src, idx, "retired roots"))
-    check(worst_k <= TOL, f"{kind} frontier megastep disagrees with its "
-          f"plain version: max_abs_err {worst_k:.3e} > {TOL}")
     mean = lambda rs, k: float(np.mean([r[k] for r in rs]))  # noqa: E731
-    dev_ms = device_ms({"kernel": {"calls": kern,
+    dev_ms = device_ms({"kernel": {"calls": fold,
                                    "match": FWD_KERNELS[kind][1],
                                    "launches": 1},
                         "plain": {"calls": plain, "reps": 2}})
-    k = {"levels": len(k_rows), "max_abs_err": worst_k,
-         "ms": dev_ms["kernel"], "events_ms": mean(k_rows, 0),
+    k = {"levels": kept, "max_abs_err": worst_k, "ms": dev_ms["kernel"],
+         "events_ms": mean(k_rows, 0),
          "plain_ms": dev_ms["plain"], "bound_ms": mean(k_rows, 1),
          "bound_by": max({r[2] for r in k_rows},
                          key=lambda by: sum(r[1] for r in k_rows
                                             if r[2] == by)),
-         "live_lanes": mean(k_rows, 3)}
-    sc = {**time_k6("scatter", s_cases), "max_abs_err": worst_s}
+         "live_lanes": mean(k_rows, 3), "contract_ticks": len(ticks)}
     ga = {**time_k6("gather", gathers), "max_abs_err": worst_g,
           "n_mean": float(np.mean([i.numel() for _s, i in gathers]))}
-    print(f"{kind} frontier ticks (every {TAP_EVERY}th of {len(ticks)}, "
-          f"{k['live_lanes']:.1f} live lanes of {ticks[0][1].shape[0]} on "
-          f"average): megastep {k['ms']:.4f} ms device (events "
-          f"{k['events_ms']:.4f}), plain {k['plain_ms']:.4f} ms, bound "
-          f"{k['bound_ms']:.5f} ms by {k['bound_by']}, "
-          f"max_abs_err {worst_k:.3e}; device time per call: scatter_rows "
-          f"{sc['ms']:.4f} ms, plain {sc['plain_ms']:.4f} ms, index_copy_ "
-          f"{sc['library_ms']:.4f} ms, bound {sc['bound_ms']:.5f} ms "
-          f"({sc['bytes'] / 1e6:.2f} MB), back-to-back launches "
-          f"{sc['issue_ms']:.4f} ms apart; gather_rows of the retired roots "
+    print(f"{kind} frontier ticks (the contract held on all {len(ticks)}; "
+          f"every {TAP_EVERY}th re-run, {k['live_lanes']:.1f} live lanes "
+          f"of {ticks[0][1].shape[0]} on average): the megastep storing at "
+          f"out_ids {k['ms']:.4f} ms device (events {k['events_ms']:.4f}; "
+          f"one CUDA launch), plain {k['plain_ms']:.4f} ms, bound "
+          f"{k['bound_ms']:.5f} ms by {k['bound_by']}, max_abs_err "
+          f"{worst_k:.3e}; gather_rows of the retired roots "
           f"({len(gathers)} launches, n {ga['n_mean']:.1f} on average) "
           f"{ga['ms']:.4f} ms, plain {ga['plain_ms']:.4f} ms, index_select "
           f"{ga['library_ms']:.4f} ms, bound {ga['bound_ms']:.5f} ms, "
           f"back-to-back launches {ga['issue_ms']:.4f} ms apart")
-    return {"megastep": k, "scatter": sc, "gather": ga, "ticks": len(ticks)}
+    return {"megastep": k, "gather": ga, "ticks": len(ticks)}
 
 
 def _latencies_ms(reqs) -> np.ndarray:
@@ -2298,11 +2315,10 @@ def continuous_tree_phase(card: str) -> dict:
           f"{[r.error for r in reqs if r.status != 'ok'][:3]}")
     check(h["degradations"] == 0 and not h["breaker_open"],
           f"degradations {h['degradations']}, breaker {h['breaker_open']}")
-    want = {"treelstm_megastep": eng.ticks, "scatter_rows": eng.ticks,
-            "gather_rows": eng.readbacks}
+    want = {"treelstm_megastep": eng.ticks, "gather_rows": eng.readbacks}
     check(launches == want, f"continuous launches {launches}, designed "
-          f"{want} (one megastep and one row scatter a tick, one row "
-          f"gather a retiring window)")
+          f"{want} (one megastep a tick, which stores the lanes' rows: no "
+          f"row scatter; one row gather a retiring window)")
     check(lm.CUDA_LAUNCHES["treelstm_megastep"] == eng.ticks,
           f"{lm.CUDA_LAUNCHES['treelstm_megastep']} K1 CUDA launches for "
           f"{eng.ticks} ticks (one a tick: the frontier has no live count)")
@@ -2489,10 +2505,14 @@ def chain_serving_phase(card: str) -> dict:
             "launches": launches}
         if name == "continuous":
             ticks = eng.ticks - ticks0
-            want = {"lstm_megastep": ticks, "scatter_rows": ticks,
+            want = {"lstm_megastep": ticks,
                     "gather_rows": eng.readbacks - reads0}
             check(launches == want, f"continuous chain launches "
-                  f"{launches}, designed {want}")
+                  f"{launches}, designed {want} (one megastep a tick, no "
+                  f"row scatter)")
+            check(lm.CUDA_LAUNCHES["lstm_megastep"] == ticks,
+                  f"{lm.CUDA_LAUNCHES['lstm_megastep']} K3 CUDA launches "
+                  f"for {ticks} continuous chain ticks (one a tick)")
             h = eng.health()
             check(h["degradations"] == 0, "continuous chain degraded")
             results[name].update(ticks=ticks, plan_hits=h["plan_hits"],
@@ -2539,12 +2559,76 @@ def chain_serving_phase(card: str) -> dict:
         "lstm", lambda: cont_engine(fn, params, None, None, CHAIN_ROWS,
                                     CHAIN_WIDTH),
         trace_requests(ContinuousRequest, lens, X))
+    unfused = unfused_continuous(fn, params, lens, roots)
     out = {"requests": TRACE_N, "rate_per_s": TRACE_RATE, **results,
            **ratios, "err_vs_solo": err_solo,
            "roots_bitwise_equal_to_solo": bitwise,
-           "tokens_order_independent": True, "card": card}
+           "tokens_order_independent": True, "unfused": unfused,
+           "card": card}
     print(f"continuous lstm chains vs structure serving: {json.dumps(out)}")
     return {**out, **tapped}
+
+
+def unfused_continuous(fn, params, lens, fused_roots) -> dict:
+    """The trace's chains submitted at once to the continuous engine's
+    op-by-op leg (``fusion_mode="none"``): each tick gathers its children,
+    runs the cell in plain ops and scatters the states by one K6b launch,
+    the main path of K6b since the fused tick stores its rows itself.
+    Launch counts set to 0 just before and read just after: one row
+    scatter a tick, one row gather a retiring window; roots within 1e-4 of
+    the fused engine's on the trace.  A tap on ``ops.scatter_rows`` keeps
+    every ``TAP_EVERY``-th tick's arena, ids and rows, on which K6b is
+    then checked bit for bit against its plain version and timed beside
+    it, its bound and ``index_copy_``."""
+    eng = cont_engine(fn, params, None, None, CHAIN_ROWS, CHAIN_WIDTH,
+                      fusion_mode="none")
+    reqs = trace_requests(ContinuousRequest, lens, fn.input_dim)
+    for r in reqs:
+        check(eng.submit(r), f"request {r.request_id} rejected: {r.error}")
+    cases, seen, inner = [], [0], ops.scatter_rows
+
+    def tap(dst, idx, rows):
+        if seen[0] % TAP_EVERY == 0:
+            cases.append((dst.clone(), idx, rows.clone()))
+        seen[0] += 1
+        return inner(dst, idx, rows)
+
+    torch.cuda.synchronize()
+    lm.reset_launches()
+    ops.scatter_rows = tap
+    try:
+        t0 = time.perf_counter()
+        eng.run()
+        wall = time.perf_counter() - t0
+    finally:
+        ops.scatter_rows = inner
+    launches = dict(lm.LAUNCHES)
+    check(all(r.status == "ok" for r in reqs) and not eng.fused,
+          "an unfused continuous chain request failed")
+    want = {"scatter_rows": eng.ticks, "gather_rows": eng.readbacks}
+    check(launches == want, f"unfused continuous chain launches "
+          f"{launches}, designed {want}")
+    err = float(np.abs(np.stack([r.root_state for r in reqs])
+                       - fused_roots).max())
+    check(err <= TOL, f"unfused continuous roots vs the fused engine's: "
+          f"{err:.3e} > {TOL}")
+    worst = max(check_scatter(d, i, r, "unfused chain tick")
+                for d, i, r in cases)
+    sc = {**time_k6("scatter", cases), "max_abs_err": worst,
+          "n_mean": float(np.mean([i.numel() for _d, i, _r in cases])),
+          "live_mean": float(np.mean([int(((i >= 0) & (i < d.shape[0]))
+                                          .sum()) for d, i, _r in cases]))}
+    out = {"requests": len(reqs), "ticks": eng.ticks, "launches": launches,
+           "requests_per_s": len(reqs) / wall, "err_vs_fused": err}
+    print(f"unfused continuous lstm chains: {json.dumps(out)}")
+    print(f"scatter_rows at the unfused chain ticks ({len(cases)} kept of "
+          f"{eng.ticks}, n {sc['n_mean']:.1f}, {sc['live_mean']:.1f} live "
+          f"lanes on average): {sc['ms']:.4f} ms device, plain "
+          f"{sc['plain_ms']:.4f} ms, index_copy_ {sc['library_ms']:.4f} ms, "
+          f"bound {sc['bound_ms']:.5f} ms ({sc['bytes'] / 1e6:.3f} MB), "
+          f"back-to-back launches {sc['issue_ms']:.4f} ms apart, "
+          f"max_abs_err {worst:.3e}")
+    return {**out, "scatter": sc}
 
 
 def decode_setup(cell: str, impl: str = "jnp"):
@@ -3157,17 +3241,18 @@ ATTN_BARS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 #: the f32 recompute than the bf16 recompute is.
 LM_LOGIT_TOL, LM_MARGIN, LM_FLOOR_RATIO = 3e-2, 4e-2, 1.25
 #: K10 (B, Hq, Hkv, Sq, Sk, D, causal, window) and K11 (B, Hq, Hkv, S, D,
-#: kv_len, window) edge cases, each at f32 and bf16 (K10 at f32 takes the
-#: tf32 route where D % 8 == 0, at bf16 the wgmma route where D % 16 == 0,
-#: the SIMT route otherwise): Sq 1, 63, 65, 127 and 129 against key tiles
-#: of 32 and 64 and query tiles of 64 and 128; Sq != Sk without
-#: ``causal``; windows of 24, 50 and 100 (starting inside a key tile); GQA
-#: groups 1, 2, 4, 8 and 12; head dims 16, 32, 64, 80, 128, 160 and 256
-#: (the wgmma kernel's four padded widths, 64 to 256, and the tf32
-#: kernel's four classes, 32 to 256), 20 (the SIMT route at f32 and bf16)
-#: and 40 (tf32 at f32, SIMT at bf16); Sq > Sk under ``causal`` (zero
-#: rows); a 2,048-token causal prefill.  q is a permuted view in every
-#: case.
+#: kv_len, window) edge cases, each at f32 and bf16 (K10 at bf16 takes the
+#: wgmma route where D % 16 == 0, the tf32 route otherwise and at f32):
+#: Sq 1, 63, 65, 127 and 129 against key tiles of 32 and 64 and query
+#: tiles of 64 and 128; Sq != Sk without ``causal``; windows of 24, 50 and
+#: 100 (starting inside a key tile); GQA groups 1, 2, 4, 8 and 12; head
+#: dims 16, 32, 64, 80, 128, 160 and 256 (the wgmma kernel's four padded
+#: widths, 64 to 256, and the tf32 kernel's four classes, 32 to 256); the
+#: ragged head dims of the tf32 route, whose last 8-column block is
+#: zero-padded: 20, 36 and 100 (16-byte copies at f32, 8-byte ones at
+#: bf16), 7 (4-byte copies at f32, plain 2-byte ones at bf16) and 100 at
+#: 1,024 tokens, and 40 (tf32 at bf16); Sq > Sk under ``causal`` (zero rows); a 2,048-token causal
+#: prefill.  q is a permuted view in every case.
 K10_EDGES = ((1, 32, 8, 1, 1, 128, True, None),
              (2, 4, 4, 40, 72, 64, False, None),
              (1, 8, 2, 96, 96, 64, True, 24),
@@ -3184,6 +3269,9 @@ K10_EDGES = ((1, 32, 8, 1, 1, 128, True, None),
              (1, 2, 2, 70, 70, 16, False, None),
              (1, 8, 2, 100, 100, 20, True, None),
              (1, 4, 2, 129, 129, 40, True, 50),
+             (2, 4, 4, 40, 72, 36, False, None),
+             (1, 4, 2, 65, 65, 7, True, None),
+             (1, 8, 2, 1024, 1024, 100, True, None),
              (1, 32, 8, 1024, 1024, 128, True, None),
              (1, 32, 8, 2048, 2048, 128, True, None))
 #: K11's cases carry an eighth field, ``pad``: the cache rows are views of
@@ -3207,9 +3295,13 @@ K11_EDGES = ((8, 32, 8, 1024, 128, (1, 17, 600, 1024, 2, 333, 64, 1000),
 #: K11 at granite's decode shape with every slot filled to n rows of the
 #: engine's ``LM_MAX_LEN``-row cache.
 K11_FILLS = (16, 64, 256, 632, 1024)
-#: The head dim at which the reduced f32 model takes K10's SIMT route (no
-#: multiple of 8, which the tf32 route needs).
-SIMT_HEAD_DIM = 20
+#: A ragged head dim (no multiple of 8) at which the reduced f32 model's
+#: K10 launches take the tf32 route with a zero-padded last block.
+RAGGED_HEAD_DIM = 20
+#: The ragged head dims' K10 cases timed at real length (B, Hq, Hkv, Sq,
+#: Sk, D, causal, window), at f32 and bf16.
+K10_RAGGED_TIMED = ((1, 8, 2, 1024, 1024, 100, True, None),
+                    (1, 8, 2, 1024, 1024, 20, True, None))
 #: Bytes of K/V rows a timed set of K11 inputs holds at least: twice the
 #: 50 MB L2, so each launch finds its rows in HBM, as a decode tick does.
 K11_COLD_BYTES = 100e6
@@ -3252,9 +3344,9 @@ def attn_check(name: str, args, kw, twice: bool = True) -> tuple:
 
 def attn_edges_check() -> dict:
     """Both kernels on the edge cases of ``K10_EDGES``/``K11_EDGES``; K10's
-    worst errors kept by route (``flash.route``: f32 "tf32" or "simt",
-    bf16 "wgmma" or "simt"), each case's two launches counted on that
-    route alone."""
+    worst errors kept by route (``flash.route``: bf16 "wgmma" where D % 16
+    == 0, else and at f32 "tf32"), each case's two launches counted on
+    that route alone."""
     gen = torch.Generator().manual_seed(1010)
     out = {**{f"flash_attention.{r}": (0.0, 0.0) for r in flash.LIBRARIES},
            "decode_attention": (0.0, 0.0)}
@@ -3293,31 +3385,19 @@ def attn_edges_check() -> dict:
     return out
 
 
-@contextlib.contextmanager
-def k10_route(path: str):
-    """Every K10 launch inside takes route ``path``: times the SIMT
-    kernel, K10 before its redesigns, on the bf16 launches the wgmma route
-    serves and on the f32 launches the tf32 route serves."""
-    orig = flash.route
-    flash.route = lambda dtype, D: path
-    try:
-        yield
-    finally:
-        flash.route = orig
-
-
 def k10_build_report(lib: str, key_re: str, label, dims,
                      sass_ops) -> dict:
     """What ``nvcc -Xptxas -v`` said of each instantiation of K10's
     kernel in library ``lib`` (an entry function matching ``key_re``,
     named by ``label(match)``): registers, spills; its dynamic shared
-    memory a CTA at each head dim of ``dims``; and, where ``cuobjdump`` is
+    memory a CTA for each entry of ``dims`` (a label and the arguments of
+    the library's ``*_smem_bytes``); and, where ``cuobjdump`` is
     on the machine, the count of each SASS opcode of ``sass_ops`` in the
     library, none of which may be 0."""
     lib_path = _build.library_path(lib)
     ptxas = ptxas_report(lib, key_re, label)
     smem_of = getattr(ctypes.CDLL(str(lib_path)), f"{lib}_smem_bytes")
-    smem = {D: smem_of(D) for D in dims}
+    smem = {key: smem_of(*args) for key, args in dims.items()}
     cob = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = {}
     if Path(cob).exists():
@@ -3327,7 +3407,7 @@ def k10_build_report(lib: str, key_re: str, label, dims,
         sass = {op: dump.count(op) for op in sass_ops}
         check(all(sass.values()), f"{lib}.cu's SASS lacks one of "
               f"{sass_ops}: {sass}")
-    print(f"{lib}.cu: dynamic shared memory a CTA by head dim {smem}; SASS "
+    print(f"{lib}.cu: dynamic shared memory a CTA {smem}; SASS "
           f"{sass or 'not read (no cuobjdump)'}")
     return {"ptxas": ptxas, "smem": smem, "sass": sass}
 
@@ -3335,17 +3415,21 @@ def k10_build_report(lib: str, key_re: str, label, dims,
 def k10_build_reports() -> tuple:
     """``k10_build_report`` of the wgmma kernel (by padded head dim; TMA
     loads and ``wgmma`` in its SASS) and of the tf32 kernel (by head-dim
-    class and whether D equals it; TF32 ``mma.sync``, ``cp.async`` and
-    ``ldmatrix`` in its SASS)."""
+    class, whether D equals it and the operands' type; TF32 ``mma.sync``,
+    ``cp.async`` and ``ldmatrix`` in its SASS)."""
     return (k10_build_report(
                 "flash_attention_sm90", r"ILi(\d+)E",
                 lambda m: f"padded head dim {m.group(1)}",
-                (32, 64, 80, 128, 256), ("HGMMA", "UTMALDG")),
+                {D: (D,) for D in (32, 64, 80, 128, 256)},
+                ("HGMMA", "UTMALDG")),
             k10_build_report(
-                "flash_attention_tf32", r"ILi(\d+)ELb(\d)E",
+                "flash_attention_tf32", r"ILi(\d+)ELb(\d)E([ft])",
                 lambda m: f"DMAX {m.group(1)}"
-                + (", D = DMAX" if m.group(2) == "1" else ""),
-                (32, 40, 64, 80, 128, 256),
+                + (", D = DMAX" if m.group(2) == "1" else "")
+                + (", bf16" if m.group(3) == "t" else ", f32"),
+                {f"{t} D {D}": (D, int(t == "bf16"))
+                 for t in ("f32", "bf16")
+                 for D in (20, 32, 40, 64, 80, 100, 128, 256)},
                 ("HMMA.1688.F32.TF32", "LDGSTS", "LDSM")))
 
 
@@ -3697,6 +3781,45 @@ def attn_timings(name: str, calls) -> dict:
     return out
 
 
+def k10_ragged_times() -> dict:
+    """The tf32 route at the ragged head dims of ``K10_RAGGED_TIMED`` at
+    real length, f32 and bf16: against the plain version (two launches
+    bitwise equal), then the kernel, SDPA and the plain version by
+    ``torch.profiler`` device time beside the bound."""
+    gen = torch.Generator().manual_seed(1011)
+    out, sets, worst = {}, {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Hq, Hkv, Sq, Sk, D, causal, window in K10_RAGGED_TIMED:
+            q = torch.randn((B, Sq, Hq, D), generator=gen).to(
+                DEVICE, dtype).transpose(1, 2)
+            k, v = (torch.randn((B, Hkv, Sk, D), generator=gen).to(
+                DEVICE, dtype) for _ in range(2))
+            a, kw = (q, k, v), {"causal": causal, "window": window}
+            check(flash.route(dtype, D) == "tf32", f"K10 at {dtype}, D {D}:"
+                  f" route {flash.route(dtype, D)}")
+            err, rel = attn_check("flash_attention", a, kw)
+            worst = max(worst, err)
+            key = f"{str(dtype).split('.')[-1]} D {D} Sq {Sq}"
+            b = attn_bound_ms("flash_attention", a, kw)
+            out[key] = {"max_abs_err": err, "rel_err": rel,
+                        "bound_ms": b[0], "bound_by": b[1]}
+            sets[key, "ms"] = [lambda a=a, kw=kw:
+                               flash.flash_attention(*a, **kw)]
+            sets[key, "library_ms"] = [sdpa_call("flash_attention", a, kw)]
+            sets[key, "plain_ms"] = {"calls": [lambda a=a, kw=kw:
+                                               attn_plain("flash_attention",
+                                                          a, kw)],
+                                     "reps": 2}
+    for (key, what), ms in device_ms(sets, reps=10).items():
+        out[key][what] = ms
+    for key, t in out.items():
+        print(f"flash_attention.tf32 at a ragged head dim, {key} (device "
+              f"time): {t['ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+              f"by {t['bound_by']}; {t['rel_err']:.3e} of max |plain|")
+    return {"cases": out, "max_abs_err": worst}
+
+
 def lm_serving_phase(card: str) -> dict:
     """granite-3-8b at full width and depth (bf16, weights from a CUDA
     ``torch.Generator`` seed) served through ``ServeEngine``: the kernel
@@ -3810,14 +3933,8 @@ def lm_serving_phase(card: str) -> dict:
     check(recompute["clear_margin_tokens_agree"], "a served token differs "
           "from the recompute's argmax where its margin is clear")
     timings = {n: attn_timings(n, kept[n]) for n in kept}
-    # K10 before its redesign: the SIMT kernel on the same bf16 launches;
-    # and the tf32 route on their f32 copies, with the SIMT kernel (its
-    # route before the tf32 kernel) on the same copies.
+    # The tf32 route on the kept bf16 launches' f32 copies.
     k10_calls = kept["flash_attention"]
-    with k10_route("simt"):
-        timings["flash_attention"]["simt_bf16_ms"] = device_ms({"simt": [
-            lambda a=a, kw=kw: flash.flash_attention(*a, **kw)
-            for a, kw in k10_calls]}, reps=1)["simt"]
     del kept
     f32_calls = [(tuple(t.float() for t in a), kw) for a, kw in k10_calls]
     del k10_calls
@@ -3825,19 +3942,8 @@ def lm_serving_phase(card: str) -> dict:
     tf32["bound_fma_ms"] = float(np.mean(
         [attn_bound_ms("flash_attention", a, kw, fp32_fma=True)[0]
          for a, kw in f32_calls]))
-    with k10_route("simt"):
-        tf32["simt_ms"] = device_ms({"simt": [
-            lambda a=a, kw=kw: flash.flash_attention(*a, **kw)
-            for a, kw in f32_calls]}, reps=1)["simt"]
     del f32_calls
     k10, k10_sets = {}, {}
-
-    def simt(fn):
-        def call():
-            with k10_route("simt"):
-                fn()
-        return call
-
     for b in buckets:
         toks = torch.ones((1, b), dtype=torch.long, device=DEVICE)
         calls = []
@@ -3865,12 +3971,7 @@ def lm_serving_phase(card: str) -> dict:
             (b, "ms"): [lambda a=a, kw=kw: orig(*a, **kw)],
             (b, "sdpa_ms"): [sdpa_call("flash_attention", a, kw)],
             (b, "f32_ms"): [lambda a32=a32, kw=kw: orig(*a32, **kw)],
-            (b, "f32_sdpa_ms"): [sdpa_call("flash_attention", a32, kw)],
-            (b, "simt_ms"): {"calls": [simt(lambda a=a, kw=kw:
-                                            orig(*a, **kw))], "reps": 3},
-            (b, "f32_simt_ms"): {"calls": [simt(lambda a32=a32, kw=kw:
-                                                orig(*a32, **kw))],
-                                 "reps": 3}})
+            (b, "f32_sdpa_ms"): [sdpa_call("flash_attention", a32, kw)]})
         del calls
     for (b, key), ms in device_ms(k10_sets, reps=10).items():
         k10[b][key] = ms
@@ -3901,8 +4002,7 @@ def lm_serving_phase(card: str) -> dict:
     f32_launches = dict(lm.LAUNCHES)
     check(f32_launches.get("flash_attention.tf32", 0)
           == f32_launches.get("flash_attention", 0) == len(tf32_calls) > 0
-          and "flash_attention.wgmma" not in f32_launches
-          and "flash_attention.simt" not in f32_launches,
+          and "flash_attention.wgmma" not in f32_launches,
           f"f32 LM K10 launches {f32_launches}: expected all on the tf32 "
           f"route")
     # Each of those launches again, at the shapes that path gave it,
@@ -3918,18 +4018,21 @@ def lm_serving_phase(card: str) -> dict:
           f"({tf32['path_max_rel_err']:.3e} of max |plain|), two launches "
           f"bitwise equal")
     del tf32_calls, errs
-    # The SIMT route's path: the same model at head dim 20, which no other
-    # route takes, its launches kept for the SIMT row's timing.
-    simt_calls = []
+    # The ragged path: the same model at head dim 20, no multiple of 8,
+    # every launch on the tf32 route with its last block zero-padded.
+    ragged_calls = []
     lm.reset_launches()
-    exact_simt = lm_exact_f32_check(head_dim=SIMT_HEAD_DIM, keep=simt_calls)
-    simt_launches = dict(lm.LAUNCHES)
-    check(simt_launches.get("flash_attention.simt", 0)
-          == simt_launches.get("flash_attention", 0) == len(simt_calls) > 0,
-          f"f32 LM K10 launches at head dim {SIMT_HEAD_DIM} {simt_launches}:"
-          f" expected all on the SIMT route")
-    simt = attn_timings("flash_attention", simt_calls)
-    del simt_calls
+    exact_ragged = lm_exact_f32_check(head_dim=RAGGED_HEAD_DIM,
+                                      keep=ragged_calls)
+    ragged_launches = dict(lm.LAUNCHES)
+    check(ragged_launches.get("flash_attention.tf32", 0)
+          == ragged_launches.get("flash_attention", 0)
+          == len(ragged_calls) > 0, f"f32 LM K10 launches at head dim "
+          f"{RAGGED_HEAD_DIM} {ragged_launches}: expected all on the tf32 "
+          f"route")
+    ragged = attn_timings("flash_attention", ragged_calls)
+    del ragged_calls
+    ragged_edges = k10_ragged_times()
     build, tf32_build = k10_build_reports()
     k11_build = k11_build_report(k11_shape)
 
@@ -3941,8 +4044,9 @@ def lm_serving_phase(card: str) -> dict:
            "prefill_ms": prefill_ms, "peak_bytes": peak,
            "launches": launches, "edges": edges, "recompute": recompute,
            "k10_buckets": k10, "timings": timings, "tf32_f32": tf32,
-           "simt_f32": simt, "f32_launches": f32_launches,
-           "simt_launches": simt_launches, "exact_simt": exact_simt,
+           "ragged_f32": ragged, "f32_launches": f32_launches,
+           "ragged_launches": ragged_launches,
+           "exact_ragged": exact_ragged, "ragged_edges": ragged_edges,
            "k10_build": build, "k10_tf32_build": tf32_build,
            "k11_fills": k11_fills, "k11_build": k11_build,
            "profile": prof, "profile_prefill": prof_prefill,
@@ -3964,25 +4068,20 @@ def lm_serving_phase(card: str) -> dict:
           f"agree, all {recompute['tokens_clear_margin']} with a clear margin")
     for b, t in k10.items():
         print(f"flash_attention at a {b}-token prefill (device time): "
-              f"wgmma {t['ms']:.4f} ms, SIMT {t['simt_ms']:.4f} ms, SDPA "
-              f"{t['sdpa_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms; at f32: "
-              f"tf32 {t['f32_ms']:.4f} ms, SIMT {t['f32_simt_ms']:.4f} ms, "
+              f"wgmma {t['ms']:.4f} ms, SDPA {t['sdpa_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.5f} ms; at f32: tf32 {t['f32_ms']:.4f} ms, "
               f"SDPA {t['f32_sdpa_ms']:.4f} ms, bound {t['f32_bound_ms']:.5f}"
               f" ms (3 TF32 products; {t['f32_bound_fma_ms']:.5f} ms at the "
               f"fp32 FMA rate)")
-    print(f"flash_attention on the kept bf16 launches: SIMT route (before "
-          f"the redesign) {timings['flash_attention']['simt_bf16_ms']:.4f} "
-          f"ms a launch (device)")
     print(f"flash_attention on the kept launches' f32 copies: tf32 route "
-          f"{tf32['ms']:.4f} ms, SIMT route (before the redesign) "
-          f"{tf32['simt_ms']:.4f} ms, SDPA {tf32['library_ms']:.4f} ms a "
-          f"launch (device); bound {tf32['bound_ms']:.5f} ms (3 TF32 "
-          f"products; {tf32['bound_fma_ms']:.5f} ms at the fp32 FMA rate), "
+          f"{tf32['ms']:.4f} ms, SDPA {tf32['library_ms']:.4f} ms a launch "
+          f"(device); bound {tf32['bound_ms']:.5f} ms (3 TF32 products; "
+          f"{tf32['bound_fma_ms']:.5f} ms at the fp32 FMA rate), "
           f"{tf32['flops'] / 1e9:.3f} GFLOP")
     for name, t in (*timings.items(),
                     ("flash_attention.tf32 at f32", tf32),
-                    (f"flash_attention.simt at f32, head dim {SIMT_HEAD_DIM}",
-                     simt)):
+                    (f"flash_attention.tf32 at f32, ragged head dim "
+                     f"{RAGGED_HEAD_DIM}", ragged)):
         print(f"{name} on {t['timed']} kept launches: {t['ms']:.4f} ms a "
               f"launch (device), plain {t['plain_ms']:.4f}, SDPA "
               f"{t['library_ms']:.4f}, bound {t['bound_ms']:.5f} ms by "
@@ -3995,11 +4094,10 @@ def lm_serving_phase(card: str) -> dict:
              timings["flash_attention"], launches["flash_attention.wgmma"],
              edges["flash_attention.wgmma"]),
             ("flash_attention.tf32", "flash_attention_tf32.cu", tf32,
-             f32_launches["flash_attention.tf32"],
-             edges["flash_attention.tf32"]),
-            ("flash_attention.simt", "flash_attention.cu", simt,
-             simt_launches["flash_attention.simt"],
-             edges["flash_attention.simt"]),
+             f32_launches["flash_attention.tf32"]
+             + ragged_launches["flash_attention.tf32"],
+             (max(edges["flash_attention.tf32"][0], ragged["max_abs_err"],
+                  ragged_edges["max_abs_err"]), 0.0)),
             ("decode_attention", "decode_attention.cu",
              timings["decode_attention"], launches["decode_attention"],
              edges["decode_attention"])):
@@ -4493,16 +4591,23 @@ def main() -> None:
             "bound_by": part["bound_by"],
             "bound_fma_ms": part["bound_fma_ms"], "library_ms": None}
         rows += [row, k2_row(k, c["bwd"], c["launches"])]
-    for name, part, replaces in (
-            ("gather_rows", cont["gather"],
-             "src/repro/kernels/gather_scatter.py:39"),
-            ("scatter_rows", cont["scatter"],
-             "src/repro/kernels/gather_scatter.py:70")):
+    # K6a: the retiring windows of both continuous main paths; K6b: the
+    # op-by-op continuous leg's ticks, timed on their own inputs (a fused
+    # tick stores its own rows).
+    for name, part, errs, replaces, launches in (
+            ("gather_rows", cont["gather"], (cont, chains),
+             "src/repro/kernels/gather_scatter.py:39",
+             cont["launches"]["gather_rows"]
+             + chains["continuous"]["launches"]["gather_rows"]),
+            ("scatter_rows", chains["unfused"]["scatter"], (),
+             "src/repro/kernels/gather_scatter.py:70",
+             chains["unfused"]["launches"]["scatter_rows"])):
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gather_scatter.cu",
-            "replaces": replaces, "launches": cont["launches"][name],
-            "max_abs_err": max(part["max_abs_err"], k6_err),
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max([part["max_abs_err"], k6_err] + [
+                e["gather"]["max_abs_err"] for e in errs]),
             "ms": part["ms"], "plain_ms": part["plain_ms"],
             "bound_ms": part["bound_ms"], "bound_by": "bytes",
             "library_ms": part["library_ms"]})

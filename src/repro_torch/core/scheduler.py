@@ -439,8 +439,7 @@ def frontier_step(fn, params: Params, buf: torch.Tensor,
                   child_ids: torch.Tensor, child_mask: torch.Tensor,
                   ext_rows: torch.Tensor, node_mask: torch.Tensor,
                   out_ids: torch.Tensor, *, spec: Optional[GateSpec] = None,
-                  ext_ids: Optional[torch.Tensor] = None,
-                  staging: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  ext_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One batching task over a mixed-depth UNION frontier, IN PLACE on
     ``buf``; returns it.
 
@@ -454,8 +453,8 @@ def frontier_step(fn, params: Params, buf: torch.Tensor,
     host-side.
 
     With ``spec`` the row math goes through the fused frontier megastep
-    (``ops.frontier_megastep``: on the card one level megastep into the
-    staging block, ``staging``, and one row scatter); without it the
+    (``ops.frontier_megastep``: on the card one level megastep that
+    stores each lane's row at ``out_ids``); without it the
     op-by-op gather → ``fn.apply`` → ``ops.scatter_rows``.  Both legs
     compute the rows :func:`execute` computes for the same vertex on the
     matching leg.
@@ -466,8 +465,7 @@ def frontier_step(fn, params: Params, buf: torch.Tensor,
     if spec is not None:
         return kops.frontier_megastep(spec.kind, buf, child_ids, child_mask,
                                       ext_rows, node_mask, out_ids,
-                                      spec.weights(params), ext_ids=ext_ids,
-                                      staging=staging)
+                                      spec.weights(params), ext_ids=ext_ids)
     M, A = child_ids.shape
     S = buf.shape[1]
     if ext_ids is not None:

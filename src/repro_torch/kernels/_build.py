@@ -34,17 +34,16 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 #: kernel name → (source file, C entry point, argtypes).  Every pointer
 #: and the stream are ``c_void_p`` and every stride ``c_longlong``, so
 #: ctypes never cuts them to 32 bits.
+_FWD = [_P] * 7 + [_I] * 9 + [_P, _I, _P, _P]
 _BWD = [_P] * 12 + [_I] * 13 + [_P, _P]
 KERNELS: Dict[str, Tuple[str, str, List]] = {
     "treelstm_megastep": (
-        "treelstm_megastep_sm90.cu", "treelstm_megastep_sm90_launch",
-        [_P] * 7 + [_I] * 9 + [_P, _P]),
+        "treelstm_megastep_sm90.cu", "treelstm_megastep_sm90_launch", _FWD),
     "scatter_add_rows": (
         "scatter_add_rows.cu", "scatter_add_rows_launch",
         [_P] * 6 + [_I] * 4 + [_L] * 2 + [_P]),
     **{f"{kind}_megastep": ("cell_megastep_sm90.cu",
-                            f"{kind}_megastep_sm90_launch",
-                            [_P] * 7 + [_I] * 9 + [_P, _P])
+                            f"{kind}_megastep_sm90_launch", _FWD)
        for kind in ("lstm", "gru", "treefc")},
     **{f"{kind}_bwd_megastep": ("bwd_megastep_sm90.cu",
                                 f"{kind}_bwd_megastep_launch", _BWD)
@@ -58,9 +57,6 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
                        [_P] * 8 + [_I] * 14 + [_P]),
     "lstm_level_fused": ("cell_megastep_sm90.cu", "lstm_level_fused_launch",
                          [_P] * 7 + [_I] * 7 + [_P]),
-    "flash_attention": ("flash_attention.cu", "flash_attention_launch",
-                        [_P] * 4 + [_I] * 6 + [_L] * 9 + [_F] + [_I] * 3
-                        + [_P]),
     "flash_attention_sm90": ("flash_attention_sm90.cu",
                              "flash_attention_sm90_launch",
                              [_P] * 4 + [_I] * 6 + [_L] * 9 + [_F]
@@ -68,7 +64,7 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     "flash_attention_tf32": ("flash_attention_tf32.cu",
                              "flash_attention_tf32_launch",
                              [_P] * 4 + [_I] * 6 + [_L] * 9 + [_F]
-                             + [_I] * 2 + [_P]),
+                             + [_I] * 3 + [_P]),
     "decode_attention": ("decode_attention.cu", "decode_attention_launch",
                          [_P] * 5 + [_I] * 5 + [_L] * 8 + [_F] + [_I] * 3
                          + [_P]),

@@ -26,7 +26,13 @@
 //   treefc (state h, S = H, x of H lanes, wc [A*H, H]):
 //     h = tanh(sum_a h_a . wc[a*H:(a+1)*H] + x + b)
 //
-//   buf[offset + m] = state * node_mask[m]      (zeros where it is 0)
+//   buf[dest(m)] = state * node_mask[m]        (zeros where it is 0)
+//
+// with dest(m) row offset + m of the level's block, or, where the caller
+// passes `out_ids` (the continuous engine's union frontier), row
+// out_ids[m], no row at all where out_ids[m] lies outside [0, rows) (a
+// pad lane): the frontier's scatter (K6b) folded into the store, so a
+// tick is one launch (gathered_product.cuh `dest_row`).
 //
 // K9 computes ref.py `lstm_level_fused`: for each row m of h_prev/c_prev
 // [M, H] (the gathered predecessor state, float or bf16, strided views of
@@ -34,11 +40,17 @@
 // and b [4H] (float), lstm's gates and cell as above, (c, h) written to
 // two fresh contiguous [M, H] tensors at h_prev's type.
 //
-// Schedule contract (src/repro/core/structure.py pack_batch): an absent
-// child points at the zero row `sentinel`; children live at lower levels,
-// so the rows read (< offset, or the sentinel) never overlap the block
-// written, which is what makes the in-place write sound.  Rows outside
-// the block, the sentinel among them, come out bit-unchanged.
+// Schedule contract.  An absent child points at the zero row `sentinel`.
+// In a level (src/repro/core/structure.py pack_batch) children live at
+// lower levels, so the rows read (< offset, or the sentinel) never
+// overlap the block written.  With `out_ids` the ids are unique and none
+// names a row the launch reads (a child_ids row or the sentinel): the
+// reference composes the megastep and the scatter in two phases, so an
+// overlap would read the old row there and race here
+// (src/repro_torch/kernels/ops.py `frontier_megastep` says why the
+// continuous engine never makes one).  Either way the in-place write is
+// sound, and rows no slot is stored at, the sentinel among them, come out
+// bit-unchanged.
 //
 // Bound on an H100 SXM (700 W).  A slot with no child needs no product:
 // with p = 0, lstm's c = sigmoid(x_i + b_i) tanh(x_u + b_u) and h =
@@ -109,10 +121,7 @@ constexpr int MAX_DEVICES = 64;
 
 enum Kind { LSTM = 0, GRU = 1, TREEFC = 2 };
 
-struct Args : Level {
-  float* out;                   // the buffer itself, written in place
-  int split;                    // CTAs of a cluster splitting the depth
-};
+using Args = FwdLevel;
 
 template <int KIND>
 struct Cfg {
@@ -174,12 +183,13 @@ __device__ __forceinline__ void leaf_cell(const float* x, const float* b,
   }
 }
 
-// Row gm of the block, column j, from the state (zeros where the node
-// mask is 0).
+// Slot gm's row, column j, from the state (zeros where the node mask is
+// 0); nothing for a pad lane of the frontier.
 template <int KIND>
 __device__ __forceinline__ void put(const Args& a, int gm, int j, float c,
                                     float h, float nm) {
-  float* out = a.out + (size_t)(a.offset + gm) * a.buf_stride;
+  float* out = dest_row(a, gm);
+  if (out == nullptr) return;
   out[j] = nm != 0.0f ? c * nm : 0.0f;
   if constexpr (KIND == LSTM) out[a.H + j] = nm != 0.0f ? h * nm : 0.0f;
 }
@@ -360,9 +370,10 @@ __global__ void __launch_bounds__(NT_LEAF) cell_leaf_kernel(const Args a) {
         h[e] *= nm;
       }
     }
-    float* out = a.out + (size_t)(a.offset + gm) * a.buf_stride + j;
-    store4(out, c, nj, wide);
-    if (KIND == LSTM) store4(out + H, h, nj, wide);
+    float* out = dest_row(a, gm);
+    if (out == nullptr) continue;
+    store4(out + j, c, nj, wide);
+    if (KIND == LSTM) store4(out + H + j, h, nj, wide);
   }
 }
 
@@ -406,7 +417,7 @@ int entry(void* buf, const void* child_ids, const void* ext_ids,
           const void* node_mask, const void* ext, const void* w,
           const void* bias, int M, int A, int H, int offset, int sentinel,
           int buf_stride, int ext_stride, int live, int split,
-          void* launches, void* stream) {
+          const void* out_ids, int rows, void* launches, void* stream) {
   int* nl = static_cast<int*>(launches);
   *nl = 0;
   auto pow2 = [](int s) { return s == 1 || s == 2 || s == 4 || s == 8; };
@@ -425,6 +436,8 @@ int entry(void* buf, const void* child_ids, const void* ext_ids,
   a.bias = static_cast<const float*>(bias);
   a.M = M; a.A = A; a.H = H; a.offset = offset; a.sentinel = sentinel;
   a.live = live; a.split = split;
+  a.out_ids = static_cast<const int*>(out_ids);
+  a.rows = rows;
   a.buf_stride = buf_stride; a.ext_stride = ext_stride;
   // 16-byte copies need 16-byte aligned rows: H, the strides and the
   // bases of what is read or written (buf, ext, w, bias) a multiple of
@@ -583,7 +596,9 @@ int k9_launch(const K9Args& a, cudaStream_t stream) {
 // cudaStream_t.  `sentinel`: the zero row absent children point at.
 // `live`: slots [live, M) have no child other than the sentinel (M where
 // the caller does not know).  `split`: CTAs of a cluster splitting the
-// product's depth (1, 2, 4 or 8).  Each returns the cudaError_t of the
+// product's depth (1, 2, 4 or 8).  `out_ids`: null, or [M] int32
+// destination rows (then `offset` is not read; the schedule contract
+// above); `rows`: the buffer's rows.  Each returns the cudaError_t of the
 // launches (0 on success); cudaErrorInvalidValue for arguments the
 // kernels do not take.
 #define CELL_MEGASTEP_ENTRY(NAME, KIND)                                       \
@@ -591,10 +606,11 @@ int k9_launch(const K9Args& a, cudaStream_t stream) {
                       const void* node_mask, const void* ext, const void* w, \
                       const void* bias, int M, int A, int H, int offset,     \
                       int sentinel, int buf_stride, int ext_stride,          \
-                      int live, int split, void* launches, void* stream) {   \
+                      int live, int split, const void* out_ids, int rows,    \
+                      void* launches, void* stream) {                        \
     return entry<KIND>(buf, child_ids, ext_ids, node_mask, ext, w, bias, M,  \
                        A, H, offset, sentinel, buf_stride, ext_stride, live, \
-                       split, launches, stream);                             \
+                       split, out_ids, rows, launches, stream);              \
   }
 
 CELL_MEGASTEP_ENTRY(lstm_megastep_sm90_launch, LSTM)

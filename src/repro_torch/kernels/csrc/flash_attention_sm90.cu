@@ -17,7 +17,7 @@
 // through their batch, head and row strides (unit stride along D), which
 // TMA needs to be multiples of 16 bytes (the wrapper checks).  This is the
 // route for bf16 operands with D % 16 == 0 and D <= 256; f32 operands and
-// other head dims take flash_attention.cu (fp32 SIMT).
+// the other bf16 head dims take flash_attention_tf32.cu (TF32 mma.sync).
 //
 // Precision.  The reference widens q, k, v to f32 and computes QK^T and PV
 // in f32.  A bf16 x bf16 product is exact in fp32, so QK^T by a bf16

@@ -232,6 +232,29 @@ struct Level {
   long long buf_stride, ext_stride;
 };
 
+// A forward megastep's launch (K1, K3-K5): the level, the buffer it
+// writes in place and where each slot's row goes.
+struct FwdLevel : Level {
+  float* out;                   // the buffer itself, written in place
+  const int* out_ids;           // [M] destination rows, or nullptr
+  int rows;                     // rows of the buffer
+  int split;                    // CTAs of a cluster splitting the depth
+};
+
+// Where slot gm's row is stored, or nullptr where it is stored nowhere:
+// row out_ids[gm] where the caller gave destinations (the continuous
+// frontier; an id outside [0, rows) is a pad lane and is dropped, as K6b
+// drops it), else row offset + gm (the level's block).  Every store path
+// of K1 and K3-K5 goes through it.
+__device__ __forceinline__ float* dest_row(const FwdLevel& a, int gm) {
+  long long r = a.offset + gm;
+  if (a.out_ids != nullptr) {
+    r = a.out_ids[gm];
+    if (r < 0 || r >= a.rows) return nullptr;
+  }
+  return a.out + r * a.buf_stride;
+}
+
 // Loads the tile's child rows (-1 for the sentinel or a slot at or past
 // `live`), node mask and ext rows (of slots below `live`); returns whether
 // a slot of the tile has a child other than the sentinel.  Every thread of

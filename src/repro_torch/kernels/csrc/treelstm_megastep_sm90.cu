@@ -15,14 +15,25 @@
 //     f_k       = sigmoid(x_f + h_k . U_f + b_f)     (no +1.0, unlike the LSTM)
 //     c         = i * u + sum_k f_k * c_k
 //     h         = o * tanh(c)
-//     buf[offset + m] = [c | h] * node_mask[m]      (zeros where it is 0)
-//   with x = ext[ext_ids[m]] the hoisted input projection row.
+//     buf[dest(m)] = [c | h] * node_mask[m]        (zeros where it is 0)
+//   with x = ext[ext_ids[m]] the hoisted input projection row, and dest(m)
+//   row offset + m of the level's block, or, where the caller passes
+//   `out_ids` (the continuous engine's union frontier), row out_ids[m],
+//   no row at all where out_ids[m] lies outside [0, rows) (a pad lane):
+//   the frontier's scatter (K6b) folded into the store, so a tick is one
+//   launch (gathered_product.cuh `dest_row`).
 //
-// Schedule contract (src/repro/core/structure.py pack_batch): an absent
-// child points at the zero row `sentinel`; children live at lower levels,
-// so the rows read (< offset, or the sentinel) never overlap the block
-// written, which is what makes the in-place write sound.  Rows outside the
-// block, the sentinel among them, come out bit-unchanged.
+// Schedule contract.  An absent child points at the zero row `sentinel`.
+// In a level (src/repro/core/structure.py pack_batch) children live at
+// lower levels, so the rows read (< offset, or the sentinel) never
+// overlap the block written.  With `out_ids` the ids are unique and none
+// names a row the launch reads (a child_ids row or the sentinel): the
+// reference composes the megastep and the scatter in two phases, so an
+// overlap would read the old row there and race here
+// (src/repro_torch/kernels/ops.py `frontier_megastep` says why the
+// continuous engine never makes one).  Either way the in-place write is
+// sound, and rows no slot is stored at, the sentinel among them, come out
+// bit-unchanged.
 //
 // Bound on an H100 SXM (700 W).  A leaf -- a slot with no child other
 // than the sentinel -- needs no product: c = sigmoid(x_i + b_i) tanh(x_u +
@@ -82,10 +93,7 @@ constexpr int BJ = 16;          // hidden columns a product tile
 constexpr int NT_LEAF = 256;    // threads of a leaf CTA
 constexpr int MAX_LEAF_CTAS = 4096;
 
-struct Args : Level {
-  float* out;                   // the buffer itself, written in place
-  int split;                    // CTAs of a cluster splitting the depth
-};
+using Args = FwdLevel;
 
 template <int TA>
 struct Cfg {
@@ -128,11 +136,12 @@ __device__ __forceinline__ void leaf_cell(float xi, float xo, float xu,
   h = og * tanhf(c);
 }
 
-// Row gm of the block, column j, from c and h (zeros where the node mask
-// is 0).
+// Slot gm's row, column j, from c and h (zeros where the node mask is
+// 0); nothing for a pad lane of the frontier.
 __device__ __forceinline__ void put(const Args& a, int gm, int j, float c,
                                     float h, float nm) {
-  float* out = a.out + (size_t)(a.offset + gm) * a.buf_stride;
+  float* out = dest_row(a, gm);
+  if (out == nullptr) return;
   out[j] = nm != 0.0f ? c * nm : 0.0f;
   out[a.H + j] = nm != 0.0f ? h * nm : 0.0f;
 }
@@ -297,9 +306,10 @@ __global__ void __launch_bounds__(NT_LEAF) k1_leaf_kernel(const Args a) {
         h[e] *= nm;
       }
     }
-    float* out = a.out + (size_t)(a.offset + gm) * a.buf_stride + j;
-    store4(out, c, nj, wide);
-    store4(out + H, h, nj, wide);
+    float* out = dest_row(a, gm);
+    if (out == nullptr) continue;
+    store4(out + j, c, nj, wide);
+    store4(out + H + j, h, nj, wide);
   }
 }
 
@@ -346,13 +356,16 @@ int launch(const Args& a, cudaStream_t stream, int* launches) {
 // the zero row absent children point at.  `live`: slots [live, M) have no
 // child other than the sentinel (M where the caller does not know).
 // `split`: CTAs of a cluster splitting the product's depth (1, 2, 4 or
-// 8).  Returns the cudaError_t of the launches (0 on success);
+// 8).  `out_ids`: null, or [M] int32 destination rows (then `offset` is
+// not read; the schedule contract above); `rows`: the buffer's rows.
+// Returns the cudaError_t of the launches (0 on success);
 // cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int treelstm_megastep_sm90_launch(
     void* buf, const void* child_ids, const void* ext_ids,
     const void* node_mask, const void* ext, const void* w, const void* bias,
     int M, int A, int H, int offset, int sentinel, int buf_stride,
-    int ext_stride, int live, int split, void* launches, void* stream) {
+    int ext_stride, int live, int split, const void* out_ids, int rows,
+    void* launches, void* stream) {
   int* nl = static_cast<int*>(launches);
   *nl = 0;
   auto pow2 = [](int s) { return s == 1 || s == 2 || s == 4 || s == 8; };
@@ -371,6 +384,8 @@ extern "C" int treelstm_megastep_sm90_launch(
   a.bias = static_cast<const float*>(bias);
   a.M = M; a.A = A; a.H = H; a.offset = offset; a.sentinel = sentinel;
   a.live = live; a.split = split;
+  a.out_ids = static_cast<const int*>(out_ids);
+  a.rows = rows;
   a.buf_stride = buf_stride; a.ext_stride = ext_stride;
   // 16-byte copies need 16-byte aligned rows: H, the strides and the
   // bases of what is read or written (buf, ext, w, bias) a multiple of

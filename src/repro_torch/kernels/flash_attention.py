@@ -9,7 +9,7 @@ window``), GQA (query head ``h`` reads KV head ``h // (Hq / Hkv)``, no
 copy) and ``scale`` (default ``D ** -0.5``).  A query with no valid key
 gets a zero row.
 
-Three kernels, chosen by the operands (:func:`route`), never as a
+Two kernels, chosen by the operands (:func:`route`), never as a
 fallback:
 
 * ``"wgmma"`` -- bf16 with ``D % 16 == 0`` and ``D <= 256``:
@@ -19,21 +19,22 @@ fallback:
   ``P_lo = bf16(P - P_hi)`` and PV runs on both, so PV keeps about 16
   bits of ``P``.  TMA reads the batch, head and row strides, which must
   be multiples of 16 bytes (:func:`tma_strides` raises otherwise);
-* ``"tf32"`` -- float32 with ``D % 8 == 0`` and ``D <= 256``:
-  ``csrc/flash_attention_tf32.cu``, QKᵀ and PV on the TF32 tensor cores
-  by ``mma.sync``, each f32 operand split into ``x_big = tf32(x)`` and
-  ``x_small = tf32(x - x_big)`` and each product run as three TF32
-  products (small·big + big·small + big·big) into fp32, about 21 bits of
-  each operand; K/V staged by ``cp.async`` through any strides;
-* ``"simt"`` -- float32 or bf16 head dims the other two do not take:
-  ``csrc/flash_attention.cu``, fp32 FMAs on the CUDA cores.
+* ``"tf32"`` -- float32 at every head dim ``1..256``, and bf16 at the
+  head dims ``"wgmma"`` does not take: ``csrc/flash_attention_tf32.cu``,
+  QKᵀ and PV on the TF32 tensor cores by ``mma.sync``, each f32 operand
+  split into ``x_big = tf32(x)`` and ``x_small = tf32(x - x_big)`` and
+  each product run as three TF32 products (small·big + big·small +
+  big·big) into fp32, about 21 bits of each operand; a bf16 operand is
+  exact in TF32, so QKᵀ takes one product and PV two.  K/V staged by
+  ``cp.async`` through any strides; a head dim that is no multiple of 8
+  zero-padded to the next (``mma.sync`` steps 8 columns).
 
 Each source's header states its bound and design.  The wrapper takes
 CUDA tensors only: it launches a kernel or raises.  The plain version for
 CPU tensors (``ref.mha``) is chosen in :mod:`repro_torch.kernels.ops`.
 Each launch is counted in ``level_megastep.LAUNCHES`` under
 ``"flash_attention"`` and under its route (``"flash_attention.wgmma"``,
-``"flash_attention.tf32"``, ``"flash_attention.simt"``).  Forward only, as in the reference (no
+``"flash_attention.tf32"``).  Forward only, as in the reference (no
 VJP): a call that would need a gradient raises.
 """
 
@@ -50,21 +51,20 @@ DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 #: route → the library (``_build.KERNELS`` name) that runs it.
 LIBRARIES = {"wgmma": "flash_attention_sm90",
-             "tf32": "flash_attention_tf32", "simt": "flash_attention"}
+             "tf32": "flash_attention_tf32"}
 
 
 def route(dtype: torch.dtype, D: int) -> str:
     """The kernel that takes operands of ``dtype`` at head dim ``D``:
-    ``"wgmma"`` for bf16 with ``D % 16 == 0`` and ``D <= 256`` (bf16
-    ``wgmma`` takes k16 steps), ``"tf32"`` for float32 with ``D % 8 ==
-    0`` and ``D <= 256`` (TF32 ``mma.sync`` takes k8 steps), ``"simt"``
-    for the rest."""
-    if 0 < D <= MAX_HEAD_DIM:
-        if dtype == torch.bfloat16 and D % 16 == 0:
-            return "wgmma"
-        if dtype == torch.float32 and D % 8 == 0:
-            return "tf32"
-    return "simt"
+    ``"wgmma"`` for bf16 with ``D % 16 == 0`` (bf16 ``wgmma`` takes k16
+    steps), ``"tf32"`` for every other float32 or bf16 head dim in
+    ``1..256``; raises for another type or head dim."""
+    if dtype not in DTYPES or not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: no kernel takes {dtype} at head "
+                         f"dim {D} (float32 or bfloat16, 1..{MAX_HEAD_DIM})")
+    if dtype == torch.bfloat16 and D % 16 == 0:
+        return "wgmma"
+    return "tf32"
 
 
 def tma_strides(op: str, name: str, t: torch.Tensor) -> Tuple[int, ...]:
@@ -152,14 +152,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         strides = [s for name, t in (("q", q), ("k", k), ("v", v))
                    for s in tma_strides(op, name, t)]
         flags = (scale, int(causal), window or 0)
-    elif path == "tf32":
+    else:
         # A dimension of size 1 is never stepped along: stride 0, so that
         # its stride does not keep the kernel off its 16-byte copies.
         strides = [0 if t.shape[i] == 1 else t.stride(i)
                    for t in (q, k, v) for i in range(3)]
-        flags = (scale, int(causal), window or 0)
-    else:
-        strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
         flags = (scale, int(causal), window or 0,
                  int(q.dtype == torch.bfloat16))
     require_cuda(op, q)

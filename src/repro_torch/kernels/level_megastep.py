@@ -24,6 +24,11 @@ IN PLACE — the counterpart of the Pallas kernels'
 ``input_output_aliases`` — on PyTorch's current stream, allocating
 nothing.  Reads (child rows below ``offset`` and the zero sentinel) never
 overlap the written block, which is what makes the in-place write sound.
+Given ``out_ids`` (the continuous engine's union frontier,
+:func:`repro_torch.kernels.ops.frontier_megastep`), a launch stores slot
+``m``'s row at row ``out_ids[m]`` instead, and nothing for an id outside
+the buffer (a pad lane): the frontier's row scatter folded into the
+store, under the contract that no id names a row the launch reads.
 
 The wrappers take CUDA tensors only: they launch the kernel or raise.
 The choice of the plain version for CPU tensors is made once, in
@@ -243,45 +248,62 @@ def launch_kernel(name: str, device: torch.device, *args,
 
 
 def block_rows(op: str, R: int, M: int, offset: int,
-               sentinel: Optional[int]) -> Tuple[int, int]:
-    """``(offset, sentinel)`` of a forward megastep writing rows
-    ``[offset, offset+M)`` of a buffer of ``R`` rows whose absent children
-    point at ``sentinel`` (default: the last row); raises unless both lie
-    in the buffer and the block does not cover the sentinel (it may lie
-    past it: the continuous engine's staging block)."""
+               out_ids: Optional[torch.Tensor] = None) -> int:
+    """``offset`` of a forward megastep writing rows ``[offset, offset+M)``
+    of a buffer of ``R`` rows whose last row is the zero sentinel; raises
+    unless the block lies in the buffer below the sentinel.  With
+    ``out_ids`` (``[M]`` int32 destination rows on the buffer's device) the
+    rows go there and ``offset`` must be 0: nothing else is checked, since
+    the ids live on the card."""
     offset = int(offset)
-    sentinel = R - 1 if sentinel is None else int(sentinel)
-    if not 0 <= sentinel < R:
-        raise ValueError(f"{op}: sentinel row {sentinel} outside a buffer "
-                         f"of {R} rows")
-    if offset < 0 or offset + M > R or offset <= sentinel < offset + M:
+    if out_ids is not None:
+        if offset != 0:
+            raise ValueError(f"{op}: offset {offset} with out_ids (the rows "
+                             f"go to out_ids; pass 0)")
+        return offset
+    if offset < 0 or offset + M > R - 1:
         raise ValueError(f"{op}: rows [{offset}, {offset + M}) outside a "
                          f"buffer of {R} rows or over its sentinel row "
-                         f"{sentinel}")
-    return offset, sentinel
+                         f"{R - 1}")
+    return offset
+
+
+def _out_ids(op: str, out_ids: Optional[torch.Tensor], M: int,
+             device: torch.device) -> int:
+    """The device address of ``out_ids`` (``[M]`` int32, contiguous, on
+    ``device``), or 0 (null: the level's block) without it."""
+    if out_ids is None:
+        return 0
+    check_arg(op, "out_ids", out_ids, torch.int32, (M,), device)
+    return out_ids.data_ptr()
 
 
 def treelstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
                       ext_ids: torch.Tensor, node_mask: torch.Tensor,
                       offset: int, ext: torch.Tensor, ui: torch.Tensor,
                       uf: torch.Tensor, uo: torch.Tensor, uu: torch.Tensor,
-                      b: torch.Tensor, *, sentinel: Optional[int] = None,
-                      live: Optional[int] = None) -> torch.Tensor:
+                      b: torch.Tensor, *, live: Optional[int] = None,
+                      out_ids: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """One fused N-ary child-sum Tree-LSTM batching task, in place (K1).
 
     ``buf``: ``[T*M+1, 2H]`` float32 node-state buffer; ``child_ids``:
-    ``[M, A]`` int32 buffer rows (absent children at the zero row
-    ``sentinel``, default the last); ``ext_ids``: ``[M]`` int32 rows of
+    ``[M, A]`` int32 buffer rows (absent children at the zero sentinel,
+    the buffer's last row); ``ext_ids``: ``[M]`` int32 rows of
     ``ext`` (``[R+1, 4H]``, the hoisted projection); ``node_mask``:
-    ``[M]`` float32; ``offset``: first row written, the block not over
-    the sentinel.  ``live``: one past the last slot with a child other
+    ``[M]`` float32; ``offset``: first row written, the block below the
+    sentinel.  ``live``: one past the last slot with a child other
     than the sentinel (the schedule's ``DeviceSchedule.live``, a host
     value); the product runs over ``[0, live)`` and the leaf launch over
     ``[live, M)``.  Without it the product's grid covers every slot, and a
     tile with no child takes the leaf formula on the card: nothing is
     copied from the card to find out.  Padding slots are written as
-    zeros.  One count in ``LAUNCHES``, one or two in ``CUDA_LAUNCHES``.
-    Returns ``buf``.
+    zeros.  ``out_ids``: ``[M]`` int32 destination rows (unique, none a row
+    the launch reads; ``offset`` 0): slot ``m``'s row goes to row
+    ``out_ids[m]``, nowhere for an id outside ``[0, R)`` (the union
+    frontier's tick, :func:`repro_torch.kernels.ops.frontier_megastep`).
+    One count in ``LAUNCHES``, one or two in ``CUDA_LAUNCHES``.  Returns
+    ``buf``.
     """
     op = "treelstm_megastep"
     require_cuda(op, buf)
@@ -301,16 +323,18 @@ def treelstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
     if not 1 <= A <= MAX_ARITY:
         raise NotImplementedError(
             f"treelstm_megastep: arity {A} outside 1..{MAX_ARITY}")
-    offset, sentinel = block_rows(op, R, M, offset, sentinel)
+    offset = block_rows(op, R, M, offset, out_ids)
+    oid = _out_ids(op, out_ids, M, dev)
     live = M if live is None else int(live)
     if not 0 <= live <= M:
         raise ValueError(f"{op}: live={live} outside [0, {M}]")
     n = ctypes.c_int(0)
     launch_kernel(op, dev, buf.data_ptr(), child_ids.data_ptr(),
                   ext_ids.data_ptr(), node_mask.data_ptr(), ext.data_ptr(),
-                  w.data_ptr(), b.data_ptr(), M, A, H, offset, sentinel,
+                  w.data_ptr(), b.data_ptr(), M, A, H, offset, R - 1,
                   buf.stride(0), ext.stride(0), live,
-                  k1_split(live, H, _sm_count(dev)), ctypes.addressof(n))
+                  k1_split(live, H, _sm_count(dev)), oid, R,
+                  ctypes.addressof(n))
     CUDA_LAUNCHES[op] += n.value
     return buf
 
@@ -318,8 +342,8 @@ def treelstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
 def _cell_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
                    ext_ids: torch.Tensor, node_mask: torch.Tensor,
                    offset: int, ext: torch.Tensor, w: torch.Tensor,
-                   b: torch.Tensor, sentinel: Optional[int],
-                   live: Optional[int] = None) -> torch.Tensor:
+                   b: torch.Tensor, live: Optional[int] = None,
+                   out_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     op = f"{kind}_megastep"
     require_cuda(op, buf)
     M, A = child_ids.shape
@@ -338,16 +362,17 @@ def _cell_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
     _check("b", b, torch.float32, (G,), dev)
     if not 1 <= A <= MAX_ARITY:
         raise NotImplementedError(f"{op}: arity {A} outside 1..{MAX_ARITY}")
-    offset, sentinel = block_rows(op, R, M, offset, sentinel)
+    offset = block_rows(op, R, M, offset, out_ids)
+    oid = _out_ids(op, out_ids, M, dev)
     live = M if live is None else int(live)
     if not 0 <= live <= M:
         raise ValueError(f"{op}: live={live} outside [0, {M}]")
     n = ctypes.c_int(0)
     launch_kernel(op, dev, buf.data_ptr(), child_ids.data_ptr(),
                   ext_ids.data_ptr(), node_mask.data_ptr(), ext.data_ptr(),
-                  w.data_ptr(), b.data_ptr(), M, A, H, offset, sentinel,
+                  w.data_ptr(), b.data_ptr(), M, A, H, offset, R - 1,
                   buf.stride(0), ext.stride(0), live,
-                  cell_split(live, H, _sm_count(dev), kind, A),
+                  cell_split(live, H, _sm_count(dev), kind, A), oid, R,
                   ctypes.addressof(n))
     CUDA_LAUNCHES[op] += n.value
     return buf
@@ -356,59 +381,58 @@ def _cell_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
 def lstm_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
                   ext_ids: torch.Tensor, node_mask: torch.Tensor,
                   offset: int, ext: torch.Tensor, wh: torch.Tensor,
-                  b: torch.Tensor, *, sentinel: Optional[int] = None,
-                  live: Optional[int] = None) -> torch.Tensor:
+                  b: torch.Tensor, *, live: Optional[int] = None,
+                  out_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One fused LSTM batching task, in place (K3).
 
     ``buf``: ``[T*M+1, 2H]`` float32 node-state buffer ``[c|h]``, its last
     row the zero sentinel; ``child_ids``: ``[M, A]`` int32, column 0 the
     predecessor; ``ext``: ``[R+1, 4H]``; ``wh``: ``[H, 4H]``; ``b``:
-    ``[4H]``.  The forget gate adds +1.0.  ``sentinel`` is the zero row
-    absent children point at (default: the last row); the block written
-    must not cover it, and may lie past it (the continuous engine's
-    staging block).  ``live``: one past the last slot with a child other
-    than the sentinel (``DeviceSchedule.live``, a host value); the
-    product runs over ``[0, live)`` and an elementwise launch over
-    ``[live, M)``.  Without it the product's grid covers every slot, and
-    a tile with no child takes the formula of none on the card.
-    Padding slots are written as zeros.  One count in ``LAUNCHES``, one or
-    two in ``CUDA_LAUNCHES``.  Returns ``buf``."""
+    ``[4H]``.  The forget gate adds +1.0; absent children point at the
+    sentinel, and the block written lies below it.  ``live``: one past
+    the last slot with a child other than the sentinel
+    (``DeviceSchedule.live``, a host value); the product runs over
+    ``[0, live)`` and an elementwise launch over ``[live, M)``.  Without
+    it the product's grid covers every slot, and a tile with no child
+    takes the formula of none on the card.  Padding slots are written as zeros.  ``out_ids`` as for
+    :func:`treelstm_megastep`.  One count in ``LAUNCHES``, one or two in
+    ``CUDA_LAUNCHES``.  Returns ``buf``."""
     return _cell_megastep("lstm", buf, child_ids, ext_ids, node_mask,
-                          offset, ext, wh, b, sentinel, live)
+                          offset, ext, wh, b, live, out_ids)
 
 
 def gru_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
                  ext_ids: torch.Tensor, node_mask: torch.Tensor,
                  offset: int, ext: torch.Tensor, wh: torch.Tensor,
-                 b: torch.Tensor, *, sentinel: Optional[int] = None,
-                 live: Optional[int] = None) -> torch.Tensor:
+                 b: torch.Tensor, *, live: Optional[int] = None,
+                 out_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One fused GRU batching task, in place (K4): state ``h`` (``buf``
     ``[T*M+1, H]``), ``ext`` ``[R+1, 3H]`` (``z|r|n``), ``wh`` ``[H, 3H]``,
     ``b`` ``[3H]``; the reset gate multiplies the recurrent candidate
-    with its bias.  ``sentinel`` and ``live`` as for
+    with its bias.  ``live`` and ``out_ids`` as for
     :func:`lstm_megastep`.  Returns ``buf``."""
     return _cell_megastep("gru", buf, child_ids, ext_ids, node_mask,
-                          offset, ext, wh, b, sentinel, live)
+                          offset, ext, wh, b, live, out_ids)
 
 
 def treefc_megastep(buf: torch.Tensor, child_ids: torch.Tensor,
                     ext_ids: torch.Tensor, node_mask: torch.Tensor,
                     offset: int, ext: torch.Tensor, wc: torch.Tensor,
-                    b: torch.Tensor, *, sentinel: Optional[int] = None,
-                    live: Optional[int] = None) -> torch.Tensor:
+                    b: torch.Tensor, *, live: Optional[int] = None,
+                    out_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One fused Tree-FC batching task, in place (K5): state ``h``
     (``buf`` ``[T*M+1, H]``), ``ext`` ``[R+1, H]``, the concat weight
     ``wc`` ``[A*H, H]`` (raises unless it has ``A*H`` rows), ``b``
     ``[H]``; the product runs over each child's segment of ``wc``.
-    ``sentinel`` and ``live`` as for :func:`lstm_megastep`.  Returns
+    ``live`` and ``out_ids`` as for :func:`lstm_megastep`.  Returns
     ``buf``."""
     return _cell_megastep("treefc", buf, child_ids, ext_ids, node_mask,
-                          offset, ext, wc, b, sentinel, live)
+                          offset, ext, wc, b, live, out_ids)
 
 
 #: megastep kind → its kernel's wrapper, all called as
 #: ``fn(buf, child_ids, ext_ids, node_mask, offset, ext, *weights,
-#: sentinel=..., live=...)``.
+#: live=..., out_ids=...)``.
 MEGASTEPS = {"treelstm": treelstm_megastep, "lstm": lstm_megastep,
              "gru": gru_megastep, "treefc": treefc_megastep}
 

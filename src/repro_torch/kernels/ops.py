@@ -115,8 +115,7 @@ def frontier_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
                       child_mask: torch.Tensor, rows: torch.Tensor,
                       node_mask: torch.Tensor, out_ids: torch.Tensor,
                       weights: Tuple[torch.Tensor, ...], *,
-                      ext_ids: Optional[torch.Tensor] = None,
-                      staging: Optional[torch.Tensor] = None
+                      ext_ids: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """One batching task over a mixed-depth UNION frontier (continuous
     serving): gather child rows from arbitrary rows of ``buf``
@@ -127,14 +126,27 @@ def frontier_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
     are a matrix of pulled rows that ``ext_ids`` index.  Writes ``buf`` IN
     PLACE and returns it.
 
-    On the card it is the JAX pallas leg's composition, two launches: the
-    level megastep of ``kind`` (K1/K3/K4/K5) writes the frontier's ``M``
-    states into a staging block past the arena (rows ``[R, R+M)``, the
-    sentinel still row ``R-1``), then K6b routes them to ``out_ids``.
-    ``staging`` is that block's backing tensor, ``[R + M', S]`` with
-    ``M' >= M``, whose first ``R`` rows ARE ``buf`` (the continuous
-    engine allocates it once); without it the block is made by a
-    concatenation, a copy of the whole arena per call."""
+    On the card it is one launch: the level megastep of ``kind`` (K1, K3,
+    K4 or K5) over ``buf`` itself, which stores lane ``m``'s row at row
+    ``out_ids[m]`` (the reference's two launches, the megastep into a
+    staging block and then K6b's scatter, folded into the store).
+
+    Contract: within the tick the ``out_ids`` are unique and none of them
+    names a row the tick reads, a ``child_ids`` row or the sentinel.  The
+    plain version (and the reference) composes the two phases, so an
+    overlap would read the row's old state there; in one launch it would
+    be a race.  :class:`~repro_torch.serve.continuous.ContinuousBatchEngine`
+    never makes one: a lane is a vertex of an in-flight request's current
+    level, its row allocated to it alone at admission and written only at
+    its own tick; its children are vertices of lower levels of the same
+    request, written at earlier ticks (a tick takes at most one level of a
+    request, and a level only once the one below it is done); absent
+    children and pad lanes read the sentinel, which no vertex owns; pad
+    lanes are stored past the arena; and a request's rows return to the
+    free list only after its root is read back (K6a), between windows.
+    The card does not check it per tick (that would cost a sync);
+    :func:`frontier_contract_holds` checks a tick where a caller wants
+    to."""
     if not buf.is_cuda:
         _tick("frontier_megastep", "ref")
         if ext_ids is not None:
@@ -144,23 +156,12 @@ def frontier_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
     kernel = lm.MEGASTEPS.get(kind)
     if kernel is None:
         raise ValueError(f"unknown megastep gate kind: {kind!r}")
-    M = child_ids.shape[0]
-    R, S = buf.shape
-    if staging is None:
-        staging = torch.cat([buf, buf.new_zeros((M, S))])
-    elif (staging.dim() != 2 or staging.shape[0] < R + M
-          or staging.shape[1] != S or staging.stride() != buf.stride()
-          or staging.dtype != buf.dtype
-          or staging.data_ptr() != buf.data_ptr()):
-        raise ValueError(f"frontier_megastep: staging must be an [R + M, S]"
-                         f" = [{R} + {M}, {S}] tensor whose first {R} rows "
-                         f"are buf")
     if ext_ids is None:
-        ext_ids = torch.arange(M, dtype=torch.int32, device=buf.device)
+        ext_ids = torch.arange(child_ids.shape[0], dtype=torch.int32,
+                               device=buf.device)
     _tick("frontier_megastep", "cuda")
-    kernel(staging, child_ids, ext_ids, node_mask, R, rows, *weights,
-           sentinel=R - 1)
-    return gsc.scatter_rows(buf, out_ids, staging[R:R + M])
+    return kernel(buf, child_ids, ext_ids, node_mask, 0, rows, *weights,
+                  out_ids=out_ids)
 
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -316,3 +317,31 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     PLACE and returned with ``y`` ``[Bt, H, P]``."""
     _tick("ssd_decode_step", "ref")
     return ref.ssd_decode_step(x, dt, A, B, C, D, state)
+
+
+# ---------------------------------------------------------------------------
+# Diagnostics (called by no path of the package)
+# ---------------------------------------------------------------------------
+
+def frontier_contract_holds(child_ids: torch.Tensor, out_ids: torch.Tensor,
+                            rows: int) -> torch.Tensor:
+    """Whether one tick keeps :func:`frontier_megastep`'s contract over an
+    arena of ``rows`` rows (the last the sentinel): its ids inside
+    ``[0, rows)`` are unique and none of them is a ``child_ids`` row or
+    the sentinel.  A 0-d bool tensor on the ids' device, computed with no
+    copy to the host (a caller that reads it syncs).
+
+    A diagnostic, not part of the dispatch: no path of the package calls
+    it; the tests and ``chip_smoke.py`` check the ticks they tap with
+    it."""
+    dev = out_ids.device
+    ids = out_ids.long()
+    inside = (ids >= 0) & (ids < rows)
+    slot = torch.where(inside, ids, torch.full_like(ids, rows))
+    stored = torch.zeros(rows + 1, dtype=torch.int32, device=dev)
+    stored.index_add_(0, slot, torch.ones_like(slot, dtype=torch.int32))
+    read = torch.zeros(rows + 1, dtype=torch.bool, device=dev)
+    read.index_fill_(0, child_ids.reshape(-1).long(), True)
+    read[rows - 1] = True
+    stored, read = stored[:rows], read[:rows]
+    return (stored <= 1).all() & ~(read & (stored > 0)).any()

@@ -17,10 +17,9 @@ agenda-based autobatching executed through the fused megastep:
   - **union-frontier ticks** — each tick is ONE batching task
     (``core.scheduler.frontier_step``) over the ready vertices of ALL
     in-flight graphs, each lane at its own depth, writing to its own
-    arena row.  On the card a fused tick is two launches: the level
-    megastep of the cell's kind writes the frontier's states into a
-    staging block the engine allocated once past the arena, and K6b
-    (``ops.scatter_rows``) routes them to their rows.  Up to
+    arena row.  On the card a fused tick is one launch: the level
+    megastep of the cell's kind stores each lane's state at its arena
+    row (``ops.frontier_megastep``).  Up to
     ``AdmissionPolicy.max_window`` ticks are planned host-side and run
     as one window (a Python loop where the reference has a
     ``lax.scan``), bounded by the first retirement so finished roots
@@ -188,8 +187,8 @@ def _plan_from_schedule(sched: LevelSchedule) -> _Plan:
 def _frontier_window(fn, spec, params: Params, buf: torch.Tensor,
                      child_ids: torch.Tensor, child_mask: torch.Tensor,
                      ext_rows: torch.Tensor, node_mask: torch.Tensor,
-                     out_ids: torch.Tensor, ext_ids: torch.Tensor,
-                     staging: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     out_ids: torch.Tensor,
+                     ext_ids: torch.Tensor) -> torch.Tensor:
     """``k`` union-frontier ticks, in place on ``buf``: a Python loop
     over the window's ticks (``child_ids`` ``[k, M, A]``, ``child_mask``
     ``[k, M, A]``, ``node_mask``/``out_ids``/``ext_ids`` ``[k, M]``; the
@@ -199,7 +198,7 @@ def _frontier_window(fn, spec, params: Params, buf: torch.Tensor,
         for t in range(child_ids.shape[0]):
             frontier_step(fn, params, buf, child_ids[t], child_mask[t],
                           ext_rows, node_mask[t], out_ids[t], spec=spec,
-                          ext_ids=ext_ids[t], staging=staging)
+                          ext_ids=ext_ids[t])
     return buf
 
 
@@ -262,12 +261,9 @@ class ContinuousBatchEngine(_EngineBase):
         self.plan_misses = 0
         # Arena: rows [0, num_rows) are allocatable; row num_rows is the
         # zero sentinel absent children gather (never written: pad lanes
-        # scatter out of range and are dropped).  The frontier_width rows
-        # past it are the fused tick's staging block, allocated once.
-        self._staging = torch.zeros(
-            (num_rows + 1 + frontier_width, fn.state_dim),
-            dtype=torch.float32, device=self.device)
-        self._buf = self._staging[:num_rows + 1]
+        # scatter out of range and are dropped).
+        self._buf = torch.zeros((num_rows + 1, fn.state_dim),
+                                dtype=torch.float32, device=self.device)
         # Pulled-row arena: row r holds the pulled (projected) row of the
         # vertex at arena row r; row num_rows stays zero for pad lanes.
         self._ext = torch.zeros((num_rows + 1, fn.ext_dim),
@@ -556,9 +552,8 @@ class ContinuousBatchEngine(_EngineBase):
                 di[:, M * A:M * (A + 1)], di[:, M * (A + 1):])
 
     def _run_window(self, args: Tuple) -> None:
-        """One window through :meth:`_EngineBase._ladder`; the fused
-        window writes its states through the staging block."""
-        self._ladder(lambda: self._window(*args, staging=self._staging),
+        """One window through :meth:`_EngineBase._ladder`."""
+        self._ladder(lambda: self._window(*args),
                      lambda: self._window_oracle(*args), self._buf.is_cuda,
                      self.device)
 

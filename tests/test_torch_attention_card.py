@@ -21,16 +21,18 @@ own bf16 rounding, which the plain version sees too).
 
 bf16 K10 takes the wgmma route (``csrc/flash_attention_sm90.cu``: bf16
 ``wgmma`` for QKᵀ and for PV on ``P_hi + P_lo``, TMA staging) where
-``D % 16 == 0``; f32 the tf32 route (``csrc/flash_attention_tf32.cu``:
-TF32 ``mma.sync`` with each product split into three, ``cp.async``
-staging) where ``D % 8 == 0``; other head dims the SIMT route; the K10
-cases check which route each launch took.  They cover head dims 16, 20,
-32, 40, 64, 80, 128, 160 and 256 (every padded width of the wgmma
-kernel's shared tiles and every class of the tf32 kernel's; 20 on the
-SIMT route at both types, 40 at bf16), Sq 1, 63, 65, 127 and 129, Sq != Sk
-without ``causal``, a window starting inside a key tile, GQA groups 1,
-4, 8 and 12, a 2,048-token causal prefill, q as a permuted view, and
-Sq > Sk (rows with no key, exactly zero).  Against the plain version on
+``D % 16 == 0``; every other head dim, and f32 at every head dim, the
+tf32 route (``csrc/flash_attention_tf32.cu``: TF32 ``mma.sync``, an f32
+product split into three, a bf16 operand exact in one; ``cp.async``
+staging, a head dim no multiple of 8 zero-padded to the next); the K10
+cases check which route each launch took.  They cover head dims 7, 16,
+20, 32, 36, 40, 64, 80, 100, 128, 160 and 256 (every padded width of the
+wgmma kernel's shared tiles and every class of the tf32 kernel's; the
+ragged ones on the tf32 route at both types, 100 at 1,024 tokens),
+Sq 1, 63, 65, 127 and 129, Sq != Sk without ``causal``, a window starting
+inside a key tile, GQA groups 1, 4, 8 and 12, a 2,048-token causal
+prefill, q as a permuted view, and Sq > Sk (rows with no key, exactly
+zero).  Against the plain version on
 f32 copies of the same bf16 operands the wgmma route's error is that
 of the output's one bf16 rounding (unit roundoff 2^-8 = 3.9e-3 of an
 element): 1.2e-3 to 3.6e-3 of max |plain| on the H100 (NVIDIA H100
@@ -106,8 +108,11 @@ def _check(got, again, want, dtype):
     (1, 8, 2, 300, 300, 128, True, 100),      # window inside a key tile
     (1, 4, 4, 129, 50, 128, True, None),      # Sq > Sk: zero rows
     (1, 32, 8, 2048, 2048, 128, True, None),  # a 2,048-token prefill
-    (1, 8, 2, 100, 100, 20, True, None),      # D 20: SIMT at both types
-    (1, 4, 2, 129, 129, 40, True, 50),        # D 40: tf32 / SIMT at bf16
+    (1, 8, 2, 100, 100, 20, True, None),      # D 20: tf32, padded to 24
+    (1, 4, 2, 129, 129, 40, True, 50),        # D 40: tf32 at both types
+    (2, 4, 4, 40, 72, 36, False, None),       # D 36, Sq != Sk
+    (1, 4, 2, 65, 65, 7, True, None),         # D 7: 4- and 2-byte copies
+    (1, 8, 2, 1024, 1024, 100, True, None),   # D 100 at 1,024 tokens
 ])
 def test_flash_attention_matches_plain(dt, B, Hq, Hkv, Sq, Sk, D, causal,
                                        window):
@@ -123,10 +128,7 @@ def test_flash_attention_matches_plain(dt, B, Hq, Hkv, Sq, Sk, D, causal,
     lm.reset_launches()
     got = run()
     _check(got, run(), want, dtype)
-    if dtype == torch.bfloat16:
-        path = "wgmma" if D % 16 == 0 else "simt"
-    else:
-        path = "tf32" if D % 8 == 0 else "simt"
+    path = "wgmma" if dtype == torch.bfloat16 and D % 16 == 0 else "tf32"
     assert fa.route(dtype, D) == path
     assert dict(lm.LAUNCHES) == {"flash_attention": 2,
                                  f"flash_attention.{path}": 2}
@@ -151,6 +153,30 @@ def test_flash_attention_tf32_narrow_strides_match_plain(D, pad, off):
     want = ref.mha(q, k, v)
     lm.reset_launches()
     _check(run(), run(), want, torch.float32)
+    assert dict(lm.LAUNCHES) == {"flash_attention": 2,
+                                 "flash_attention.tf32": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,pad,off", [(20, 3, 1), (100, 0, 2), (36, 4, 0)])
+def test_flash_attention_bf16_tf32_route_strides_match_plain(D, pad, off):
+    """bf16 operands at head dims the wgmma route does not take, rows
+    D + pad elements apart from a base ``off`` elements past 16 bytes:
+    the tf32 kernel stages them raw by the widest copy that divides the
+    rows, strides and bases (plain 2-byte loads at an odd stride, 4-byte
+    ``cp.async`` at a 4-byte base, 8-byte at D 36), within the bf16 bar,
+    on the tf32 route."""
+    _need_card()
+    gen = torch.Generator().manual_seed(D + pad + off)
+    q = _randn(gen, 1, 8, 70, D + pad + off, dtype=torch.bfloat16)
+    k, v = (_randn(gen, 1, 2, 90, D + pad + off, dtype=torch.bfloat16)
+            for _ in range(2))
+    q, k, v = (t[..., off:off + D] for t in (q, k, v))
+    assert fa.route(torch.bfloat16, D) == "tf32"
+    run = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+    want = ref.mha(q.float(), k.float(), v.float())
+    lm.reset_launches()
+    _check(run(), run(), want, torch.bfloat16)
     assert dict(lm.LAUNCHES) == {"flash_attention": 2,
                                  "flash_attention.tf32": 2}
 
@@ -305,17 +331,16 @@ def test_bf16_serve_engine_takes_the_wgmma_route():
     assert all(r.status == "ok" for r in done)
     assert lm.LAUNCHES["flash_attention"] == L * len(reqs)
     assert lm.LAUNCHES["flash_attention.wgmma"] == L * len(reqs)
-    assert "flash_attention.simt" not in lm.LAUNCHES
     assert "flash_attention.tf32" not in lm.LAUNCHES
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("head_dim,path", [(32, "tf32"), (20, "simt")])
+@pytest.mark.parametrize("head_dim,path", [(32, "tf32"), (20, "tf32")])
 def test_f32_serve_engine_takes_one_route(head_dim, path):
     """The reduced f32 model served through ``ServeEngine`` on the card:
-    at head dim 32 (its own) every K10 launch on the tf32 route, at head
-    dim 20 every one on the SIMT route; no launch on another route, every
-    request ``ok``."""
+    at head dim 32 (its own) and at the ragged head dim 20 every K10
+    launch on the tf32 route; no launch on another route, every request
+    ``ok``."""
     _need_card()
     cfg = dataclasses.replace(reduced(get_config("granite-3-8b")),
                               head_dim=head_dim)

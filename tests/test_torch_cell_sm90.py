@@ -23,7 +23,8 @@ K3/K4/K5/K9.
   ``CELL_EDGES``, which the ``gpu`` tests run through the kernels.
 - For lstm, gru and treefc (A 2) at H 5 and 72, on levels of M 1, 63, 64,
   65 and 128 with live 0, 1, 63, 64, M and none, padding slots, a second
-  child column, and a staging block past the sentinel: the emulation
+  child column, and a continuous frontier's tick storing its rows at
+  ``out_ids`` (pad lanes storing nothing): the emulation
   within 1e-5 of max |plain| of JAX's ``ref.level_megastep`` and (at
   fewer shapes) of the Pallas K3/K4/K5 in interpret mode.  Measured: 1.6e-8
   to 1.7e-7 of max |JAX ref| (treefc 5.2e-8 to 1.9e-7).  One TF32
@@ -94,13 +95,15 @@ EDGES = _card_tests.CELL_EDGES
 # ---------------------------------------------------------------------------
 
 def emulate_cell_tf32x3(kind, buf, cids, eids, nm, off, ext, weights, *,
-                        live=None, sentinel=None, sms=SMS, split3=True):
+                        live=None, out_ids=None, sms=SMS, split3=True):
     """What K3 (``kind`` "lstm"), K4 ("gru") or K5 ("treefc") leaves in
     ``buf`` (a copy; the inputs are left as they are) for one level, its
-    depth split as the kernel splits it on a card of ``sms`` SMs."""
+    depth split as the kernel splits it on a card of ``sms`` SMs; with
+    ``out_ids`` slot ``m``'s row is stored at row ``out_ids[m]`` (nowhere
+    for an id outside the buffer) instead of at ``off + m``."""
     out = buf.clone()
     M, A = cids.shape
-    sent = buf.shape[0] - 1 if sentinel is None else sentinel
+    sent = buf.shape[0] - 1
     L = M if live is None else live
     wh, b = weights
     H = wh.shape[1] if kind == "treefc" else wh.shape[0]
@@ -159,7 +162,12 @@ def emulate_cell_tf32x3(kind, buf, cids, eids, nm, off, ext, weights, *,
         got = state(p, prev[:, :H], slice(0, L))
         st[:L] = torch.where(use[:, None], got, st[:L])
     keep = (nm != 0)[:, None]
-    out[off:off + M] = torch.where(keep, st * nm[:, None], 0.0)
+    st = torch.where(keep, st * nm[:, None], 0.0)
+    if out_ids is None:
+        out[off:off + M] = st
+    else:
+        ok = (out_ids >= 0) & (out_ids < out.shape[0])
+        out[out_ids[ok].long()] = st[ok]
     return out
 
 
@@ -201,16 +209,38 @@ def _torch(c):
             t(c["ext"]), tuple(t(w) for w in c["w"]))
 
 
+def _out_ids(c):
+    return None if c["out_ids"] is None else torch.from_numpy(c["out_ids"])
+
+
 def _emulate(kind, c, **kw):
     return emulate_cell_tf32x3(kind, *_torch(c), live=c["live"],
-                               sentinel=c["sentinel"], **kw).numpy()
+                               out_ids=_out_ids(c), **kw).numpy()
+
+
+def _stored(c, level):
+    """What the reference leaves in level ``c``'s buffer, ``level(buf,
+    off)`` its level megastep writing rows ``[off, off + M)``: for a fold
+    level, the reference's composition, into a block past the buffer,
+    then those rows stored at ``out_ids`` (an id outside the buffer
+    dropped)."""
+    if c["out_ids"] is None:
+        return np.asarray(level(c["buf"], c["off"]))
+    buf = c["buf"]
+    R, M = buf.shape[0], c["cids"].shape[0]
+    block = np.asarray(level(np.concatenate(
+        [buf, np.zeros((M, buf.shape[1]), buf.dtype)]), R))[R:]
+    out, ids = buf.copy(), c["out_ids"]
+    ok = (ids >= 0) & (ids < R)
+    out[ids[ok]] = block[ok]
+    return out
 
 
 def _jax_ref(kind, c):
-    return np.asarray(jref.level_megastep(
-        kind, jnp.asarray(c["buf"]), jnp.asarray(c["cids"]),
+    return _stored(c, lambda buf, off: jref.level_megastep(
+        kind, jnp.asarray(buf), jnp.asarray(c["cids"]),
         jnp.asarray(c["cmask"]), jnp.asarray(c["eids"]),
-        jnp.asarray(c["nm"]), c["off"], jnp.asarray(c["ext"]),
+        jnp.asarray(c["nm"]), off, jnp.asarray(c["ext"]),
         tuple(jnp.asarray(w) for w in c["w"])))
 
 
@@ -220,9 +250,8 @@ def _rel(got, want) -> float:
 
 
 def _outside_kept(c, got):
-    M = c["cids"].shape[0]
     keep = np.ones(c["buf"].shape[0], bool)
-    keep[c["off"]:c["off"] + M] = False
+    keep[_card_tests.stored_rows(c)] = False
     np.testing.assert_array_equal(got[keep].view(np.int32),
                                   c["buf"][keep].view(np.int32))
 
@@ -236,43 +265,41 @@ def test_emulation_matches_jax_ref(kind, name, h):
     want = _jax_ref(kind, c)
     assert _rel(got, want) <= TOL
     _outside_kept(c, got)
-    M, real = c["cids"].shape[0], int(c["nm"].sum())
-    assert not got[c["off"] + real:c["off"] + M].any()     # padding: zeros
+    pads = _card_tests.stored_rows(c, int(c["nm"].sum()))
+    assert not got[pads].any()                             # padding: zeros
 
 
 @pytest.mark.parametrize("kind,name,h", [
     ("lstm", "M65_live64", 5), ("gru", "M65_live64", 5),
-    ("lstm", "M65_none", 24), ("gru", "staging_M64", 24),
+    ("lstm", "M65_none", 24), ("gru", "fold_M64", 24),
     ("lstm", "M1_live1", 5), ("gru", "M63_liveM", 5),
     ("treefc", "M65_live64", 5), ("treefc", "M63_none", 24),
-    ("treefc", "staging_M64", 5), ("treefc", "M1_live0", 5)], ids=str)
+    ("treefc", "fold_M64", 5), ("treefc", "M1_live0", 5)], ids=str)
 def test_emulation_matches_jax_pallas_interpret(kind, name, h):
     c = _level(kind, name, h)
     fn = {"lstm": jlm.lstm_megastep, "gru": jlm.gru_megastep,
           "treefc": jlm.treefc_megastep}[kind]
-    want = np.asarray(fn(
-        jnp.asarray(c["buf"]), jnp.asarray(c["cids"]), jnp.asarray(c["eids"]),
-        jnp.asarray(c["nm"]), jnp.int32(c["off"]), jnp.asarray(c["ext"]),
+    want = _stored(c, lambda buf, off: fn(
+        jnp.asarray(buf), jnp.asarray(c["cids"]), jnp.asarray(c["eids"]),
+        jnp.asarray(c["nm"]), jnp.int32(off), jnp.asarray(c["ext"]),
         *(jnp.asarray(w) for w in c["w"]), interpret=True))
     assert _rel(_emulate(kind, c), want) <= TOL
 
 
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("name", ["M128_liveM", "M128_none", "staging_M64"])
+@pytest.mark.parametrize("name", ["M128_liveM", "M128_none", "fold_M64"])
 def test_emulation_matches_plain_and_split_does_not_matter(kind, name):
     """The emulation against the port's plain version, with the depth
     split of a card of 132 SMs and with none (``sms=1``): both within the
     bar, so the split only reorders fp32 sums."""
     c = _level(kind, name, 72)
     buf, cids, eids, nm, off, ext, w = _torch(c)
-    want = ref.level_megastep(kind, buf.clone(), cids,
-                              torch.from_numpy(c["cmask"]), eids, nm, off,
-                              ext, w)
+    want = _card_tests.plain_level(kind, c)
     assert lm.cell_split(c["live"] or cids.shape[0], 72, SMS, kind,
                          cids.shape[1]) > 1
     for sms in (SMS, 1):
         got = emulate_cell_tf32x3(kind, buf, cids, eids, nm, off, ext, w,
-                                  live=c["live"], sentinel=c["sentinel"],
+                                  live=c["live"], out_ids=_out_ids(c),
                                   sms=sms)
         assert _rel(got, want) <= TOL
 
@@ -309,9 +336,9 @@ def test_slots_with_no_predecessor_take_no_product(kind):
     assert sent.any()
     buf, cids, eids, nm, off, ext, w = _torch(c)
     prod = emulate_cell_tf32x3(kind, buf, cids, eids, nm, off, ext, w,
-                               live=128, sentinel=c["sentinel"])
+                               live=128)
     leaf = emulate_cell_tf32x3(kind, buf, cids, eids, nm, off, ext, w,
-                               live=0, sentinel=c["sentinel"])
+                               live=0)
     rows = torch.from_numpy(np.flatnonzero(sent)) + off
     assert torch.equal(prod[rows].view(torch.int32),
                        leaf[rows].view(torch.int32))
@@ -383,7 +410,7 @@ def test_wrapper_passes_live_split_and_sentinel(fake_card, kind):
     fn = lm.MEGASTEPS[kind]
     assert fn(buf, cids, eids, nm, off, ext, *w, live=64) is buf
     fn(buf, cids, eids, nm, off, ext, *w)
-    fn(buf, cids, eids, nm, off, ext, *w, live=0, sentinel=c["sentinel"])
+    fn(buf, cids, eids, nm, off, ext, *w, live=0)
     (o1, a1), (_, a2), (_, a3) = fake_card
     assert o1 == op
     assert a1[0] == buf.data_ptr() and a1[5] == w[0].data_ptr()
@@ -396,8 +423,8 @@ def test_wrapper_passes_live_split_and_sentinel(fake_card, kind):
     assert lm.CUDA_LAUNCHES[op] == 2 + 1 + 1
     with pytest.raises(ValueError, match="live"):
         fn(buf, cids, eids, nm, off, ext, *w, live=M + 1)
-    with pytest.raises(ValueError, match="sentinel"):
-        fn(buf, cids, eids, nm, off, ext, *w, sentinel=off)
+    with pytest.raises(ValueError, match="sentinel"):     # covers R - 1
+        fn(buf, cids, eids, nm, R - M, ext, *w)
     assert lm.LAUNCHES[op] == 3
 
 
@@ -418,7 +445,7 @@ def test_treefc_wrapper_takes_no_live(fake_card):
     lm.treefc_megastep(*args)
     lm.treefc_megastep(*args, live=0)
     (op, a), (_, b) = fake_card
-    assert op == "treefc_megastep" and len(a) == 17
+    assert op == "treefc_megastep" and len(a) == 19
     assert a[7:16] == (M, A, H, M, 3 * M, H, H, M, 2)   # 2 chunks: 2 ranks
     assert b[14:16] == (0, 1)
     assert lm.CUDA_LAUNCHES[op] == 1 + 1

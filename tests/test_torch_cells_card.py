@@ -3,8 +3,8 @@ forward kernels (K3, K4, K5) and the reverse megastep (K2) of each kind
 against their plain versions, at small widths and at the paper's H = 512,
 with M = 1 and all-padding levels, the forward kernels given the
 schedule's live counts; K3, K4 and K5 on ``CELL_EDGES`` (live counts at
-and across a tile's edge, none, padding, a staging block past the
-sentinel; K5 with two children a slot), which
+and across a tile's edge, none, padding, a continuous frontier's tick
+storing its rows at ``out_ids``; K5 with two children a slot), which
 ``tests/test_torch_cell_sm90.py`` also feeds to its emulation of the
 kernels; rows a launch does not touch bit-unchanged; two launches
 bitwise equal; the CUDA launches of the forward kernels' design; training
@@ -88,13 +88,14 @@ def _levels(kind, family, h, seed=0, dev="cuda", **pads):
             (f32(w), f32(b)))
 
 
-#: K3/K4/K5 edge levels: name → (M, live, real slots, A, staging).
+#: K3/K4/K5 edge levels: name → (M, live, real slots, A, fold).
 #: ``live`` None: the level is given no live count (the decode engine, the
 #: chain frontier), and its children lie in the first third of the slots,
 #: so a 64-slot tile past them has none; slots ``[real, M)`` are padding;
-#: ``staging``: the block lies past the sentinel, as the continuous
-#: engine's staging block does.  Tiles are 64 slots.  K5 (``treefc``)
-#: takes every level with A 2, as a Tree-FC batch packs it.
+#: ``fold``: a continuous frontier's tick, its slots stored at
+#: ``out_ids`` rather than at a block (see :func:`cell_edge_level`).
+#: Tiles are 64 slots.  K5 (``treefc``) takes every level with A 2, as a
+#: Tree-FC batch packs it.
 CELL_EDGES = {
     "M1_live0": (1, 0, 1, 1, False), "M1_live1": (1, 1, 1, 1, False),
     "M1_none": (1, None, 1, 1, False),
@@ -110,30 +111,34 @@ CELL_EDGES = {
     "M128_live64": (128, 64, 128, 1, False),
     "M128_liveM": (128, 128, 90, 1, False),
     "M128_none": (128, None, 128, 1, False),
-    "staging_M64": (64, None, 44, 1, True),
-    "staging_M128": (128, None, 128, 1, True),
+    "fold_M64": (64, None, 44, 1, True),
+    "fold_M128": (128, None, 128, 1, True),
 }
 
 
 def cell_edge_level(kind, name, h, seed=0):
     """NumPy level ``name`` of ``CELL_EDGES`` for kind ``kind`` at width
-    ``h``: a buffer whose rows below the block hold the predecessors and
-    whose row ``sentinel`` is zero; slots before ``live`` get a
+    ``h``: a buffer whose last row, the sentinel, is zero and whose rows
+    ``[0, 2M)`` hold the predecessors; slots before ``live`` get a
     predecessor (a fifth of them the sentinel, never slot ``live - 1``'s;
     with A 2 the second column too); the first ``real`` slots are real,
     the rest padding (ext rows at the zero row); ``wh`` ``[h, G]`` (for
-    ``treefc`` ``wc`` ``[A·h, h]``, A 2) and a nonzero bias."""
-    M, live, real, a, staging = CELL_EDGES[name]
+    ``treefc`` ``wc`` ``[A·h, h]``, A 2) and a nonzero bias.  The level
+    writes rows ``[2M, 3M)`` (``off``); a ``fold`` level stores them at
+    ``out_ids`` instead (``off`` 0), a shuffle of those rows for the real
+    slots and the first pad slot (a masked lane: a zero row) and ids past
+    the buffer or below zero for the other pad slots, which store
+    nothing."""
+    M, live, real, a, fold = CELL_EDGES[name]
     if kind == "treefc":
         a = 2
     S, G = SM[kind] * h, GM[kind] * h
     rng = np.random.default_rng(seed + sum(map(ord, name)) + h)
     sent = 3 * M
-    off = sent + 1 if staging else 2 * M
-    R = off + M if staging else sent + 1
+    off, R = 2 * M, sent + 1
     buf = (rng.standard_normal((R, S)) * 0.5).astype(np.float32)
     buf[sent] = 0.0
-    lo = min(off, sent)                           # rows a child may be
+    lo = 2 * M                                    # rows a child may be
     hi = -(-M // 3) if live is None else live     # slots with a child
     cids = np.full((M, a), sent, np.int32)
     cids[:hi] = rng.integers(0, lo, size=(hi, a))
@@ -150,9 +155,49 @@ def cell_edge_level(kind, name, h, seed=0):
     rows = a * h if kind == "treefc" else h
     wh = (rng.standard_normal((rows, G)) * rows ** -0.5).astype(np.float32)
     b = (rng.standard_normal(G) * 0.3).astype(np.float32)
+    out_ids = None
+    if fold:
+        off = 0
+        out_ids = (2 * M + rng.permutation(M)).astype(np.int32)
+        out_ids[real + 1::2] = R + 5
+        out_ids[real + 2::2] = -1
     return dict(buf=buf, cids=cids, cmask=(cids != sent).astype(np.float32),
                 eids=eids, nm=nm, off=off, ext=ext, w=(wh, b), live=live,
-                sentinel=sent)
+                sentinel=sent, out_ids=out_ids)
+
+
+def dest_rows(c) -> np.ndarray:
+    """The row each slot of level ``c`` is stored at: ``off + m``, or
+    ``out_ids[m]`` for a fold level (an id outside the buffer stores
+    nothing)."""
+    if c["out_ids"] is None:
+        return np.arange(c["off"], c["off"] + c["cids"].shape[0])
+    return c["out_ids"]
+
+
+def stored_rows(c, first=0) -> np.ndarray:
+    """The rows of the buffer that slots ``[first, M)`` of level ``c``
+    write, the ids outside the buffer left out."""
+    ids = dest_rows(c)[first:]
+    return ids[(ids >= 0) & (ids < c["buf"].shape[0])]
+
+
+def plain_level(kind, c, device="cpu") -> torch.Tensor:
+    """The port's plain version of level ``c`` on a copy of its buffer on
+    ``device``: ``ref.level_megastep`` at ``off``, or for a fold level
+    ``ref.frontier_megastep`` (the rows stored at ``out_ids``)."""
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(a), device=device)
+
+    buf, cids, cmask, eids, nm, ext = (t(c[k]) for k in (
+        "buf", "cids", "cmask", "eids", "nm", "ext"))
+    w = tuple(t(x) for x in c["w"])
+    if c["out_ids"] is None:
+        return ref.level_megastep(kind, buf, cids, cmask, eids, nm, c["off"],
+                                  ext, w)
+    return ref.frontier_megastep(kind, buf, cids, cmask,
+                                 ext.index_select(0, eids.long()), nm,
+                                 t(c["out_ids"]), w)
 
 
 def _rel(got, want):
@@ -235,8 +280,8 @@ def test_forward_and_reverse_kernels_match_plain_on_card(kind, family, h,
 @pytest.mark.parametrize("kind", ["lstm", "gru", "treefc"])
 def test_cell_edge_levels_on_card(kind, name, h):
     """K3/K4/K5 on ``CELL_EDGES`` with the keywords the main path gives them:
-    within 1e-4 of max |plain|, rows outside the block (the sentinel among
-    them) bit-unchanged, two launches bitwise equal, the CUDA launches of
+    within 1e-4 of max |plain|, rows the level does not store (the sentinel
+    among them) bit-unchanged, two launches bitwise equal, the CUDA launches of
     the design (the product where a slot may have a predecessor, the
     elementwise launch past ``live``), at most 2."""
     _need_card()
@@ -246,26 +291,29 @@ def test_cell_edge_levels_on_card(kind, name, h):
                                 ("buf", "cids", "eids", "nm", "ext"))
     w = tuple(f32(x) for x in c["w"])
     M, off, live = cids.shape[0], c["off"], c["live"]
-    kw = {"sentinel": c["sentinel"], "live": live}
-    want = ref.level_megastep(kind, buf.clone(), cids, f32(c["cmask"]),
-                              eids, nm, off, ext, w)
+    kw = {"live": live}
+    if c["out_ids"] is not None:
+        kw["out_ids"] = torch.from_numpy(c["out_ids"]).cuda()
+    want = plain_level(kind, c, "cuda")
     lm.reset_launches()
     got = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nm, off, ext, *w, **kw)
     again = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nm, off, ext, *w,
                                **kw)
     torch.cuda.synchronize()
     n = M if live is None else live
+    rows = torch.from_numpy(stored_rows(c)).long().cuda()
+    pads = torch.from_numpy(stored_rows(c, int(c["nm"].sum()))).long().cuda()
     assert lm.LAUNCHES[f"{kind}_megastep"] == 2
     assert lm.CUDA_LAUNCHES[f"{kind}_megastep"] == 2 * ((n > 0) + (n < M))
     if c["nm"].any():
         assert _rel(got, want) <= TOL
     else:
-        assert not bool(got[off:off + M].any())
+        assert not bool(got[rows].any())
     assert torch.equal(_bits(got), _bits(again))
     keep = torch.ones(buf.shape[0], dtype=torch.bool, device="cuda")
-    keep[off:off + M] = False
+    keep[rows] = False
     assert torch.equal(_bits(got[keep]), _bits(buf[keep]))
-    assert not bool(got[off + int(c["nm"].sum()):off + M].any())
+    assert not bool(got[pads].any())
 
 
 @pytest.mark.gpu

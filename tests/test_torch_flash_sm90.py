@@ -5,8 +5,9 @@ JAX reference.
 
 - ``route`` for every (dtype, head dim) that the configs, their reduced
   forms and ``chip_smoke.K10_EDGES`` use: bf16 with ``D % 16 == 0`` and
-  ``D <= 256`` takes "wgmma", f32 with ``D % 8 == 0`` and ``D <= 256``
-  "tf32" (``tests/test_torch_flash_tf32.py``), everything else "simt".
+  ``D <= 256`` takes "wgmma", every other f32 or bf16 head dim in
+  ``1..256`` "tf32" (``tests/test_torch_flash_tf32.py``); another type
+  or head dim has no kernel and raises.
 - ``tma_strides`` and the wrapper refusing, on CPU and meta tensors and
   before any launch, a batch, head or row stride that is not a positive
   multiple of 16 bytes or a base off a 16-byte boundary, and accepting
@@ -90,20 +91,24 @@ def test_route_for_every_k10_edge():
     assert {e[5] for e in edges} >= {32, 64, 80, 128, 256}
     for *_, D, _causal, _window in edges:
         assert fa.route(torch.bfloat16, D) == \
-            ("wgmma" if D % 16 == 0 else "simt"), D
-        assert fa.route(torch.float32, D) == \
-            ("tf32" if D % 8 == 0 else "simt"), D
+            ("wgmma" if D % 16 == 0 else "tf32"), D
+        assert fa.route(torch.float32, D) == "tf32", D
 
 
 @pytest.mark.parametrize("D,want", [(16, "wgmma"), (48, "wgmma"),
-                                    (256, "wgmma"), (8, "simt"),
-                                    (72, "simt"), (100, "simt"),
-                                    (257, "simt")])
+                                    (256, "wgmma"), (8, "tf32"),
+                                    (72, "tf32"), (100, "tf32"),
+                                    (257, None)])
 def test_route_rule_on_other_head_dims(D, want):
+    if want is None:                     # past the widest head: no kernel
+        for dt in (torch.bfloat16, torch.float32, torch.float16):
+            with pytest.raises(ValueError, match="no kernel"):
+                fa.route(dt, D)
+        return
     assert fa.route(torch.bfloat16, D) == want
-    assert fa.route(torch.float32, D) == \
-        ("tf32" if D % 8 == 0 and D <= 256 else "simt")
-    assert fa.route(torch.float16, D) == "simt"
+    assert fa.route(torch.float32, D) == "tf32"
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.route(torch.float16, D)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
-"""K10's f32 tensor-core route (``csrc/flash_attention_tf32.cu``) where no
+"""K10's tensor-core route for f32 operands and for the bf16 head dims
+the wgmma route does not take (``csrc/flash_attention_tf32.cu``) where no
 card is present: the route rule, and the kernel's arithmetic emulated in
 plain PyTorch against the plain version and the JAX reference.
 
 - ``route`` for every head dim that the configs and their reduced forms
-  use and every ``chip_smoke.K10_EDGES`` case at f32: ``D % 8 == 0`` and
-  ``D <= 256`` takes "tf32", any other head dim "simt".
+  use and every ``chip_smoke.K10_EDGES`` case at f32: every head dim in
+  ``1..256`` takes "tf32" (a head dim no multiple of 8 zero-padded to the
+  next in the kernel), a wider one has no kernel and raises.
 - ``emulate_tf32x3`` repeats the kernel's arithmetic on f32 tensors:
   ``cvt.rna.tf32.f32`` on int32 bit views (add half of the 13 dropped
   bits' weight to the magnitude, clear them); each operand split into
@@ -29,6 +31,17 @@ plain PyTorch against the plain version and the JAX reference.
   instead, which is why the kernel adds each tile's PV to O outside the
   mma (its header): ``chip_smoke.py`` holds the card's own sums to the
   same bar.
+- Ragged head dims (20, 36, 100: ``RAGGED``): the kernel zero-fills the
+  columns from D to the end of the last 8-column block, which adds exact
+  zeros to every product, so the emulation's last k-step is the partial
+  block; held to the same 1e-5 against ``ref.mha`` and JAX.
+- bf16 operands (``BF16_CASES``: D 20, 40, 100): a bf16 value is exact in
+  TF32, so QKᵀ is one product a k-step and PV two (``P_small·V`` then
+  ``P_big·V``), O narrowed to bf16 with round-to-nearest-even.  The f32
+  sum before the narrowing is held to 1e-5 of ``ref.mha`` and of JAX's
+  ``attention_chunked`` on the bf16 inputs widened to f32, the narrowed
+  output to the card's bf16 bar (1e-2 of max |plain|) and to the f32 sum
+  rounded to bf16, bit for bit.
 """
 
 import importlib.util
@@ -92,19 +105,23 @@ def test_every_config_head_dim_takes_the_tf32_route_at_f32():
 def test_route_for_every_k10_edge_at_f32():
     edges = _k10_edges()
     dims = {e[5] for e in edges}
-    assert {20, 40} <= dims, "K10_EDGES keep a head dim on each route"
+    assert {20, 40, 100} <= dims, "K10_EDGES keep ragged head dims"
+    assert any(D % 4 for D in dims), "and one the 16-byte copies miss"
     for *_, D, _causal, _window in edges:
-        want = "tf32" if D % 8 == 0 else "simt"
-        assert fa.route(torch.float32, D) == want, D
+        assert fa.route(torch.float32, D) == "tf32", D
 
 
 @pytest.mark.parametrize("D,want", [(8, "tf32"), (40, "tf32"),
                                     (72, "tf32"), (248, "tf32"),
-                                    (256, "tf32"), (20, "simt"),
-                                    (100, "simt"), (257, "simt"),
-                                    (264, "simt")])
+                                    (256, "tf32"), (20, "tf32"),
+                                    (100, "tf32"), (257, None),
+                                    (264, None)])
 def test_tf32_route_rule_on_other_head_dims(D, want):
-    assert fa.route(torch.float32, D) == want
+    if want is None:
+        with pytest.raises(ValueError, match="no kernel"):
+            fa.route(torch.float32, D)
+    else:
+        assert fa.route(torch.float32, D) == want
 
 
 # ---------------------------------------------------------------------------
@@ -154,15 +171,22 @@ def products(a: torch.Tensor, b: torch.Tensor, eq: str, axis_a: int,
 
 
 def emulate_tf32x3(q, k, v, *, causal=True, window=None, scale=None,
-                   split3=True) -> torch.Tensor:
-    """What ``flash_attention_tf32.cu`` computes on f32 ``q``/``k``/``v``
-    (``[B, H, S, D]``; GQA by repeating K/V, which the kernel reads in
-    place): key tile by key tile, S = big·big + cross terms scaled into
-    the exp2 domain and masked to -inf, the online softmax, the tile's
-    P V a k-step of 8 keys (small·big, big·small, big·big, in that order,
-    into a fresh fp32 accumulator), ``O = O * alpha + tile``, the row sum
-    of the unsplit P, and ``o * (1 / l)`` (0 where ``l`` is 0).  ``split3``
-    False: one TF32 product a k-step for QKᵀ and PV."""
+                   split3=True, narrow=True) -> torch.Tensor:
+    """What ``flash_attention_tf32.cu`` computes on f32 or bf16
+    ``q``/``k``/``v`` (``[B, H, S, D]``, any D; GQA by repeating K/V,
+    which the kernel reads in place): key tile by key tile, S = big·big +
+    cross terms scaled into the exp2 domain and masked to -inf, the online
+    softmax, the tile's P V a k-step of 8 keys (small·big, big·small,
+    big·big, in that order, into a fresh fp32 accumulator), ``O = O *
+    alpha + tile``, the row sum of the unsplit P, and ``o * (1 / l)`` (0
+    where ``l`` is 0).  A partial last k-step of the head dim is the
+    kernel's zero-padded block.  bf16 operands are widened, exact in
+    TF32: QKᵀ one product a k-step, PV ``P_small·V`` then ``P_big·V``,
+    the output rounded to bf16 (``narrow`` False: the f32 sum before).
+    ``split3`` False: one TF32 product a k-step for QKᵀ and PV."""
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v = (t.float() for t in (q, k, v))
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -176,7 +200,8 @@ def emulate_tf32x3(q, k, v, *, causal=True, window=None, scale=None,
     o = torch.zeros((B, Hq, Sq, D))
     for k0 in range(0, Sk, BK):
         kt, vt = kk[:, :, k0:k0 + BK], vv[:, :, k0:k0 + BK]
-        big, cross = products(q, kt, "bhqd,bhkd->bhqk", 3, 3, split3)
+        big, cross = products(q, kt, "bhqd,bhkd->bhqk", 3, 3,
+                              split3 and not bf16)
         s = (big + cross) * c
         kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
         valid = torch.ones((Sq, kt.shape[2]), dtype=torch.bool)
@@ -193,7 +218,11 @@ def emulate_tf32x3(q, k, v, *, causal=True, window=None, scale=None,
         ot = torch.zeros_like(o)
         for j in range(0, kt.shape[2], 8):
             pj, vj = p[..., j:j + 8], vt[:, :, j:j + 8]
-            if split3:
+            if bf16:
+                pg, ps = split(pj)
+                for a_ in (ps, pg):
+                    ot = ot + a_ @ vj
+            elif split3:
                 pg, ps = split(pj)
                 vg, vs = split(vj)
                 for a_, b_ in ((ps, vg), (pg, vs), (pg, vg)):
@@ -203,7 +232,8 @@ def emulate_tf32x3(q, k, v, *, causal=True, window=None, scale=None,
         o = o * alpha[..., None] + ot
         m = mnew
     inv = torch.where(l > 0, 1.0 / l, 0.0)
-    return o * inv[..., None]
+    o = o * inv[..., None]
+    return o.to(torch.bfloat16) if bf16 and narrow else o
 
 
 #: (Hq, Hkv, Sq, Sk, D, causal, window): the cases of
@@ -217,12 +247,29 @@ CASES = [(2, 1, 300, 300, 128, True, None),
          (4, 4, 129, 50, 128, True, None),
          (8, 2, 127, 127, 80, True, None),
          (4, 2, 100, 100, 40, True, None)]
+#: Head dims no multiple of 8, at f32: the reduced LM's 20 (the third
+#: 8-column block padded from 20 to 24), 36 without ``causal`` and Sq !=
+#: Sk, and 100 (class 128, 32-key tiles) under a window.
+RAGGED = [(8, 2, 100, 100, 20, True, None),
+          (4, 2, 65, 90, 36, False, None),
+          (4, 1, 129, 129, 100, True, 50)]
+#: bf16 head dims the wgmma route does not take.
+BF16_CASES = [(8, 2, 100, 100, 20, True, None),
+              (4, 2, 100, 100, 40, True, None),
+              (4, 1, 129, 129, 100, True, 50)]
 
 
-def _inputs(Hq, Hkv, Sq, Sk, D):
+def _inputs(Hq, Hkv, Sq, Sk, D, dtype=torch.float32):
     rng = np.random.default_rng(Hq * 1000 + Sq + D)
     return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(dtype)
                  for s in ((1, Hq, Sq, D), (1, Hkv, Sk, D), (1, Hkv, Sk, D)))
+
+
+def _jax_chunked(q, k, v, causal, window):
+    return np.asarray(jfa.attention_chunked(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)), causal=causal,
+        window=window, block_q=128, block_k=64))
 
 
 def _rel(got, want) -> float:
@@ -240,7 +287,7 @@ def test_tf32_rounds_to_nearest_ties_away():
     assert small.item() == pytest.approx(-(2.0 ** -11) + 2.0 ** -20, rel=0)
 
 
-@pytest.mark.parametrize("case", CASES, ids=str)
+@pytest.mark.parametrize("case", CASES + RAGGED, ids=str)
 def test_emulation_matches_plain(case):
     Hq, Hkv, Sq, Sk, D, causal, window = case
     q, k, v = _inputs(Hq, Hkv, Sq, Sk, D)
@@ -251,14 +298,12 @@ def test_emulation_matches_plain(case):
         assert not got[:, :, :Sq - Sk].any(), "rows with no key must be 0"
 
 
-@pytest.mark.parametrize("case", CASES, ids=str)
+@pytest.mark.parametrize("case", CASES + RAGGED, ids=str)
 def test_emulation_matches_jax_attention_chunked(case):
     Hq, Hkv, Sq, Sk, D, causal, window = case
     q, k, v = _inputs(Hq, Hkv, Sq, Sk, D)
     got = emulate_tf32x3(q, k, v, causal=causal, window=window)
-    want = np.asarray(jfa.attention_chunked(
-        *(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=causal,
-        window=window, block_q=128, block_k=64))
+    want = _jax_chunked(q, k, v, causal, window)
     # A query with no valid key is a zero row here and the mean of V in
     # JAX (its -1e30 stand-in for -inf): such rows are left out.
     rows = np.arange(Sq) >= Sq - Sk if causal else np.ones(Sq, bool)
@@ -272,3 +317,33 @@ def test_unsplit_tf32_misses_the_bar():
     want = ref.mha(q, k, v)
     assert _rel(emulate_tf32x3(q, k, v), want) <= TOL
     assert _rel(emulate_tf32x3(q, k, v, split3=False), want) > TOL
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=str)
+def test_bf16_emulation_matches_plain_and_jax(case):
+    """bf16 operands on the tf32 route: the f32 sum before the narrowing
+    within 1e-5 of ``ref.mha`` and JAX on the widened inputs; the bf16
+    output that sum rounded to nearest even, within the card's bf16 bar
+    of the plain version."""
+    Hq, Hkv, Sq, Sk, D, causal, window = case
+    q, k, v = _inputs(Hq, Hkv, Sq, Sk, D, torch.bfloat16)
+    assert fa.route(torch.bfloat16, D) == "tf32"
+    acc = emulate_tf32x3(q, k, v, causal=causal, window=window,
+                         narrow=False)
+    got = emulate_tf32x3(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    want = ref.mha(*(t.float() for t in (q, k, v)), causal=causal,
+                   window=window)
+    assert _rel(acc, want) <= TOL
+    assert _rel(acc, _jax_chunked(q, k, v, causal, window)) <= TOL
+    assert torch.equal(got, acc.to(torch.bfloat16))
+    assert _rel(got.float(), want) <= 1e-2
+
+
+def test_bf16_one_product_is_the_three():
+    """A widened bf16 operand has no small part: the three products of the
+    f32 route give the one (QKᵀ) and two (PV) products' result."""
+    q, k, v = _inputs(4, 2, 100, 100, 40, torch.bfloat16)
+    one = emulate_tf32x3(q, k, v, narrow=False)
+    three = emulate_tf32x3(*(t.float() for t in (q, k, v)))
+    assert torch.equal(one, three)

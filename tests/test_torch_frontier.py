@@ -5,9 +5,11 @@ against JAX ``ref`` and the Pallas K6 in interpret mode; the plain
 ``ref.frontier_megastep`` and its Pallas staging composition in interpret
 mode, for all four megastep kinds; ``core.scheduler.frontier_step`` on
 both fusion legs, alone and over staggered cohorts against solo scoring;
-and the K6 wrappers' and the staged megastep's argument handling, run on
-the CPU with the launch replaced by a recorder.  The CUDA kernels are
-held against the plain versions on the card by
+and the K6 wrappers' and the frontier megastep's argument handling (one
+launch a tick, the rows stored at ``out_ids``), run on the CPU with the
+launch replaced by a recorder.  The folded tick's arithmetic is
+``tests/test_torch_frontier_fold.py``'s; the CUDA kernels are held
+against the plain versions on the card by
 ``tests/test_torch_serve_continuous_card.py``.
 
 Tolerances: the row copies are exact (bit for bit); the cell math is the
@@ -232,30 +234,32 @@ def test_k6_wrappers_refuse_what_the_kernels_do_not_take(recorder):
 
 
 def test_cell_megastep_sentinel_argument(recorder):
-    """The staged frontier megastep writes past the arena's sentinel: the
-    cell wrappers take an explicit ``sentinel`` row, pass it to the
-    kernel, and refuse a block over it; the default stays the last row."""
+    """The zero row a level's absent children read is the buffer's last
+    row: the cell wrappers pass it to the kernel as the sentinel, take no
+    other (the continuous frontier stores at ``out_ids`` and needs no
+    staging block past it), and refuse a block over it or past the
+    buffer."""
     H, M, R = 4, 3, 10
-    buf = torch.zeros(R + M, 2 * H)
+    buf = torch.zeros(R, 2 * H)
     cids = torch.zeros(M, 1, dtype=torch.int32)
     eids = torch.arange(M, dtype=torch.int32)
     nm = torch.ones(M)
     ext = torch.zeros(M, 4 * H)
     wh, b = torch.zeros(H, 4 * H), torch.zeros(4 * H)
-    lm.lstm_megastep(buf, cids, eids, nm, R, ext, wh, b, sentinel=R - 1)
-    assert recorder.calls[-1][1][10:12] == (R, R - 1)     # offset, sentinel
+    lm.lstm_megastep(buf, cids, eids, nm, R - 1 - M, ext, wh, b)
+    # Arguments 10 and 11: the offset and the sentinel.
+    assert recorder.calls[-1][1][10:12] == (R - 1 - M, R - 1)
     lm.lstm_megastep(buf, cids, eids, nm, 0, ext, wh, b)
-    assert recorder.calls[-1][1][11] == R + M - 1
+    assert recorder.calls[-1][1][10:12] == (0, R - 1)
     with pytest.raises(ValueError, match="sentinel"):
-        lm.lstm_megastep(buf, cids, eids, nm, R, ext, wh, b)  # covers R+M-1
+        lm.lstm_megastep(buf, cids, eids, nm, R - M, ext, wh, b)  # covers R-1
     with pytest.raises(ValueError, match="sentinel"):
-        lm.lstm_megastep(buf, cids, eids, nm, R - 2, ext, wh, b,
-                         sentinel=R - 1)
-    with pytest.raises(ValueError, match="sentinel"):
-        lm.lstm_megastep(buf, cids, eids, nm, 0, ext, wh, b, sentinel=R + M)
+        lm.lstm_megastep(buf, cids, eids, nm, R + 1, ext, wh, b)
     with pytest.raises(ValueError):
-        lm.lstm_megastep(buf, cids, eids, nm, R + 1, ext, wh, b,
-                         sentinel=R - 1)
+        lm.lstm_megastep(buf, cids, eids, nm, -1, ext, wh, b)
+    with pytest.raises(TypeError):
+        lm.lstm_megastep(buf, cids, eids, nm, 0, ext, wh, b, sentinel=R - 1)
+    assert len(recorder.calls) == 2
 
 
 # ---------------------------------------------------------------------------
@@ -350,8 +354,7 @@ def test_plain_frontier_megastep_matches_jax_ref_and_pallas(kind, seed):
 def test_ops_frontier_megastep_on_cpu_is_the_plain_version(kind):
     """On CPU tensors ``ops.frontier_megastep`` is the plain version
     (counted), with pre-gathered rows or with ``ext_ids`` into a matrix of
-    pulled rows; a staging block is the card's business and changes
-    nothing here."""
+    pulled rows."""
     jfn, tfn, p, case = _frontier_case(kind, 3)
     targs = _targs(kind, tfn, p, case)
     want = tref.frontier_megastep(kind, targs[1].clone(), *targs[2:])
@@ -364,12 +367,9 @@ def test_ops_frontier_megastep_on_cpu_is_the_plain_version(kind):
                           generator=torch.Generator().manual_seed(0))
     table = torch.zeros(rows.shape[0] + 3, rows.shape[1])
     table[perm[:rows.shape[0]]] = rows
-    staged = torch.zeros(targs[1].shape[0] + rows.shape[0],
-                         targs[1].shape[1])
     got2 = tops.frontier_megastep(
         kind, targs[1].clone(), targs[2], targs[3], table, targs[5],
-        targs[6], targs[7], ext_ids=perm[:rows.shape[0]].to(torch.int32),
-        staging=staged)
+        targs[6], targs[7], ext_ids=perm[:rows.shape[0]].to(torch.int32))
     assert torch.equal(got2, want)
     assert reg.snapshot()["counters"][
         "kernel.dispatch{impl=ref,op=frontier_megastep}"] == 2
@@ -386,31 +386,73 @@ def test_ops_frontier_megastep_unknown_kind_raises():
 def test_staged_composition_launches_megastep_then_scatter(kind, recorder,
                                                            monkeypatch):
     """The card's leg of ``ops.frontier_megastep``, run on CPU tensors
-    with the launches recorded: the level megastep writes the frontier's
-    states into the staging block at offset R (the arena's sentinel, row
-    R-1, passed to every kind), then the row scatter routes the
-    staged rows to ``out_ids`` — two launches; a staging tensor that does
-    not start with the arena raises."""
+    with the launches recorded.  The staged composition (the megastep
+    into a staging block past the arena, then K6b) is folded into one
+    launch: the level megastep of the kind over the arena itself, offset
+    0, the arena's sentinel (row R-1) passed, ``out_ids`` and the arena's
+    rows R given, so the kernel stores each lane's row at its id; no
+    scatter, no staging block, no copy of the arena; without ``ext_ids``
+    the lanes pull rows 0..M-1."""
     jfn, tfn, p, case = _frontier_case(kind, 0)
     kind_, buf, cids, cmask, rows, nm, out, w = _targs(kind, tfn, p, case)
     R, S = buf.shape
     M = cids.shape[0]
-    staging = torch.zeros(R + M + 2, S)
-    arena = staging[:R]
-    arena.copy_(buf)
+    arena = buf.clone()
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    got = tops.frontier_megastep(kind, arena, cids, cmask, rows, nm, out, w)
+    assert got is arena
+    ((mname, margs),) = recorder.calls
+    assert mname == f"{kind}_megastep"
+    assert margs[0] == arena.data_ptr()
+    assert margs[7] == M and margs[10:12] == (0, R - 1)  # offset, sentinel
+    assert margs[16:18] == (out.data_ptr(), R)            # out_ids, rows
+    assert margs[2] != out.data_ptr()                     # ext_ids 0..M-1
+    assert lm.LAUNCHES == {f"{kind}_megastep": 1}
+    assert torch.equal(arena, buf)                        # nothing else ran
+    # With ext_ids, those are passed through.
+    eids = torch.arange(M, dtype=torch.int32).flip(0).contiguous()
     tops.frontier_megastep(kind, arena, cids, cmask, rows, nm, out, w,
-                           staging=staging)
-    (mname, margs), (sname, sargs) = recorder.calls
-    assert mname == f"{kind}_megastep" and sname == "scatter_rows"
-    assert margs[0] == staging.data_ptr()
-    assert margs[10:12] == (R, R - 1)                     # offset, sentinel
-    assert sargs[0] == arena.data_ptr()
-    assert sargs[1] == staging[R:R + M].data_ptr()
-    assert sargs[3:5] == (M, R)
-    with pytest.raises(ValueError, match="staging"):
-        tops.frontier_megastep(kind, arena, cids, cmask, rows, nm, out, w,
-                               staging=torch.zeros(R + M, S))
+                           ext_ids=eids)
+    assert recorder.calls[-1][1][2] == eids.data_ptr()
+    assert "scatter_rows" not in lm.LAUNCHES
+
+
+def test_megastep_out_ids_argument(recorder):
+    """The forward wrappers take ``out_ids`` (``[M]`` int32 on the
+    buffer's device, contiguous): its address and the buffer's rows go to
+    the kernel, offset must be 0 and the block check gives way to the ids
+    (a frontier may be wider than the arena); without it the address is
+    null and the block is checked as before."""
+    H, M, R = 4, 6, 5
+    buf = torch.zeros(R, 2 * H)
+    cids = torch.full((M, 1), R - 1, dtype=torch.int32)
+    eids = torch.arange(M, dtype=torch.int32)
+    nm = torch.ones(M)
+    ext = torch.zeros(M, 4 * H)
+    wh, b = torch.zeros(H, 4 * H), torch.zeros(4 * H)
+    out = torch.tensor([0, 1, 2, 3, 7, 8], dtype=torch.int32)
+    lm.lstm_megastep(buf, cids, eids, nm, 0, ext, wh, b, out_ids=out)
+    args = recorder.calls[-1][1]
+    assert args[10:12] == (0, R - 1) and args[16:18] == (out.data_ptr(), R)
+    with pytest.raises(ValueError, match="offset"):
+        lm.lstm_megastep(buf, cids, eids, nm, 1, ext, wh, b, out_ids=out)
+    with pytest.raises(TypeError):
+        lm.lstm_megastep(buf, cids, eids, nm, 0, ext, wh, b,
+                         out_ids=out.long())
+    with pytest.raises(ValueError, match="shape"):
+        lm.lstm_megastep(buf, cids, eids, nm, 0, ext, wh, b,
+                         out_ids=out[:3])
+    with pytest.raises(ValueError):               # M > R: no block fits
+        lm.lstm_megastep(buf, cids, eids, nm, 0, ext, wh, b)
+    ui = torch.zeros(H, 4 * H)
+    lm.treelstm_megastep(buf, cids, eids, nm, 0, ext,
+                         *(ui[:, g * H:(g + 1) * H] for g in range(4)),
+                         torch.zeros(4 * H), out_ids=out)
+    assert recorder.calls[-1][1][16:18] == (out.data_ptr(), R)
+    gbuf = torch.zeros(R + M + 1, H)
+    lm.gru_megastep(gbuf, cids, eids, nm, R, torch.zeros(M, 3 * H),
+                    torch.zeros(H, 3 * H), torch.zeros(3 * H))
+    assert recorder.calls[-1][1][16:18] == (0, R + M + 1)  # null: the block
 
 
 # ---------------------------------------------------------------------------

@@ -86,13 +86,13 @@ LEVELS = _megastep_tests.EDGE_LEVELS
 # ---------------------------------------------------------------------------
 
 def emulate_fwd_tf32x3(buf, cids, eids, nm, off, ext, weights, *, live=None,
-                       sentinel=None, sms=SMS, split3=True):
+                       sms=SMS, split3=True):
     """What K1 leaves in ``buf`` (a copy; the inputs are left as they are)
     for one level, its depth split as the kernel splits it on a card of
     ``sms`` SMs."""
     out = buf.clone()
     M, A = cids.shape
-    sent = buf.shape[0] - 1 if sentinel is None else sentinel
+    sent = buf.shape[0] - 1
     L = M if live is None else live
     ui, uf, uo, uu, b = weights
     H = ui.shape[0]
@@ -350,8 +350,7 @@ def test_wrapper_passes_live_split_and_sentinel(fake_card):
     assert lm.treelstm_megastep(buf, cids, eids, nm, off, ext, *w,
                                 live=65) is buf
     lm.treelstm_megastep(buf, cids, eids, nm, off, ext, *w)
-    lm.treelstm_megastep(buf, cids, eids, nm, off, ext, *w, live=0,
-                         sentinel=R - 1)
+    lm.treelstm_megastep(buf, cids, eids, nm, off, ext, *w, live=0)
     (_, a1), (_, a2), (_, a3) = fake_card
     assert a1[0] == buf.data_ptr() and a1[5] == w[0].data_ptr()
     assert a1[7:16] == (M, 2, 72, off, R - 1, 144, 288, 65,
@@ -362,9 +361,8 @@ def test_wrapper_passes_live_split_and_sentinel(fake_card):
     assert lm.CUDA_LAUNCHES["treelstm_megastep"] == 2 + 1 + 1
     with pytest.raises(ValueError, match="live"):
         lm.treelstm_megastep(buf, cids, eids, nm, off, ext, *w, live=M + 1)
-    with pytest.raises(ValueError, match="sentinel"):
-        lm.treelstm_megastep(buf, cids, eids, nm, off, ext, *w,
-                             sentinel=off)
+    with pytest.raises(ValueError, match="sentinel"):    # covers R - 1
+        lm.treelstm_megastep(buf, cids, eids, nm, R - M, ext, *w)
     assert lm.LAUNCHES["treelstm_megastep"] == 3
 
 
@@ -385,7 +383,7 @@ def test_scheduler_and_ops_pass_live_to_the_card(monkeypatch):
     want = tsch._megastep_forward(spec, spec.weights(params), d, ext)
     seen = []
 
-    def k1(buf, cids, eids, nm, off, ext_, *w, live=None, sentinel=None):
+    def k1(buf, cids, eids, nm, off, ext_, *w, live=None):
         seen.append((off, live))
         cmask = (cids != buf.shape[0] - 1).float()
         return ref.level_megastep("treelstm", buf, cids, cmask, eids, nm,

@@ -355,6 +355,6 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="live"):
         lm.treelstm_megastep(buf, cids, eids, nmask, off, ext, *w,
                              live=cids.shape[0] + 1)
-    with pytest.raises(ValueError, match="sentinel"):
-        lm.treelstm_megastep(buf, cids, eids, nmask, off, ext, *w,
-                             sentinel=off)
+    with pytest.raises(ValueError, match="sentinel"):    # covers it
+        lm.treelstm_megastep(buf, cids, eids, nmask,
+                             buf.shape[0] - cids.shape[0], ext, *w)

@@ -365,20 +365,21 @@ def test_build_table_covers_every_kind(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_CSRC", csrc)
     monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "build")
     names = ("gru_bwd_megastep", "treelstm_megastep", "lstm_megastep",
-             "treefc_megastep", "flash_attention", "lstm_gates")
+             "treefc_megastep", "flash_attention_tf32", "lstm_gates")
     before = {n: _build.library_path(n) for n in names}
     (csrc / "cell_megastep_sm90.cu").write_text(
         (csrc / "cell_megastep_sm90.cu").read_text() + "\n")
     after = {n: _build.library_path(n) for n in names}
     assert after["treefc_megastep"] != before["treefc_megastep"]
-    for n in ("gru_bwd_megastep", "treelstm_megastep", "flash_attention"):
+    for n in ("gru_bwd_megastep", "treelstm_megastep",
+              "flash_attention_tf32"):
         assert after[n] == before[n], n
     (csrc / "gathered_product.cuh").write_text(
         (csrc / "gathered_product.cuh").read_text() + "\n")
     for n in ("gru_bwd_megastep", "treelstm_megastep", "lstm_megastep",
               "treefc_megastep"):
         assert _build.library_path(n) != after[n], n
-    for n in ("flash_attention", "lstm_gates"):
+    for n in ("flash_attention_tf32", "lstm_gates"):
         assert _build.library_path(n) == after[n], n
     monkeypatch.setattr(_build, "_nvcc", lambda: "false")
     monkeypatch.setattr(_build, "_LOADED", {})

@@ -1,9 +1,11 @@
 """Continuous and decode serving on the card: the K6 row gather/scatter
-kernels against their plain versions (bit for bit), the staged frontier
-megastep against the plain frontier (1e-4), the designed launches of a
-continuous tick (one megastep, one row scatter) and of a decode tick (one
-megastep), and a kernel fault failing the in-flight requests of both
-engines with no fallback to the plain versions.  Every test is
+kernels against their plain versions (bit for bit), the frontier
+megastep, one launch that stores each lane's row at its arena id, against
+the plain frontier (1e-4 of max |plain|) for every kind, the designed
+launches of a continuous tick (one megastep, one CUDA launch; one row
+scatter a tick on the op-by-op leg) and of a decode tick (one megastep),
+and a kernel fault failing the in-flight requests of both engines with no
+fallback to the plain versions.  Every test is
 ``gpu``-marked and skips inside its body where there is no card; none
 needs JAX, which the GPU machine lacks."""
 
@@ -19,7 +21,7 @@ from repro_torch.kernels import level_megastep as lm
 from repro_torch.kernels import ops, ref
 from repro_torch.models.readout import ClassificationHead
 from repro_torch.models.rnn import GRUVertex, LSTMVertex
-from repro_torch.models.treelstm import TreeLSTMVertex
+from repro_torch.models.treelstm import TreeFCVertex, TreeLSTMVertex
 from repro_torch.serve import (AdmissionPolicy, ContinuousBatchEngine,
                                ContinuousRequest, StructureRequest,
                                StructureServeEngine, VertexRequest,
@@ -93,25 +95,37 @@ def test_k6_wrappers_count_launches_and_refuse():
                          torch.zeros(2, 4, device="cuda"))
 
 
+CELLS = {"treelstm": lambda H: TreeLSTMVertex(X, H, 2),
+         "lstm": lambda H: LSTMVertex(X, H),
+         "gru": lambda H: GRUVertex(X, H),
+         "treefc": lambda H: TreeFCVertex(X, H, 2)}
+
+
 def _frontier_case(kind, H, M, R, gen):
-    fn = (TreeLSTMVertex(X, H, 2) if kind == "treelstm"
-          else LSTMVertex(X, H))
-    A = 2 if kind == "treelstm" else 1
+    """A tick over an arena of R rows and the sentinel R that keeps the
+    frontier's contract: the live lanes store to rows of one half of a
+    permutation of the arena, children read the other half (or the
+    sentinel, mask 0); every fourth lane from M / 3 is a pad lane (node
+    mask 0, an id past the arena, children at the sentinel)."""
+    fn = CELLS[kind](H)
+    A = max(1, fn.arity)
     params = fn.init(gen, device="cuda")
     params["b"] = (torch.randn(params["b"].shape, generator=gen) * 0.1) \
         .cuda()
     spec = resolve_fusion(fn, "megastep", sched_arity=A)
     buf = torch.randn(R + 1, fn.state_dim, generator=gen) * 0.5
     buf[R] = 0.0
+    perm = torch.randperm(R, generator=gen).to(torch.int32)
+    half = R // 2
     cmask = (torch.rand(M, A, generator=gen) > 0.3).float()
-    cids = torch.where(cmask > 0, torch.randint(0, R, (M, A), generator=gen),
-                       torch.full((M, A), R)).to(torch.int32)
+    reads = perm[half:][torch.randint(0, R - half, (M, A), generator=gen)]
+    cids = torch.where(cmask > 0, reads,
+                       torch.full((M, A), R, dtype=torch.int32))
     nm = torch.ones(M)
     nm[M // 3::4] = 0.0
     out = R + 1 + torch.arange(M, dtype=torch.int32)
     live = (nm > 0).nonzero()[:, 0]
-    out[live] = torch.randperm(R, generator=gen)[:live.numel()] \
-        .to(torch.int32)
+    out[live] = perm[:live.numel()]
     cids[nm == 0] = R
     cmask[nm == 0] = 0.0
     rows = torch.randn(M, fn.ext_dim, generator=gen) * 0.5
@@ -120,36 +134,59 @@ def _frontier_case(kind, H, M, R, gen):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["treelstm", "lstm"])
+@pytest.mark.parametrize("kind", ["treelstm", "lstm", "gru", "treefc"])
 @pytest.mark.parametrize("H,M,R", [(16, 5, 40), (72, 64, 300),
-                                   (512, 256, 4096)])
+                                   (512, 256, 4096), (5, 70, 200)])
 def test_frontier_megastep_matches_plain_on_card(kind, H, M, R):
-    """The staged composition (megastep into a staging block past the
-    arena, then K6b) against the plain frontier, with and without a
-    persistent staging block: within 1e-4; untouched rows and the
-    sentinel bit-unchanged; two launches per call."""
+    """The staged composition (megastep into a staging block, then K6b)
+    folded into one launch: the megastep over the arena itself stores
+    each lane's row at its id.  Against the plain frontier within 1e-4 of
+    max |plain|; rows no live lane names (the sentinel among them) and
+    the pad lanes' rows bit-unchanged; two launches bitwise equal; one
+    counted launch and one CUDA launch a tick, no scatter; the tick keeps
+    the contract."""
     _need_card()
     gen = torch.Generator().manual_seed(H + M)
     spec, buf, cids, cmask, rows, nm, out, w = _frontier_case(kind, H, M, R,
                                                               gen)
+    assert bool(ops.frontier_contract_holds(cids, out, R + 1))
     want = ref.frontier_megastep(kind, buf.clone(), cids, cmask, rows, nm,
                                  out, w)
-    staging = torch.zeros(R + 1 + M, buf.shape[1], device="cuda")
-    arena = staging[:R + 1]
-    arena.copy_(buf)
     lm.reset_launches()
-    got = ops.frontier_megastep(kind, arena, cids, cmask, rows, nm, out, w,
-                                staging=staging)
-    assert lm.LAUNCHES == {f"{kind}_megastep": 1, "scatter_rows": 1}
+    got = ops.frontier_megastep(kind, buf.clone(), cids, cmask, rows, nm,
+                                out, w)
+    assert lm.LAUNCHES == {f"{kind}_megastep": 1}
+    assert lm.CUDA_LAUNCHES[f"{kind}_megastep"] == 1
     got2 = ops.frontier_megastep(kind, buf.clone(), cids, cmask, rows, nm,
                                  out, w)
     torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= TOL
-    assert torch.equal(got, got2)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= TOL * scale
+    assert torch.equal(_bits(got), _bits(got2))
     untouched = torch.ones(R + 1, dtype=torch.bool, device="cuda")
     untouched[out[nm > 0].long()] = False
     assert torch.equal(_bits(got[untouched]), _bits(buf[untouched]))
     assert not got[R].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["treelstm", "lstm"])
+def test_frontier_megastep_with_ext_ids_on_card(kind):
+    """Pulled rows through ``ext_ids`` into a larger matrix (the engine's
+    pulled-row arena): the same rows as pre-gathered ones, bit for bit."""
+    _need_card()
+    gen = torch.Generator().manual_seed(7)
+    spec, buf, cids, cmask, rows, nm, out, w = _frontier_case(kind, 72, 64,
+                                                              300, gen)
+    table = torch.randn(300, rows.shape[1], generator=gen).cuda()
+    ids = torch.randperm(300, generator=gen)[:64].to(torch.int32).cuda()
+    table[ids.long()] = rows
+    a = ops.frontier_megastep(kind, buf.clone(), cids, cmask, rows, nm,
+                              out, w)
+    b = ops.frontier_megastep(kind, buf.clone(), cids, cmask, table, nm,
+                              out, w, ext_ids=ids)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(b))
 
 
 def _chains(seed, n, lo=1, hi=9):
@@ -175,9 +212,10 @@ def _trees(seed, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("cell", ["lstm", "treelstm"])
 def test_continuous_engine_launches_per_tick_and_roots(cell):
-    """Each tick is one megastep and one row scatter; each retiring window
-    one row gather; the roots and head logits within 1e-4 of solo scoring
-    on the card and of the plain path on the CPU."""
+    """Each tick is one megastep, one CUDA launch that stores the lanes'
+    rows at their ids (no row scatter); each retiring window one row
+    gather; the roots and head logits within 1e-4 of solo scoring on the
+    card and of the plain path on the CPU."""
     _need_card()
     fn = TreeLSTMVertex(X, 72, 2) if cell == "treelstm" else LSTMVertex(X, 72)
     gen = torch.Generator().manual_seed(0)
@@ -203,7 +241,8 @@ def test_continuous_engine_launches_per_tick_and_roots(cell):
     eng, reqs = run("cuda", params, hp)
     kind = "treelstm" if cell == "treelstm" else "lstm"
     assert lm.LAUNCHES[f"{kind}_megastep"] == eng.ticks > 0
-    assert lm.LAUNCHES["scatter_rows"] == eng.ticks
+    assert lm.CUDA_LAUNCHES[f"{kind}_megastep"] == eng.ticks
+    assert "scatter_rows" not in lm.LAUNCHES
     assert 0 < lm.LAUNCHES["gather_rows"] <= eng.windows
     h = eng.health()
     assert h["degradations"] == 0 and not h["breaker_open"]
@@ -220,6 +259,40 @@ def test_continuous_engine_launches_per_tick_and_roots(cell):
         solo.submit(s)
         solo.run()
         np.testing.assert_allclose(r.root_state, s.root_state, rtol=0,
+                                   atol=TOL)
+
+
+@pytest.mark.gpu
+def test_unfused_continuous_engine_scatters_each_tick():
+    """The op-by-op leg of the continuous engine (``fusion_mode="none"``):
+    each tick gathers its children, runs the cell in plain ops and
+    scatters the states with one K6b launch; roots within 1e-4 of the
+    fused engine's."""
+    _need_card()
+    fn = LSTMVertex(X, 72)
+    params = fn.init(torch.Generator().manual_seed(0), device="cuda")
+    data = _chains(2, 10)
+
+    def run(mode):
+        eng = ContinuousBatchEngine(
+            fn, params, num_rows=128, frontier_width=16, fusion_mode=mode,
+            device="cuda",
+            policy=AdmissionPolicy(min_occupancy=0.0, max_window=4))
+        reqs = [ContinuousRequest(i, g, x) for i, (g, x) in enumerate(data)]
+        for r in reqs:
+            assert eng.submit(r), r.error
+        lm.reset_launches()
+        eng.run()
+        return eng, reqs, dict(lm.LAUNCHES)
+
+    eng, reqs, launches = run("none")
+    assert not eng.fused
+    assert launches["scatter_rows"] == eng.ticks > 0
+    assert "lstm_megastep" not in launches
+    _, freqs, _ = run("auto")
+    for r, f in zip(reqs, freqs):
+        assert r.status == f.status == OK
+        np.testing.assert_allclose(r.root_state, f.root_state, rtol=0,
                                    atol=TOL)
 
 

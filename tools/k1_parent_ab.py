@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """K1 (the Tree-LSTM forward megastep), K3/K4/K5 (the LSTM, GRU and
-Tree-FC forward megasteps), K9 (the fused LSTM level step) or K12 (the
-Mamba-2 chunk scan) beside an earlier commit's on the same inputs, in one
+Tree-FC forward megasteps), K9 (the fused LSTM level step), K12 (the
+Mamba-2 chunk scan), the continuous frontier's tick (K6b) or K10 at the
+ragged head dims beside an earlier commit's on the same inputs, in one
 run on one card.
 
     git archive <commit> | tar -x -C build/parent
@@ -11,6 +12,9 @@ run on one card.
     python3 tools/k1_parent_ab.py build/parent k5       # K5 (treefc)
     python3 tools/k1_parent_ab.py build/parent k9       # K9
     python3 tools/k1_parent_ab.py build/parent k12      # K12
+    python3 tools/k1_parent_ab.py build/parent k6b      # frontier ticks
+    python3 tools/k1_parent_ab.py build/parent k10      # K10, ragged D
+    python3 tools/k1_parent_ab.py build/parent k10 build/other ...
 
 K1.  The directory holds a checkout of the earlier commit; its K1 source,
 ``src/repro_torch/kernels/csrc/treelstm_megastep.cu`` (the fp32 SIMT
@@ -18,8 +22,9 @@ kernel, entry point ``treelstm_megastep_launch``, no sentinel and no live
 count), is built with this checkout's ``nvcc`` flags.  Both kernels then
 run on the levels ``chip_smoke.py`` launches K1 on, with the keywords the
 main path gives this checkout's K1: every level of the served traffic,
-one training step's forward levels, the continuous tree frontier's kept
-ticks and the synthetic M 4,096 level.  Each level is checked for both
+one training step's forward levels and the synthetic M 4,096 level (the
+continuous frontier's ticks store their rows at arena ids, which the
+earlier kernel cannot: ``k6b`` times them).  Each level is checked for both
 kernels against the plain version (1e-4), then both are timed by
 ``torch.profiler`` device time, every level in one session, this K1 and
 the earlier one in turns.  Prints the means a launch of each set (the
@@ -36,11 +41,9 @@ kernel, on the levels ``chip_smoke.py`` launches them on: the forward
 levels of one Var-LSTM (K3), GRU (K4) or Tree-FC (K5) training step (the
 cell phase's setup, one step taken with a tap), for K3 and K4 every
 ``TAP_EVERY``-th decode tick of ``VertexServeEngine`` (``chip_smoke``'s
-decode traffic, no live count) and, for K3, the continuous chain
-frontier's kept ticks (the LSTM-chain trace submitted at once, no live
-count, a staging block past the sentinel).  Each level is checked for
-both kernels against the plain version (1e-4 of max |plain|); then both
-are timed by ``torch.profiler`` device time, one session a set, this
+decode traffic, no live count); the chain frontier's ticks are
+``k6b``'s.  Each level is checked for both kernels against the plain
+version (1e-4 of max |plain|); then both are timed by ``torch.profiler`` device time, one session a set, this
 kernel and the earlier one in turns.  Prints the means a launch, the sum
 over the step's levels and, for K5, each level's times; last, one JSON
 line of them.
@@ -65,6 +68,39 @@ its traffic) and on mamba2-370m's shapes at ``chip_smoke.K12_TIMED_LENS``
 against the plain version (``chip_smoke.K12_BARS``), then both are timed
 by ``torch.profiler`` device time in one session, in turns.  Prints the
 means a launch and, last, one JSON line of them.
+
+K6b.  A continuous frontier tick on the earlier commit (up to be1bb74)
+is two launches: its level megastep (``treelstm_megastep_sm90.cu`` or
+``cell_megastep_sm90.cu``, entry points without ``out_ids``) writes the
+lanes' states into a staging block past the arena, then its K6b
+(``gather_scatter.cu``, ``scatter_rows_launch``) routes them to their
+rows.  Both are built from the earlier checkout the same way and run, in
+turns with this checkout's one launch (the megastep storing each lane's
+row at its id), on the kept ticks of ``chip_smoke.py``'s continuous
+Tree-LSTM run (K1) and of the LSTM-chain trace submitted at once (K3).
+Each tick is checked: this checkout's arena against the plain version
+(1e-4 of max |plain|) and, bit for bit, against the earlier two
+launches' arena.  Then both are timed by ``torch.profiler`` device time,
+one session a set (the earlier tick's two kernels also apart); and by
+CUDA events over back-to-back ticks (the host's launch cost included),
+this checkout's tick through its wrapper beside the earlier tick's two
+entry points called through ``ctypes``.
+
+K10.  The earlier SIMT kernel, ``src/repro_torch/kernels/csrc/
+flash_attention.cu`` (fp32 FMAs, entry point ``flash_attention_launch``,
+the route of head dims the tensor-core kernels did not take until
+be1bb74), is built the same way.  Both it and this checkout's
+``flash_attention`` (the tf32 route at those head dims) run on the ragged
+cases of ``chip_smoke.K10_EDGES`` and ``chip_smoke.K10_RAGGED_TIMED`` at
+f32 and bf16, on the K10 launches of ``chip_smoke``'s reduced f32 LM at
+``RAGGED_HEAD_DIM`` (all, and by query length) and on those launches'
+shapes at D 24 and 32; each is checked against the plain version
+(``chip_smoke.ATTN_BARS``), then both are timed by ``torch.profiler``
+device time, one session a set.  Further directories, where given, hold
+other checkouts whose ``flash_attention_tf32.cu`` (entry point
+``flash_attention_tf32_launch``) is built and timed beside, each under
+its directory's name; the ptxas lines (registers, spills) of every
+tf32 build are printed.
 
 Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 """
@@ -106,9 +142,23 @@ def earlier_library(checkout: Path, source: str) -> ctypes.CDLL:
     lib = _build.build_dir() / f"earlier_{src.stem}-{tag}.so"
     lib.parent.mkdir(parents=True, exist_ok=True)
     if not lib.exists():
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                        str(src)], check=True, capture_output=True)
+        r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                            str(lib), str(src)], check=True,
+                           capture_output=True, text=True)
+        lib.with_suffix(".log").write_text(r.stdout + r.stderr)
     return ctypes.CDLL(str(lib))
+
+
+def ptxas_lines(log: str) -> list:
+    """``(entry function, registers / spills line)`` pairs of what
+    ``nvcc -Xptxas -v`` said in ``log``."""
+    out, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and ("registers" in line or "spill stores" in line):
+            out.append((entry, line.replace("ptxas info    :", "").strip()))
+    return out
 
 
 def earlier_k1(checkout: Path):
@@ -142,15 +192,6 @@ def level_sets() -> dict:
     y = cs._labels(labels)
     sets["training step"] = cs.tapped_levels(
         lambda: cs.grads_of(ex, fn, params, b, y, "auto"))
-    fn, params, head, hp, ds = cs.cont_setup()
-    ticks, _g, eng = cs.frontier_taps(
-        lambda: cs.cont_engine(fn, params, head, hp, cs.CONT_ROWS,
-                               cs.CONT_WIDTH),
-        cs._cont_requests(ds.graphs, ds.inputs))
-    R = eng.num_rows + 1
-    sets["tree frontier"] = [
-        ((snap[0], cids, cmask, eids, nm, R, snap[1], w), {"sentinel": R - 1})
-        for snap, cids, cmask, nm, _out, eids, w in ticks if snap is not None]
     gen = torch.Generator().manual_seed(1234)    # kernel_phase's first draw
     sets[f"synthetic M {cs.M_FULL}"] = [(cs.synthetic_level(
         cs.M_FULL, 2, cs.HIDDEN, gen, cs.DEVICE), {})]
@@ -190,8 +231,7 @@ def earlier_cell(checkout: Path, kind: str):
 def cell_sets(kind: str) -> dict:
     """set name → (case, kw) pairs of K3 (``kind`` "lstm"), K4 ("gru") or
     K5 ("treefc"), as ``chip_smoke.py`` gathers them: one training step's
-    forward levels, (K3, K4) the kept decode ticks and (K3) the chain
-    frontier's kept ticks."""
+    forward levels and (K3, K4) the kept decode ticks."""
     phase = {"lstm": "var_lstm", "gru": "gru", "treefc": "tree_fc"}[kind]
     _k, fn, params, d, ext, h_lo, _s = cs.cell_setup(phase)
     sets = {f"{phase} step": cs.tapped_levels(
@@ -214,20 +254,6 @@ def cell_sets(kind: str) -> dict:
     finally:
         cs.ops.level_megastep = inner
     sets["decode ticks"] = taps
-    if kind == "lstm":
-        fn, params, _gen = cs.chain_setup()
-        _arr, lens = cs.poisson_trace(cs.TRACE_SEED, cs.TRACE_N,
-                                      cs.TRACE_RATE, cs.TRACE_LENGTHS)
-        ticks, _g, eng = cs.frontier_taps(
-            lambda: cs.cont_engine(fn, params, None, None, cs.CHAIN_ROWS,
-                                   cs.CHAIN_WIDTH),
-            cs.trace_requests(cs.ContinuousRequest, lens, fn.input_dim))
-        R = eng.num_rows + 1
-        sets["chain frontier"] = [
-            ((snap[0], cids, cmask, eids, nm, R, snap[1], w),
-             {"sentinel": R - 1})
-            for snap, cids, cmask, nm, _out, eids, w in ticks
-            if snap is not None]
     return sets
 
 
@@ -242,7 +268,7 @@ def cell_main(dev: dict, checkout: Path, kind: str) -> None:
         timed, copies, bounds = {}, {}, []
         for i, (case, kw) in enumerate(levels):
             buf, cids, cmask, eids, nmask, off, ext, w = case
-            sent = kw.get("sentinel", buf.shape[0] - 1)
+            sent = buf.shape[0] - 1
             want = ref.level_megastep(kind, buf.clone(), cids, cmask, eids,
                                       nmask, off, ext, w)
             got = lm.MEGASTEPS[kind](buf.clone(), cids, eids, nmask, off,
@@ -268,8 +294,7 @@ def cell_main(dev: dict, checkout: Path, kind: str) -> None:
                 "calls": [lambda eb=eb, c=c, w=w, sent=sent:
                           earlier(eb, *c, w, sent)],
                 "match": "cell_megastep_kernel", "launches": 1}
-            bounds.append(cs.cell_bound_ms(kind, (kind,) + case, False,
-                                           sentinel=sent)[0])
+            bounds.append(cs.cell_bound_ms(kind, (kind,) + case, False)[0])
         ms = cs.device_ms(timed, reps=10)
         this = [ms[i, "this"] for i in range(len(levels))]
         old = [ms[i, "earlier"] for i in range(len(levels))]
@@ -504,13 +529,294 @@ def k12_main(dev: dict, checkout: Path) -> None:
     print(json.dumps(out))
 
 
+#: The earlier forward megasteps' entry points (K1 and K3-K5 up to
+#: be1bb74): buf, child_ids, ext_ids, node_mask, ext, w, bias; M, A, H,
+#: offset, sentinel, buf_stride, ext_stride, live, split; launches, stream.
+EARLIER_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+    + [ctypes.c_void_p] * 2
+#: The earlier K6b: dst, rows, idx; n, R, D, elem, dst_stride,
+#: rows_stride; stream.
+EARLIER_SCATTER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
+
+
+def earlier_tick(checkout: Path, kind: str):
+    """The earlier checkout's two-launch frontier tick of ``kind``
+    ("treelstm" or "lstm"), built here, as ``fn(stg, R, cids, eids, nm,
+    ext, w, out)``: the megastep over every slot (no live count, as the
+    frontier ran it) into rows ``[R, R + M)`` of ``stg``, then K6b from
+    there to ``out`` in ``stg[:R]``."""
+    src = ("treelstm_megastep_sm90.cu" if kind == "treelstm"
+           else "cell_megastep_sm90.cu")
+    mega = getattr(earlier_library(checkout, src),
+                   f"{kind}_megastep_sm90_launch")
+    mega.argtypes, mega.restype = EARLIER_FWD_ARGS, ctypes.c_int
+    scat = earlier_library(checkout, "gather_scatter.cu").scatter_rows_launch
+    scat.argtypes, scat.restype = EARLIER_SCATTER_ARGS, ctypes.c_int
+    sms = lm._sm_count(torch.device(cs.DEVICE))
+
+    def launch(stg, R, cids, eids, nm, ext, w, out):
+        M, A = cids.shape
+        stream = torch.cuda.current_stream().cuda_stream
+        if kind == "treelstm":
+            wp, H = lm.packed_recurrent(*w[:4]), w[0].shape[0]
+            split = lm.k1_split(M, H, sms)
+        else:
+            wp, H = w[0], w[0].shape[0]
+            split = lm.cell_split(M, H, sms, kind, A)
+        n = ctypes.c_int(0)
+        rc = mega(stg.data_ptr(), cids.data_ptr(), eids.data_ptr(),
+                  nm.data_ptr(), ext.data_ptr(), wp.data_ptr(),
+                  w[-1].data_ptr(), M, A, H, R, R - 1, stg.stride(0),
+                  ext.stride(0), M, split, ctypes.addressof(n), stream)
+        if rc:
+            raise RuntimeError(f"the earlier {kind} megastep failed with "
+                               f"CUDA error {rc}")
+        rc = scat(stg.data_ptr(), stg[R:].data_ptr(), out.data_ptr(), M, R,
+                  stg.shape[1], stg.element_size(), stg.stride(0),
+                  stg.stride(0), stream)
+        if rc:
+            raise RuntimeError(f"the earlier scatter_rows failed with CUDA "
+                               f"error {rc}")
+        return stg
+
+    return launch
+
+
+def tick_sets() -> dict:
+    """set name → (kind, kept ticks, engine): the continuous Tree-LSTM
+    run's and the LSTM-chain trace's kept frontier ticks, as
+    ``chip_smoke.py`` taps them."""
+    fn, params, head, hp, ds = cs.cont_setup()
+    ticks, _g, eng = cs.frontier_taps(
+        lambda: cs.cont_engine(fn, params, head, hp, cs.CONT_ROWS,
+                               cs.CONT_WIDTH),
+        cs._cont_requests(ds.graphs, ds.inputs))
+    sets = {"tree frontier": ("treelstm", ticks, eng)}
+    fn, params, _gen = cs.chain_setup()
+    _arr, lens = cs.poisson_trace(cs.TRACE_SEED, cs.TRACE_N, cs.TRACE_RATE,
+                                  cs.TRACE_LENGTHS)
+    ticks, _g, eng = cs.frontier_taps(
+        lambda: cs.cont_engine(fn, params, None, None, cs.CHAIN_ROWS,
+                               cs.CHAIN_WIDTH),
+        cs.trace_requests(cs.ContinuousRequest, lens, fn.input_dim))
+    sets["chain frontier"] = ("lstm", ticks, eng)
+    return sets
+
+
+def k6b_main(dev: dict, checkout: Path) -> None:
+    torch.set_grad_enabled(False)
+    sets = tick_sets()
+    out = {"card": dev["smi"]}
+    for name, (kind, ticks, eng) in sets.items():
+        earlier = earlier_tick(checkout, kind)
+        R = eng.num_rows + 1
+        this_calls, old_calls, lanes = [], [], []
+        for snap, cids, cmask, nm, ids, eids, w in ticks:
+            if snap is None:
+                continue
+            arena, ext = snap
+            M, S = cids.shape[0], arena.shape[1]
+            want = cs.ref.frontier_megastep(kind, arena.clone(), cids, cmask,
+                                            ext.index_select(0, eids), nm,
+                                            ids, w)
+            got = lm.MEGASTEPS[kind](arena.clone(), cids, eids, nm, 0, ext,
+                                     *w, out_ids=ids)
+            stg = torch.cat([arena, arena.new_zeros((M, S))])
+            old = earlier(stg, R, cids, eids, nm, ext, w, ids)[:R]
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
+            cs.check(err <= cs.TOL, f"{name} tick: {err:.3e} of max |plain|")
+            cs.check(cs.bitwise_equal(got, old), f"{name} tick: the one "
+                     f"launch's arena differs from the earlier two "
+                     f"launches'")
+            tb, ob = arena.clone(), stg.clone()
+            c = (cids, eids, nm, ext, w, ids)
+            this_calls.append(lambda tb=tb, c=c: lm.MEGASTEPS[kind](
+                tb, c[0], c[1], c[2], 0, c[3], *c[4], out_ids=c[5]))
+            old_calls.append(lambda ob=ob, c=c: earlier(
+                ob, R, c[0], c[1], c[2], c[3], c[4], c[5]))
+            lanes.append(int((nm > 0).sum()))
+        ms = cs.device_ms({
+            "this": {"calls": this_calls, "launches": 1,
+                     "match": cs.FWD_KERNELS[kind][1]},
+            "earlier": {"calls": old_calls, "launches": 2,
+                        "parts": {"megastep": ["gates_kernel"],
+                                  "scatter": ["scatter_rows"]}}}, reps=10)
+        old_ms, parts = ms["earlier"]
+        ev = {k: float(np.mean([cs.time_ms(f, 20, 3) for f in calls[:8]]))
+              for k, calls in (("this", this_calls),
+                               ("earlier", old_calls))}
+        out[name] = {"ticks": len(this_calls), "M": ticks[0][1].shape[0],
+                     "live_lanes": float(np.mean(lanes)),
+                     "ms": ms["this"], "earlier_ms": old_ms,
+                     "earlier_megastep_ms": parts["megastep"],
+                     "earlier_scatter_ms": parts["scatter"],
+                     "events_ms": ev["this"],
+                     "earlier_events_ms": ev["earlier"]}
+        r = out[name]
+        print(f"{name} ({r['ticks']} kept ticks, M {r['M']}, "
+              f"{r['live_lanes']:.1f} live lanes): this one launch "
+              f"{r['ms']:.4f} ms a tick, the earlier two launches "
+              f"{r['earlier_ms']:.4f} ms (megastep "
+              f"{r['earlier_megastep_ms']:.4f} + scatter_rows "
+              f"{r['earlier_scatter_ms']:.4f}; device time); back-to-back "
+              f"ticks by CUDA events {r['events_ms']:.4f} (through the "
+              f"wrapper) vs {r['earlier_events_ms']:.4f} ms (the earlier two "
+              f"entry points); the arena bit for bit the earlier one's on "
+              f"every tick")
+    print(dev["smi"])
+    print(json.dumps(out))
+
+
+#: The earlier SIMT K10's arguments: out, q, k, v; B, Hq, Hkv, Sq, Sk, D;
+#: nine strides; scale; causal, window, bf16; stream.
+EARLIER_K10_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                    + [ctypes.c_longlong] * 9 + [ctypes.c_float]
+                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def earlier_k10(checkout: Path, source: str = "flash_attention.cu",
+                entry: str = "flash_attention_launch"):
+    """The earlier checkout's SIMT K10 (or, by ``source`` and ``entry``,
+    its tf32 route, which takes the same arguments), built here, as
+    ``fn(q, k, v, *, causal, window)`` returning a new ``[B, Hq, Sq, D]``
+    tensor."""
+    fn = getattr(earlier_library(checkout, source), entry)
+    fn.argtypes, fn.restype = EARLIER_K10_ARGS, ctypes.c_int
+
+    def launch(q, k, v, *, causal=True, window=None, scale=None):
+        B, Hq, Sq, D = q.shape
+        out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+        rc = fn(out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), B,
+                Hq, k.shape[1], Sq, k.shape[2], D,
+                *[t.stride(i) for t in (q, k, v) for i in range(3)],
+                D ** -0.5 if scale is None else float(scale), int(causal),
+                window or 0,
+                int(q.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the earlier K10 failed with CUDA error {rc}")
+        return out
+
+    return launch
+
+
+def k10_sets() -> dict:
+    """set name → K10 calls ((q, k, v), kw): each ragged case of
+    ``K10_EDGES`` and ``K10_RAGGED_TIMED`` (a head dim no multiple of 8,
+    or at bf16 no multiple of 16) at f32 and bf16; the K10 launches of
+    the reduced f32 LM at ``RAGGED_HEAD_DIM``, all and by query length;
+    and those launches' shapes at D 24 and 32 (seeded normal inputs), to
+    part the ragged head dim's cost from the rest."""
+    gen = torch.Generator().manual_seed(1010)
+    sets = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Hq, Hkv, Sq, Sk, D, causal, window in (
+                *cs.K10_EDGES, *cs.K10_RAGGED_TIMED):
+            if D % 8 == 0 and (dtype == torch.float32 or D % 16 == 0):
+                continue
+            q = torch.randn((B, Sq, Hq, D), generator=gen).to(
+                cs.DEVICE, dtype).transpose(1, 2)
+            k, v = (torch.randn((B, Hkv, Sk, D), generator=gen).to(
+                cs.DEVICE, dtype) for _ in range(2))
+            name = (f"{str(dtype).split('.')[-1]} D {D} Sq {Sq} Sk {Sk}"
+                    + (" causal" if causal else "")
+                    + (f" window {window}" if window else ""))
+            sets[name] = [((q, k, v), {"causal": causal, "window": window})]
+    calls = []
+    cs.lm_exact_f32_check(head_dim=cs.RAGGED_HEAD_DIM, keep=calls)
+    lm_name = f"reduced f32 LM, head dim {cs.RAGGED_HEAD_DIM}"
+    sets[lm_name] = calls
+    for sq in sorted({a[0].shape[2] for a, _kw in calls}):
+        sets[f"{lm_name}, Sq {sq}"] = [c for c in calls
+                                       if c[0][0].shape[2] == sq]
+    for D in (24, 32):
+        sets[f"the LM's launch shapes at D {D}"] = [
+            (tuple(torch.randn(t.shape[:3] + (D,), generator=gen).to(
+                cs.DEVICE) for t in a), kw) for a, kw in calls]
+    return sets
+
+
+def k10_main(dev: dict, checkout: Path, others=()) -> None:
+    """``others``: further checkouts whose ``flash_attention_tf32.cu`` is
+    timed beside, each under its directory's name."""
+    runs = {"earlier": (earlier_k10(checkout), "flash_attention")}
+    for d in others:
+        runs[d.name] = (earlier_k10(d, "flash_attention_tf32.cu",
+                                    "flash_attention_tf32_launch"),
+                        "flash_attention_tf32")
+    _build.load("flash_attention_tf32")
+    logs = {"this": _build.build_log("flash_attention_tf32")}
+    for d in others:
+        src = d / "src" / "repro_torch" / "kernels" / "csrc" / \
+            "flash_attention_tf32.cu"
+        tag = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+        log = _build.build_dir() / f"earlier_{src.stem}-{tag}.log"
+        logs[d.name] = log.read_text() if log.exists() else ""
+    for label, log in logs.items():
+        for entry, line in ptxas_lines(log):
+            print(f"ptxas {label} {entry}: {line}")
+    torch.set_grad_enabled(False)
+    sets = k10_sets()
+    timed = {}
+    for name, calls in sets.items():
+        for a, kw in calls:
+            want = cs.attn_plain("flash_attention", a, kw)
+            bar = cs.ATTN_BARS[a[0].dtype]
+            for label, res in (("this", cs.flash.flash_attention(*a, **kw)),
+                               *((lb, fn(*a, **kw))
+                                 for lb, (fn, _m) in runs.items())):
+                torch.cuda.synchronize()
+                rel = float((res.float() - want).abs().max()) / max(
+                    float(want.abs().max()), 1e-30)
+                cs.check(rel <= bar, f"{label} K10 on {name}: {rel:.3e} of "
+                         f"max |plain|")
+        timed[name, "this"] = {
+            "calls": [lambda a=a, kw=kw: cs.flash.flash_attention(*a, **kw)
+                      for a, kw in calls], "launches": 1,
+            "match": "flash_attention_tf32"}
+        for label, (fn, match) in runs.items():
+            timed[name, label] = {
+                "calls": [lambda a=a, kw=kw, fn=fn: fn(*a, **kw)
+                          for a, kw in calls], "launches": 1,
+                "match": match}
+    ms = cs.device_ms(timed, reps=5)
+    out = {"card": dev["smi"]}
+    for name, calls in sets.items():
+        out[name] = {"launches": len(calls), "ms": ms[name, "this"],
+                     "earlier_ms": ms[name, "earlier"],
+                     "bound_ms": float(np.mean([cs.attn_bound_ms(
+                         "flash_attention", a, kw)[0] for a, kw in calls]))}
+        for d in others:
+            out[name][f"{d.name}_ms"] = ms[name, d.name]
+        r = out[name]
+        extra = "".join(f", the tf32 kernel of {d} {r[d.name + '_ms']:.4f} "
+                        f"ms" for d in others)
+        print(f"K10 {name} ({len(calls)} launches): this (tf32 route) "
+              f"{r['ms']:.4f} ms a launch, the earlier SIMT kernel "
+              f"{r['earlier_ms']:.4f} ms (x{r['earlier_ms'] / r['ms']:.2f}; "
+              f"device time){extra}, bound {r['bound_ms']:.5f} ms")
+    print(dev["smi"])
+    print(json.dumps(out))
+
+
 def main(argv=None) -> None:
     args = sys.argv[1:] if argv is None else argv
     cells = {"k3": "lstm", "k4": "gru", "k5": "treefc"}
     cs.check(len(args) in (1, 2) and (len(args) == 1 or args[1] in (
-        "k1", "k9", "k12", *cells)),
-             "usage: k1_parent_ab.py EARLIER_CHECKOUT [k1|k3|k4|k5|k9|k12]")
+        "k1", "k9", "k12", "k6b", "k10", *cells))
+             or len(args) > 2 and args[1] == "k10",
+             "usage: k1_parent_ab.py EARLIER_CHECKOUT "
+             "[k1|k3|k4|k5|k9|k12|k6b|k10 [OTHER_CHECKOUT ...]]")
     dev = cs.device_phase()
+    if len(args) == 2 and args[1] == "k6b":
+        k6b_main(dev, Path(args[0]))
+        return
+    if len(args) >= 2 and args[1] == "k10":
+        k10_main(dev, Path(args[0]), [Path(a) for a in args[2:]])
+        return
     if len(args) == 2 and args[1] == "k12":
         k12_main(dev, Path(args[0]))
         return
