@@ -110,7 +110,11 @@ Phases, each of which must pass (any failure exits non-zero):
   9. K6 vs plain — the row gather/scatter kernels against their plain
      versions on the card, bit for bit, at the serving phases' shapes, a
      bf16 gather, rows not a multiple of 4 wide, n = 1 and pad lanes
-     with out-of-range ids (untouched rows bit-unchanged);
+     with out-of-range ids (untouched rows bit-unchanged); K6a with the
+     ids on the host (carried in the launch, one launch per
+     ``GATHER_CAP``, checked at the capacity and one past it, ids
+     outside the rows giving zero rows) and its rows stored also into a
+     pinned host buffer, bit for bit the card's;
   10. continuous Tree-LSTM serving — the serving phase's 512 parses
      submitted at once to ``ContinuousBatchEngine`` (4,096 arena rows,
      256 lanes, ``ClassificationHead(1024, 5)``, nonzero biases): a
@@ -128,6 +132,10 @@ Phases, each of which must pass (any failure exits non-zero):
      degradation; roots and logits within 1e-4 of solo scoring on the
      card and of the plain path on the CPU (bitwise-equal roots
      counted); requests/s, latency, occupancy; host spans and a profile;
+     64 parses under one profiler session: every retiring window enqueues
+     no host→device copy and one device→host copy (the head's logits; K6a
+     takes the root ids by value and stores the roots into pinned host
+     memory);
   11. the LSTM-chain trace of ``benchmarks/bench_serving.py --full`` at
      the paper's width, replayed in real time against
      ``StructureServeEngine(batch_size=16)`` and
@@ -141,7 +149,9 @@ Phases, each of which must pass (any failure exits non-zero):
      row scatter a tick, the main path of K6b), launch counts set to 0
      just before and read just after, roots within 1e-4 of the fused
      engine's, every ``TAP_EVERY``-th tick's scatter kept and re-run
-     against its plain version (bit for bit) and timed for K6b's row;
+     against its plain version (bit for bit) and timed for K6b's row; 64
+     chains under one profiler session: a retiring window (no head)
+     enqueues no copy at all;
   12. decode — ``VertexServeEngine`` (LSTM, then GRU, 128 slots) over 256
      Var-LSTM chains: one K3/K4 launch a tick, final states within 1e-4
      of ``execute`` on the card and of the plain path on the CPU,
@@ -1860,18 +1870,31 @@ DECODE_SLOTS, DECODE_REQUESTS = 128, 256
 TAP_EVERY = 8
 
 
-def k6_bound_ms(n: int, rows: int, D: int, elem: int) -> tuple:
+def k6_bound_ms(n: int, rows: int, D: int, elem: int,
+                writes: int = 1) -> tuple:
     """Least time for one row gather/scatter: ``n`` indices read, ``rows``
-    rows of ``D`` elements read once and written once, at 3.35 TB/s.
-    Returns (bound_ms, bytes)."""
-    nbytes = 4 * n + 2 * rows * D * elem
+    rows of ``D`` elements read once and written ``writes`` times (K6a:
+    to the card and into the host buffer), at 3.35 TB/s.  Returns
+    (bound_ms, bytes)."""
+    nbytes = 4 * n + (1 + writes) * rows * D * elem
     return nbytes / PEAK_BYTES * 1e3, nbytes
 
 
-def _gather_case(R, D, n, gen, dtype=torch.float32):
+def _gather_case(R, D, n, gen, dtype=torch.float32, outside=0):
+    """A K6a case: ``src`` on the card, ``n`` ids on the host (K6a takes
+    them by value), the last ``outside`` of them outside ``[0, R)``."""
     src = torch.randn(R, D, generator=gen).to(dtype).to(DEVICE)
     idx = torch.randint(0, R, (n,), generator=gen, dtype=torch.int32)
-    return src, idx.to(DEVICE)
+    if outside:
+        idx[n - outside:] = R + torch.arange(outside, dtype=torch.int32)
+        idx[n - 1] = -1
+    return src, idx
+
+
+def host_rows_for(src, n: int) -> torch.Tensor:
+    """A page-locked host buffer of ``n`` of ``src``'s rows (K6a's host
+    destination)."""
+    return lmgs.host_rows(max(n, 1), src.shape[1], src.dtype, True)
 
 
 def _scatter_case(R, D, n, pads, gen, dtype=torch.float32):
@@ -1888,12 +1911,25 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def check_gather(src, idx, label: str) -> float:
-    """K6a against its plain version: bit for bit."""
-    got = lmgs.gather_rows(src, idx)
-    want = ref.gather_rows(src, idx)
+    """K6a against its plain version (on the same ids on the card), bit
+    for bit on both destinations: the rows on the card and the rows it
+    stored into a pinned host buffer; an id outside ``[0, R)`` a zero row;
+    one launch per ``GATHER_CAP`` ids."""
+    n = idx.numel()
+    host = host_rows_for(src, n)
+    n0 = lm.LAUNCHES["gather_rows"]
+    got = lmgs.gather_rows(src, idx, host_out=host)
+    live = ((idx >= 0) & (idx < src.shape[0])).to(DEVICE)
+    rows = ref.gather_rows(src, torch.where(live, idx.to(DEVICE), 0))
+    want = torch.where(live[:, None], rows, torch.zeros_like(rows))
     torch.cuda.synchronize()
+    check(lm.LAUNCHES["gather_rows"] - n0 == -(-n // lmgs.GATHER_CAP),
+          f"gather_rows ({label}): {lm.LAUNCHES['gather_rows'] - n0} "
+          f"launches for {n} ids")
     check(torch.equal(_bits(got), _bits(want)),
           f"gather_rows differs from its plain version ({label})")
+    check(torch.equal(_bits(host[:n]), _bits(got.cpu())),
+          f"gather_rows: the host rows differ from the card's ({label})")
     return float((got.float() - want.float()).abs().max()) if got.numel() \
         else 0.0
 
@@ -2050,22 +2086,26 @@ def device_ms(sets: dict, reps: int = 5) -> dict:
 
 
 def time_k6(op: str, cases) -> dict:
-    """K6a (``op`` "gather", cases ``(src, idx)``) or K6b ("scatter",
-    cases ``(dst, ids, rows)``): device ms per call of the kernel, its
-    plain version and the one PyTorch call (``index_select``; for the
-    scatter ``index_copy_`` on the live lanes, since it cannot drop), each
-    scatter on its own copy of ``dst``; the CUDA-event time of
-    back-to-back kernel launches (bound by the host's launch cost); the
-    mean data-aware bound."""
+    """K6a (``op`` "gather", cases ``(src, idx)``, the ids on the host:
+    the kernel takes them by value and stores the rows also into a pinned
+    host buffer) or K6b ("scatter", cases ``(dst, ids, rows)``): device ms
+    per call of the kernel, its plain version and the one PyTorch call
+    (``index_select`` on the ids on the card; for the scatter
+    ``index_copy_`` on the live lanes, since it cannot drop), each scatter
+    on its own copy of ``dst``; the CUDA-event time of back-to-back kernel
+    launches (bound by the host's launch cost); the mean data-aware
+    bound."""
     kern, plain, lib, bounds = [], [], [], []
     for case in cases:
         if op == "gather":
             src, idx = case
-            kern.append(lambda s=src, i=idx: lmgs.gather_rows(s, i))
-            plain.append(lambda s=src, i=idx: ref.gather_rows(s, i))
-            lib.append(lambda s=src, i=idx: torch.index_select(s, 0, i))
+            hb, di = host_rows_for(src, idx.numel()), idx.to(DEVICE)
+            kern.append(lambda s=src, i=idx, h=hb:
+                        lmgs.gather_rows(s, i, host_out=h))
+            plain.append(lambda s=src, i=di: ref.gather_rows(s, i))
+            lib.append(lambda s=src, i=di: torch.index_select(s, 0, i))
             bounds.append(k6_bound_ms(idx.numel(), idx.numel(),
-                                      src.shape[1], src.element_size()))
+                                      src.shape[1], src.element_size(), 2))
             continue
         dst, ids, rows = case
         live = (ids >= 0) & (ids < dst.shape[0])
@@ -2089,7 +2129,9 @@ def time_k6(op: str, cases) -> dict:
 def k6_phase() -> float:
     """K6a/K6b against their plain versions on the card, bit for bit: at
     the shapes the serving phases launch, a bf16 gather, rows whose width
-    is not a multiple of 4, n = 1, and pad lanes with out-of-range ids."""
+    is not a multiple of 4 (every vector width), n = 1, K6a at its launch
+    capacity and one past it (two launches), ids outside the rows, and
+    pad lanes with out-of-range ids."""
     gen = torch.Generator().manual_seed(66)
     S = 2 * HIDDEN
     worst, rows = 0.0, []
@@ -2098,7 +2140,14 @@ def k6_phase() -> float:
                ("bf16", (CONT_ROWS + 1, S, 256, gen, torch.bfloat16)),
                ("D 1027", (300, 1027, 33, gen)),
                ("bf16 D 129", (300, 129, 33, gen, torch.bfloat16)),
-               ("n 1", (CONT_ROWS + 1, S, 1, gen))]
+               ("D 130", (300, 130, 33, gen)),
+               ("n 1", (CONT_ROWS + 1, S, 1, gen)),
+               ("capacity", (CONT_ROWS + 1, S, lmgs.GATHER_CAP, gen)),
+               ("capacity + 1, bf16", (CONT_ROWS + 1, S,
+                                       lmgs.GATHER_CAP + 1, gen,
+                                       torch.bfloat16)),
+               ("ids outside", (CONT_ROWS + 1, S, 9, gen, torch.float32,
+                                3))]
     for label, args in gathers:
         src, idx = _gather_case(*args)
         worst = max(worst, check_gather(src, idx, label))
@@ -2177,10 +2226,10 @@ def frontier_taps(make_engine, reqs) -> tuple:
         return inner_f(k, buf, cids, cmask, rows, nm, out, w,
                        ext_ids=ext_ids)
 
-    def tap_g(src, idx):
+    def tap_g(src, idx, *, host_out=None):
         if len(gathers) < 24:
-            gathers.append((src.clone(), idx))
-        return inner_g(src, idx)
+            gathers.append((src.clone(), torch.as_tensor(idx).clone()))
+        return inner_g(src, idx, host_out=host_out)
 
     ops.frontier_megastep, ops.gather_rows = tap_f, tap_g
     try:
@@ -2198,6 +2247,93 @@ def frontier_taps(make_engine, reqs) -> tuple:
           f"reads, or one row twice: {int((~torch.stack(held)).sum())} of "
           f"{len(held)} ticks break the contract")
     return ticks, gathers, eng
+
+
+def retire_copies(eng, reqs, guard_s: float, primers: int) -> list:
+    """The copies each retiring window of ``eng`` enqueues: ``reqs``
+    submitted and run under ONE ``torch.profiler`` session, the engine's
+    ``_retire`` and ``_release`` (the freed rows' zeroing, which copies
+    their ids: not the readback) each in a ``record_function`` range.  Per
+    window, over the runtime calls in ``_retire`` less those in
+    ``_release``: ``api``, the copies the host enqueued
+    (``cudaMemcpy*``); ``h2d``/``d2h``, the card's copy events of those
+    calls by direction (paired by correlation id); ``k6a``, its
+    ``gather_rows_kernel`` events (0 where the profiler lost the window's
+    device events).  The session waits ``guard_s`` on the host at both
+    ends and opens with ``primers`` spin kernels, as ``device_ms``'s do.
+    Needs only ``time`` and ``torch``: ``tools/k1_parent_ab.py`` runs its
+    source on an earlier checkout's engine too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for name in ("_retire", "_release"):
+        inner = getattr(eng, name)
+
+        def wrapped(acts, inner=inner, tag=f"window{name}"):
+            with record_function(tag):
+                return inner(acts)
+
+        setattr(eng, name, wrapped)
+    for r in reqs:
+        if not eng.submit(r):
+            raise RuntimeError(f"request {r.request_id} rejected: {r.error}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(guard_s)
+        for _ in range(primers):
+            torch.cuda._sleep(1000)
+        eng.run()
+        torch.cuda.synchronize()
+        time.sleep(guard_s)
+    evs = prof.events()
+    on_card = {}
+    for e in evs:
+        if e.device_type == DeviceType.CUDA:
+            on_card.setdefault(e.id, []).append(e.name)
+    calls = [e for e in evs if e.device_type != DeviceType.CUDA
+             and e.name.startswith("cuda")]
+
+    def ranges(tag):          # the host's ranges, not the card's copies
+        return [e.time_range for e in evs if e.name == tag
+                and e.device_type != DeviceType.CUDA]
+
+    releases, out = ranges("window_release"), []
+    for w in ranges("window_retire"):
+        mine = [c for c in calls
+                if w.start <= c.time_range.start <= w.end
+                and not any(r.start <= c.time_range.start <= r.end
+                            for r in releases)]
+        names = [n for c in mine for n in on_card.get(c.id, [])]
+        out.append({"api": sum("Memcpy" in c.name for c in mine),
+                    "h2d": sum("HtoD" in n for n in names),
+                    "d2h": sum("DtoH" in n for n in names),
+                    "k6a": sum("gather_rows_kernel" in n for n in names)})
+    return out
+
+
+def check_window_copies(label: str, make_engine, reqs, head: bool) -> dict:
+    """``retire_copies`` on a fresh engine: every retiring window makes no
+    host→device copy and at most one device→host copy (the head's
+    logits; none without a head), and the card's events of at least one
+    window were kept."""
+    eng = make_engine()
+    per = retire_copies(eng, reqs, profiler_guard_s(), PRIMER_LAUNCHES)
+    seen = [w for w in per if w["k6a"]]
+    check(len(per) == eng.readbacks and per, f"{label}: profiled "
+          f"{len(per)} retiring windows of {eng.readbacks}")
+    check(all(w["api"] <= int(head) and w["h2d"] == 0 and w["d2h"] <= 1
+              for w in per), f"{label}: a retiring window copies more than "
+          f"the head's logits: {[w for w in per if w['api'] > int(head)][:3]}")
+    check(bool(seen), f"{label}: the profiler kept no retiring window's "
+          f"device events")
+    out = {"windows": len(per), "windows_seen": len(seen),
+           "h2d": max(w["h2d"] for w in per),
+           "d2h": max(w["d2h"] for w in per),
+           "copies_enqueued": max(w["api"] for w in per)}
+    print(f"{label}: retiring windows under the profiler: {json.dumps(out)} "
+          f"(the most in any window; the parent's made 1 host->device and "
+          f"2 device->host copies a window)")
+    return out
 
 
 def tapped_frontier_run(kind, make_engine, reqs) -> dict:
@@ -2399,7 +2535,11 @@ def continuous_tree_phase(card: str) -> dict:
                                             CONT_WIDTH),
                                 _cont_requests(ds.graphs[:128],
                                                ds.inputs[:128])))
-    return {**out, **tapped}
+    copies = check_window_copies(
+        "continuous tree_lstm, 64 parses",
+        lambda: cont_engine(fn, params, head, hp, CONT_ROWS, CONT_WIDTH),
+        _cont_requests(ds.graphs[:64], ds.inputs[:64]), head=True)
+    return {**out, **tapped, "window_copies": copies}
 
 
 def _drain(eng, reqs) -> int:
@@ -2560,11 +2700,15 @@ def chain_serving_phase(card: str) -> dict:
                                     CHAIN_WIDTH),
         trace_requests(ContinuousRequest, lens, X))
     unfused = unfused_continuous(fn, params, lens, roots)
+    copies = check_window_copies(
+        "continuous lstm chains, 64 of the trace",
+        lambda: cont_engine(fn, params, None, None, CHAIN_ROWS, CHAIN_WIDTH),
+        trace_requests(ContinuousRequest, lens[:64], X), head=False)
     out = {"requests": TRACE_N, "rate_per_s": TRACE_RATE, **results,
            **ratios, "err_vs_solo": err_solo,
            "roots_bitwise_equal_to_solo": bitwise,
            "tokens_order_independent": True, "unfused": unfused,
-           "card": card}
+           "window_copies": copies, "card": card}
     print(f"continuous lstm chains vs structure serving: {json.dumps(out)}")
     return {**out, **tapped}
 
@@ -2958,6 +3102,14 @@ def gate_kernels_check() -> dict:
     print("gate kernels vs plain: " + ", ".join(
         f"{k} max_abs_err {v:.3e}" for k, v in errs.items())
         + f"; lstm_level_fused bf16 {bf16_err:.3e}; backwards raise")
+    sms = lm._sm_count(torch.device(DEVICE))
+    M, H = K8A_SHAPES[-1]
+    V, nt = ck.k8a_geometry(M, H, sms, True)
+    ctas = -(-M * (H // V) // nt)
+    check(ctas >= 2 * sms, f"lstm_gates at M {M}, H {H}: {ctas} CTAs on "
+          f"{sms} SMs")
+    print(f"lstm_gates geometry at M {M}, H {H}: {V} columns a thread, "
+          f"blocks of {nt}, {ctas} CTAs on {sms} SMs")
     return errs
 
 

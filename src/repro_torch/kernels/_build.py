@@ -48,11 +48,12 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     **{f"{kind}_bwd_megastep": ("bwd_megastep_sm90.cu",
                                 f"{kind}_bwd_megastep_launch", _BWD)
        for kind in ("treelstm", "lstm", "gru", "treefc")},
-    **{name: ("gather_scatter.cu", f"{name}_launch",
-              [_P, _P, _P] + [_I] * 6 + [_P])
-       for name in ("gather_rows", "scatter_rows")},
+    "gather_rows": ("gather_scatter.cu", "gather_rows_launch",
+                    [_P] * 4 + [_I] * 7 + [_P]),
+    "scatter_rows": ("gather_scatter.cu", "scatter_rows_launch",
+                     [_P] * 3 + [_I] * 6 + [_P]),
     "lstm_gates": ("cell_gates.cu", "lstm_gates_launch",
-                   [_P] * 4 + [_I] * 6 + [_P]),
+                   [_P] * 4 + [_I] * 8 + [_P]),
     "treelstm_gates": ("cell_gates.cu", "treelstm_gates_launch",
                        [_P] * 8 + [_I] * 14 + [_P]),
     "lstm_level_fused": ("cell_megastep_sm90.cu", "lstm_level_fused_launch",
@@ -70,6 +71,13 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
                          + [_P]),
     "ssd_chunk_scan": ("ssd_chunk_sm90.cu", "ssd_chunk_sm90_launch",
                        [_P] * 7 + [_I] * 9 + [_L] * 10 + [_I, _P]),
+}
+
+#: Plain C helpers beside the kernels, launching nothing: name → (source,
+#: C entry point, argtypes), built into their source's library.
+HELPERS: Dict[str, Tuple[str, str, List]] = {
+    "host_device_pointer": ("gather_scatter.cu", "host_device_pointer",
+                            [_P, _P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -109,9 +117,14 @@ def includes(path: Path) -> List[Path]:
     return sorted(seen)
 
 
+def _entry(name: str) -> Tuple[str, str, List]:
+    return KERNELS[name] if name in KERNELS else HELPERS[name]
+
+
 def library_path(name: str) -> Path:
-    """The library that holds kernel ``name``'s entry point."""
-    src = _CSRC / KERNELS[name][0]
+    """The library that holds the entry point of kernel (or helper)
+    ``name``."""
+    src = _CSRC / _entry(name)[0]
     h = hashlib.sha256(src.read_bytes())
     for header in includes(src):
         h.update(header.name.encode() + header.read_bytes())
@@ -132,7 +145,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> List[str]:
     the sources built; raises ``RuntimeError`` with the compiler's output
     if any build fails."""
     names = list(KERNELS if names is None else names)
-    todo = list({KERNELS[n][0]: n for n in names
+    todo = list({_entry(n)[0]: n for n in names
                  if not library_path(n).exists()}.values())
     if not todo:
         return []
@@ -142,7 +155,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> List[str]:
     for n in todo:
         out = library_path(n)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / KERNELS[n][0])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / _entry(n)[0])]
         procs.append((n, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -157,15 +170,16 @@ def build_all(names: Optional[Iterable[str]] = None) -> List[str]:
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return [KERNELS[n][0] for n in todo]
+    return [_entry(n)[0] for n in todo]
 
 
 def load(name: str) -> ctypes._CFuncPtr:
-    """The C entry point of kernel ``name``, built on first use."""
+    """The C entry point of kernel (or helper) ``name``, built on first
+    use."""
     fn = _LOADED.get(name)
     if fn is None:
         build_all([name])
-        _src, entry, argtypes = KERNELS[name]
+        _src, entry, argtypes = _entry(name)
         lib = ctypes.CDLL(str(library_path(name)))
         fn = getattr(lib, entry)
         fn.argtypes = argtypes

@@ -35,12 +35,39 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import level_megastep as lm
 from repro_torch.kernels.level_megastep import launch_kernel, require_cuda
 
 #: Element types the kernels read and write.
 DTYPES = (torch.float32, torch.bfloat16)
 
 _INT_MAX = 2 ** 31 - 1
+
+#: K8a's (columns a thread, threads a block) on its vector route, in the
+#: order tried: the most columns a CTA first.
+K8A_GEOMETRIES = ((4, 256), (4, 128), (2, 128), (4, 64), (2, 64))
+
+
+def k8a_geometry(M: int, H: int, sms: int, vec: bool) -> Tuple[int, int]:
+    """K8a's ``(V, threads a block)`` at ``[M, H]`` on a card of ``sms``
+    SMs (``csrc/cell_gates.cu`` states why).  Where a 4-wide vector fits
+    (``vec``): the first of :data:`K8A_GEOMETRIES` whose grid puts at least
+    two CTAs on every SM, else the last (the most CTAs).  Else one column
+    a thread in blocks of 256."""
+    if not vec:
+        return 1, 256
+    for V, nt in K8A_GEOMETRIES:
+        if -(-M * (H // V) // nt) >= 2 * sms:
+            return V, nt
+    return K8A_GEOMETRIES[-1]
+
+
+def _vec4(H: int, *ts: torch.Tensor) -> bool:
+    """True where K8a's 4-wide vectors fit: ``H``, every row stride and
+    every base address on a multiple of 4 elements."""
+    return H % 4 == 0 and all(
+        t.stride(0) % 4 == 0 and t.data_ptr() % (4 * t.element_size()) == 0
+        for t in ts)
 
 
 def no_vjp(op: str, reference: str) -> str:
@@ -85,10 +112,12 @@ class _LSTMGates(torch.autograd.Function):
         c = torch.empty((M, H), dtype=gates.dtype, device=gates.device)
         h = torch.empty_like(c)
         if M and H:
+            V, nt = k8a_geometry(M, H, lm._sm_count(gates.device),
+                                 _vec4(H, gates, c_prev, c, h))
             launch_kernel("lstm_gates", gates.device, c.data_ptr(),
                           h.data_ptr(), gates.data_ptr(), c_prev.data_ptr(),
                           M, H, gates.stride(0), c_prev.stride(0),
-                          _is_bf16(gates), _is_bf16(c_prev))
+                          _is_bf16(gates), _is_bf16(c_prev), V, nt)
         return c, h
 
     @staticmethod

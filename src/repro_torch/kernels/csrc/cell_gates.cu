@@ -23,15 +23,28 @@
 // tensors.
 //
 // Design.  The Pallas kernels tile [M, H] into (bm, bh) blocks padded to
-// 128 lanes.  Here a thread owns V consecutive columns of one row (V = 4
-// where every operand's row stride, column offset and pointer allow a
-// vector load, else 1): consecutive threads read consecutive addresses and
-// the ragged edge is masked, not padded.  K8b sums the A children in the
-// fixed order a = 0..A-1, so two launches are bitwise equal.
+// 128 lanes.  Here a thread owns V consecutive columns of one row:
+// consecutive threads read consecutive addresses and the ragged edge is
+// masked, not padded.  K8b sums the A children in the fixed order
+// a = 0..A-1, so two launches are bitwise equal.
+//
+// K8a's geometry.  With V = 4 and 256-thread blocks, a Var-LSTM level (M =
+// 128, H = 512) would be 64 CTAs on the card's 132 SMs: half the SMs idle,
+// and each busy one with 8 warps that issue their five loads once and then
+// wait.  So the host (cell_kernels.k8a_geometry) picks V and the block
+// size from M * H and the SM count: the first of (4, 256), (4, 128),
+// (2, 128), (4, 64), (2, 64) whose grid puts at least two CTAs on every
+// SM, else (2, 64), the most CTAs.  At M 128, H 512 that is V 2 in blocks
+// of 64: 512 CTAs, twice the threads, each with half the loads and math,
+// on every SM.  Where a 4-wide vector does not fit (a row stride, column
+// offset or pointer off 4 elements) a thread owns one column, in blocks of
+// 256.  Each thread still issues its five loads before any math, and the
+// math (expf/tanhf, no fast math, the same order) is V's lane by lane, so
+// every output keeps its bits whatever the geometry.
 //
 // Bound on an H100 SXM (3.35 TB/s): no reuse, so bytes.  A Var-LSTM level
-// (M = 128, H = 512, f32) reads 5 * 256 KB and writes 512 KB: 1.8 MB, 0.5
-// us -- below a launch's own latency, so the launch is the cost.  K8b moves
+// (M = 128, H = 512, f32) reads 5 * 256 KB and writes 512 KB: 1.8 MB, 0.55
+// us, about a launch's own latency.  K8b moves
 // (5 + 2A) * M * H elements plus the mask: 4.7 MB for a served Tree-LSTM
 // level of M = 256 slots at A = 2, H = 512 (1.4 us).
 
@@ -79,14 +92,15 @@ __device__ __forceinline__ void store(T* p, const float (&in)[V]) {
   *reinterpret_cast<Pack<T, V>*>(p) = x;
 }
 
-// K8a.  TG: gates' (and the outputs') type; TC: c_prev's.
+// K8a.  TG: gates' (and the outputs') type; TC: c_prev's.  Blocks of up
+// to NT threads (the host's geometry).
 template <typename TG, typename TC, int V>
 __global__ void __launch_bounds__(NT)
 lstm_gates_kernel(TG* __restrict__ c_out, TG* __restrict__ h_out,
                   const TG* __restrict__ gates, const TC* __restrict__ c_prev,
                   int M, int H, int g_stride, int c_stride) {
   const int cols = H / V;
-  const long long t = (long long)blockIdx.x * NT + threadIdx.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)M * cols) return;
   const int m = (int)(t / cols);
   const int j = (int)(t % cols) * V;
@@ -141,29 +155,39 @@ treelstm_gates_kernel(TP* __restrict__ c_out, TP* __restrict__ h_out,
 
 inline unsigned blocks(long long n) { return (unsigned)((n + NT - 1) / NT); }
 
+template <typename TG, typename TC, int V>
+void lstm_gates_as(void* c_out, void* h_out, const void* gates,
+                   const void* c_prev, int M, int H, int g_stride,
+                   int c_stride, int nt, cudaStream_t stream) {
+  const long long n = (long long)M * (H / V);
+  lstm_gates_kernel<TG, TC, V>
+      <<<(unsigned)((n + nt - 1) / nt), nt, 0, stream>>>(
+          static_cast<TG*>(c_out), static_cast<TG*>(h_out),
+          static_cast<const TG*>(gates), static_cast<const TC*>(c_prev), M,
+          H, g_stride, c_stride);
+}
+
 template <typename TG, typename TC>
 int lstm_gates_launch_t(void* c_out, void* h_out, const void* gates,
                         const void* c_prev, int M, int H, int g_stride,
-                        int c_stride, cudaStream_t stream) {
-  // A 4-wide vector needs every row start and the lane offsets H, 2H, 3H
-  // on a multiple of 4 elements, and aligned base pointers.
-  const bool vec = H % 4 == 0 && g_stride % 4 == 0 && c_stride % 4 == 0 &&
-                   (uintptr_t)gates % (4 * sizeof(TG)) == 0 &&
-                   (uintptr_t)c_prev % (4 * sizeof(TC)) == 0 &&
-                   (uintptr_t)c_out % (4 * sizeof(TG)) == 0 &&
-                   (uintptr_t)h_out % (4 * sizeof(TG)) == 0;
-  if (vec) {
-    lstm_gates_kernel<TG, TC, 4>
-        <<<blocks((long long)M * (H / 4)), NT, 0, stream>>>(
-            static_cast<TG*>(c_out), static_cast<TG*>(h_out),
-            static_cast<const TG*>(gates), static_cast<const TC*>(c_prev), M,
-            H, g_stride, c_stride);
-  } else {
-    lstm_gates_kernel<TG, TC, 1><<<blocks((long long)M * H), NT, 0, stream>>>(
-        static_cast<TG*>(c_out), static_cast<TG*>(h_out),
-        static_cast<const TG*>(gates), static_cast<const TC*>(c_prev), M, H,
-        g_stride, c_stride);
-  }
+                        int c_stride, int V, int nt, cudaStream_t stream) {
+  // A V-wide vector needs every row start and the lane offsets H, 2H, 3H
+  // on a multiple of V elements, and aligned base pointers.
+  const bool fits = H % V == 0 && g_stride % V == 0 && c_stride % V == 0 &&
+                    (uintptr_t)gates % (V * sizeof(TG)) == 0 &&
+                    (uintptr_t)c_prev % (V * sizeof(TC)) == 0 &&
+                    (uintptr_t)c_out % (V * sizeof(TG)) == 0 &&
+                    (uintptr_t)h_out % (V * sizeof(TG)) == 0;
+  if (!fits) return (int)cudaErrorMisalignedAddress;
+  if (V == 4)
+    lstm_gates_as<TG, TC, 4>(c_out, h_out, gates, c_prev, M, H, g_stride,
+                             c_stride, nt, stream);
+  else if (V == 2)
+    lstm_gates_as<TG, TC, 2>(c_out, h_out, gates, c_prev, M, H, g_stride,
+                             c_stride, nt, stream);
+  else
+    lstm_gates_as<TG, TC, 1>(c_out, h_out, gates, c_prev, M, H, g_stride,
+                             c_stride, nt, stream);
   return (int)cudaGetLastError();
 }
 
@@ -190,28 +214,32 @@ int treelstm_gates_launch_t(void* c_out, void* h_out, const void* i_pre,
 // cudaError_t of its launch (0 on success; nothing is launched for an
 // empty shape); cudaErrorInvalidValue for a grid too large.
 
+// K8a: `vec` columns a thread (1, 2 or 4) in blocks of `nt` threads (32..NT,
+// a multiple of 32), as cell_kernels.k8a_geometry chose them;
+// cudaErrorMisalignedAddress where a `vec`-wide vector does not fit.
 extern "C" int lstm_gates_launch(void* c_out, void* h_out, const void* gates,
                                  const void* c_prev, int M, int H,
                                  int g_stride, int c_stride, int gates_bf16,
-                                 int c_bf16, void* stream) {
+                                 int c_bf16, int vec, int nt, void* stream) {
   if (M <= 0 || H <= 0) return 0;
-  if ((long long)M * H > (long long)NT * 2147483647LL)
+  if ((vec != 1 && vec != 2 && vec != 4) || nt < 32 || nt > NT || nt % 32 ||
+      (long long)M * H > (long long)nt * 2147483647LL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (gates_bf16) {
     return c_bf16 ? lstm_gates_launch_t<__nv_bfloat16, __nv_bfloat16>(
                         c_out, h_out, gates, c_prev, M, H, g_stride, c_stride,
-                        st)
+                        vec, nt, st)
                   : lstm_gates_launch_t<__nv_bfloat16, float>(
                         c_out, h_out, gates, c_prev, M, H, g_stride, c_stride,
-                        st);
+                        vec, nt, st);
   }
   return c_bf16 ? lstm_gates_launch_t<float, __nv_bfloat16>(
                       c_out, h_out, gates, c_prev, M, H, g_stride, c_stride,
-                      st)
+                      vec, nt, st)
                 : lstm_gates_launch_t<float, float>(c_out, h_out, gates,
                                                     c_prev, M, H, g_stride,
-                                                    c_stride, st);
+                                                    c_stride, vec, nt, st);
 }
 
 // Strides: i, o, u rows; f_pre (row, child); c_k (row, child); child_mask

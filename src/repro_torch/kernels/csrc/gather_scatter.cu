@@ -13,50 +13,86 @@
 //              frontier's pad lanes are dropped); every row no id names
 //              keeps its bits.
 // Both are exact copies: on the card they equal their plain versions bit
-// for bit.  K6b is the second launch of every continuous-serving tick
-// (ops.frontier_megastep routes the staged frontier states to their arena
-// rows) and the scatter of the op-by-op frontier leg; K6a reads the
-// finished roots out of the arena at retirement (ops.gather_rows).
+// for bit.  K6a reads the finished roots out of the continuous engine's
+// arena at retirement (ops.gather_rows, once a retiring window); K6b is the
+// scatter of a tick on the op-by-op frontier leg.
 //
 // Design.  The Pallas kernels walk one [1, 512] row block per grid step,
-// the index map steering the DMA.  Here one warp copies one row and a
-// block of 8 warps takes 8 consecutive rows; the warp's lanes walk the row
-// in the widest vector (16, 8, 4 or 2 bytes) that divides the row's
-// length in bytes, both row strides and both base pointers, so a row of
-// fp32 H = 512 moves as 16-byte vectors and an odd-width bf16 row element by
-// element.  No shared memory, no synchronisation.
+// the index map steering the DMA.  Here the threads walk a row in the
+// widest vector (16, 8, 4 or 2 bytes) that divides the row's length in
+// bytes and every row stride and base pointer, so a row of fp32 H = 512
+// moves as 16-byte vectors and an odd-width bf16 row element by element.
+// K6b: one warp a row, a block of 8 warps 8 consecutive rows.  K6a: one
+// block of 256 threads a row, so a retiring window's ~8 rows spread over
+// ~8 SMs (a 1,024-float row is one 16-byte vector a thread) and 8 warps a
+// row issue the host stores below: at a window's n, that timed faster on
+// an H100 than a warp a row, with or without the host stores.  No shared
+// memory, no synchronisation.
 //
-// Bound on an H100 SXM (3.35 TB/s): bytes -- the n indices and n rows read
-// once and n rows written once.  A continuous Tree-LSTM tick (n = 256 lanes,
-// S = 1024 fp32) moves 2 MB: 0.6 us, so a launch is bound by its latency.
+// K6a's cost is not its bytes but the copies around it: a retiring window
+// used to copy its few root ids to the card, launch, and copy the roots
+// back (a second sync after the head's).  So K6a takes the ids BY VALUE,
+// up to GATHER_CAP of them in the launch's own parameters (2 KB of the 4 KB
+// a launch may carry, read through __grid_constant__ without a local
+// copy), and stores each row twice: to `out` on the card, which the heads
+// read, and through the mapped device address of a page-locked host buffer
+// (cudaHostGetDevicePointer; under unified addressing the host's own
+// pointer) straight into host memory.  The window's one sync -- the head's
+// logits, or the stream's -- then covers both; no copy of ids or rows is
+// enqueued.  More ids than GATHER_CAP take one launch per GATHER_CAP.
+// K6b keeps its ids on the card: the op-by-op leg's ids live there.
+//
+// Bound on an H100 SXM (3.35 TB/s): bytes -- the n ids, the n rows read
+// once and written once (K6a: twice, the second copy over the host link,
+// which took ~47 GB/s at n 256).  A retiring window (n ~ 8 roots, D = 1024
+// fp32) moves 96 KB: 0.03 us, so a launch is bound by its latency and, for
+// K6a, by the host link's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int WARPS = 8;        // rows per block, one warp per row
 constexpr int NT = 32 * WARPS;  // 256 threads
 
+// K6a's ids, carried in the launch's parameters.
+constexpr int GATHER_CAP = 512;
+struct RowIds {
+  int v[GATHER_CAP];
+};
+
+// K6a: a block a row, its threads over the row's vectors.
 template <typename V>
 __global__ void __launch_bounds__(NT)
-gather_rows_kernel(char* __restrict__ out, const char* __restrict__ src,
-                   const int* __restrict__ idx, int n, int R, int nv,
-                   long long src_stride, long long out_stride) {
-  const int i = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (i >= n) return;
-  const int lane = threadIdx.x & 31;
-  const int r = idx[i];
+gather_rows_kernel(char* __restrict__ out, char* __restrict__ host,
+                   const char* __restrict__ src,
+                   const __grid_constant__ RowIds ids, int R, int nv,
+                   long long src_stride, long long out_stride,
+                   long long host_stride) {
+  const int i = blockIdx.x;
+  const int r = ids.v[i];
   V* o = reinterpret_cast<V*>(out + (long long)i * out_stride);
+  V* h = host ? reinterpret_cast<V*>(host + (long long)i * host_stride)
+              : nullptr;
   if (r < 0 || r >= R) {
     const V zero{};
-    for (int v = lane; v < nv; v += 32) o[v] = zero;
+    for (int v = threadIdx.x; v < nv; v += NT) {
+      o[v] = zero;
+      if (h) h[v] = zero;
+    }
     return;
   }
   const V* s = reinterpret_cast<const V*>(src + (long long)r * src_stride);
-  for (int v = lane; v < nv; v += 32) o[v] = s[v];
+  for (int v = threadIdx.x; v < nv; v += NT) {
+    const V x = s[v];
+    o[v] = x;
+    if (h) h[v] = x;
+  }
 }
 
+// K6b: a warp a row, a block of WARPS rows.
 template <typename V>
 __global__ void __launch_bounds__(NT)
 scatter_rows_kernel(char* __restrict__ dst, const char* __restrict__ rows,
@@ -72,83 +108,96 @@ scatter_rows_kernel(char* __restrict__ dst, const char* __restrict__ rows,
   for (int v = lane; v < nv; v += 32) d[v] = s[v];
 }
 
-// The widest vector, in bytes, that divides every one of these.
-int vector_bytes(const void* a, const void* b, long long row_bytes,
-                 long long stride_a, long long stride_b) {
-  const unsigned long long m =
-      (unsigned long long)(uintptr_t)a | (unsigned long long)(uintptr_t)b |
-      (unsigned long long)row_bytes | (unsigned long long)stride_a |
-      (unsigned long long)stride_b;
-  for (int w = 16; w > 1; w /= 2)
-    if (m % w == 0) return w;
-  return 1;
+// Calls f with a value of the widest vector type whose size in bytes
+// divides `m` (the OR of every base pointer, stride and the row's length
+// in bytes); cudaErrorMisalignedAddress for a pointer not aligned to its
+// element.
+template <typename F>
+int by_vector(unsigned long long m, F&& f) {
+  if (m % 16 == 0) return f(uint4{});
+  if (m % 8 == 0) return f(uint2{});
+  if (m % 4 == 0) return f(0u);
+  if (m % 2 == 0) return f((unsigned short)0);
+  return (int)cudaErrorMisalignedAddress;
 }
 
-// One launch with vectors of type V; `a` is the destination.
-template <typename V, bool GATHER>
-cudaError_t launch_as(char* a, const char* b, const int* idx, int n, int R,
-                      long long row_bytes, long long stride_a,
-                      long long stride_b, cudaStream_t s) {
-  const int nv = (int)(row_bytes / (long long)sizeof(V));
-  const int grid = (n + WARPS - 1) / WARPS;
-  if constexpr (GATHER)
-    gather_rows_kernel<V><<<grid, NT, 0, s>>>(a, b, idx, n, R, nv, stride_b,
-                                              stride_a);
-  else
-    scatter_rows_kernel<V><<<grid, NT, 0, s>>>(a, b, idx, n, R, nv, stride_a,
-                                               stride_b);
-  return cudaGetLastError();
-}
-
-template <bool GATHER>
-int launch(void* a, const void* b, const void* idx, int n, int R, int D,
-           int elem_bytes, int stride_a, int stride_b, void* stream) {
-  if (n <= 0 || D <= 0) return 0;
-  if (elem_bytes != 2 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
-  const long long row_bytes = (long long)D * elem_bytes;
-  const long long sa = (long long)stride_a * elem_bytes;
-  const long long sb = (long long)stride_b * elem_bytes;
-  char* pa = static_cast<char*>(a);
-  const char* pb = static_cast<const char*>(b);
-  const int* ip = static_cast<const int*>(idx);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (vector_bytes(a, b, row_bytes, sa, sb)) {
-    case 16:
-      return (int)launch_as<uint4, GATHER>(pa, pb, ip, n, R, row_bytes, sa,
-                                           sb, s);
-    case 8:
-      return (int)launch_as<uint2, GATHER>(pa, pb, ip, n, R, row_bytes, sa,
-                                           sb, s);
-    case 4:
-      return (int)launch_as<unsigned int, GATHER>(pa, pb, ip, n, R,
-                                                  row_bytes, sa, sb, s);
-    case 2:
-      return (int)launch_as<unsigned short, GATHER>(pa, pb, ip, n, R,
-                                                    row_bytes, sa, sb, s);
-    default:                          // a pointer not aligned to its element
-      return (int)cudaErrorMisalignedAddress;
-  }
+inline unsigned long long bits(const void* p) {
+  return (unsigned long long)(uintptr_t)p;
 }
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes).  Every pointer is a device
-// pointer; `D` is the row width in elements of `elem_bytes` (2 or 4) bytes
-// each; strides are in elements; `stream` is a cudaStream_t.  Each returns
-// the cudaError_t of its launch (0 on success); cudaErrorInvalidValue for
-// another element size.
-extern "C" int gather_rows_launch(void* out, const void* src, const void* idx,
-                                  int n, int R, int D, int elem_bytes,
-                                  int out_stride, int src_stride,
+// Plain C entry points (loaded with ctypes).  `D` is the row width in
+// elements of `elem_bytes` (2 or 4) bytes each; strides are in elements;
+// `stream` is a cudaStream_t.  Each launch returns the cudaError_t of its
+// launch (0 on success); cudaErrorInvalidValue for another element size.
+
+// K6a.  `out` and `src` are device pointers; `host_out` is the device
+// address of a mapped page-locked host buffer (host_device_pointer), or
+// null for none; `ids` is a HOST pointer to n <= GATHER_CAP int32 ids,
+// copied into the launch's parameters before this returns.
+extern "C" int gather_rows_launch(void* out, void* host_out, const void* src,
+                                  const int* ids, int n, int R, int D,
+                                  int elem_bytes, int out_stride,
+                                  int src_stride, int host_stride,
                                   void* stream) {
-  return launch<true>(out, src, idx, n, R, D, elem_bytes, out_stride,
-                      src_stride, stream);
+  if (n <= 0 || D <= 0) return 0;
+  if (n > GATHER_CAP || (elem_bytes != 2 && elem_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  RowIds p;
+  memcpy(p.v, ids, sizeof(int) * (size_t)n);
+  const long long row = (long long)D * elem_bytes;
+  const long long so = (long long)out_stride * elem_bytes;
+  const long long ss = (long long)src_stride * elem_bytes;
+  const long long sh = (long long)host_stride * elem_bytes;
+  unsigned long long m = bits(out) | bits(src) | (unsigned long long)row |
+                         (unsigned long long)so | (unsigned long long)ss;
+  if (host_out) m |= bits(host_out) | (unsigned long long)sh;
+  char* o = static_cast<char*>(out);
+  char* h = static_cast<char*>(host_out);
+  const char* s = static_cast<const char*>(src);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_vector(m, [&](auto v) {
+    using V = decltype(v);
+    gather_rows_kernel<V><<<n, NT, 0, st>>>(
+        o, h, s, p, R, (int)(row / (long long)sizeof(V)), ss, so, sh);
+    return (int)cudaGetLastError();
+  });
 }
 
+// K6b.  Every pointer is a device pointer.
 extern "C" int scatter_rows_launch(void* dst, const void* rows,
                                    const void* idx, int n, int R, int D,
                                    int elem_bytes, int dst_stride,
                                    int rows_stride, void* stream) {
-  return launch<false>(dst, rows, idx, n, R, D, elem_bytes, dst_stride,
-                       rows_stride, stream);
+  if (n <= 0 || D <= 0) return 0;
+  if (elem_bytes != 2 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
+  const long long row = (long long)D * elem_bytes;
+  const long long sd = (long long)dst_stride * elem_bytes;
+  const long long sr = (long long)rows_stride * elem_bytes;
+  char* d = static_cast<char*>(dst);
+  const char* r = static_cast<const char*>(rows);
+  const int* ip = static_cast<const int*>(idx);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int grid = (n + WARPS - 1) / WARPS;
+  return by_vector(bits(dst) | bits(rows) | (unsigned long long)row |
+                       (unsigned long long)sd | (unsigned long long)sr,
+                   [&](auto v) {
+                     using V = decltype(v);
+                     scatter_rows_kernel<V><<<grid, NT, 0, st>>>(
+                         d, r, ip, n, R, (int)(row / (long long)sizeof(V)),
+                         sd, sr);
+                     return (int)cudaGetLastError();
+                   });
+}
+
+// The device address of the page-locked host memory at `host` (the base of
+// a cudaHostAlloc'd block, or a pointer into one), written to `*dev`.
+// Returns the cudaError_t (cudaErrorInvalidValue for memory that is not
+// mapped), clearing it so that it is not reported by a later launch.
+extern "C" int host_device_pointer(void* host, void** dev) {
+  *dev = nullptr;
+  const cudaError_t e = cudaHostGetDevicePointer(dev, host, 0);
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
 }

@@ -164,14 +164,21 @@ def frontier_megastep(kind: str, buf: torch.Tensor, child_ids: torch.Tensor,
                   out_ids=out_ids)
 
 
-def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(src: torch.Tensor, idx, *,
+                host_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[i] = src[idx[i]]`` (Cavs ``gather``/``pull``), a new
-    ``[n, D]`` tensor; indices in ``[0, R)``."""
+    ``[n, D]`` tensor; ``idx``: int32 ids in ``[0, R)`` on the host (a CPU
+    tensor or, on the card, a numpy array too).  ``host_out`` (``[>= n,
+    D]`` on the host; page-locked on the card) also gets the rows: on the
+    card through the same launch, once the stream has passed it."""
     if not src.is_cuda:
         _tick("gather_rows", "ref")
-        return ref.gather_rows(src, idx)
+        out = ref.gather_rows(src, torch.as_tensor(idx))
+        if host_out is not None:
+            host_out[:out.shape[0]].copy_(out)
+        return out
     _tick("gather_rows", "cuda")
-    return gsc.gather_rows(src, idx)
+    return gsc.gather_rows(src, idx, host_out=host_out)
 
 
 def scatter_rows(dst: torch.Tensor, idx: torch.Tensor,

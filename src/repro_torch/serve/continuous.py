@@ -35,7 +35,9 @@ agenda-based autobatching executed through the fused megastep:
     shrinks to single ticks;
   - **immediate retirement into readout heads** — finished roots are
     read out of the arena the window they complete (one K6a
-    ``ops.gather_rows`` launch), non-finite roots fail alone, and the
+    ``ops.gather_rows`` launch, the root ids carried in the launch, each
+    row stored to the card and into a pinned host buffer; one sync a
+    window), non-finite roots fail alone, and the
     rest go through ``models/readout.py``: batched classification
     logits, and optionally the sampled-feedback
     :class:`~repro_torch.models.readout.TokenReadout` loop keyed by
@@ -69,6 +71,7 @@ from repro_torch.core.scheduler import frontier_step, resolve_fusion
 from repro_torch.core.structure import InputGraph, LevelSchedule
 from repro_torch.core.vertex import has_eager_projection
 from repro_torch.dist.fault import chaos_corrupt_ext
+from repro_torch.kernels import gather_scatter as gsc
 from repro_torch.kernels import ops as kops
 from repro_torch.models.readout import ClassificationHead, TokenReadout
 from repro_torch.obs import trace
@@ -216,6 +219,9 @@ class ContinuousBatchEngine(_EngineBase):
     non-finite root guard.
     """
 
+    #: Rows of the retirement's host buffer at the start.
+    HOST_ROWS = 16
+
     def __init__(self, fn, params: Params, *, num_rows: int = 256,
                  frontier_width: int = 32, fusion_mode: str = "auto",
                  policy: AdmissionPolicy = AdmissionPolicy(),
@@ -279,6 +285,10 @@ class ContinuousBatchEngine(_EngineBase):
         self.lanes = 0
         #: windows whose finished roots were read out of the arena
         self.readbacks = 0
+        # The retired roots' host rows (K6a stores them there on the card
+        # through the buffer's mapped address): page-locked on the card,
+        # grown to the next power of two when a window retires more.
+        self._grow_host(self.HOST_ROWS)
         self._defer_run = 0
 
     # -- ingress ------------------------------------------------------------
@@ -585,16 +595,42 @@ class ContinuousBatchEngine(_EngineBase):
                                   0.0)
             self._free.extend(int(r) for r in rows)
 
+    def _readback(self, done: List[_Active]):
+        """The finished roots, out of the arena: one K6a launch on the card
+        takes their rows by value and stores them to the device, for the
+        heads, and into the pinned host buffer; the head runs over the
+        device rows; then ONE sync (the logits' read, else the stream's)
+        covers both.  Returns ``(roots on the host, roots on the device,
+        logits or None)``; the host rows are a view of the buffer, valid
+        until the next window."""
+        n = len(done)
+        if n > self._host.shape[0]:
+            self._grow_host(1 << (n - 1).bit_length())
+        ids = np.fromiter((a.root_row for a in done), np.int32, n)
+        roots_dev = kops.gather_rows(self._buf, ids, host_out=self._host)
+        logits = None
+        if self.head is not None:
+            with torch.no_grad():
+                logits = self.head.logits(self.head_params, roots_dev) \
+                    .cpu().numpy()
+        elif roots_dev.is_cuda:
+            torch.cuda.current_stream(roots_dev.device).synchronize()
+        return self._host_np[:n], roots_dev, logits
+
+    def _grow_host(self, rows: int) -> None:
+        """(Re)allocate the retired roots' host buffer (page-locked on the
+        card) at ``rows`` rows, and its numpy view."""
+        self._host = gsc.host_rows(rows, self.fn.state_dim, torch.float32,
+                                   self._buf.is_cuda)
+        self._host_np = self._host.numpy()
+
     def _retire(self, done: List[_Active]) -> None:
-        """Read the finished roots out of the arena (one row gather, K6a
-        on the card) and route them through the readout heads — the lazy
-        ``push`` made immediate."""
+        """Read the finished roots out of the arena (:meth:`_readback`, one
+        sync) and route them through the readout heads — the lazy ``push``
+        made immediate."""
         self.readbacks += 1
         with trace.span("cb.readback", count=len(done)):
-            root_rows = torch.tensor([a.root_row for a in done],
-                                     dtype=torch.int32, device=self.device)
-            roots_dev = kops.gather_rows(self._buf, root_rows)
-            roots = roots_dev.cpu().numpy()
+            roots, roots_dev, logits = self._readback(done)
         ok: List[Tuple[int, ContinuousRequest]] = []
         for i, (a, root) in enumerate(zip(done, roots)):
             req = a.req
@@ -611,11 +647,9 @@ class ContinuousBatchEngine(_EngineBase):
             trace.instant("cb.retired", request=req.request_id,
                           status=status)
         self._release(done)
-        if ok and self.head is not None:
-            # One batched head call over every retired root.
-            with torch.no_grad():
-                logits = self.head.logits(self.head_params, roots_dev) \
-                    .cpu().numpy()
+        if logits is not None:
+            # One batched head call over every retired root; the rows of
+            # requests that did not finish ok are dropped.
             for i, req in ok:
                 req.logits = logits[i].copy()
                 req.label = int(np.argmax(logits[i]))

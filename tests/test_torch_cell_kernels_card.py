@@ -87,6 +87,57 @@ def test_lstm_gates_matches_plain(m, h, gates_dtype, state_dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,h", [(128, 512), (256, 512), (37, 52), (1, 8)])
+@pytest.mark.parametrize("gates_dtype,state_dtype",
+                         [("float32", "float32"), ("float32", "bfloat16"),
+                          ("bfloat16", "bfloat16")])
+def test_lstm_gates_every_geometry_same_bits(monkeypatch, m, h, gates_dtype,
+                                             state_dtype):
+    """K8a at each of its vector geometries (``cell_kernels.
+    K8A_GEOMETRIES``, forced in turn) and the 1-wide route on strided,
+    mixed-type and bf16 operands: within the plain version's bar, and
+    every geometry bitwise the one the wrapper chooses (the math is the
+    same lane by lane); at M 128, H 512 the chosen grid puts two CTAs on
+    every SM of this card."""
+    _need_card()
+    gen = torch.Generator().manual_seed(m + h)
+    gates = _randn(gen, m, 4 * h, dtype=BF16[gates_dtype])
+    c_prev = _randn(gen, m, 2 * h, dtype=BF16[state_dtype])[:, :h]
+    chosen = ck.lstm_gates(gates, c_prev)
+    want = ref.lstm_gates(gates, c_prev)
+    torch.cuda.synchronize()
+    tol = GATE_TOL if gates_dtype == "float32" else 2e-2
+    for g, w in zip(chosen, want):
+        np.testing.assert_allclose(g.float().cpu(), w.float().cpu(),
+                                   rtol=tol, atol=tol)
+    sms = lm._sm_count(gates.device)
+    if (m, h) == (128, 512):
+        V, nt = ck.k8a_geometry(m, h, sms, True)
+        assert -(-m * (h // V) // nt) >= 2 * sms
+    for geometry in ck.K8A_GEOMETRIES + ((1, 256), (1, 64)):
+        monkeypatch.setattr(ck, "k8a_geometry",
+                            lambda *a, g=geometry: g)
+        got = ck.lstm_gates(gates, c_prev)
+        torch.cuda.synchronize()
+        assert all(torch.equal(_bits(x), _bits(y))
+                   for x, y in zip(got, chosen)), geometry
+        assert _twice_equal(lambda: ck.lstm_gates(gates, c_prev))
+
+
+@pytest.mark.gpu
+def test_lstm_gates_refuses_a_vector_that_does_not_fit(monkeypatch):
+    """A geometry whose vector a row stride does not allow is refused by
+    the launch (never run misaligned)."""
+    _need_card()
+    gen = torch.Generator().manual_seed(3)
+    gates = _randn(gen, 4, 4 * 6)
+    c_prev = _randn(gen, 4, 13)[:, :6]             # row stride 13
+    monkeypatch.setattr(ck, "k8a_geometry", lambda *a: (2, 64))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ck.lstm_gates(gates, c_prev)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("m,a,h", [(1, 1, 8), (5, 2, 16), (64, 3, 40),
                                    (130, 2, 128), (64, 2, 512)])
 @pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])

@@ -109,14 +109,15 @@ def _drive(eng, reqs, schedule, t):
     eng.run()
 
 
-def _port_engine(fn, params, mode, t, **kw):
+def _port_engine(fn, params, mode, t, width=3, **kw):
     return ContinuousBatchEngine(
-        fn, params, num_rows=32, frontier_width=3, fusion_mode=mode,
+        fn, params, num_rows=32, frontier_width=width, fusion_mode=mode,
         clock=lambda: t[0], policy=AdmissionPolicy(**POLICY), device="cpu",
         **kw)
 
 
-def _run_both(cell, mode, sizes, schedule, ttls=None, head=False):
+def _run_both(cell, mode, sizes, schedule, ttls=None, head=False,
+              width=3):
     """The same cohort and interleaving through the JAX engine and the
     port's; returns both request lists (and both engines)."""
     jfn, jp, tfn, tp = PAIRS[cell]
@@ -133,14 +134,14 @@ def _run_both(cell, mode, sizes, schedule, ttls=None, head=False):
         tkw = dict(head=ClassificationHead(tfn.state_dim, 3),
                    head_params=params_from_jax(hp, "cpu"))
     jt, tt = [0.0], [0.0]
-    jeng = JEngine(jfn, jp, num_rows=32, frontier_width=3,
+    jeng = JEngine(jfn, jp, num_rows=32, frontier_width=width,
                    fusion_mode="megastep" if mode == "auto" else mode,
                    clock=lambda: jt[0], policy=JPolicy(**POLICY), **jkw)
     jreqs = [JRequest(i, jst.InputGraph(children=[list(c)
                                                   for c in g.children]),
                       x, ttl=ttl(i)) for i, (g, x) in enumerate(cohort)]
     _drive(jeng, jreqs, schedule, jt)
-    teng = _port_engine(tfn, tp, mode, tt, **tkw)
+    teng = _port_engine(tfn, tp, mode, tt, width, **tkw)
     treqs = [ContinuousRequest(i, g, x, ttl=ttl(i))
              for i, (g, x) in enumerate(cohort)]
     _drive(teng, treqs, schedule, tt)
@@ -222,6 +223,28 @@ def test_fixed_interleavings_with_head_match_jax(case, mode):
     sizes, schedule, ttls = _FIXED_CASES[case]
     _check("lstm", mode, *_run_both("lstm", mode, sizes, schedule, ttls,
                                     head=True))
+
+
+#: Retirement windows (sizes, frontier width, the host buffer's rows at
+#: the end): one request; many over several windows; 20 roots in the first
+#: window, more than the engine's host buffer starts with (``HOST_ROWS``,
+#: 16), so it grows to 32.
+_RETIRE_CASES = [([6], 3, 16), ([3, 7, 5, 12, 1, 9, 2, 4, 6, 8], 3, 16),
+                 ([1] * 20 + [4, 2], 24, 32)]
+
+
+@pytest.mark.parametrize("case", range(len(_RETIRE_CASES)))
+def test_retirement_windows_with_head_match_jax(case):
+    """Roots, logits and labels through the port's one-sync readback
+    against the JAX engine's and solo scoring, for one, many and more
+    retired roots than the host buffer first holds."""
+    sizes, width, rows = _RETIRE_CASES[case]
+    jeng, jreqs, teng, treqs = _run_both("lstm", "auto", sizes, [],
+                                         head=True, width=width)
+    _check("lstm", "auto", jeng, jreqs, teng, treqs)
+    assert all(r.status == "ok" for r in treqs)
+    assert ContinuousBatchEngine.HOST_ROWS == 16
+    assert teng._host.shape[0] == rows
 
 
 def test_tree_cohort_with_head_matches_jax():

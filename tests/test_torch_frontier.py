@@ -7,7 +7,9 @@ mode, for all four megastep kinds; ``core.scheduler.frontier_step`` on
 both fusion legs, alone and over staggered cohorts against solo scoring;
 and the K6 wrappers' and the frontier megastep's argument handling (one
 launch a tick, the rows stored at ``out_ids``), run on the CPU with the
-launch replaced by a recorder.  The folded tick's arithmetic is
+launch replaced by a recorder.  K6a's host ids and mapped host rows, and
+the continuous engine's one sync a retiring window, are
+``tests/test_torch_retire_readback.py``'s.  The folded tick's arithmetic is
 ``tests/test_torch_frontier_fold.py``'s; the CUDA kernels are held
 against the plain versions on the card by
 ``tests/test_torch_serve_continuous_card.py``.
@@ -157,13 +159,24 @@ def test_ops_gather_scatter_dispatch_on_cpu():
 
 
 def test_build_table_has_both_k6_entry_points_in_one_source():
-    for name in ("gather_rows", "scatter_rows"):
+    """K6a (the ids by value, a host destination: 12 arguments with the
+    stream), K6b (device ids: 10) and the helper that maps a pinned host
+    buffer all live in one source and one library."""
+    for name, nargs in (("gather_rows", 12), ("scatter_rows", 10)):
         src, entry, argtypes = _build.KERNELS[name]
         assert src == "gather_scatter.cu" and entry == f"{name}_launch"
-        assert len(argtypes) == 10
+        assert len(argtypes) == nargs
         assert _build.library_path(name).name.startswith("gather_scatter-")
+    src, entry, argtypes = _build.HELPERS["host_device_pointer"]
+    assert src == "gather_scatter.cu" and len(argtypes) == 2
+    text = (_build._CSRC / src).read_text()
+    for entry in ("gather_rows_launch", "scatter_rows_launch",
+                  "host_device_pointer"):
+        assert f'extern "C" int {entry}(' in text
+    assert f"constexpr int GATHER_CAP = {gsc.GATHER_CAP};" in text
     assert _build.library_path("gather_rows") == \
-        _build.library_path("scatter_rows")
+        _build.library_path("scatter_rows") == \
+        _build.library_path("host_device_pointer")
 
 
 class _Recorder:
@@ -198,8 +211,11 @@ def test_k6_wrappers_pass_shapes_element_sizes_and_strides(recorder):
     assert out.shape == (2, 3) and out.dtype == torch.bfloat16
     name, args = recorder.calls[-1]
     assert name == "gather_rows"
-    assert args[0] == out.data_ptr() and args[1] == src.data_ptr()
-    assert args[3:] == (2, 7, 3, 2, 3, 3)
+    # out, no host destination, src, the ids' host address, then n, R, D,
+    # the element size and the out / src / host row strides.
+    assert args[0] == out.data_ptr() and args[1] is None
+    assert args[2] == src.data_ptr()
+    assert args[4:] == (2, 7, 3, 2, 3, 3, 0)
     dst = torch.zeros(5, 4)
     rows = torch.zeros(2, 4)
     assert gsc.scatter_rows(dst, idx, rows) is dst

@@ -1,5 +1,8 @@
 """Continuous and decode serving on the card: the K6 row gather/scatter
-kernels against their plain versions (bit for bit), the frontier
+kernels against their plain versions (bit for bit; K6a with the ids on
+the host, one launch per ``GATHER_CAP``, its rows also in a pinned host
+buffer), a retiring window's copies by the profiler (none host→device,
+at most one device→host), the frontier
 megastep, one launch that stores each lane's row at its arena id, against
 the plain frontier (1e-4 of max |plain|) for every kind, the designed
 launches of a continuous tick (one megastep, one CUDA launch; one row
@@ -49,18 +52,27 @@ def _bits(t):
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
 
+def _pinned(n, D, dtype):
+    return gsc.host_rows(max(n, 1), D, dtype, True)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("R,D,n", [(4097, 1024, 256), (1025, 512, 64),
                                    (100, 130, 33), (9, 3, 1), (50, 1025, 17)])
 def test_k6_kernels_equal_plain_bit_for_bit(R, D, n, dtype):
+    """K6a (the ids on the host, the rows also stored into a pinned host
+    buffer) and K6b (the ids on the card) against their plain versions."""
     _need_card()
     gen = torch.Generator().manual_seed(R + D + n)
     src = torch.randn(R, D, generator=gen).to(dtype).cuda()
-    idx = torch.randint(0, R, (n,), generator=gen,
-                        dtype=torch.int32).cuda()
-    got = gsc.gather_rows(src, idx)
-    assert torch.equal(_bits(got), _bits(ref.gather_rows(src, idx)))
+    idx = torch.randint(0, R, (n,), generator=gen, dtype=torch.int32)
+    host = _pinned(n, D, dtype)
+    got = gsc.gather_rows(src, idx, host_out=host)
+    want = ref.gather_rows(src, idx.cuda())
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(host[:n]), _bits(want.cpu()))
     live = torch.randperm(R, generator=gen)[:n].to(torch.int32)
     pads = torch.tensor([R, R + 1, R + 7], dtype=torch.int32)
     ids = torch.cat([live, pads]).cuda()
@@ -75,24 +87,100 @@ def test_k6_kernels_equal_plain_bit_for_bit(R, D, n, dtype):
     assert torch.equal(_bits(k[keep]), _bits(dst[keep]))
 
 
+CAP = gsc.GATHER_CAP
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D", [
+    (torch.float32, 1024),       # 16-byte vectors
+    (torch.float32, 130),        # 8-byte
+    (torch.float32, 3),          # 4-byte
+    (torch.bfloat16, 129),       # 2-byte
+    (torch.bfloat16, 1024)])
+@pytest.mark.parametrize("n", [1, 7, CAP, CAP + 1])
+def test_k6a_ids_by_value_equal_index_select(n, dtype, D):
+    """K6a equals ``index_select`` bit for bit at 1, 7, ``GATHER_CAP`` and
+    one past it (two launches), at every vector width; its host rows equal
+    its card rows; ids outside ``[0, R)`` give zero rows; a numpy id array
+    works like a CPU tensor."""
+    _need_card()
+    R = 600
+    gen = torch.Generator().manual_seed(n + D)
+    src = torch.randn(R, D, generator=gen).to(dtype).cuda()
+    idx = torch.randint(0, R, (n,), generator=gen, dtype=torch.int32)
+    host = _pinned(n, D, dtype)
+    lm.reset_launches()
+    got = gsc.gather_rows(src, idx, host_out=host)
+    torch.cuda.synchronize()
+    assert lm.LAUNCHES == {"gather_rows": -(-n // CAP)}
+    assert torch.equal(_bits(got),
+                       _bits(torch.index_select(src, 0, idx.long().cuda())))
+    assert torch.equal(_bits(host[:n]), _bits(got.cpu()))
+    bad = idx.clone()
+    bad[::3] = R + 5
+    bad[1::5] = -1
+    out = gsc.gather_rows(src, bad.numpy(), host_out=host)
+    torch.cuda.synchronize()
+    live = ((bad >= 0) & (bad < R)).cuda()
+    want = torch.where(live[:, None],
+                       src.index_select(0, torch.where(live, bad.cuda(), 0)),
+                       torch.zeros((), dtype=dtype, device="cuda"))
+    assert torch.equal(_bits(out), _bits(want))
+    assert torch.equal(_bits(host[:n]), _bits(want.cpu()))
+
+
 @pytest.mark.gpu
 def test_k6_wrappers_count_launches_and_refuse():
     _need_card()
     lm.reset_launches()
     src = torch.randn(10, 4, device="cuda")
-    ops.gather_rows(src, torch.tensor([1, 2], dtype=torch.int32,
-                                      device="cuda"))
+    ops.gather_rows(src, torch.tensor([1, 2], dtype=torch.int32))
     ops.scatter_rows(src, torch.tensor([3], dtype=torch.int32,
                                        device="cuda"),
                      torch.zeros(1, 4, device="cuda"))
     assert lm.LAUNCHES == {"gather_rows": 1, "scatter_rows": 1}
     with pytest.raises(TypeError):
-        gsc.gather_rows(src.double(), torch.zeros(1, dtype=torch.int32,
-                                                  device="cuda"))
+        gsc.gather_rows(src.double(), torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(TypeError, match="host"):        # ids on the card
+        gsc.gather_rows(src, torch.zeros(1, dtype=torch.int32,
+                                         device="cuda"))
+    with pytest.raises(ValueError, match="page-locked"):  # not pinned
+        gsc.gather_rows(src, torch.zeros(1, dtype=torch.int32),
+                        host_out=torch.zeros(1, 4))
     with pytest.raises(ValueError):
         gsc.scatter_rows(src, torch.zeros(1, dtype=torch.int32,
                                           device="cuda"),
                          torch.zeros(2, 4, device="cuda"))
+    assert lm.LAUNCHES == {"gather_rows": 1, "scatter_rows": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_head", [True, False])
+def test_retiring_window_makes_at_most_one_copy(with_head):
+    """A retiring window enqueues no host→device copy and at most one
+    device→host copy (the head's logits; none without a head): K6a takes
+    the root ids by value and stores the roots into the engine's pinned
+    buffer, and one sync covers both."""
+    _need_card()
+    fn = LSTMVertex(X, 72)
+    gen = torch.Generator().manual_seed(0)
+    params = fn.init(gen, device="cuda")
+    head = ClassificationHead(fn.state_dim, 5) if with_head else None
+    hp = head.init(gen, device="cuda") if with_head else None
+    eng = ContinuousBatchEngine(
+        fn, params, num_rows=256, frontier_width=16, head=head,
+        head_params=hp, device="cuda",
+        policy=AdmissionPolicy(min_occupancy=0.0, max_window=4))
+    assert eng._host.is_pinned()
+    reqs = [ContinuousRequest(i, g, x) for i, (g, x) in
+            enumerate(_chains(6, 24))]
+    import chip_smoke                # the copy count its phases check
+    per = chip_smoke.retire_copies(eng, reqs, 0.05, 8)
+    assert len(per) == eng.readbacks > 0
+    assert all(w["api"] <= int(with_head) and w["h2d"] == 0
+               and w["d2h"] <= 1 for w in per), per
+    assert any(w["k6a"] for w in per), "the profiler kept no window's events"
+    assert all(r.status == OK for r in reqs)
 
 
 CELLS = {"treelstm": lambda H: TreeLSTMVertex(X, H, 2),

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """K1 (the Tree-LSTM forward megastep), K3/K4/K5 (the LSTM, GRU and
 Tree-FC forward megasteps), K9 (the fused LSTM level step), K12 (the
-Mamba-2 chunk scan), the continuous frontier's tick (K6b) or K10 at the
-ragged head dims beside an earlier commit's on the same inputs, in one
-run on one card.
+Mamba-2 chunk scan), the continuous frontier's tick (K6b), K10 at the
+ragged head dims, K8a (the LSTM gate chain) or K6a (the retired roots'
+gather) with the continuous engine's retirement beside an earlier
+commit's on the same inputs, in one run on one card.
 
     git archive <commit> | tar -x -C build/parent
     python3 tools/k1_parent_ab.py build/parent          # K1
@@ -15,6 +16,8 @@ run on one card.
     python3 tools/k1_parent_ab.py build/parent k6b      # frontier ticks
     python3 tools/k1_parent_ab.py build/parent k10      # K10, ragged D
     python3 tools/k1_parent_ab.py build/parent k10 build/other ...
+    python3 tools/k1_parent_ab.py build/parent k8a      # K8a
+    python3 tools/k1_parent_ab.py build/parent k6a      # K6a, retirement
 
 K1.  The directory holds a checkout of the earlier commit; its K1 source,
 ``src/repro_torch/kernels/csrc/treelstm_megastep.cu`` (the fp32 SIMT
@@ -102,6 +105,30 @@ other checkouts whose ``flash_attention_tf32.cu`` (entry point
 its directory's name; the ptxas lines (registers, spills) of every
 tf32 build are printed.
 
+K8a.  The earlier source, ``src/repro_torch/kernels/csrc/cell_gates.cu``
+(up to 690aa79: four columns a thread in blocks of 256 wherever a vector
+fits, entry point ``lstm_gates_launch`` without a geometry), is built the
+same way.  Both kernels run on the Var-LSTM forward's levels with
+``cell_impl`` "pallas" (the main path's launches, tapped), on those
+levels with a bf16 ``c_prev`` and on ``chip_smoke.K8A_SHAPES``; each
+launch is checked for both against the plain version
+(``chip_smoke.GATE_TOL``) and for this one against the earlier one bit
+for bit, then both are timed by ``torch.profiler`` device time, one
+session a set, in turns.
+
+K6a.  The earlier ``gather_scatter.cu`` (up to 690aa79: the ids on the
+card, no host destination) is built the same way and run beside this
+checkout's K6a (the ids by value, the rows also stored into a pinned
+host buffer) on the first 24 retired-root gathers of the continuous
+Tree-LSTM run and of the chain trace submitted at once: the rows bit for
+bit each other's and the host rows the card's, then device time as
+above.  Then a retiring window's readback alone, host time in turns in
+one process (this checkout's ``_readback``; the earlier ``_retire``'s
+readback as written, on the earlier kernel), and both checkouts'
+engines in fresh processes (``RETIRE_SCRIPT``, earlier, this, this,
+earlier): ``_retire``'s host time a window over three runs of each
+trace, and the copies each retiring window enqueues under the profiler.
+
 Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 """
 
@@ -110,9 +137,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import inspect
 import json
+import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -123,8 +153,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import cell_kernels as ck  # noqa: E402
+from repro_torch.kernels import gather_scatter as gsc  # noqa: E402
 from repro_torch.kernels import level_megastep as lm  # noqa: E402
 from repro_torch.kernels import level_step as ls  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import mamba_ssd as mssd  # noqa: E402
 from repro_torch.models.transformer import TransformerLM  # noqa: E402
 
@@ -376,44 +409,142 @@ def k9_sets() -> dict:
             "var_lstm levels, bf16 state": bf16}
 
 
-def k9_main(dev: dict, checkout: Path) -> None:
-    earlier = earlier_k9(checkout)
-    sets = k9_sets()
-    out = {"card": dev["smi"], "kernel": "K9"}
+def ab_sets(kernel: str, sets: dict, this, earlier, agree, bound,
+            match: tuple) -> dict:
+    """This checkout's kernel (``this(*args)``) and the earlier one
+    (``earlier(*args)``) on each set's argument tuples: ``agree(label,
+    args, this_out, earlier_out)`` checks a call's outputs, then both are
+    timed by ``torch.profiler`` device time (kernels whose name holds
+    ``match[0]`` / ``match[1]``, one a call), one session a set, in turns;
+    ``bound(args)`` is a call's bound in ms.  Prints and returns the means
+    a launch by set."""
+    out = {}
     for name, calls in sets.items():
         timed, bounds = {}, []
         for i, args in enumerate(calls):
-            want = ref.lstm_level_fused(*args)
-            got = ls.lstm_level_fused(*args)
-            old = earlier(*args)
+            got, old = this(*args), earlier(*args)
             torch.cuda.synchronize()
-            for label, res in (("this", got), ("earlier", old)):
-                for g, w in zip(res, want):
-                    g, w = g.float(), w.float()
-                    diff = (g - w).abs()
-                    ok = (bool((diff <= cs.BF16_TOL + cs.BF16_TOL * w.abs())
-                               .all()) if args[0].dtype == torch.bfloat16
-                          else float(diff.max())
-                          <= cs.TOL * float(w.abs().max()))
-                    cs.check(ok, f"{label} K9 on {name} launch {i}: max abs "
-                             f"err {float(diff.max()):.3e}")
-            timed[i, "this"] = {
-                "calls": [lambda a=args: ls.lstm_level_fused(*a)],
-                "match": "k9_", "launches": 1}
-            timed[i, "earlier"] = {
-                "calls": [lambda a=args: earlier(*a)],
-                "match": "lstm_level_fused_kernel", "launches": 1}
-            bounds.append(cs.gate_bound_ms("lstm_level_fused", args)[0])
+            agree(f"{name} launch {i}", args, got, old)
+            timed[i, "this"] = {"calls": [lambda a=args: this(*a)],
+                                "match": match[0], "launches": 1}
+            timed[i, "earlier"] = {"calls": [lambda a=args: earlier(*a)],
+                                   "match": match[1], "launches": 1}
+            bounds.append(bound(args))
         ms = cs.device_ms(timed, reps=10)
-        this = [ms[i, "this"] for i in range(len(calls))]
-        old = [ms[i, "earlier"] for i in range(len(calls))]
-        out[name] = {"launches": len(calls), "ms": float(np.mean(this)),
-                     "earlier_ms": float(np.mean(old)),
+        out[name] = {"launches": len(calls),
+                     "ms": float(np.mean([ms[i, "this"]
+                                          for i in range(len(calls))])),
+                     "earlier_ms": float(np.mean([ms[i, "earlier"] for i
+                                                  in range(len(calls))])),
                      "bound_ms": float(np.mean(bounds))}
-        print(f"K9 {name} ({len(calls)} launches): this "
-              f"{out[name]['ms']:.4f} ms a launch, the earlier "
-              f"{out[name]['earlier_ms']:.4f} ms (device time), bound "
-              f"{out[name]['bound_ms']:.5f} ms")
+        r = out[name]
+        print(f"{kernel} {name} ({len(calls)} launches): this "
+              f"{r['ms']:.4f} ms a launch, the earlier "
+              f"{r['earlier_ms']:.4f} ms (device time), bound "
+              f"{r['bound_ms']:.5f} ms")
+    return out
+
+
+def k9_main(dev: dict, checkout: Path) -> None:
+    def agree(label, args, got, old):
+        want = ref.lstm_level_fused(*args)
+        for who, res in (("this", got), ("earlier", old)):
+            for g, w in zip(res, want):
+                g, w = g.float(), w.float()
+                diff = (g - w).abs()
+                ok = (bool((diff <= cs.BF16_TOL + cs.BF16_TOL * w.abs())
+                           .all()) if args[0].dtype == torch.bfloat16
+                      else float(diff.max()) <= cs.TOL * float(w.abs().max()))
+                cs.check(ok, f"{who} K9 on {label}: max abs err "
+                         f"{float(diff.max()):.3e}")
+
+    out = {"card": dev["smi"], "kernel": "K9", **ab_sets(
+        "K9", k9_sets(), ls.lstm_level_fused, earlier_k9(checkout), agree,
+        lambda a: cs.gate_bound_ms("lstm_level_fused", a)[0],
+        ("k9_", "lstm_level_fused_kernel"))}
+    print(dev["smi"])
+    print(json.dumps(out))
+
+
+#: The earlier K8a entry point's arguments (up to 690aa79: a thread per 4
+#: columns in blocks of 256 wherever a vector fits): c_out, h_out, gates,
+#: c_prev; M, H, g_stride, c_stride, gates_bf16, c_bf16; stream.
+EARLIER_K8A_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
+
+
+def earlier_k8a(checkout: Path):
+    """The earlier checkout's K8a (``cell_gates.cu``), built here, as
+    ``fn(gates, c_prev) -> (c, h)``."""
+    fn = earlier_library(checkout, "cell_gates.cu").lstm_gates_launch
+    fn.argtypes, fn.restype = EARLIER_K8A_ARGS, ctypes.c_int
+
+    def launch(gates, c_prev):
+        M, H = c_prev.shape
+        c = torch.empty((M, H), dtype=gates.dtype, device=gates.device)
+        h = torch.empty_like(c)
+        rc = fn(c.data_ptr(), h.data_ptr(), gates.data_ptr(),
+                c_prev.data_ptr(), M, H, gates.stride(0), c_prev.stride(0),
+                int(gates.dtype == torch.bfloat16),
+                int(c_prev.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the earlier K8a failed with CUDA error {rc}")
+        return c, h
+
+    return launch
+
+
+def k8a_sets() -> dict:
+    """set name → K8a's argument tuples: the Var-LSTM forward's levels
+    with ``cell_impl`` "pallas" (the main path's 54 launches, tapped as
+    ``chip_smoke.py``'s op-by-op phase keeps them), those levels' operands
+    with the state in bf16, and ``chip_smoke.K8A_SHAPES`` with a strided
+    f32 and bf16 ``c_prev`` (the ragged and small shapes)."""
+    _k, fn, params, d, ext, _h, _s = cs.cell_setup("var_lstm")
+    with cs.tapped("lstm_gates") as levels:
+        cs.execute(dataclasses.replace(fn, cell_impl="pallas"), params, d,
+                   ext, fusion_mode="none")
+    bf16 = []
+    for g, c in levels:
+        H = c.shape[1]
+        state = torch.cat([c, c], 1).bfloat16()
+        bf16.append((g, state[:, :H]))
+    gen = torch.Generator().manual_seed(88)
+    edges = []
+    for M, H in cs.K8A_SHAPES:
+        for sd in (torch.float32, torch.bfloat16):
+            g = torch.randn(M, 4 * H, generator=gen).to(cs.DEVICE)
+            state = torch.randn(M, 2 * H, generator=gen).to(cs.DEVICE, sd)
+            edges.append((g, state[:, :H]))
+    return {"var_lstm pallas levels": levels,
+            "var_lstm levels, bf16 c_prev": bf16, "edge shapes": edges}
+
+
+def k8a_main(dev: dict, checkout: Path) -> None:
+    """K8a on ``k8a_sets()`` beside the earlier K8a: both against the plain
+    version (``chip_smoke.GATE_TOL``) and bit for bit each other; the
+    geometry this checkout chose at the main path's shape."""
+    def agree(label, args, got, old):
+        want = ref.lstm_gates(*args)
+        for g, o, w in zip(got, old, want):
+            cs.check(torch.equal(cs._bits(g), cs._bits(o)), f"K8a on "
+                     f"{label}: this and the earlier kernel's outputs "
+                     f"differ in their bits")
+            err = float((g.float() - w.float()).abs().max())
+            cs.check(err <= cs.GATE_TOL, f"K8a on {label}: {err:.3e}")
+
+    sms = lm._sm_count(torch.device(cs.DEVICE))
+    V, nt = ck.k8a_geometry(128, 512, sms, True)
+    ctas = -(-128 * (512 // V) // nt)
+    cs.check(ctas >= 2 * sms, f"K8a at M 128, H 512: {ctas} CTAs")
+    print(f"K8a at M 128, H 512: {V} columns a thread, blocks of {nt}: "
+          f"{ctas} CTAs on {sms} SMs (the earlier kernel: 4 in blocks of "
+          f"256, 64 CTAs)")
+    out = {"card": dev["smi"], "kernel": "K8a", "geometry": [V, nt, ctas],
+           **ab_sets("K8a", k8a_sets(), ck.lstm_gates, earlier_k8a(checkout),
+                     agree, lambda a: cs.gate_bound_ms("lstm_gates", a)[0],
+                     ("lstm_gates_kernel", "lstm_gates_kernel"))}
     print(dev["smi"])
     print(json.dumps(out))
 
@@ -670,6 +801,274 @@ def k6b_main(dev: dict, checkout: Path) -> None:
     print(json.dumps(out))
 
 
+def earlier_k6a(checkout: Path):
+    """The earlier checkout's K6a (``gather_scatter.cu``, up to 690aa79:
+    the ids on the card, no host destination), built here, as ``fn(src,
+    idx_on_card) -> out`` through the earlier ``ops.gather_rows`` path's
+    host steps (the dispatch count, the wrapper's checks, the output's
+    allocation, the launch on the current stream under the device's
+    context, the launch count), so that its host time is comparable."""
+    fn = earlier_library(checkout, "gather_scatter.cu").gather_rows_launch
+    fn.argtypes, fn.restype = EARLIER_SCATTER_ARGS, ctypes.c_int
+    op = "gather_rows"
+
+    def launch(src, idx):
+        kops._tick(op, "cuda")
+        lm.require_cuda(op, src)
+        R, D = src.shape
+        n, dev = idx.shape[0], src.device
+        lm.check_arg(op, "src", src, src.dtype, (R, D), dev)
+        lm.check_arg(op, "idx", idx, torch.int32, (n,), dev)
+        out = torch.empty((n, D), dtype=src.dtype, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            rc = fn(out.data_ptr(), src.data_ptr(), idx.data_ptr(), n, R, D,
+                    src.element_size(), out.stride(0), src.stride(0), stream)
+        if rc:
+            raise RuntimeError(f"the earlier K6a failed with CUDA error {rc}")
+        lm.LAUNCHES["earlier " + op] += 1
+        return out
+
+    return launch
+
+
+#: Run in a checkout's root with its own ``src`` on the path (this one's
+#: or an earlier one's): the continuous Tree-LSTM run (512 parses at once,
+#: with the head) and the LSTM-chain trace's chains (at once, no head)
+#: through that checkout's ``ContinuousBatchEngine``, each once to warm
+#: (64 requests), then timed three times: every ``_retire`` call's host
+#: time and its ``_release``'s (``time.perf_counter``; the window before
+#: it ended in the engine's sync; no request has a deadline, so each
+#: ``_release`` is a retirement's), the run's wall time.  Then the
+#: readback alone, 400 times on the arena's rows 0..7 (a window's 7.6
+#: roots): this checkout's ``_readback``, or, in a checkout without one,
+#: the earlier ``_retire``'s readback as it is written there (the ids
+#: copied to the card, K6a, the roots read back; the head over them and
+#: its logits read back).  Then 64 requests under ``retire_copies``
+#: (this checkout's ``chip_smoke.retire_copies``, passed in as source).
+#: Prints one JSON line.
+RETIRE_SCRIPT = """
+import json, sys, time
+sys.path.insert(0, ".")
+import numpy as np
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import _build
+from repro_torch.kernels import ops as kops
+_build.build_all()
+{retire_copies}
+
+def timed(make, reqs):
+    eng = make()
+    took = {{"_retire": [], "_release": []}}
+    for name, t in took.items():
+        inner = getattr(eng, name)
+        def wrapped(acts, inner=inner, t=t):
+            t0 = time.perf_counter()
+            inner(acts)
+            t.append(time.perf_counter() - t0)
+        setattr(eng, name, wrapped)
+    for r in reqs:
+        assert eng.submit(r), r.error
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    wall = time.perf_counter() - t0
+    assert all(r.status == "ok" for r in reqs)
+    releases = iter(took["_release"])
+    return ([t - next(releases) for t in took["_retire"]], took["_retire"],
+            wall)
+
+class Root:
+    def __init__(self, row):
+        self.root_row = row
+
+def readback(eng, done):
+    if hasattr(eng, "_readback"):
+        return eng._readback(done)
+    root_rows = torch.tensor([a.root_row for a in done], dtype=torch.int32,
+                             device=eng.device)
+    roots_dev = kops.gather_rows(eng._buf, root_rows)
+    roots = roots_dev.cpu().numpy()
+    logits = None
+    if eng.head is not None:
+        logits = eng.head.logits(eng.head_params, roots_dev).cpu().numpy()
+    return roots, roots_dev, logits
+
+out = {{}}
+torch.set_grad_enabled(False)
+fn, params, head, hp, ds = cs.cont_setup()
+tree = (lambda: cs.cont_engine(fn, params, head, hp, cs.CONT_ROWS,
+                               cs.CONT_WIDTH),
+        lambda n: cs._cont_requests(ds.graphs[:n], ds.inputs[:n]))
+cfn, cparams, _gen = cs.chain_setup()
+_arr, lens = cs.poisson_trace(cs.TRACE_SEED, cs.TRACE_N, cs.TRACE_RATE,
+                              cs.TRACE_LENGTHS)
+chains = (lambda: cs.cont_engine(cfn, cparams, None, None, cs.CHAIN_ROWS,
+                                 cs.CHAIN_WIDTH),
+          lambda n: cs.trace_requests(cs.ContinuousRequest, lens[:n],
+                                      cfn.input_dim))
+for name, (make, reqs) in (("tree", tree), ("chains", chains)):
+    timed(make, reqs(64))
+    runs = [timed(make, reqs(None)) for _ in range(3)]
+    less = np.concatenate([r[0] for r in runs])
+    whole = np.concatenate([r[1] for r in runs])
+    eng = make()
+    done = [Root(i) for i in range(8)]
+    for _ in range(20):
+        readback(eng, done)
+    rb = []
+    for _ in range(400):
+        t0 = time.perf_counter()
+        readback(eng, done)
+        rb.append(time.perf_counter() - t0)
+    per = retire_copies(make(), reqs(64), 0.05, 8)
+    seen = [w for w in per if w["k6a"]]
+    out[name] = {{
+        "windows": len(whole),
+        "retire_p50_us": float(np.percentile(whole, 50)) * 1e6,
+        "retire_less_release_p50_us": float(np.percentile(less, 50)) * 1e6,
+        "retire_total_ms": float(np.sum(whole)) * 1e3 / len(runs),
+        "readback_p50_us": float(np.percentile(rb, 50)) * 1e6,
+        "readback_p10_us": float(np.percentile(rb, 10)) * 1e6,
+        "requests_per_s": [len(reqs(None)) / r[2] for r in runs],
+        "profiled_windows": len(per), "windows_seen": len(seen),
+        "copies_enqueued": [min(w["api"] for w in per),
+                            max(w["api"] for w in per)],
+        "h2d": max(w["h2d"] for w in seen) if seen else None,
+        "d2h": max(w["d2h"] for w in seen) if seen else None}}
+print(json.dumps(out))
+"""
+
+
+def retire_run(checkout: Path) -> dict:
+    """``RETIRE_SCRIPT`` in a fresh process in ``checkout`` (its own
+    package, kernels built into its own ``build/``)."""
+    script = RETIRE_SCRIPT.format(
+        retire_copies=inspect.getsource(cs.retire_copies))
+    env = {**os.environ, "PYTHONPATH": str(checkout.resolve() / "src")}
+    r = subprocess.run([sys.executable, "-c", script], cwd=checkout, env=env,
+                       capture_output=True, text=True, timeout=900)
+    cs.check(r.returncode == 0, f"the retirement run in {checkout} failed: "
+             f"{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def gather_sets() -> dict:
+    """set name → K6a's argument tuples ``(src, ids on the host, the same
+    ids on the card, a pinned host buffer)``: the first 24 retired-root
+    gathers of the continuous Tree-LSTM run and of the LSTM-chain trace
+    submitted at once, as ``chip_smoke.py`` taps them."""
+    fn, params, head, hp, ds = cs.cont_setup()
+    _t, tree, _e = cs.frontier_taps(
+        lambda: cs.cont_engine(fn, params, head, hp, cs.CONT_ROWS,
+                               cs.CONT_WIDTH),
+        cs._cont_requests(ds.graphs, ds.inputs))
+    fn, params, _gen = cs.chain_setup()
+    _arr, lens = cs.poisson_trace(cs.TRACE_SEED, cs.TRACE_N, cs.TRACE_RATE,
+                                  cs.TRACE_LENGTHS)
+    _t, chain, _e = cs.frontier_taps(
+        lambda: cs.cont_engine(fn, params, None, None, cs.CHAIN_ROWS,
+                               cs.CHAIN_WIDTH),
+        cs.trace_requests(cs.ContinuousRequest, lens, fn.input_dim))
+    return {name: [(src, idx, idx.to(cs.DEVICE),
+                    cs.host_rows_for(src, idx.numel())) for src, idx in g]
+            for name, g in (("tree roots", tree), ("chain roots", chain))}
+
+
+class _Root:
+    """A retired request as a readback sees it: its root's arena row."""
+
+    def __init__(self, row: int):
+        self.root_row = row
+
+
+def readback_ab(old, reps: int = 400) -> dict:
+    """A retiring window's readback, host time (``time.perf_counter``) in
+    one process, in turns: this checkout's ``_readback`` and the earlier
+    ``_retire``'s readback as it was written, on the earlier K6a (the ids
+    copied to the card, the launch, the roots read back; the head and its
+    logits read back).  Eight roots (a window's 7.6), the engines of the
+    continuous Tree-LSTM run (a head) and of the chain trace (none).
+    Returns p10/p50 µs of each."""
+    fn, params, head, hp, _ds = cs.cont_setup()
+    cfn, cparams, _gen = cs.chain_setup()
+    out = {}
+    for name, eng in (
+            ("tree", cs.cont_engine(fn, params, head, hp, cs.CONT_ROWS,
+                                    cs.CONT_WIDTH)),
+            ("chains", cs.cont_engine(cfn, cparams, None, None,
+                                      cs.CHAIN_ROWS, cs.CHAIN_WIDTH))):
+        done = [_Root(i) for i in range(8)]
+
+        def earlier():
+            ids = torch.tensor([a.root_row for a in done],
+                               dtype=torch.int32, device=eng.device)
+            roots_dev = old(eng._buf, ids)
+            roots_dev.cpu().numpy()
+            if eng.head is not None:
+                eng.head.logits(eng.head_params, roots_dev).cpu().numpy()
+
+        took = {"this": [], "earlier": []}
+        for i in range(reps + 20):
+            for who, call in (("this", lambda: eng._readback(done)),
+                              ("earlier", earlier))[::1 - 2 * (i % 2)]:
+                t0 = time.perf_counter()
+                call()
+                if i >= 20:
+                    took[who].append(time.perf_counter() - t0)
+        out[name] = {f"{who} {q}": float(np.percentile(t, q)) * 1e6
+                     for who, t in took.items() for q in (10, 50)}
+        print(f"readback, {name} (8 roots, {reps} in turns, host µs): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in out[name].items()))
+    return out
+
+
+def k6a_main(dev: dict, checkout: Path) -> None:
+    """K6a on the retired-root gathers beside the earlier K6a (bit for bit:
+    this one's rows on the card and in the host buffer, the earlier one's);
+    the readback alone in turns (``readback_ab``); then ``_retire``'s host
+    time a window and the copies a window enqueues, the earlier checkout's
+    engine and this one's in fresh processes, in the order earlier, this,
+    this, earlier."""
+    torch.set_grad_enabled(False)
+    old = earlier_k6a(checkout)
+
+    def agree(label, args, got, was):
+        src, idx, _di, host = args
+        cs.check(torch.equal(cs._bits(got), cs._bits(was)), f"K6a on "
+                 f"{label}: this and the earlier kernel's rows differ in "
+                 f"their bits")
+        cs.check(torch.equal(cs._bits(host[:idx.numel()]),
+                             cs._bits(got.cpu())),
+                 f"K6a on {label}: the host rows differ from the card's")
+
+    out = {"card": dev["smi"], "kernel": "K6a", **ab_sets(
+        "K6a", gather_sets(),
+        lambda s, i, _d, h: gsc.gather_rows(s, i, host_out=h),
+        lambda s, _i, d, _h: old(s, d), agree,
+        lambda a: cs.k6_bound_ms(a[1].numel(), a[1].numel(), a[0].shape[1],
+                                 a[0].element_size(), 2)[0],
+        ("gather_rows_kernel", "gather_rows_kernel"))}
+    out["readback"] = readback_ab(old)
+    runs = []
+    for who, root in (("earlier", checkout), ("this", ROOT), ("this", ROOT),
+                      ("earlier", checkout)):
+        runs.append((who, retire_run(root)))
+        print(f"retirement, {who}: {json.dumps(runs[-1][1])}")
+    for name in ("tree", "chains"):
+        for who in ("this", "earlier"):
+            mine = [r[name] for w, r in runs if w == who]
+            out[f"{name} retire, {who}"] = {
+                k: [r[k] for r in mine] for k in (
+                    "retire_p50_us", "retire_less_release_p50_us",
+                    "retire_total_ms", "readback_p50_us", "readback_p10_us",
+                    "windows", "requests_per_s", "windows_seen",
+                    "copies_enqueued", "h2d", "d2h")}
+    print(dev["smi"])
+    print(json.dumps(out))
+
+
 #: The earlier SIMT K10's arguments: out, q, k, v; B, Hq, Hkv, Sq, Sk, D;
 #: nine strides; scale; causal, window, bf16; stream.
 EARLIER_K10_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
@@ -806,13 +1205,20 @@ def main(argv=None) -> None:
     args = sys.argv[1:] if argv is None else argv
     cells = {"k3": "lstm", "k4": "gru", "k5": "treefc"}
     cs.check(len(args) in (1, 2) and (len(args) == 1 or args[1] in (
-        "k1", "k9", "k12", "k6b", "k10", *cells))
+        "k1", "k9", "k12", "k6a", "k6b", "k8a", "k10", *cells))
              or len(args) > 2 and args[1] == "k10",
              "usage: k1_parent_ab.py EARLIER_CHECKOUT "
-             "[k1|k3|k4|k5|k9|k12|k6b|k10 [OTHER_CHECKOUT ...]]")
+             "[k1|k3|k4|k5|k9|k12|k6a|k6b|k8a|k10 [OTHER_CHECKOUT ...]]")
     dev = cs.device_phase()
     if len(args) == 2 and args[1] == "k6b":
         k6b_main(dev, Path(args[0]))
+        return
+    if len(args) == 2 and args[1] == "k6a":
+        k6a_main(dev, Path(args[0]))
+        return
+    if len(args) == 2 and args[1] == "k8a":
+        torch.set_grad_enabled(False)
+        k8a_main(dev, Path(args[0]))
         return
     if len(args) >= 2 and args[1] == "k10":
         k10_main(dev, Path(args[0]), [Path(a) for a in args[2:]])
