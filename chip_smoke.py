@@ -35,7 +35,8 @@ Phases, each of which must pass (any failure exits non-zero):
      512 SST-like requests in batches of 64: every request ends ``ok``,
      no degradation, the breaker closed, one kernel launch per padded
      level; the roots match the op-by-op path on the card and the plain
-     path on the CPU to 1e-4;
+     path on the CPU to 1e-4; ``pipeline.pack`` host p50/p99 (cold packs
+     that harvest their solos into the graph tier) and the harvest's;
   4. training levels — one full-width training step of the paper's
      ``tree_lstm`` (the example ``examples/torch_treelstm_sentiment.py``,
      SST-like parses of seed 0 in batches of 64, pow2 buckets with the
@@ -263,7 +264,36 @@ Phases, each of which must pass (any failure exits non-zero):
      same token wherever its top-2 margin exceeds 2e-4.  A profile of
      one warm decode tick; ``reduced(mamba2-370m)`` at f32 served on the
      card must give a full recompute's greedy tokens exactly;
-  17. report — one JSON line per the kernel table, then the device line.
+  18. composed training — the example's default leg
+     (``examples/torch_treelstm_sentiment.py``): the ``TRAIN_DATA``
+     SST-like parses of seed 0 composed by ``ComposedBatchSource`` into
+     batches of ``BATCH`` (pow2 buckets, labels as riders), packed on
+     ``SchedulePipeline.prefetch``'s background thread two batches ahead,
+     AdamW warmup-cosine, ``TRAIN_STEPS`` steps, launch counts set to 0
+     just before and read just after: every batch's host schedule
+     byte-identical to ``pack_batch`` of its graphs at the composer's pads
+     and its ext to ``pack_external``, its labels the corpus's at its
+     ``sample_ids``, no pack from epoch 2 on, finite losses equal within
+     1e-6 relative to the same batches packed inline on the main thread,
+     one K1 a padded level, one K2 a level with a live slot, one K7 a
+     step; step p50/p99, the wait in ``next()``, hit rate, shapes and the
+     composer's stats beside phase 5's FIFO step;
+  19. spliced serving and a warm restart — ``StructureServeEngine`` over
+     phase 3's traffic with ``persist=`` a fresh store under ``build/``:
+     the requests in order (cold packs, their solos harvested), then in a
+     seeded permutation (every batch spliced from the graph tier and
+     byte-identical to ``pack_batch``; roots bit for bit those of the same
+     batches cold-packed in a fresh pipeline), then a fresh engine on the
+     same store (batch disk loads and splices from per-graph disk entries:
+     ``packs`` = ``graph_packs`` = 0, the same roots bit for bit), then the
+     first order again (memory hits); ``pipeline.pack`` host p50/p99 of
+     each kind of lookup, the harvest's and the store's writes;
+  20. the examples on the card — ``torch_quickstart.main([])``;
+     ``torch_encoder_decoder`` at hidden 512, input 256, batch 64 (one K3
+     launch a level, counted from 0; outputs within 1e-4 of the op-by-op
+     path on the same card tensors); a two-replica ``ShardedPipeline``
+     whose stacked ``pack_step`` tensors equal each replica's own pack;
+  21. report — one JSON line per the kernel table, then the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -344,7 +374,8 @@ from repro_torch.models.readout import (ClassificationHead,  # noqa: E402
 from repro_torch.models.rnn import GRUVertex  # noqa: E402
 from repro_torch.models.transformer import TransformerLM  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
-from repro_torch.pipeline import BucketPolicy, SchedulePipeline  # noqa: E402
+from repro_torch.pipeline import (BucketPolicy, ScheduleCache,  # noqa: E402
+                                  SchedulePipeline)
 from repro_torch.obs.registry import get_registry  # noqa: E402
 from repro_torch.serve import (AdmissionPolicy,  # noqa: E402
                                ContinuousBatchEngine, ContinuousRequest,
@@ -744,12 +775,35 @@ def served_traffic():
     return fn, params, ds
 
 
+def timed_calls(obj, name: str) -> list:
+    """Wrap ``obj.<name>`` (on the instance) so that every call appends
+    its host seconds to the returned list."""
+    took, inner = [], getattr(obj, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return inner(*a, **k)
+        finally:
+            took.append(time.perf_counter() - t0)
+    setattr(obj, name, timed)
+    return took
+
+
+def _pct(seconds, q) -> float:
+    """The ``q``-th percentile of host seconds, in ms (nan for none)."""
+    return float(np.percentile(np.asarray(seconds) * 1e3, q)) if seconds \
+        else float("nan")
+
+
 def serve_phase(card: str) -> dict:
     fn, params, ds = served_traffic()
     eng = StructureServeEngine(fn, params, batch_size=BATCH, device=DEVICE)
     reqs = _requests(ds)
     for r in reqs:
         check(eng.submit(r), f"request {r.request_id} rejected: {r.error}")
+    pack_s, harvest_s = timed_calls(eng.pipeline, "pack"), \
+        timed_calls(eng.pipeline.cache, "_harvest")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -812,6 +866,10 @@ def serve_phase(card: str) -> dict:
            "batch_p99_ms": float(np.percentile(lat_ms, 99)),
            "max_memory_allocated_bytes": int(peak),
            "launches": launches, "padded_levels": levels,
+           "pack_p50_ms": _pct(pack_s, 50), "pack_p99_ms": _pct(pack_s, 99),
+           "harvest_p50_ms": _pct(harvest_s, 50),
+           "cache": {k: v for k, v in eng.pipeline.stats().items()
+                     if k in ("packs", "harvests", "splices", "hits")},
            "shapes": shapes, "err_vs_opbyop": err_op,
            "err_vs_cpu": err_cpu, "card": card}
     print(f"serve: {json.dumps(out)}")
@@ -867,16 +925,20 @@ def profile_phase() -> None:
 # Phases 4-5: training
 # ---------------------------------------------------------------------------
 
-def _example():
-    """The training example, loaded from the checkout (``examples/`` is
+def load_example(name: str):
+    """``examples/<name>.py``, loaded from the checkout (``examples/`` is
     not a package)."""
     import importlib.util
-    path = ROOT / "examples" / "torch_treelstm_sentiment.py"
-    spec = importlib.util.spec_from_file_location("torch_treelstm_sentiment",
-                                                  path)
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _example():
+    """The training example."""
+    return load_example("torch_treelstm_sentiment")
 
 
 def train_setup():
@@ -4667,6 +4729,328 @@ def mamba_serving_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: composed training (the example's default leg)
+# ---------------------------------------------------------------------------
+
+def composed_run(ex, fn, ds, prefetch: bool) -> dict:
+    """``TRAIN_STEPS`` steps of the example's default leg from the init of
+    seed 0: ``ComposedBatchSource`` over ``ds`` (labels as riders) into a
+    fresh pipeline, packed on its background thread (``prefetch``) or
+    inline on this thread; launch counts set to 0 just before and read
+    just after."""
+    from repro_torch.optim import warmup_cosine
+    params = ex.init_params(fn, 0, DEVICE)
+    opt = adamw_init(params)
+    lr = warmup_cosine(3e-3, 20, TRAIN_STEPS)
+    pipe = SchedulePipeline(fn.input_dim,
+                            bucket_policy=BucketPolicy(mode="pow2"),
+                            with_runs=True, device=DEVICE)
+    source = ex.composed_source(ds, pipe, BATCH)
+    batches = pipe.prefetch(source, depth=2) if prefetch \
+        else (pipe.pack(*item) for item in source)
+    torch.cuda.synchronize()
+    lm.reset_launches()
+    losses, step_s, wait_s, packs, kept = [], [], [], [], []
+    try:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            b = next(batches)
+            t1 = time.perf_counter()
+            loss, _acc = ex.train_step(fn, params, opt, b,
+                                       ex.labels_of(b, DEVICE), lr(opt.step))
+            losses.append(float(loss))     # waits for the step's work
+            step_s.append(time.perf_counter() - t0)
+            wait_s.append(t1 - t0)
+            packs.append(pipe.cache.packs)
+            kept.append(b)
+    finally:
+        if prefetch:
+            batches.close()
+    return {"losses": losses, "step_s": step_s, "wait_s": wait_s,
+            "packs": packs, "batches": kept, "launches": dict(lm.LAUNCHES),
+            "pipe": pipe, "source": source}
+
+
+def composed_train_phase(card: str, fifo: dict) -> dict:
+    """The example's default leg at full width: ``TRAIN_DATA`` SST-like
+    parses of seed 0 composed into batches of ``BATCH`` (pow2 buckets),
+    prefetched two ahead, AdamW warmup-cosine, ``TRAIN_STEPS`` steps.
+    Every batch's host schedule byte-identical to ``pack_batch`` of its
+    graphs at the composer's pads and its ext to ``pack_external``; its
+    labels the corpus's at its ``sample_ids``; no pack from epoch 2 on;
+    one K1 a padded level, one K2 a level with a live slot, one K7 a
+    step; the losses equal, within 1e-6 relative, those of the same
+    batches packed inline on this thread."""
+    ex = _example()
+    cfg = get_paper_model("tree_lstm")
+    fn = cfg.make_vertex(hidden=HIDDEN, input_dim=cfg.input_dim)
+    ds = sst_like_dataset(TRAIN_DATA, input_dim=cfg.input_dim, seed=0)
+    run = composed_run(ex, fn, ds, prefetch=True)
+    inline = composed_run(ex, fn, ds, prefetch=False)
+    losses, launches = run["losses"], run["launches"]
+    plan, _ = run["pipe"].composer(BATCH).compose(
+        ds.graphs, ds.inputs, {"labels": list(ds.labels)})
+    nb = len(plan)
+    padded, work = 0, [0, 0]
+    for i, b in enumerate(run["batches"]):
+        cb = plan[i % nb]
+        ids = np.asarray(b.aux["sample_ids"])
+        check(np.array_equal(ids, cb.sample_ids),
+              f"composed step {i}: sample ids differ from the composer's")
+        check(list(b.aux["labels"]) == list(ds.labels[ids]),
+              f"composed step {i}: labels do not realign by sample_ids")
+        want = pack_batch(cb.graphs, *cb.pads, with_runs=True)
+        check(_sched_equal(b.sched, want), f"composed step {i}: the "
+              f"schedule differs from pack_batch at the composer's pads "
+              f"{cb.pads}")
+        check(np.array_equal(b.ext.cpu().numpy(), pack_external(
+            cb.inputs, want, fn.input_dim)),
+            f"composed step {i}: ext differs from pack_external")
+        padded += b.sched.T
+        work = [x + y for x, y in zip(work, k2_design(b.dev))]
+    check(all(p == nb for p in run["packs"][nb - 1:]),
+          f"packs after each step {run['packs']}: not {nb} from epoch 2 on")
+    check(bool(np.isfinite(losses).all()), f"non-finite losses: {losses}")
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(losses, inline["losses"]))
+    check(rel <= 1e-6, f"prefetched losses vs inline: {rel:.3e} relative")
+    check(launches.get("treelstm_megastep", 0) == padded,
+          f"{launches.get('treelstm_megastep', 0)} K1 launches for "
+          f"{padded} padded levels")
+    check(launches.get("treelstm_bwd_megastep", 0) == work[0],
+          f"{launches.get('treelstm_bwd_megastep', 0)} K2 launches for "
+          f"{work[0]} levels with a live slot")
+    check(launches.get("scatter_add_rows", 0) == TRAIN_STEPS,
+          f"{launches.get('scatter_add_rows', 0)} K7 launches for "
+          f"{TRAIN_STEPS} steps")
+    stats = run["pipe"].stats()
+    out = {"steps": TRAIN_STEPS, "batches_per_epoch": nb,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "max_rel_vs_inline": rel,
+           "step_p50_ms": _pct(run["step_s"], 50),
+           "step_p99_ms": _pct(run["step_s"], 99),
+           "wait_p50_ms": _pct(run["wait_s"], 50),
+           "wait_p99_ms": _pct(run["wait_s"], 99),
+           "inline_step_p50_ms": _pct(inline["step_s"], 50),
+           "inline_pack_p50_ms": _pct(inline["wait_s"], 50),
+           "fifo_step_p50_ms": fifo["step_p50_ms"],
+           "hit_rate": stats["hit_rate"], "packs": stats["packs"],
+           "compiled_shapes": stats["compiled_shapes"],
+           "composer": run["source"].stats.summary(),
+           "launches": {k: launches.get(k, 0) for k in (
+               "treelstm_megastep", "treelstm_bwd_megastep",
+               "scatter_add_rows")},
+           "card": card}
+    print("composed losses: " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"composed training: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: spliced structure serving and a warm restart
+# ---------------------------------------------------------------------------
+
+def _sched_equal(got, want) -> bool:
+    return all(
+        (a is None) == (w is None) and (a is None or (
+            a.dtype == w.dtype and a.tobytes() == w.tobytes()))
+        for a, w in ((getattr(got, f.name), getattr(want, f.name))
+                     for f in dataclasses.fields(want)))
+
+
+def serve_order(eng, ds, order) -> tuple:
+    """Score ``ds``'s requests submitted in ``order`` through ``eng``:
+    (roots by request id, [(host s, graphs, host schedule)] a pack)."""
+    calls, inner = [], eng.pipeline.pack
+
+    def pack(graphs, inputs, *a, **k):
+        t0 = time.perf_counter()
+        b = inner(graphs, inputs, *a, **k)
+        calls.append((time.perf_counter() - t0, list(graphs), b.sched))
+        return b
+    eng.pipeline.pack = pack
+    reqs = [StructureRequest(int(i), ds.graphs[i], ds.inputs[i])
+            for i in order]
+    try:
+        for r in reqs:
+            check(eng.submit(r), f"request {r.request_id} rejected: "
+                  f"{r.error}")
+        eng.run()
+    finally:
+        del eng.pipeline.pack
+    check(all(r.status == "ok" for r in reqs),
+          f"{sum(r.status != 'ok' for r in reqs)} request(s) not ok")
+    roots = np.stack([r.root_state for r in
+                      sorted(reqs, key=lambda r: r.request_id)])
+    return roots, calls
+
+
+def spliced_serving_phase(card: str) -> dict:
+    """``StructureServeEngine`` over the served traffic with a fresh
+    on-disk store under ``build/``: the requests in order (cold packs,
+    harvested), then in a seeded permutation (every batch a new
+    combination of seen graphs: spliced, byte-identical to
+    ``pack_batch``, roots bit for bit those of cold packs in a fresh
+    pipeline), then a fresh engine on the same store (batch disk loads
+    and splices from per-graph disk entries: no pack of either kind, the
+    same roots), then the first order again (memory hits).
+    ``pipeline.pack`` host time for each kind of lookup."""
+    import tempfile
+    fn, params, ds = served_traffic()
+    (ROOT / "build").mkdir(exist_ok=True)
+    store = Path(tempfile.mkdtemp(prefix="sched_store_", dir=ROOT / "build"))
+
+    def engine(cache):
+        return StructureServeEngine(
+            fn, params, batch_size=BATCH, device=DEVICE,
+            pipeline=SchedulePipeline(
+                fn.input_dim, bucket_policy=BucketPolicy(mode="pow2"),
+                with_runs=False, cache=cache, device=DEVICE))
+
+    def stats(eng):
+        return eng.pipeline.cache.stats()
+
+    order_a = np.arange(len(ds.graphs))
+    order_b = np.random.default_rng(1).permutation(len(ds.graphs))
+    try:
+        eng = engine(ScheduleCache(persist=store))
+        harvest_s = timed_calls(eng.pipeline.cache, "_harvest")
+        store_s = timed_calls(eng.pipeline.cache.persist, "store")
+        roots_a, cold = serve_order(eng, ds, order_a)
+        s1 = stats(eng)
+        check(s1["packs"] == len(cold) and s1["splices"] == 0,
+              f"first pass: {s1['packs']} packs, {s1['splices']} splices "
+              f"for {len(cold)} batches")
+        roots_b, spliced = serve_order(eng, ds, order_b)
+        s2 = stats(eng)
+        check(s2["splices"] - s1["splices"] == len(spliced)
+              and s2["packs"] == s1["packs"],
+              f"permuted pass: {s2['splices'] - s1['splices']} splices, "
+              f"{s2['packs'] - s1['packs']} packs for {len(spliced)} "
+              f"batches")
+        for _t, graphs, sched in cold + spliced:
+            check(_sched_equal(sched, pack_batch(
+                graphs, sched.T, sched.M, sched.A, sched.N,
+                with_runs=False)),
+                "a served schedule differs from pack_batch")
+        fresh = engine(ScheduleCache(splice=False, persist=False))
+        roots_c, cold_b = serve_order(fresh, ds, order_b)
+        check([[id(g) for g in c[1]] for c in cold_b]
+              == [[id(g) for g in c[1]] for c in spliced],
+              "the fresh pipeline formed other batches")
+        check(stats(fresh)["packs"] == len(cold_b),
+              "the fresh pipeline did not cold-pack every batch")
+        check(np.array_equal(roots_c.view(np.int32),
+                             roots_b.view(np.int32)),
+              "roots from spliced schedules differ from cold packs' "
+              f"(max {np.abs(roots_c - roots_b).max():.3e})")
+
+        warm = engine(ScheduleCache(persist=store))
+        roots_wa, disk = serve_order(warm, ds, order_a)
+        roots_wb, disk_spliced = serve_order(warm, ds, order_b)
+        sw = stats(warm)
+        check(sw["packs"] == 0 and sw["graph_packs"] == 0,
+              f"warm restart: {sw['packs']} packs, {sw['graph_packs']} "
+              f"graph packs")
+        check(sw["disk_hits"] == len(disk)
+              and sw["splices"] == len(disk_spliced),
+              f"warm restart: {sw['disk_hits']} disk hits, "
+              f"{sw['splices']} splices")
+        for _t, graphs, sched in disk + disk_spliced:
+            check(_sched_equal(sched, pack_batch(
+                graphs, sched.T, sched.M, sched.A, sched.N,
+                with_runs=False)),
+                "a warm-loaded schedule differs from pack_batch")
+        for got, want, what in ((roots_wa, roots_a, "disk-loaded"),
+                                (roots_wb, roots_b, "warm spliced")):
+            check(np.array_equal(got.view(np.int32), want.view(np.int32)),
+                  f"{what} roots differ from the first engine's")
+        _roots, hits = serve_order(warm, ds, order_a)
+        sh = stats(warm)
+        check(sh["hits"] - sw["hits"] == len(hits),
+              "the repeated pass was not all memory hits")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+    def times(calls):
+        s = [c[0] for c in calls]
+        return {"p50_ms": _pct(s, 50), "p99_ms": _pct(s, 99), "n": len(s)}
+    out = {"batches": len(cold),
+           "pack": {"cold (harvest, persist)": times(cold),
+                    "cold, splice off": times(cold_b),
+                    "splice": times(spliced), "disk load": times(disk),
+                    "splice from disk": times(disk_spliced),
+                    "memory hit": times(hits)},
+           "harvest_p50_ms": _pct(harvest_s, 50),
+           "persist_store_p50_ms": _pct(store_s, 50),
+           "persist_stores": len(store_s),
+           "warm": {k: sw[k] for k in ("packs", "graph_packs", "disk_hits",
+                                       "splices", "graph_disk_hits")},
+           "card": card}
+    print(f"spliced serving: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the examples on the card, and the sharded pipeline
+# ---------------------------------------------------------------------------
+
+def examples_phase(card: str) -> dict:
+    """``torch_quickstart.main([])``; ``torch_encoder_decoder`` at hidden
+    ``HIDDEN``, input 256, batch ``BATCH`` (one K3 a level, outputs within
+    1e-4 of the op-by-op path on the same card tensors); a two-replica
+    ``ShardedPipeline``'s stacked step equal to each replica's own
+    pack."""
+    from repro_torch.pipeline import ShardedPipeline
+    qs = load_example("torch_quickstart").main([])
+    check(bool(np.isfinite([qs["loss"], qs["loss2"]]).all()),
+          f"quickstart losses {qs}")
+    ed = load_example("torch_encoder_decoder")
+    X = get_paper_model("tree_lstm").input_dim
+    enc, dec, params = ed.make_model(X, HIDDEN, DEVICE)
+    src, tgt = ed.make_data(BATCH, X)
+    torch.cuda.synchronize()
+    lm.reset_launches()
+    out = ed.encode_decode(enc, dec, params, src, tgt, DEVICE)
+    torch.cuda.synchronize()
+    k3 = lm.LAUNCHES.get("lstm_megastep", 0)
+    levels = ed.SRC_LEN + ed.TGT_LEN
+    check(k3 == levels, f"encoder-decoder: {k3} K3 launches for {levels} "
+          f"levels")
+    plain = ed.encode_decode(enc, dec, params, src, tgt, DEVICE,
+                             fusion_mode="none")
+    err = max(float((out[k] - plain[k]).abs().max()) for k in out)
+    check(err <= TOL, f"encoder-decoder vs op-by-op: {err:.3e} > {TOL}")
+    check(bool(torch.isfinite(out["outs"]).all()), "non-finite outputs")
+
+    ds = sst_like_dataset(TRAIN_DATA, input_dim=X, seed=0)
+    sp = ShardedPipeline(X, 2, bucket_policy=BucketPolicy(mode="pow2"),
+                         device=DEVICE)
+    steps, sstats = sp.composer(BATCH).compose_sharded(
+        ds.graphs, ds.inputs, {"labels": list(ds.labels)}, num_shards=2)
+    for st in steps[:3]:
+        got = sp.pack_step(st)
+        for r, rep in enumerate(st.replicas):
+            own = SchedulePipeline(X, cache=ScheduleCache(persist=False),
+                                   device=DEVICE).pack(
+                rep.graphs, rep.inputs, pads=st.pads)
+            check(torch.equal(got["ext"][r], own.ext),
+                  f"sharded ext of replica {r} differs from its own pack")
+            for f in dataclasses.fields(own.dev):
+                a, w = getattr(got["dev"], f.name), getattr(own.dev, f.name)
+                if isinstance(w, torch.Tensor):
+                    check(torch.equal(a[r], w), f"sharded {f.name} of "
+                          f"replica {r} differs from its own pack")
+            check(got["dev"].live[r] == own.dev.live,
+                  f"sharded live counts of replica {r} differ")
+    res = {"quickstart": qs, "encdec_k3_launches": k3,
+           "encdec_err": err, "sharded_steps": len(steps),
+           "sharded_node_imbalance": sstats.node_imbalance, "card": card}
+    print(f"examples: {json.dumps(res)}")
+    return res
+
+
 def k2_row(kind: str, part: dict, launches: dict) -> dict:
     """K2's kernel row for kind ``kind``: ``launches`` counts the main
     path's levels that launched (its CUDA launches beside it); ``ms`` is
@@ -4706,6 +5090,9 @@ def main() -> None:
     opbyop = op_by_op_phase(dev["smi"], serve, decode[0])
     lmserve = lm_serving_phase(dev["smi"])
     mamba = mamba_serving_phase(dev["smi"])
+    composed_train_phase(dev["smi"], train)
+    spliced_serving_phase(dev["smi"])
+    examples_phase(dev["smi"])
     row = {"name": "treelstm_megastep", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/treelstm_megastep_sm90.cu",
            "replaces": "src/repro/kernels/level_megastep.py:181",

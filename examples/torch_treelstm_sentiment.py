@@ -1,14 +1,19 @@
 """Tree-LSTM sentiment classifier on SST-like data (paper §5 model (d)),
 trained with the PyTorch port on one NVIDIA GPU.
 
-The ``--no-compose`` leg of ``examples/treelstm_sentiment.py``: dataset →
-FIFO epoch slicing → schedule pipeline (topology-fingerprint cache +
-pow2 shape buckets, packed with the backward's sorted runs) → batched
-scheduling of F over G (``execute_lazy``: one fused megastep per level
-forward, one reverse megastep per level backward) → classification head
-on root states → AdamW with a warmup-cosine schedule.  The port has no
-batch composer or background prefetch yet, so batches are always FIFO
-and packed in the loop.
+The port of ``examples/treelstm_sentiment.py``: dataset → batch composer
+(``ComposedBatchSource``, labels riding along as aux) → schedule pipeline
+(topology-fingerprint cache + per-graph splice tier + pow2 shape buckets,
+packed with the backward's sorted runs) on a background thread
+(``SchedulePipeline.prefetch``, two batches ahead) → batched scheduling
+of F over G (``execute_lazy``: one fused megastep per level forward, one
+reverse megastep per level backward) → classification head on root
+states → AdamW with a warmup-cosine schedule.
+
+SST-like random binary parses are nearly all distinct topologies, so the
+composer's wins on this corpus are depth-sorted bucket occupancy and
+deterministic epoch replay (from epoch 2 on, every batch is a
+schedule-cache hit).  ``--no-compose`` slices FIFO epochs instead.
 
 Run:  PYTHONPATH=src python3 examples/torch_treelstm_sentiment.py [--steps 150]
       PYTHONPATH=src python3 examples/torch_treelstm_sentiment.py \\
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.scheduler import execute_lazy, readout_roots
+from repro_torch.data import ComposedBatchSource
 from repro_torch.data.trees import TreeDataset, sst_like_dataset
 from repro_torch.models.treelstm import TreeLSTMVertex
 from repro_torch.optim import adamw_init, adamw_update, warmup_cosine
@@ -50,6 +56,24 @@ def fifo_batches(ds: TreeDataset, batch: int, rng: np.random.Generator
     while True:
         for idx in parts:
             yield ds.batch(idx)
+
+
+def composed_source(ds: TreeDataset, pipe: SchedulePipeline, batch: int
+                    ) -> ComposedBatchSource:
+    """Pipeline-aware batch formation over ``ds``: same-fingerprint
+    samples grouped into whole batches, leftovers filling buckets by
+    depth, the deterministic plan replayed every epoch.  Labels ride
+    through the reordering as aux; each item is ``(graphs, inputs, aux,
+    pads)`` with ``aux["sample_ids"]`` the corpus indices."""
+    return ComposedBatchSource(ds.graphs, ds.inputs,
+                               {"labels": list(ds.labels)},
+                               composer=pipe.composer(batch))
+
+
+def labels_of(b: PackedBatch, device) -> torch.Tensor:
+    """The batch's labels (its ``labels`` aux rider) on ``device``."""
+    return torch.from_numpy(
+        np.asarray(b.aux["labels"]).astype(np.int64)).to(device)
 
 
 def loss_and_grads(fn: TreeLSTMVertex, params: Params, b: PackedBatch,
@@ -90,8 +114,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--hidden", type=int, default=64)
     ap.add_argument("--input-dim", type=int, default=32)
     ap.add_argument("--no-compose", action="store_true",
-                    help="FIFO epoch slicing (the only leg the port has: "
-                         "its batch composer is not ported yet)")
+                    help="FIFO epoch slicing instead of the composer")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
@@ -108,21 +131,35 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     params = init_params(fn, 0, args.device)
     opt = adamw_init(params)
     sched_fn = warmup_cosine(3e-3, 20, args.steps)
-    batches = fifo_batches(ds, args.batch, np.random.default_rng(0))
+    if args.no_compose:
+        source = ((g, x, {"labels": y}) for g, x, y in
+                  fifo_batches(ds, args.batch, np.random.default_rng(0)))
+    else:
+        source = composed_source(ds, pipe, args.batch)
+    batches = pipe.prefetch(source, depth=2)
     losses = []
-    for step in range(1, args.steps + 1):
-        graphs, inputs, labels = next(batches)
-        b = pipe.pack(graphs, inputs)
-        y = torch.from_numpy(labels.astype(np.int64)).to(args.device)
-        loss, acc = train_step(fn, params, opt, b, y, sched_fn(opt.step))
-        losses.append(float(loss))
-        if step % 25 == 0 or step == 1:
-            print(f"step {step:4d}  loss {losses[-1]:.4f}  "
-                  f"acc {float(acc):.2f}")
+    try:
+        for step in range(1, args.steps + 1):
+            b = next(batches)
+            loss, acc = train_step(fn, params, opt, b,
+                                   labels_of(b, args.device),
+                                   sched_fn(opt.step))
+            losses.append(float(loss))
+            if step % 25 == 0 or step == 1:
+                print(f"step {step:4d}  loss {losses[-1]:.4f}  "
+                      f"acc {float(acc):.2f}")
+    finally:
+        batches.close()
     s = pipe.stats()
     print(f"done — schedule pipeline: {s['hit_rate']:.0%} cache hit rate, "
           f"{s['compiled_shapes']} padded shape(s) over {s['batches']} "
-          f"batches ({s['packs']} cold packs)")
+          f"batches (async-packed; {s['packs']} cold packs)")
+    if not args.no_compose and source.stats is not None:
+        cs = source.stats
+        print(f"composer: {cs.num_groups} topology groups → "
+              f"{cs.group_batches} whole-group + {cs.leftover_batches} "
+              f"leftover batches/epoch, predicted epoch-1 hit rate "
+              f"{cs.hit_rate:.0%}, mean occupancy {cs.mean_occupancy:.0%}")
     return losses
 
 

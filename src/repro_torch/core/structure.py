@@ -717,6 +717,48 @@ def scatter_plans(idx: np.ndarray, device="cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# Bucketing
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BucketSpec:
+    """Fixed padded dims so distinct minibatches share one launch shape."""
+
+    pad_levels: int
+    pad_width: int
+    pad_arity: int
+    pad_nodes: int
+
+    def pack(self, graphs: Sequence[InputGraph]) -> LevelSchedule:
+        return pack_batch(graphs, self.pad_levels, self.pad_width,
+                          self.pad_arity, self.pad_nodes)
+
+
+def fit_bucket(graphs: Sequence[InputGraph], batch_size: int,
+               round_levels: int = 8, round_width: int = 8,
+               round_nodes: int = 8) -> BucketSpec:
+    """Derive a bucket covering any ``batch_size``-subset of ``graphs``.
+
+    Rounds dims up so near-miss batches still share one padded shape.
+    """
+    def _round(x: int, r: int) -> int:
+        return ((x + r - 1) // r) * r
+
+    depth = max(int(g.levels().max()) + 1 for g in graphs)
+    arity = max(max(g.max_arity for g in graphs), 1)
+    nodes = max(g.num_nodes for g in graphs)
+    # Worst-case level width: the batch_size widest levels could coincide.
+    per_graph_width = [int(np.bincount(g.levels()).max()) for g in graphs]
+    width = sum(sorted(per_graph_width)[-batch_size:])
+    return BucketSpec(
+        pad_levels=_round(depth, round_levels),
+        pad_width=_round(width, round_width),
+        pad_arity=arity,
+        pad_nodes=_round(nodes, round_nodes),
+    )
+
+
 def pack_external(inputs: Sequence[np.ndarray], schedule: LevelSchedule,
                   ext_dim: int) -> np.ndarray:
     """Pack per-sample external inputs ``[n_k, X]`` into ``[K*N + 1, X]``.

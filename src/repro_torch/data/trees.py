@@ -1,7 +1,13 @@
-"""Tree datasets for the serving and training paths (the SST-like part of
-``repro.data.trees``): random binary parses with SST length statistics
-(≤ 54 words), random leaf embeddings, binary sentiment labels.  NumPy
-only; the same seed gives the same data as the JAX package."""
+"""Tree datasets for the paper's dynamic-NN experiments (the port of
+``repro.data.trees``):
+
+ - :func:`tree_fc_dataset` — complete binary trees (the Fold loom
+   synthetic benchmark: 256 leaves → 511 vertices);
+ - :func:`sst_like_dataset` — random binary parses with SST-like length
+   statistics (≤ 54 words) + binary sentiment labels;
+ - :func:`var_len_chains` — PTB-like variable-length chains.
+
+NumPy only; the same seed gives the same data as the JAX package."""
 
 from __future__ import annotations
 
@@ -10,7 +16,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.structure import InputGraph, random_binary_tree
+from repro_torch.core.structure import (InputGraph, balanced_binary_tree,
+                                        chain, random_binary_tree)
 
 
 @dataclasses.dataclass
@@ -42,6 +49,14 @@ def _leaf_inputs(g: InputGraph, dim: int, rng: np.random.Generator
     return x
 
 
+def tree_fc_dataset(n: int, leaves: int = 256, input_dim: int = 256,
+                    seed: int = 0) -> TreeDataset:
+    rng = np.random.default_rng(seed)
+    graphs = [balanced_binary_tree(leaves) for _ in range(n)]
+    inputs = [_leaf_inputs(g, input_dim, rng) for g in graphs]
+    return TreeDataset(graphs=graphs, inputs=inputs)
+
+
 def sst_like_dataset(n: int, max_leaves: int = 54, min_leaves: int = 2,
                      input_dim: int = 256, seed: int = 0) -> TreeDataset:
     """Random binary parses, SST length stats, binary sentiment labels."""
@@ -55,3 +70,16 @@ def sst_like_dataset(n: int, max_leaves: int = 54, min_leaves: int = 2,
         inputs.append(_leaf_inputs(g, input_dim, rng))
     labels = rng.integers(0, 2, size=n).astype(np.int32)
     return TreeDataset(graphs=graphs, inputs=inputs, labels=labels)
+
+
+def var_len_chains(n: int, max_len: int = 64, min_len: int = 4,
+                   input_dim: int = 256, seed: int = 0) -> TreeDataset:
+    rng = np.random.default_rng(seed)
+    graphs, inputs = [], []
+    for _ in range(n):
+        L = int(np.clip(rng.lognormal(3.0, 0.5), min_len, max_len))
+        g = chain(L)
+        graphs.append(g)
+        inputs.append(rng.standard_normal((L, input_dim)).astype(np.float32)
+                      * 0.1)
+    return TreeDataset(graphs=graphs, inputs=inputs)

@@ -11,6 +11,11 @@ Instrumented sites in this package:
 
   - ``"pack"``   — inside the schedule cache, right before a cold
     ``pack_batch`` (``pipeline/cache.py``);
+  - ``"prefetch"`` — before each pack on the async packer's thread
+    (``pipeline/prefetch.py``; retried in place);
+  - ``"persist_load"`` / ``"persist_store"`` — the on-disk schedule
+    store's read and write (``pipeline/persist.py``; a quiet miss or a
+    counted store error);
   - ``"kernel"`` — right before a serve engine's fused batch
     (``serve/engine.py``; triggers the degradation ladder);
   - ``"ext"``    — via :meth:`ChaosHook.corrupt_ext`, which may overwrite

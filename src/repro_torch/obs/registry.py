@@ -1,6 +1,7 @@
 """One metrics surface (the part of ``repro.obs.registry`` the serving
-path uses): labelled counters (``inc``) and live stats providers
-(``register_provider``), read together by ``snapshot()``.
+and pipeline paths use): labelled counters (``inc``), last-written
+gauges (``set_gauge``, e.g. the batch composer's stats) and live stats
+providers (``register_provider``), read together by ``snapshot()``.
 
 Providers are held via ``weakref.WeakMethod`` when possible, so
 registering a pipeline or an engine never extends its lifetime.
@@ -11,7 +12,7 @@ from __future__ import annotations
 import collections
 import threading
 import weakref
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 __all__ = ["MetricsRegistry", "get_registry"]
 
@@ -24,11 +25,12 @@ def _key(name: str, labels: Dict[str, Any]) -> str:
 
 
 class MetricsRegistry:
-    """Thread-safe counters + weakly held providers."""
+    """Thread-safe counters and gauges + weakly held providers."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._counters: collections.Counter = collections.Counter()
+        self._gauges: Dict[str, float] = {}
         self._providers: Dict[str, Callable[[], Any]] = {}
 
     def inc(self, name: str, n: int = 1, **labels: Any) -> None:
@@ -38,6 +40,14 @@ class MetricsRegistry:
     def counter(self, name: str, **labels: Any) -> int:
         with self._lock:
             return self._counters.get(_key(name, labels), 0)
+
+    def set_gauge(self, name: str, value: float, **labels: Any) -> None:
+        with self._lock:
+            self._gauges[_key(name, labels)] = float(value)
+
+    def gauge(self, name: str, **labels: Any) -> Optional[float]:
+        with self._lock:
+            return self._gauges.get(_key(name, labels))
 
     def register_provider(self, name: str, fn: Callable[[], Any]) -> str:
         """Register a zero-arg stats callable under ``name``; bound
@@ -60,12 +70,14 @@ class MetricsRegistry:
         return name
 
     def snapshot(self) -> Dict[str, Any]:
-        """``counters`` plus ``providers`` (each live provider's own
-        stats dict; dead providers are pruned)."""
+        """``counters``, ``gauges`` and ``providers`` (each live
+        provider's own stats dict; dead providers are pruned)."""
         with self._lock:
             counters = dict(self._counters)
+            gauges = dict(self._gauges)
             providers = list(self._providers.items())
-        out: Dict[str, Any] = {"counters": counters, "providers": {}}
+        out: Dict[str, Any] = {"counters": counters, "gauges": gauges,
+                               "providers": {}}
         dead = []
         for name, ref in providers:
             fn = ref()
@@ -83,9 +95,10 @@ class MetricsRegistry:
         return out
 
     def reset(self) -> None:
-        """Zero the counters (providers stay registered)."""
+        """Zero the counters and gauges (providers stay registered)."""
         with self._lock:
             self._counters.clear()
+            self._gauges.clear()
 
 
 _REGISTRY = MetricsRegistry()

@@ -53,6 +53,21 @@ def test_sources_cover_the_mamba_serving_slice():
         assert f"src/repro_torch/{rel}" in names, rel
 
 
+def test_sources_cover_the_schedule_pipeline_slice():
+    """The globs reach the rest of the schedule pipeline, the data layer
+    and the examples that drive them."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for rel in ("pipeline/splice.py", "pipeline/persist.py",
+                "pipeline/cache.py", "pipeline/composer.py",
+                "pipeline/prefetch.py", "pipeline/pipeline.py",
+                "pipeline/__init__.py", "data/loader.py",
+                "data/synthetic.py", "data/trees.py", "data/__init__.py"):
+        assert f"src/repro_torch/{rel}" in names, rel
+    for ex in ("torch_treelstm_sentiment", "torch_quickstart",
+               "torch_encoder_decoder"):
+        assert f"examples/{ex}.py" in names, ex
+
+
 def test_port_imports_with_jax_blocked():
     modules = sorted(
         ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("")
