@@ -293,7 +293,21 @@ Phases, each of which must pass (any failure exits non-zero):
      launch a level, counted from 0; outputs within 1e-4 of the op-by-op
      path on the same card tensors); a two-replica ``ShardedPipeline``
      whose stacked ``pack_step`` tensors equal each replica's own pack;
-  21. report — one JSON line per the kernel table, then the device line.
+  21. the trainer — ``Trainer.fit`` over phase 5's model and batches
+     (``warmup_cosine(3e-3, 20, 30)``, no weight decay): a clean fit with
+     checkpoints every 10 steps (keep 2) whose losses are phase 5's bit
+     for bit (else the largest relative difference, held to 1e-5); a
+     ``FaultInjector([15])`` fit restored from step 10 (the data replayed
+     from there) ending with params and moments bit for bit the clean
+     fit's, as does the clean fit without the guard and with one log (its
+     step p50/p99 beside); a NaN ext skipped (one ``nonfinite_skips``,
+     nothing written);
+     over the clean fit, one K1 a padded level, one K2 a level with a
+     live slot, one K7 a step; 8 steps of ``fit(compose=, pipeline=)``,
+     riders aligned with ``sample_ids``, the packer's thread gone after;
+     step p50/p99, the time an async save blocks, restore ms, checkpoint
+     bytes, peak memory;
+  22. report — one JSON line per the kernel table, then the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -1546,6 +1560,7 @@ def train_phase(card: str) -> dict:
            "card": card}
     print("train losses: " + " ".join(f"{x:.4f}" for x in losses))
     print(f"train: {json.dumps(out)}")
+    out["losses"] = losses
 
     graphs, inputs, labels = next(batches)
     b = pipe.pack(graphs, inputs)
@@ -5051,6 +5066,234 @@ def examples_phase(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the trainer
+# ---------------------------------------------------------------------------
+
+def trainer_stream(ex, items, pipe, *, counts=None, times=None,
+                   replay=None, poison=None):
+    """Phase 5's FIFO batches as trainer batch dicts: batch ``i`` is
+    ``items[i % len(items)]`` packed by ``pipe``.  ``counts`` adds each
+    batch's padded levels and its K1/K2 design; ``times`` takes the host
+    clock at each request; ``replay = (injector, trainer)`` goes back to
+    the trainer's newest commit after the injector fires (a loader that
+    checkpoints its position); batch ``poison`` comes with a NaN ext."""
+    i, fired = 0, 0
+    while True:
+        if replay is not None and len(replay[0].failures) > fired:
+            fired = len(replay[0].failures)
+            i = replay[1].ckpt.latest_step()
+        if times is not None:
+            times.append(time.perf_counter())
+        graphs, inputs, labels = items[i % len(items)]
+        b = pipe.pack(graphs, inputs)
+        if counts is not None:
+            counts["padded"] += b.sched.T
+            counts["fwd_cuda"] += sum(fwd_designed(b.dev.M, live)
+                                      for live in b.dev.live)
+            k2 = k2_design(b.dev)
+            counts["k2"] += k2[0]
+            counts["k2_cuda"] += k2[1]
+        ext = torch.full_like(b.ext, float("nan")) if i == poison else b.ext
+        yield {"dev": b.dev, "ext": ext, "labels": labels.astype(np.int64)}
+        i += 1
+
+
+def _state_equal(a, b) -> bool:
+    """Params and both AdamW moments bit for bit, and the step."""
+    from repro_torch.optim.adamw import tree_leaves
+    return a.step == b.step and all(
+        bitwise_equal(x, y) for x, y in zip(
+            *(tree_leaves({"p": s.params, "mu": s.opt.mu, "nu": s.opt.nu})
+              for s in (a, b))))
+
+
+def trainer_phase(card: str, fifo: dict) -> dict:
+    """``Trainer.fit`` over phase 5's model and data (the paper's
+    tree_lstm at full width from seed 0, the FIFO batches of 64, pow2
+    buckets with sorted runs, ``warmup_cosine(3e-3, 20, 30)``, no weight
+    decay): (a) a clean fit, checkpoints every 10 steps (keep 2), its
+    losses bit for bit phase 5's example loop's; (b) a fault at step 15
+    restored from step 10, the data replayed from there, ending bit for
+    bit where (a) ends, as does (a) without the guard and with one log (no
+    host read a step); (c) a NaN ext skipped, nothing written; (d) over
+    (a), one K1 a padded level, one K2 a level with a live slot, one K7 a
+    step; (e) 8 steps of ``fit(compose=, pipeline=)`` with the riders
+    aligned to ``sample_ids`` and the packer's thread gone after."""
+    import tempfile
+    import threading
+
+    from repro_torch.dist.fault import FaultInjector
+    from repro_torch.obs.registry import fresh_registry
+    from repro_torch.train import MetricLogger, TrainConfig, Trainer
+    ex, fn, _params, _pipe, fifo_iter = train_setup()
+    items = [next(fifo_iter) for _ in range(TRAIN_DATA // BATCH)]
+
+    def loss_fn(p, batch):
+        loss, acc = ex.loss_and_acc(fn, p, batch["ext"], batch["dev"],
+                                    batch["labels"])
+        return loss, {"acc": acc}
+
+    def trainer(loss=loss_fn, **kw):
+        cfg = TrainConfig(**{"lr": 3e-3, "warmup_steps": 20,
+                             "total_steps": TRAIN_STEPS,
+                             "weight_decay": 0.0, "log_every": 1, **kw})
+        return Trainer(loss, lambda gen: ex.init_params(
+            fn, gen.initial_seed(), DEVICE), cfg, device=DEVICE)
+
+    def pipeline():
+        return SchedulePipeline(fn.input_dim,
+                                bucket_policy=BucketPolicy(mode="pow2"),
+                                with_runs=True, device=DEVICE)
+
+    quiet = dict(log_fn=lambda *_: None)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, \
+            fresh_registry() as reg:
+        # (a) the clean fit, launch counts from 0 (d)
+        tr = trainer(ckpt_dir=f"{tmp}/a", ckpt_every=10, ckpt_keep=2)
+        state = tr.init_state(0)
+        saves = timed_calls(tr.ckpt, "save")
+        counts = dict.fromkeys(("padded", "fwd_cuda", "k2", "k2_cuda"), 0)
+        times = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lm.reset_launches()
+        t0 = time.perf_counter()
+        clean, log = tr.fit(state, trainer_stream(
+            ex, items, pipeline(), counts=counts, times=times),
+            steps=TRAIN_STEPS, logger=MetricLogger(**quiet))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        wall = time.perf_counter() - t0
+        launches = dict(lm.LAUNCHES)
+        k1_cuda = lm.CUDA_LAUNCHES["treelstm_megastep"]
+        peak = torch.cuda.max_memory_allocated()
+        train_s = reg.hist_stats("train.train_sec_per_step")
+        step_dir = Path(tr.ckpt.directory) / f"step_{TRAIN_STEPS:09d}"
+        ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        kept = sorted(d.name for d in Path(tr.ckpt.directory).iterdir())
+        losses = [r["loss"] for r in log.history]
+        check(len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all()),
+              f"trainer losses: {losses}")
+        rel = max(abs(a - b) / max(abs(b), 1e-30)
+                  for a, b in zip(losses, fifo["losses"]))
+        if losses != fifo["losses"]:
+            print(f"trainer losses vs the example loop's: largest relative "
+                  f"difference {rel:.3e}")
+        check(rel <= 1e-5, f"trainer losses vs phase 5's: {rel:.3e} > 1e-5")
+        check(kept == [f"step_{s:09d}" for s in (20, TRAIN_STEPS)],
+              f"checkpoints kept: {kept}")
+        check(k1_cuda == counts["fwd_cuda"] <= 2 * counts["padded"],
+              f"trainer: {k1_cuda} K1 CUDA launches, designed "
+              f"{counts['fwd_cuda']}")
+        for name, want in (("treelstm_megastep", counts["padded"]),
+                           ("treelstm_bwd_megastep", counts["k2"]),
+                           ("treelstm_bwd_megastep.cuda_launches",
+                            counts["k2_cuda"]),
+                           ("scatter_add_rows", TRAIN_STEPS)):
+            check(launches.get(name, 0) == want, f"trainer: "
+                  f"{launches.get(name, 0)} {name} launches, want {want}")
+
+        # the same fit with no host read a step (no guard, one log): what
+        # the guard's read and the per-step log cost; the same end state
+        tr = trainer(skip_nonfinite=False, log_every=TRAIN_STEPS)
+        bare_times = []
+        bare, _ = tr.fit(tr.init_state(0), trainer_stream(
+            ex, items, pipeline(), times=bare_times), steps=TRAIN_STEPS,
+            logger=MetricLogger(**quiet))
+        torch.cuda.synchronize()
+        bare_times.append(time.perf_counter())
+        check(_state_equal(bare, clean), "the fit without the guard does "
+              "not end bit for bit where the guarded fit ends")
+
+        # (b) a fault at step 15: restore step 10, replay, end as (a)
+        tr = trainer(ckpt_dir=f"{tmp}/b", ckpt_every=10, ckpt_keep=2)
+        restores = timed_calls(tr, "maybe_restore")
+        inj = FaultInjector([15])
+        faulted, _ = tr.fit(tr.init_state(0), trainer_stream(
+            ex, items, pipeline(), replay=(inj, tr)), steps=TRAIN_STEPS,
+            logger=MetricLogger(**quiet), fault_injector=inj)
+        check(inj.failures == [15] and len(restores) == 1,
+              f"fault: fired {inj.failures}, {len(restores)} restores")
+        check(_state_equal(faulted, clean), "the fit restored from step 10 "
+              "does not end bit for bit where the clean fit ends")
+
+        # (c) a NaN ext at step 5: skipped, nothing written
+        tr = trainer()
+        stream = trainer_stream(ex, items, pipeline(), poison=5)
+        logger = MetricLogger(**quiet)
+        state, _ = tr.fit(tr.init_state(0), stream, steps=5, logger=logger)
+        before = [t.clone() for t in (state.params["head"],
+                                      state.params["cell"]["ui"],
+                                      state.opt.mu["head"],
+                                      state.opt.nu["head"])]
+        state, _ = tr.fit(state, stream, steps=6, logger=logger)
+        after = (state.params["head"], state.params["cell"]["ui"],
+                 state.opt.mu["head"], state.opt.nu["head"])
+        check(logger.counters["nonfinite_skips"] == 1 and state.step == 6,
+              f"NaN batch: {logger.counters['nonfinite_skips']} skips, "
+              f"step {state.step}")
+        check(all(bitwise_equal(a, b) for a, b in zip(after, before)),
+              "a skipped step changed params or moments")
+
+        # (e) composed and prefetched, riders aligned, no thread left
+        ds = sst_like_dataset(TRAIN_DATA, input_dim=fn.input_dim, seed=0)
+        seen = []
+
+        def riding(p, batch):
+            seen.append((batch["sample_ids"].cpu().numpy(),
+                         batch["labels"].cpu().numpy()))
+            return loss_fn(p, batch)
+
+        pipe = pipeline()
+        tr = trainer(loss=riding)
+        threads = set(threading.enumerate())
+        epochs = iter(lambda: (ds.graphs, ds.inputs,
+                               {"labels": list(ds.labels)}), None)
+        _, clog = tr.fit(tr.init_state(0), epochs, steps=8,
+                         logger=MetricLogger(**quiet),
+                         compose=pipe.composer(BATCH), pipeline=pipe)
+        for t in set(threading.enumerate()) - threads:
+            t.join(timeout=30)
+            check(not t.is_alive(), f"thread {t.name} outlived fit()")
+        check(len(seen) == 8 and all(
+            np.array_equal(labels, ds.labels[ids]) for ids, labels in seen),
+            "composed riders do not realign by sample_ids")
+        nb = len(pipe.composer(BATCH).compose(ds.graphs, ds.inputs)[0])
+        check(nb > 8 or sorted(np.concatenate(
+            [ids for ids, _ in seen[:nb]]).tolist()) == list(range(len(ds))),
+            "a composed epoch does not hold every sample once")
+        closs = [r["loss"] for r in clog.history]
+        check(bool(np.isfinite(closs).all()), f"composed losses {closs}")
+
+    step_ms = np.diff(times) * 1e3
+    bare_ms = np.diff(bare_times) * 1e3
+    out = {"steps": TRAIN_STEPS, "loss_first": losses[0],
+           "loss_last": losses[-1], "bitwise_vs_example": losses == fifo[
+               "losses"], "max_rel_vs_example": rel,
+           "steps_per_s": TRAIN_STEPS / wall,
+           "step_p50_ms": float(np.percentile(step_ms, 50)),
+           "step_p99_ms": float(np.percentile(step_ms, 99)),
+           "train_sec_p50_ms": train_s["p50"] * 1e3,
+           "unguarded_step_p50_ms": float(np.percentile(bare_ms, 50)),
+           "unguarded_step_p99_ms": float(np.percentile(bare_ms, 99)),
+           "example_step_p50_ms": fifo["step_p50_ms"],
+           "async_save_blocks_ms": [x * 1e3 for x in saves[:-1]],
+           "final_save_ms": saves[-1] * 1e3,
+           "restore_ms": restores[0] * 1e3, "checkpoint_bytes": ckpt_bytes,
+           "max_memory_allocated_bytes": int(peak),
+           "example_max_memory_allocated_bytes": fifo[
+               "max_memory_allocated_bytes"],
+           "launches": {k: launches.get(k, 0) for k in (
+               "treelstm_megastep", "treelstm_bwd_megastep",
+               "scatter_add_rows")},
+           "composed_batches_per_epoch": nb, "composed_loss_last": closs[-1],
+           "card": card}
+    print(f"trainer: {json.dumps(out)}")
+    return out
+
+
 def k2_row(kind: str, part: dict, launches: dict) -> dict:
     """K2's kernel row for kind ``kind``: ``launches`` counts the main
     path's levels that launched (its CUDA launches beside it); ``ms`` is
@@ -5093,6 +5336,7 @@ def main() -> None:
     composed_train_phase(dev["smi"], train)
     spliced_serving_phase(dev["smi"])
     examples_phase(dev["smi"])
+    trainer_phase(dev["smi"], train)
     row = {"name": "treelstm_megastep", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/treelstm_megastep_sm90.cu",
            "replaces": "src/repro/kernels/level_megastep.py:181",

@@ -76,21 +76,29 @@ def labels_of(b: PackedBatch, device) -> torch.Tensor:
         np.asarray(b.aux["labels"]).astype(np.int64)).to(device)
 
 
+def loss_and_acc(fn: TreeLSTMVertex, params: Params, ext: torch.Tensor,
+                 dev, labels: torch.Tensor, fusion_mode: str = "auto"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax cross-entropy of the head on the root ``h`` states of the
+    batch packed as ``ext``/``dev``, and its accuracy; differentiable in
+    ``params`` and ``ext``."""
+    buf = execute_lazy(fn, params["cell"], ext, dev, fusion_mode)
+    root_h = readout_roots(buf, dev)[:, fn.hidden:]
+    logits = root_h @ params["head"]
+    nll = torch.logsumexp(logits, -1) \
+        - logits.gather(1, labels[:, None])[:, 0]
+    acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    return torch.mean(nll), acc
+
+
 def loss_and_grads(fn: TreeLSTMVertex, params: Params, b: PackedBatch,
                    labels: torch.Tensor, fusion_mode: str = "auto"
                    ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
-    """Softmax cross-entropy of the head on the root ``h`` states, its
-    accuracy, and its gradients w.r.t. every param.  Gradients are taken
-    w.r.t. detached copies that share storage with ``params``, so the
-    packed recurrent views stay views."""
+    """:func:`loss_and_acc` and the loss's gradients w.r.t. every param.
+    Gradients are taken w.r.t. detached copies that share storage with
+    ``params``, so the packed recurrent views stay views."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-    buf = execute_lazy(fn, leaves["cell"], b.ext, b.dev, fusion_mode)
-    root_h = readout_roots(buf, b.dev)[:, fn.hidden:]
-    logits = root_h @ leaves["head"]
-    nll = torch.logsumexp(logits, -1) \
-        - logits.gather(1, labels[:, None])[:, 0]
-    loss = torch.mean(nll)
-    acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    loss, acc = loss_and_acc(fn, leaves, b.ext, b.dev, labels, fusion_mode)
     loss.backward()
     return loss.detach(), acc, tree_map(lambda p: p.grad, leaves)
 

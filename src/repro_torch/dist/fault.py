@@ -1,5 +1,7 @@
-"""Chaos hooks (the part of ``repro.dist.fault`` the serving path
-uses): :class:`SimulatedFailure` and the pluggable :class:`ChaosHook`.
+"""Fault tolerance primitives (port of ``repro.dist.fault``): injection
+(so tests exercise the trainer's recovery path), restart backoff
+budgeting, heartbeat liveness tracking, and the pluggable
+:class:`ChaosHook` the chaos tests drive.
 
 The chaos machinery is process-global (``install_chaos`` context
 manager + ``chaos_fire`` at each instrumented site): fault injection is
@@ -26,7 +28,10 @@ Instrumented sites in this package:
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterable, List, Optional, Sequence, Set
+import dataclasses
+import time
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Set)
 
 import numpy as np
 
@@ -34,9 +39,86 @@ from repro_torch.obs import trace
 
 
 class SimulatedFailure(RuntimeError):
-    """Raised by a :class:`ChaosHook` to emulate a transient failure
-    (kernel launch error, I/O fault).  Retry-able by construction: the
-    operation would succeed if re-run."""
+    """Raised by :class:`FaultInjector` / :class:`ChaosHook` to emulate
+    a transient failure (node crash, kernel launch error, I/O fault).
+    Retry-able by construction: the operation would succeed if re-run."""
+
+
+class FaultInjector:
+    """Raises :class:`SimulatedFailure` at the configured steps (once
+    each).  ``failures`` records the steps that actually fired."""
+
+    def __init__(self, fail_at_steps: Iterable[int]):
+        self._pending = set(int(s) for s in fail_at_steps)
+        self.failures: List[int] = []
+
+    def tick(self, step: int) -> None:
+        if step in self._pending:
+            self._pending.discard(step)
+            self.failures.append(step)
+            raise SimulatedFailure(f"injected node failure at step {step}")
+
+
+@dataclasses.dataclass
+class RestartPolicy:
+    """Exponential-backoff restart budget; ``record_success`` resets it.
+
+    ``next_delay()`` returns the seconds to wait before the next restart
+    attempt, or ``None`` once ``max_restarts`` attempts have been spent
+    since the last success.
+    """
+
+    max_restarts: int = 3
+    base_delay: float = 1.0
+    max_delay: float = 60.0
+    _attempts: int = 0
+
+    def next_delay(self) -> Optional[float]:
+        if self._attempts >= self.max_restarts:
+            return None
+        d = min(self.base_delay * (2.0 ** self._attempts), self.max_delay)
+        self._attempts += 1
+        return d
+
+    def record_success(self) -> None:
+        self._attempts = 0
+
+
+class HeartbeatMonitor:
+    """Tracks worker liveness by last-heartbeat age.
+
+    ``sweep()`` moves workers whose last beat is older than ``timeout``
+    to ``dead`` and returns the newly-dead ids.  A dead worker cannot
+    silently ``beat`` its way back — it must ``rejoin``."""
+
+    def __init__(self, workers: Sequence[str], timeout: float,
+                 clock: Callable[[], float] = time.monotonic):
+        self.timeout = timeout
+        self.clock = clock
+        self.alive: List[str] = list(workers)
+        self.dead: set = set()
+        self._last = {w: clock() for w in workers}
+
+    def beat(self, worker: str) -> bool:
+        if worker in self.dead or worker not in self._last:
+            return False
+        self._last[worker] = self.clock()
+        return True
+
+    def sweep(self) -> List[str]:
+        now = self.clock()
+        newly = [w for w in self.alive
+                 if now - self._last[w] > self.timeout]
+        for w in newly:
+            self.alive.remove(w)
+            self.dead.add(w)
+        return newly
+
+    def rejoin(self, worker: str) -> None:
+        self.dead.discard(worker)
+        if worker not in self.alive:
+            self.alive.append(worker)
+        self._last[worker] = self.clock()
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,31 @@
-"""One metrics surface (the part of ``repro.obs.registry`` the serving
-and pipeline paths use): labelled counters (``inc``), last-written
-gauges (``set_gauge``, e.g. the batch composer's stats) and live stats
-providers (``register_provider``), read together by ``snapshot()``.
+"""One metrics surface (port of ``repro.obs.registry``): labelled
+counters (``inc``), last-written gauges (``set_gauge``, e.g. the batch
+composer's stats), windowed histograms (``observe``, with
+count/mean/p50/max stats; the trainer's ``MetricLogger`` writes its
+scalars here) and live stats providers (``register_provider``), read
+together by ``snapshot()``.
 
 Providers are held via ``weakref.WeakMethod`` when possible, so
 registering a pipeline or an engine never extends its lifetime.
+
+The process-global instance (:func:`get_registry`) is what the kernel
+dispatch, the pipelines and the trainer write to; tests swap a fresh one
+in with :func:`fresh_registry` (or :func:`set_registry`, restoring the
+old one after).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import weakref
 from typing import Any, Callable, Dict, Optional
 
-__all__ = ["MetricsRegistry", "get_registry"]
+import numpy as np
+
+__all__ = ["MetricsRegistry", "get_registry", "set_registry",
+           "fresh_registry"]
 
 
 def _key(name: str, labels: Dict[str, Any]) -> str:
@@ -25,12 +36,16 @@ def _key(name: str, labels: Dict[str, Any]) -> str:
 
 
 class MetricsRegistry:
-    """Thread-safe counters and gauges + weakly held providers."""
+    """Thread-safe counters, gauges and windowed histograms + weakly held
+    providers."""
 
-    def __init__(self) -> None:
+    def __init__(self, hist_window: int = 1024) -> None:
+        self.hist_window = hist_window
         self._lock = threading.Lock()
         self._counters: collections.Counter = collections.Counter()
         self._gauges: Dict[str, float] = {}
+        self._hists: Dict[str, collections.deque] = {}
+        self._hist_counts: collections.Counter = collections.Counter()
         self._providers: Dict[str, Callable[[], Any]] = {}
 
     def inc(self, name: str, n: int = 1, **labels: Any) -> None:
@@ -48,6 +63,37 @@ class MetricsRegistry:
     def gauge(self, name: str, **labels: Any) -> Optional[float]:
         with self._lock:
             return self._gauges.get(_key(name, labels))
+
+    def observe(self, name: str, value: float, **labels: Any) -> None:
+        """Append ``value`` to the histogram ``name`` (the last
+        ``hist_window`` values are kept; the count is of all)."""
+        k = _key(name, labels)
+        with self._lock:
+            d = self._hists.get(k)
+            if d is None:
+                d = self._hists[k] = collections.deque(
+                    maxlen=self.hist_window)
+            d.append(float(value))
+            self._hist_counts[k] += 1
+
+    def hist_stats(self, name: str, **labels: Any
+                   ) -> Optional[Dict[str, float]]:
+        """``count`` (every observation), and ``window``/``mean``/
+        ``p50``/``max``/``total`` over the kept window; ``None`` for a
+        histogram never observed."""
+        k = _key(name, labels)
+        with self._lock:
+            d = self._hists.get(k)
+            if not d:
+                return None
+            arr = np.asarray(d, np.float64)
+            count = self._hist_counts[k]
+        return {"count": int(count),
+                "window": int(arr.size),
+                "mean": float(arr.mean()),
+                "p50": float(np.median(arr)),
+                "max": float(arr.max()),
+                "total": float(arr.sum())}
 
     def register_provider(self, name: str, fn: Callable[[], Any]) -> str:
         """Register a zero-arg stats callable under ``name``; bound
@@ -69,15 +115,26 @@ class MetricsRegistry:
             self._providers[name] = ref
         return name
 
+    def unregister_provider(self, name: str) -> None:
+        with self._lock:
+            self._providers.pop(name, None)
+
     def snapshot(self) -> Dict[str, Any]:
-        """``counters``, ``gauges`` and ``providers`` (each live
-        provider's own stats dict; dead providers are pruned)."""
+        """``counters``, ``gauges``, ``histograms`` (stats per key) and
+        ``providers`` (each live provider's own stats dict; dead
+        providers are pruned)."""
         with self._lock:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
+            hist_keys = list(self._hists)
             providers = list(self._providers.items())
+        hists = {}
+        for k in hist_keys:
+            s = self.hist_stats(k)
+            if s is not None:
+                hists[k] = s
         out: Dict[str, Any] = {"counters": counters, "gauges": gauges,
-                               "providers": {}}
+                               "histograms": hists, "providers": {}}
         dead = []
         for name, ref in providers:
             fn = ref()
@@ -95,10 +152,12 @@ class MetricsRegistry:
         return out
 
     def reset(self) -> None:
-        """Zero the counters and gauges (providers stay registered)."""
+        """Zero counters/gauges/histograms (providers stay registered)."""
         with self._lock:
             self._counters.clear()
             self._gauges.clear()
+            self._hists.clear()
+            self._hist_counts.clear()
 
 
 _REGISTRY = MetricsRegistry()
@@ -107,3 +166,23 @@ _REGISTRY = MetricsRegistry()
 def get_registry() -> MetricsRegistry:
     """The process-global registry."""
     return _REGISTRY
+
+
+def set_registry(registry: MetricsRegistry) -> MetricsRegistry:
+    """Make ``registry`` the process-global one (the caller restores the
+    previous one; :func:`fresh_registry` does both)."""
+    global _REGISTRY
+    _REGISTRY = registry
+    return registry
+
+
+@contextlib.contextmanager
+def fresh_registry(hist_window: int = 1024):
+    """Swap a fresh global registry in for the duration of the block."""
+    global _REGISTRY
+    prev = _REGISTRY
+    _REGISTRY = MetricsRegistry(hist_window=hist_window)
+    try:
+        yield _REGISTRY
+    finally:
+        _REGISTRY = prev

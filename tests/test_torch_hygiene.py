@@ -68,6 +68,18 @@ def test_sources_cover_the_schedule_pipeline_slice():
         assert f"examples/{ex}.py" in names, ex
 
 
+def test_sources_cover_the_trainer_slice():
+    """The globs reach the trainer, its metrics, the checkpoint manager,
+    microbatching, the fault and compression primitives and the
+    registry they write to."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for rel in ("train/trainer.py", "train/metrics.py", "train/__init__.py",
+                "checkpoint/manager.py", "checkpoint/__init__.py",
+                "optim/accum.py", "optim/__init__.py", "dist/fault.py",
+                "dist/compress.py", "obs/registry.py"):
+        assert f"src/repro_torch/{rel}" in names, rel
+
+
 def test_port_imports_with_jax_blocked():
     modules = sorted(
         ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("")
