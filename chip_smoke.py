@@ -307,7 +307,35 @@ Phases, each of which must pass (any failure exits non-zero):
      riders aligned with ``sample_ids``, the packer's thread gone after;
      step p50/p99, the time an async save blocks, restore ms, checkpoint
      bytes, peak memory;
-  22. report — one JSON line per the kernel table, then the device line.
+  22. LM training — K10's backward (``flash_attention_bwd.cu``: dQ a CTA
+     per query tile with its rows' own row sums and Δ, then dK/dV a CTA
+     per KV head's key tile over its query heads; 3xTF32 ``mma.sync``, no
+     float atomics): its ptxas lines, shared memory and SASS
+     (``HMMA.1688.F32.TF32``, no float atomic); (a)
+     ``examples/torch_train_lm.py``'s model (8 layers, d_model 512, 8/4
+     heads of 64, f32) through its ``main`` (``Trainer.fit``, the
+     ``AsyncPacker`` stager) for 30 steps of 8 x 128 tokens in 2
+     microbatches, launch counts set to 0 just before and read just
+     after: one K10 forward (tf32 route) and one backward a layer a
+     microbatch a step, losses finite and falling, the first step's loss
+     within 1e-4 of the CPU's on the same weights and batch; (b)
+     granite-3-8b at full width (d_model 4,096, 32/8 heads of 128, d_ff
+     12,800, vocab 49,155), depth cut to 2, f32, no remat, weights from a
+     CUDA generator, 3 ``Trainer.fit`` steps of 2 x 1,024 tokens (the cuts
+     printed), counts from 0: 2 K10 forwards and backwards a step, finite
+     losses, peak memory; (c) every backward call of (a) and of (b)'s
+     first step re-run on its own inputs and the edge cases (causal and
+     not, windows, Sq != Sk both ways, Hkv = Hq and GQA, head dims 7-256
+     with 7, 20 and 100 ragged) against autograd of ``ref.mha``: dQ, dK
+     and dV within 1e-5 of max |plain| (on a call where that f32 plain
+     version is itself farther from an f64 evaluation, within 1e-5 + 2×
+     its distance from it), two launches bitwise equal, the saved
+     log-sum-exp against ``ref.mha_lse``, K10's output bit for bit the
+     same with and without the log-sum-exp store; timed by ``torch.profiler`` at (b)'s and (a)'s shapes (its
+     three launches apart) beside the plain backward, SDPA's backward at
+     f32 and the bound (five products, each f32 product as three TF32
+     products at 495 TFLOP/s, against 3.35 TB/s);
+  23. report — one JSON line per the kernel table, then the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -370,6 +398,7 @@ from repro_torch.core.scheduler import (execute, execute_lazy,  # noqa: E402
 from repro_torch.core.structure import (ScatterPlan,  # noqa: E402
                                         chain, pack_batch, pack_external,
                                         random_binary_tree, random_dag)
+from repro_torch.data import lm_batches, synthetic_corpus  # noqa: E402
 from repro_torch.data.trees import sst_like_dataset  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.archs import reduced  # noqa: E402
@@ -391,6 +420,7 @@ from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.pipeline import (BucketPolicy, ScheduleCache,  # noqa: E402
                                   SchedulePipeline)
 from repro_torch.obs.registry import get_registry  # noqa: E402
+from repro_torch.train import MetricLogger, TrainConfig, Trainer  # noqa: E402
 from repro_torch.serve import (AdmissionPolicy,  # noqa: E402
                                ContinuousBatchEngine, ContinuousRequest,
                                Request, ServeEngine, StructureRequest,
@@ -1275,12 +1305,14 @@ def ptxas_report(lib: str, key_re: str, label,
     return ptxas
 
 
-def sass_counts(lib: str, label: str) -> dict:
+def sass_counts(lib: str, label: str,
+                needs=("HMMA.1688.F32.TF32", "LDGSTS", "LDSM")) -> dict:
     """Where ``cuobjdump`` is on the machine, the counts in kernel
     ``lib``'s SASS of the TF32 ``mma.sync`` (``HMMA.1688.F32.TF32``),
     ``cp.async`` (``LDGSTS``) and ``ldmatrix`` (``LDSM``) the gathered
-    product runs on, each of which it must hold, and of float atomics
-    (``RED``/``ATOM`` on ``.F32``), which it must not; {} without it."""
+    product runs on, each of ``needs`` of which it must hold, and of float
+    atomics (``RED``/``ATOM`` on ``.F32``), which it must not; {} without
+    it."""
     cob = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(cob).exists():
         return {}
@@ -1290,7 +1322,7 @@ def sass_counts(lib: str, label: str) -> dict:
                                        "LDSM")}
     sass["float atomics"] = len(re.findall(
         r"\b(?:RED|ATOMG?|ATOMS)\.[A-Z0-9.]*F32", dump))
-    check(all(sass[k] > 0 for k in ("HMMA.1688.F32.TF32", "LDGSTS", "LDSM")),
+    check(all(sass[k] > 0 for k in needs),
           f"{label}'s SASS lacks the tensor-core product's instructions: "
           f"{sass}")
     check(sass["float atomics"] == 0, f"{label}'s SASS has float atomics: "
@@ -2071,7 +2103,8 @@ def profiler_guard_s() -> float:
     return max(PROFILER_GUARD_S, 1.5 * lag_us / 1e6 + 0.01)
 
 
-def device_ms(sets: dict, reps: int = 5) -> dict:
+def device_ms(sets: dict, reps: int = 5, parts_required: bool = True
+              ) -> dict:
     """Device ms a call of each of a phase's timed sets, all in ONE
     ``torch.profiler`` session (one session a set, dozens a run, has left
     CUPTI recording nothing).  ``sets``: name → a list of calls (functions
@@ -2092,7 +2125,9 @@ def device_ms(sets: dict, reps: int = 5) -> dict:
     a set must keep every launch where ``launches`` is given, else at least
     99 % of one device operation a call (a loss that biases its mean low by
     as much).  Where five sessions lost events, sets without ``parts`` are
-    timed by CUDA events (``time_ms``) instead, and the script says so."""
+    timed by CUDA events (``time_ms``) instead, and the script says so;
+    with ``parts_required`` False a set with ``parts`` is then timed so
+    too, its parts ``None``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     specs = {k: v if isinstance(v, dict) else {"calls": v}
@@ -2151,15 +2186,18 @@ def device_ms(sets: dict, reps: int = 5) -> dict:
                 for k, pats in sp["parts"].items()})
         else:
             return out
-    check(not any("parts" in sp for sp in specs.values()),
+    check(not parts_required
+          or not any("parts" in sp for sp in specs.values()),
           f"torch.profiler lost events in five sessions: {lost}")
     print(f"device_ms: torch.profiler lost events in five sessions "
           f"({lost}); timed with CUDA events instead, over back-to-back "
           f"calls (the host's launch cost included): "
           + ", ".join(map(str, specs)))
-    return {name: time_ms(lambda cs=sp["calls"]: [c() for c in cs],
-                          n=sp.get("reps", reps), warmup=0)
-            / len(sp["calls"]) for name, sp in specs.items()}
+    out = {name: time_ms(lambda cs=sp["calls"]: [c() for c in cs],
+                         n=sp.get("reps", reps), warmup=0)
+           / len(sp["calls"]) for name, sp in specs.items()}
+    return {name: (ms, None) if "parts" in specs[name] else ms
+            for name, ms in out.items()}
 
 
 def time_k6(op: str, cases) -> dict:
@@ -5125,7 +5163,6 @@ def trainer_phase(card: str, fifo: dict) -> dict:
 
     from repro_torch.dist.fault import FaultInjector
     from repro_torch.obs.registry import fresh_registry
-    from repro_torch.train import MetricLogger, TrainConfig, Trainer
     ex, fn, _params, _pipe, fifo_iter = train_setup()
     items = [next(fifo_iter) for _ in range(TRAIN_DATA // BATCH)]
 
@@ -5294,6 +5331,439 @@ def trainer_phase(card: str, fifo: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: LM training
+# ---------------------------------------------------------------------------
+
+#: (a) ``examples/torch_train_lm.py``'s model and arguments: steps at batch
+#: 8 x 128 tokens in 2 microbatches, f32, a log record a step.
+LM_TRAIN_ARGS = ["--steps", "30", "--batch", "8", "--seq", "128",
+                 "--n-micro", "2", "--log-every", "1"]
+#: (b) granite-3-8b at full width: the depth it is cut to, steps, batch and
+#: tokens a sequence.
+GRANITE_TRAIN = {"layers": 2, "steps": 3, "batch": 2, "seq": 1024}
+#: K10's backward against autograd of its plain version: max |err| / max
+#: |plain| of each of dQ, dK and dV, at f32 (the forward's bar; PERF.md §6
+#: has the forward's 1.81e-6 on the same card).  On the LM example's trained
+#: activations autograd of ``ref.mha`` at f32 is itself up to 2.2e-5 from
+#: an f64 evaluation, and the kernel's formulation in plain f32 products
+#: misses the bar against it on 45 of 480 calls (``tools/
+#: k10b_precision.py``; PERF.md, PR 36): where the kernel misses the bar,
+#: it must be no farther from the f64 evaluation than the bar plus
+#: ``K10B_F64_FACTOR`` times the f32 plain version's own distance.
+K10B_BAR, K10B_F64_FACTOR = 1e-5, 2.0
+#: Its edge cases (B, Hq, Hkv, Sq, Sk, D, causal, window): causal and not,
+#: a window with and without ``causal``, Sq != Sk both ways (Sq > Sk under
+#: ``causal``: rows with no key), Hkv = Hq and GQA groups 2, 4 and 8, head
+#: dims 7, 20, 32, 64, 100, 128 and 256 (every class of the kernel; 7, 20
+#: and 100 no multiple of 8), lengths no multiple of a 64-row tile; q and
+#: dO permuted views in every case.
+K10B_EDGES = ((1, 4, 2, 64, 64, 64, True, None),
+              (1, 4, 4, 70, 70, 32, False, None),
+              (1, 8, 2, 96, 96, 64, True, 24),
+              (1, 4, 1, 40, 40, 7, False, 9),
+              (1, 4, 1, 65, 200, 128, False, None),
+              (1, 4, 2, 129, 50, 64, True, None),
+              (1, 8, 2, 100, 100, 20, True, None),
+              (1, 4, 2, 129, 129, 100, True, 50),
+              (1, 4, 4, 65, 65, 256, True, None),
+              (1, 16, 2, 33, 65, 80, True, None),
+              (2, 32, 8, 300, 300, 128, True, None))
+
+
+class BwdTap:
+    """Keeps the arguments of the first ``limit`` K10-backward calls made
+    inside it (``flash.flash_attention_bwd``, which ``FlashAttention``'s
+    backward calls, wrapped); each call runs as before."""
+
+    def __init__(self, limit: int = 1 << 30):
+        self.limit, self.calls = limit, []
+
+    def __enter__(self):
+        real = self.real = flash.flash_attention_bwd
+
+        def tapped(q, k, v, lse, do, **kw):
+            if len(self.calls) < self.limit:
+                self.calls.append((tuple(t.detach() for t in (
+                    q, k, v, lse, do)), dict(kw)))
+            return real(q, k, v, lse, do, **kw)
+
+        flash.flash_attention_bwd = tapped
+        return self
+
+    def __exit__(self, *exc):
+        flash.flash_attention_bwd = self.real
+
+
+def k10b_plain(args, kw) -> tuple:
+    """dQ, dK and dV by torch autograd of ``ref.mha`` on ``args``' q, k, v
+    at output gradient do (the f32 plain version)."""
+    q, k, v, _lse, do = args
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        return torch.autograd.grad(ref.mha(*leaves, **kw), leaves, do)
+
+
+def mha64(q, k, v, *, causal=True, window=None, scale=None):
+    """``ref.mha``'s function evaluated in float64 (``ref.mha`` computes in
+    float32 whatever its inputs)."""
+    g = q.shape[1] // k.shape[1]
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    valid = ref.mha_valid(q.shape[2], k.shape[2], causal, window, q.device)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k.repeat_interleave(g, 1))
+    s = (s * scale).masked_fill(~valid, float("-inf"))
+    w = torch.where(valid.any(-1, keepdim=True), torch.softmax(s, -1), 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.repeat_interleave(g, 1))
+
+
+def k10b_f64(args, kw) -> tuple:
+    """dQ, dK and dV by autograd of ``mha64`` on ``args``' f32 values
+    taken to float64: the yardstick for the plain version's own error."""
+    q, k, v, _lse, do = args
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        return torch.autograd.grad(mha64(*leaves, **kw), leaves, do.double())
+
+
+def k10b_check(args, kw, twice: bool = True) -> tuple:
+    """The K10 backward on ``args`` (q, k, v, lse, do) against
+    ``k10b_plain``: finite, two launches bitwise equal (``twice``), each of
+    dQ, dK and dV within ``K10B_BAR`` of its max |plain| or, on a call
+    where it is not, within ``K10B_BAR + K10B_F64_FACTOR`` times the plain
+    version's own distance from ``k10b_f64``; and the saved lse against
+    ``ref.mha_lse``.  Returns (max abs err, max err / max |plain|)
+    over the three, and the same two of the kernel and of the plain
+    version against ``k10b_f64``."""
+    with torch.no_grad():
+        return _k10b_check(args, kw, twice)
+
+
+def _k10b_check(args, kw, twice: bool) -> tuple:
+    q, k, v, lse, do = args
+    got = flash.flash_attention_bwd(*args, **kw)
+    again = flash.flash_attention_bwd(*args, **kw) if twice else got
+    want = k10b_plain(args, kw)
+    torch.cuda.synchronize()
+    shape = tuple(q.shape) + (k.shape[1], k.shape[2], kw)
+    check(all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, again)),
+          f"K10 backward: two launches differ at {shape}")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"K10 backward: non-finite gradient at {shape}")
+    errs = [(float((g - w).abs().max()), rel_err(g, w))
+            for g, w in zip(got, want)]
+    rel = max(e[1] for e in errs)
+    f64 = k10b_f64(args, kw)
+    rel64 = max(rel_err(g.double(), w) for g, w in zip(got, f64))
+    plain64 = max(rel_err(g.double(), w) for g, w in zip(want, f64))
+    check(rel <= K10B_BAR or rel64 <= K10B_BAR + K10B_F64_FACTOR * plain64,
+          f"K10 backward disagrees with autograd of ref.mha: dQ/dK/dV "
+          f"{[f'{e[1]:.3e}' for e in errs]} of max |plain| at {shape}, and "
+          f"is {rel64:.3e} from float64 where the plain version is "
+          f"{plain64:.3e}")
+    want_lse = ref.mha_lse(q, k, **kw)
+    live = torch.isfinite(want_lse)
+    check(torch.equal(live, torch.isfinite(lse)) and (not live.any() or float(
+        (lse - want_lse)[live].abs().max()) <= 1e-6 * float(
+            want_lse[live].abs().max())),
+          f"K10's log-sum-exp disagrees with ref.mha_lse at {shape}")
+    return max(e[0] for e in errs), rel, rel64, plain64
+
+
+def k10b_inputs(case, gen) -> tuple:
+    """((q, k, v, lse, do), kw) of an edge case: q and dO permuted views,
+    lse from K10's forward asked for it, whose output must be bit for bit
+    the forward's without it (serving's)."""
+    B, Hq, Hkv, Sq, Sk, D, causal, window = case
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen).to(DEVICE)
+
+    kw = {"causal": causal, "window": window}
+    q = rn(B, Sq, Hq, D).transpose(1, 2)
+    k, v = rn(B, Hkv, Sk, D), rn(B, Hkv, Sk, D)
+    do = rn(B, Sq, Hq, D).transpose(1, 2)
+    o, lse = flash.flash_attention_lse(q, k, v, **kw)
+    check(torch.equal(_bits(o), _bits(flash.flash_attention(q, k, v, **kw))),
+          f"K10's output changed with the log-sum-exp store at {case}")
+    return (q, k, v, lse, do), kw
+
+
+def k10b_bound_ms(args, kw) -> tuple:
+    """Least time of one K10 backward on ``args``: five products (QKᵀ and
+    dO Vᵀ recomputed, Pᵀ dO, dSᵀ Q, dS K) of 2 D FLOPs a head over the
+    pairs of query and valid key this call's data has, each f32 product
+    as three TF32 products at 495 TFLOP/s, against q, k, v, o and dO read
+    and dQ, dK and dV written once at 3.35 TB/s.  Returns (bound_ms,
+    bound_by, flops, bytes)."""
+    q, k = args[0], args[1]
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    pairs = float(ref.mha_valid(Sq, Sk, kw.get("causal", True),
+                                kw.get("window")).sum()) * B * Hq
+    flops = 5 * 2.0 * D * pairs
+    nbytes = 4.0 * (4 * B * Hq * Sq * D + 4 * B * Hkv * Sk * D)
+    ms, by, _ = priced_ms(flops, nbytes, tf32x3=True)
+    return ms, by, flops, nbytes
+
+
+def sdpa_bwd_call(args, kw):
+    """The backward of one ``scaled_dot_product_attention`` at f32 on
+    ``args``' q, k, v and do (its forward run once outside; timed only,
+    the port never calls it): the one PyTorch call that computes what the
+    K10 backward computes."""
+    q, k, v, _lse, do = args
+    check(kw.get("window") is None and q.shape[2] == k.shape[2]
+          and kw.get("causal", True), "the SDPA yardstick times square "
+          "causal attention only")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = "enable_gqa" in (sdpa.__doc__ or "")
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    g = q.shape[1] // k.shape[1]
+    with torch.enable_grad():
+        if gqa:
+            out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+        else:
+            out = sdpa(leaves[0], leaves[1].repeat_interleave(g, 1),
+                       leaves[2].repeat_interleave(g, 1), is_causal=True)
+
+    def call():
+        with torch.enable_grad():
+            torch.autograd.grad(out, leaves, do, retain_graph=True)
+    return call
+
+
+def k10b_timings(calls) -> dict:
+    """The K10 backward re-run on kept calls ``calls`` ((args, kw) pairs):
+    mean device ms a call (``torch.profiler``) of the kernel (its two
+    launches apart: dQ with the row sums, dK/dV), the plain backward
+    (``ref.mha_bwd``) and SDPA's backward at f32, and the mean bound."""
+    kern = [lambda a=a, kw=kw: flash.flash_attention_bwd(*a, **kw)
+            for a, kw in calls]
+    plain = [lambda a=a, kw=kw: ref.mha_bwd(*a, **kw) for a, kw in calls]
+    lib = [sdpa_bwd_call(a, kw) for a, kw in calls]
+    # The kernel with its two launches apart in a session of its own; the
+    # plain version and SDPA's backward (launched from autograd's device
+    # thread) in another.  Either may fall to CUDA events.
+    ms, parts = device_ms({"kernel": {
+        "calls": kern, "launches": 2, "parts": {
+            "dq": ["dq_kernel"], "dkdv": ["dkdv_kernel"]}}}, reps=3,
+        parts_required=False)["kernel"]
+    t = device_ms({"plain": {"calls": plain, "reps": 1}, "library": lib},
+                  reps=3)
+    bounds = [k10b_bound_ms(a, kw) for a, kw in calls]
+    by_ops = sum(b[0] for b in bounds if b[1] == "operations")
+    return {"timed": len(calls), "ms": ms,
+            "parts_ms": parts or {"dq": None, "dkdv": None},
+            "plain_ms": t["plain"],
+            "library_ms": t["library"],
+            "bound_ms": float(np.mean([b[0] for b in bounds])),
+            "bound_by": ("operations" if by_ops >= sum(b[0] for b in bounds)
+                         / 2 else "bytes"),
+            "flops": float(np.mean([b[2] for b in bounds])),
+            "bytes": float(np.mean([b[3] for b in bounds]))}
+
+
+def k10b_build_report() -> dict:
+    """What ``nvcc -Xptxas -v`` said of the K10 backward's kernels (dQ and
+    dK/dV by head-dim class, and for a head dim equal to its class):
+    registers and spills; the dynamic shared
+    memory a CTA; and its SASS: the TF32 ``mma.sync`` it runs its products
+    on, no float atomic."""
+    lib = "flash_attention_bwd"
+    ptxas = ptxas_report(lib, r"(dkdv|dq)_kernelILi(\d+)ELb(\d)E",
+                         lambda m: f"{m.group(1)} DMAX {m.group(2)}"
+                                   + (" (D = DMAX)" if m.group(3) == "1"
+                                      else ""))
+    check(len(ptxas) == 16, f"K10 backward's ptxas report names "
+          f"{len(ptxas)} kernels, not 16")
+    smem_of = ctypes.CDLL(str(_build.library_path(lib))) \
+        .flash_attention_bwd_smem_bytes
+    smem = {f"D <= {d}": {"dkdv": smem_of(d, 0), "dq": smem_of(d, 1)}
+            for d in (32, 64, 128, 256)}
+    sass = sass_counts(lib, "K10 backward", needs=("HMMA.1688.F32.TF32",))
+    print(f"flash_attention_bwd.cu: dynamic shared memory a CTA {smem}; "
+          f"SASS {sass or 'not read (no cuobjdump)'}")
+    return {"ptxas": ptxas, "smem": smem, "sass": sass}
+
+
+def lm_example_train(ex) -> dict:
+    """(a): ``ex.main(LM_TRAIN_ARGS)``, launch counts set to 0 just before
+    and read just after, every K10 backward call kept.  Its losses finite
+    and falling; one K10 forward and one backward a layer a microbatch a
+    step, every forward on the tf32 route; the first step's loss that of
+    the same weights and batch on the CPU (plain versions) within 1e-4."""
+    cfg = ex.model_config()
+    steps, batch, seq, micro = (int(LM_TRAIN_ARGS[i]) for i in (1, 3, 5, 7))
+    torch.cuda.reset_peak_memory_stats()
+    lm.reset_launches()
+    t0 = time.perf_counter()
+    with BwdTap() as tap:
+        state, logger = ex.main(LM_TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(lm.LAUNCHES)
+    losses = [float(r["loss"]) for r in logger.history]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"the LM example's losses: {losses}")
+    check(losses[-1] < losses[0], f"the LM example's loss did not fall: "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    n = steps * micro * cfg.num_layers
+    want = {"flash_attention": n, "flash_attention.tf32": n,
+            "flash_attention_bwd": n}
+    check({k: launches.get(k, 0) for k in want} == want and
+          len(tap.calls) == n, f"the LM example's launches {launches} "
+          f"(kept {len(tap.calls)} backward calls), expected {want}")
+    # The first step's loss on the CPU: the same weights (the trainer's
+    # seed-0 CPU generator) and the first batch, plain versions.
+    tlm = TransformerLM(cfg)
+    params = tlm.init(torch.Generator().manual_seed(0), device="cpu")
+    first = next(lm_batches(synthetic_corpus(3_000_000, cfg.vocab, seed=0),
+                            batch, seq, seed=0))
+    m = batch // micro
+    with torch.no_grad():
+        cpu = float(np.mean([float(tlm.loss(params, {
+            k: torch.from_numpy(v[i * m:(i + 1) * m])
+            for k, v in first.items()})[0]) for i in range(micro)]))
+    first_rel = abs(losses[0] - cpu) / abs(cpu)
+    check(first_rel <= TOL, f"the LM example's first loss {losses[0]} vs "
+          f"{cpu} on the CPU ({first_rel:.3e})")
+    out = {"steps": steps, "losses": [losses[0], losses[-1]],
+           "first_loss_cpu": cpu, "first_loss_rel": first_rel,
+           "wall_s": wall, "step_ms": 1e3 * wall / steps,
+           "tokens_per_s": float(logger.history[-1].get("tokens_per_sec",
+                                                        0.0)),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches}
+    print(f"LM training (a) {cfg.name} ({cfg.param_count() / 1e6:.1f}M "
+          f"params), {steps} steps of {batch} x {seq} tokens, n_micro "
+          f"{micro}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (first step "
+          f"{first_rel:.2e} from the CPU), {out['step_ms']:.1f} ms a step "
+          f"(wall, start-up included), {out['tokens_per_s']:.0f} tokens/s "
+          f"at the last step, peak {out['peak_gb']:.2f} GB; launches "
+          f"{launches}")
+    return {**out, "calls": tap.calls}
+
+
+def granite_train() -> dict:
+    """(b): granite-3-8b at full width (d_model 4,096, 32/8 heads of 128,
+    d_ff 12,800, vocab 49,155), its depth cut to ``GRANITE_TRAIN``'s layers,
+    f32, no remat, weights from a CUDA generator (seed 0), trained through
+    ``Trainer.fit`` for a few steps; launch counts set to 0 just before and
+    read just after; the first step's K10 backward calls kept."""
+    g = GRANITE_TRAIN
+    base = get_config("granite-3-8b")
+    cfg = dataclasses.replace(base, num_layers=g["layers"],
+                              param_dtype="float32",
+                              compute_dtype="float32", remat="none")
+    print(f"LM training (b) cuts of granite-3-8b: depth {base.num_layers} -> "
+          f"{cfg.num_layers}; {base.param_dtype}/{base.compute_dtype} -> "
+          f"float32 (a bf16 backward needs the wgmma forward to save the "
+          f"log-sum-exp: ROADMAP.md queue 2); remat {base.remat} -> none; "
+          f"width as published (d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.dh}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab})")
+    tlm = TransformerLM(cfg)
+    trainer = Trainer(tlm.loss, lambda gen: tlm.init(gen, device=DEVICE),
+                      TrainConfig(lr=1e-5, warmup_steps=1,
+                                  total_steps=g["steps"], log_every=1),
+                      device=DEVICE)
+    state = trainer.init_state(torch.Generator(DEVICE).manual_seed(0))
+    data = lm_batches(synthetic_corpus(2_000_000, cfg.vocab, seed=0),
+                      g["batch"], g["seq"], seed=0)
+    logger = MetricLogger(tokens_per_step=g["batch"] * g["seq"],
+                          log_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm.reset_launches()
+    t0 = time.perf_counter()
+    with BwdTap(limit=cfg.num_layers) as tap:
+        state, logger = trainer.fit(state, data, steps=g["steps"],
+                                    logger=logger)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(lm.LAUNCHES)
+    losses = [float(r["loss"]) for r in logger.history]
+    check(len(losses) == g["steps"] and all(np.isfinite(losses)),
+          f"granite-3-8b's training losses: {losses}")
+    n = g["steps"] * cfg.num_layers
+    want = {"flash_attention": n, "flash_attention.tf32": n,
+            "flash_attention_bwd": n}
+    check({k: launches.get(k, 0) for k in want} == want,
+          f"granite-3-8b training launches {launches}, expected {want}")
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "params_b": sum(p.numel() for p in
+                           (t for t in _leaves(state.params))) / 1e9,
+           "losses": losses, "wall_s": wall,
+           "step_ms": [1e3 * float(r.get("train_sec_per_step", 0.0))
+                       for r in logger.history],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches}
+    print(f"LM training (b) {cfg.name} at full width, {cfg.num_layers} "
+          f"layers, {out['params_b']:.3f} B f32 params, {g['steps']} steps "
+          f"of {g['batch']} x {g['seq']} tokens: losses {losses}, wall "
+          f"{wall:.2f} s, peak {out['peak_gb']:.2f} GB; launches {launches}")
+    del state, trainer
+    return {**out, "calls": tap.calls}
+
+
+def _ms_or_none(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def lm_train_phase(card: str) -> dict:
+    """Phase 22: (a) the LM example, (b) granite-3-8b at full width, (c)
+    the K10 backward against its plain version on the edge cases and on
+    every call of (a) and of (b)'s first step, timed beside its plain
+    version, SDPA's backward and its bound."""
+    k10b_build_report()
+    a = lm_example_train(load_example("torch_train_lm"))
+    b = granite_train()
+    gen = torch.Generator().manual_seed(2222)
+    edge = [k10b_check(*k10b_inputs(c, gen)) for c in K10B_EDGES]
+    main = [k10b_check(args, kw) for args, kw in a["calls"] + b["calls"]]
+    over = [e for e in main if e[1] > K10B_BAR]
+    print(f"K10 backward vs autograd of ref.mha: {len(K10B_EDGES)} edge "
+          f"cases max {max(e[1] for e in edge):.3e} of max |plain|; "
+          f"{len(main)} main-path calls max {max(e[1] for e in main):.3e}, "
+          f"{len(over)} over {K10B_BAR:g}; from float64 the kernel max "
+          f"{max(e[2] for e in edge + main):.3e}, the plain version max "
+          f"{max(e[3] for e in edge + main):.3e}, their largest ratio "
+          f"{max(e[2] / max(e[3], 1e-30) for e in edge + main):.2f}; "
+          f"every call's two launches bitwise equal")
+    timed = {"granite": k10b_timings(b["calls"]),
+             "example": k10b_timings(a["calls"][:16])}
+    for label, t in timed.items():
+        print(f"K10 backward at {label}'s shape ({t['timed']} kept calls): "
+              f"{t['ms']:.4f} ms a call (device; dQ "
+              f"{_ms_or_none(t['parts_ms']['dq'])}, dK/dV "
+              f"{_ms_or_none(t['parts_ms']['dkdv'])}), plain {t['plain_ms']:.4f}, SDPA's "
+              f"backward at f32 {t['library_ms']:.4f}, bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+              f"({t['flops'] / 1e9:.2f} GFLOP, {t['bytes'] / 1e6:.1f} MB)")
+    g = timed["granite"]
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": ATTN_REPLACES["flash_attention"],
+           "launches": (a["launches"]["flash_attention_bwd"]
+                        + b["launches"]["flash_attention_bwd"]),
+           "max_abs_err": max(e[0] for e in edge + main),
+           "max_rel_err": max(e[1] for e in edge + main),
+           "max_rel_err_f64": max(e[2] for e in edge + main),
+           "plain_rel_err_f64": max(e[3] for e in edge + main),
+           "calls_over_bar": len(over),
+           "ms": g["ms"], "parts_ms": g["parts_ms"],
+           "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+           "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+           "example_ms": timed["example"]["ms"],
+           "example_bound_ms": timed["example"]["bound_ms"],
+           "example_library_ms": timed["example"]["library_ms"]}
+    out = {"example": {k: v for k, v in a.items() if k != "calls"},
+           "granite": {k: v for k, v in b.items() if k != "calls"},
+           "timed": timed, "card": card}
+    print(f"lm_train: {json.dumps(out)}")
+    return {**out, "rows": [row]}
+
+
 def k2_row(kind: str, part: dict, launches: dict) -> dict:
     """K2's kernel row for kind ``kind``: ``launches`` counts the main
     path's levels that launched (its CUDA launches beside it); ``ms`` is
@@ -5337,6 +5807,7 @@ def main() -> None:
     spliced_serving_phase(dev["smi"])
     examples_phase(dev["smi"])
     trainer_phase(dev["smi"], train)
+    lmtrain = lm_train_phase(dev["smi"])
     row = {"name": "treelstm_megastep", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/treelstm_megastep_sm90.cu",
            "replaces": "src/repro/kernels/level_megastep.py:181",
@@ -5394,7 +5865,8 @@ def main() -> None:
             "ms": part["ms"], "plain_ms": part["plain_ms"],
             "bound_ms": part["bound_ms"], "bound_by": "bytes",
             "library_ms": part["library_ms"]})
-    rows += opbyop["rows"] + lmserve["rows"] + mamba["rows"]
+    rows += opbyop["rows"] + lmserve["rows"] + mamba["rows"] \
+        + lmtrain["rows"]
     k1 = {"served levels": served, "the training step's levels":
           levels["fwd"], "the tree frontier": cont["megastep"],
           f"the synthetic M {M_FULL} level": kern["synthetic"]}

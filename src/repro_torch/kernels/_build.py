@@ -65,7 +65,11 @@ KERNELS: Dict[str, Tuple[str, str, List]] = {
     "flash_attention_tf32": ("flash_attention_tf32.cu",
                              "flash_attention_tf32_launch",
                              [_P] * 4 + [_I] * 6 + [_L] * 9 + [_F]
-                             + [_I] * 3 + [_P]),
+                             + [_I] * 3 + [_P, _P]),
+    "flash_attention_bwd": ("flash_attention_bwd.cu",
+                            "flash_attention_bwd_launch",
+                            [_P] * 10 + [_I] * 6 + [_L] * 12 + [_F]
+                            + [_I] * 2 + [_P]),
     "decode_attention": ("decode_attention.cu", "decode_attention_launch",
                          [_P] * 5 + [_I] * 5 + [_L] * 8 + [_F] + [_I] * 3
                          + [_P]),

@@ -22,6 +22,13 @@
 // (D % 16 != 0); bf16 with D % 16 == 0 takes flash_attention_sm90.cu
 // (flash_attention.py `route`).
 //
+// The row log-sum-exp.  Given a non-null `lse` (f32 [B, Hq, Sq],
+// contiguous), the kernel also stores each live row's log-sum-exp of its
+// scaled scores, m + log(l) in the natural log (-inf for a row with no
+// valid key): what the backward (flash_attention_bwd.cu) recomputes the
+// probabilities from.  The autograd forward asks for it; serving passes
+// null, and the output's arithmetic is the same either way.
+//
 // Any head dim.  mma.sync.m16n8k8 steps the head dim 8 columns at a time:
 // a head dim D that is no multiple of 8 is staged through the end of its
 // last 8-column block, the columns [D, 8 ceil(D / 8)) zero-filled (by
@@ -139,6 +146,7 @@ namespace {
 constexpr int BM = 64;       // query rows a CTA: four warps of 16
 constexpr int NT = 128;      // threads a CTA
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // Tile shapes and shared memory at head-dim class DMAX for operands of
@@ -164,6 +172,7 @@ struct Args {
   float scale_log2;
   int causal, window;
   int vec;                   // bytes a staging copy: 16, 8, 4 or 2
+  float* lse;                // [B, Hq, Sq] row log-sum-exp, or null
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -615,6 +624,18 @@ __global__ void __launch_bounds__(NT, DMAX <= 128 ? 2 : 1)
     l[i] += __shfl_xor_sync(FULL, l[i], 1);
     l[i] += __shfl_xor_sync(FULL, l[i], 2);
   }
+  // m is the row max in the exp2 domain and l the row sum of exp2(s - m):
+  // the natural log-sum-exp is (m + log2 l) ln 2.  One lane of a quad
+  // stores it (the quad's four lanes hold the same m and l).
+  if (a.lse != nullptr && t == 0) {
+    float* lrow = a.lse + ((long long)b * a.Hq + h) * a.Sq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + 16 * warp + g + 8 * i;
+      if (row < a.Sq)
+        lrow[row] = l[i] > 0.f ? (m[i] + log2f(l[i])) * LN2 : -INFINITY;
+    }
+  }
   TX* ob = static_cast<TX*>(a.out) + ((long long)b * a.Hq + h) * a.Sq * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -660,14 +681,15 @@ int launch_d(const Args& a, cudaStream_t s) {
 
 // Strides in elements: q (batch, head, row), k and v likewise; unit stride
 // along D.  `window` <= 0: no window.  `bf16`: the operands and the output
-// are bf16, else f32.  The output is a contiguous [B, Hq, Sq, D] tensor.
-// Returns 0 or a cudaError_t.
+// are bf16, else f32.  The output is a contiguous [B, Hq, Sq, D] tensor;
+// `lse`, if not null, a contiguous f32 [B, Hq, Sq] tensor that takes the
+// rows' log-sum-exp.  Returns 0 or a cudaError_t.
 extern "C" int flash_attention_tf32_launch(
     void* out, const void* q, const void* k, const void* v, int B, int Hq,
     int Hkv, int Sq, int Sk, int D, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, float scale, int causal,
-    int window, int bf16, void* stream) {
+    int window, int bf16, void* lse, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || D < 1 || D > 256 || Sk < 0)
     return (int)cudaErrorInvalidValue;
@@ -687,7 +709,7 @@ extern "C" int flash_attention_tf32_launch(
   }
   const Args a = {out, q, k, v, B, Hq, Hkv, Sq, Sk, D, qsb, qsh, qss, ksb,
                   ksh, kss, vsb, vsh, vss, scale * LOG2E, causal, window,
-                  vec};
+                  vec, static_cast<float*>(lse)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_d<uint16_t>(a, s) : launch_d<float>(a, s);
 }

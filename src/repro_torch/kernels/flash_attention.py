@@ -34,8 +34,18 @@ CUDA tensors only: it launches a kernel or raises.  The plain version for
 CPU tensors (``ref.mha``) is chosen in :mod:`repro_torch.kernels.ops`.
 Each launch is counted in ``level_megastep.LAUNCHES`` under
 ``"flash_attention"`` and under its route (``"flash_attention.wgmma"``,
-``"flash_attention.tf32"``).  Forward only, as in the reference (no
-VJP): a call that would need a gradient raises.
+``"flash_attention.tf32"``).
+
+Gradients.  The reference's kernel has no VJP; the port's has one at
+float32, written by hand (``csrc/flash_attention_bwd.cu``, plain version
+``ref.mha_bwd``).  A call that needs a gradient goes through
+:class:`FlashAttention`: its forward runs the tf32 route asking the kernel
+for the rows' log-sum-exp too, and saves ``q, k, v, lse``; its backward
+is :func:`flash_attention_bwd` (dQ, dK, dV; counted under
+``"flash_attention_bwd"``).  bf16 operands take the wgmma forward, which
+saves no log-sum-exp: a gradient through them raises
+(:data:`BF16_BACKWARD`).  A call without a gradient launches what it
+always did.
 """
 
 from __future__ import annotations
@@ -113,14 +123,24 @@ def check_heads(op: str, Hq: int, Hkv: int, D: int) -> None:
         raise ValueError(f"{op}: head dim {D} outside 1..{MAX_HEAD_DIM}")
 
 
-def refuse_grad(op: str, reference: str, *ts: torch.Tensor) -> None:
-    """The kernels run forward only, as the reference's Pallas kernels
-    (no ``custom_vjp``): raise where autograd would need a backward."""
+#: What a gradient through a kernel that has no backward waits for.
+BF16_BACKWARD = ("a K10 backward at bf16 waits for the wgmma forward to "
+                 "save the log-sum-exp (ROADMAP.md queue 2, \"K10 backward "
+                 "at bf16\")")
+DECODE_BACKWARD = ("decode attention is never differentiated: training "
+                   "runs K10")
+REPLACES = "src/repro/kernels/flash_attention.py:88"
+
+
+def refuse_grad(op: str, reference: str, *ts: torch.Tensor,
+                waits_for: str = DECODE_BACKWARD) -> None:
+    """Raise where autograd would need a backward of a kernel that runs
+    forward only, as the reference's Pallas kernel (no ``custom_vjp``);
+    ``waits_for`` says what would give it one."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
             f"{op}: the kernel runs forward only -- the reference's Pallas "
-            f"kernel ({reference}) has no VJP; LM training needs a backward "
-            f"kernel written by hand (ROADMAP.md, queue 2)")
+            f"kernel ({reference}) has no VJP; {waits_for}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -130,9 +150,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``[B, Hkv, Sk, D]`` (K10), float32 or bf16 (one type; permuted views
     welcome, unit stride along ``D``).  Returns a new contiguous
     ``[B, Hq, Sq, D]`` tensor at ``q``'s type.  The operands are checked
-    before the device, so a view TMA cannot read raises on any device."""
+    before the device, so a view TMA cannot read raises on any device.
+    Where a gradient is needed (float32 only) the call goes through
+    :class:`FlashAttention`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.dtype != torch.float32:
+            refuse_grad("flash_attention", REPLACES, q, k, v,
+                        waits_for=BF16_BACKWARD)
+        return FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale, with_lse=False)[0]
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: Optional[int], scale: Optional[float],
+             with_lse: bool
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K10's launch: ``(out, lse)``, ``lse`` the rows' float32 log-sum-exp
+    ``[B, Hq, Sq]`` where ``with_lse`` (the tf32 route only), else None."""
     op = "flash_attention"
-    refuse_grad(op, "src/repro/kernels/flash_attention.py:88", q, k, v)
     dev = q.device
     check_operand(op, "q", q, 4, q.dtype, dev)
     check_operand(op, "k", k, 4, q.dtype, dev)
@@ -159,10 +194,110 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    for t in (q, k, v) for i in range(3)]
         flags = (scale, int(causal), window or 0,
                  int(q.dtype == torch.bfloat16))
+    if with_lse and path != "tf32":
+        raise ValueError(f"{op}: the {path} route stores no log-sum-exp")
     require_cuda(op, q)
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev) \
+        if with_lse else None
+    if path == "tf32":
+        flags += (0 if lse is None else lse.data_ptr(),)
     if out.numel():
         launch_kernel(LIBRARIES[path], dev, out.data_ptr(), q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
                       *strides, *flags, counts=(op, f"{op}.{path}"))
-    return out
+    return out, lse
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10 at float32 (the tf32 route) returning ``(out, lse)``: the
+    output, and each row's log-sum-exp of its scaled scores, float32
+    ``[B, Hq, Sq]`` (-inf for a row with no valid key), as ``ref.mha`` and
+    ``ref.mha_lse`` give them.  The forward of :class:`FlashAttention`."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention_lse: float32 operands only (the "
+                        f"tf32 route), got {q.dtype}")
+    return _forward(q, k, v, causal, window, scale, with_lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K10's backward (``csrc/flash_attention_bwd.cu``): ``(dq, dk, dv)``
+    of :func:`flash_attention` at output gradient ``do``, from the
+    forward's operands and its log-sum-exp ``lse``
+    (:func:`flash_attention_lse`), as ``ref.mha_bwd`` computes them (the
+    probabilities normalised by their own row sums, Δ from them: no
+    output needed).  float32 only; ``q``, ``k``, ``v`` and ``do`` are read
+    through their strides (unit stride along ``D``), ``lse`` ``[B, Hq,
+    Sq]`` must be contiguous.  dK and dV sum the group of query heads of
+    each KV head; the three come back new and contiguous.  One call is
+    two launches (dQ with the row sums, then dK/dV), counted once under
+    ``"flash_attention_bwd"``; deterministic (no float atomics)."""
+    op = "flash_attention_bwd"
+    dev = q.device
+    f32 = torch.float32
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        check_operand(op, name, t, 4, f32, dev)
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Hkv, Sk, D) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"{op}: k/v must be [B, Hkv, Sk, D] = [{B}, Hkv, "
+                         f"Sk, {D}] alike, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    check_heads(op, Hq, Hkv, D)
+    for name, t, shape in (("do", do, q.shape), ("lse", lse, (B, Hq, Sq))):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{op}: {name} must have shape "
+                             f"{tuple(shape)}, got {tuple(t.shape)}")
+    if lse.dtype != f32 or lse.device != dev:
+        raise TypeError(f"{op}: lse must be float32 on {dev}")
+    if not lse.is_contiguous():
+        raise ValueError(f"{op}: lse must be contiguous (the forward's "
+                         f"output)")
+    if window is not None and window < 1:
+        raise ValueError(f"{op}: window must be >= 1, got {window}")
+    scale = D ** -0.5 if scale is None else float(scale)
+    require_cuda(op, q)
+    dq = torch.empty((B, Hq, Sq, D), dtype=f32, device=dev)
+    dk = torch.empty((B, Hkv, Sk, D), dtype=f32, device=dev)
+    dv = torch.empty((B, Hkv, Sk, D), dtype=f32, device=dev)
+    rows = torch.empty((2, B, Hq, Sq), dtype=f32, device=dev)
+    if dq.numel():
+        strides = [t.stride(i) for t in (q, k, v, do) for i in range(3)]
+        launch_kernel(op, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), rows[0].data_ptr(),
+                      rows[1].data_ptr(), B, Hq, Hkv, Sq, Sk, D, *strides,
+                      scale, int(causal), window or 0)
+    else:
+        dk.zero_()
+        dv.zero_()
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K10 with a gradient, at float32: the forward runs
+    :func:`flash_attention_lse` and saves ``q, k, v, lse``; the backward
+    runs :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.opts = {"causal": causal, "window": window, "scale": scale}
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        if do.shape[-1] > 1 and do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None

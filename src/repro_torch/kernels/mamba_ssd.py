@@ -37,6 +37,11 @@ MAX_CHUNK, MAX_HEADDIM, MAX_STATE = 128, 128, 128
 ROW_TILE = 16
 REPLACES = "src/repro/kernels/mamba_ssd.py:62"
 
+#: What a gradient through K12 waits for (``TransformerLM.loss`` names it
+#: too for a config with a Mamba layer).
+K12_BACKWARD = ("Mamba training waits for a K12 backward written by hand "
+                "(ROADMAP.md queue 2, \"K12 backward\")")
+
 
 def state_warps(P: int) -> Tuple[int, int]:
     """(p-warps, n-warps) of a state unit's four warps: a p-warp a 16-row
@@ -102,7 +107,7 @@ def ssd_chunk_diag(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     P, N]``, as ``ref.ssd_chunk_diag``."""
     op = "ssd_chunk_scan"
     require_cuda(op, x)
-    refuse_grad(op, REPLACES, x, dt, A, B, C)
+    refuse_grad(op, REPLACES, x, dt, A, B, C, waits_for=K12_BACKWARD)
     dev = x.device
     if x.dtype not in DTYPES:
         raise TypeError(f"{op}: x must be float32 or bfloat16, got "

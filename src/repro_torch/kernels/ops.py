@@ -256,7 +256,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: Optional[float] = None) -> torch.Tensor:
     """``[B, Hq, Sq, D] x [B, Hkv, Sk, D]^2 -> [B, Hq, Sq, D]`` (K10):
     GQA, ``causal`` with the ends aligned, sliding ``window``, ``scale``
-    (default ``D ** -0.5``); float32 math, ``q``'s type out."""
+    (default ``D ** -0.5``); float32 math, ``q``'s type out.  Under
+    grad, autograd differentiates ``ref.mha`` on the CPU; on the card
+    K10's wrapper runs its hand-written backward (float32)."""
     if not q.is_cuda:
         _tick("attention", "ref")
         return ref.mha(q, k, v, causal=causal, window=window, scale=scale)

@@ -278,16 +278,89 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     returns ``q``'s type.  A query with no valid key (``Sq > Sk`` under
     ``causal``) gives a zero row where the reference gives NaN."""
     Sq, D = q.shape[2], q.shape[3]
-    Sk = k.shape[2]
     scale = D ** -0.5 if scale is None else scale
-    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    valid = mha_valid(Sq, k.shape[2], causal, window, q.device)
+    return _attend(q, k, v, valid, scale)
+
+
+def mha_valid(Sq: int, Sk: int, causal: bool, window: Optional[int],
+              device=None) -> torch.Tensor:
+    """``[Sq, Sk]`` bool: the keys each query of :func:`mha` sees (query
+    ``i`` at key position ``i + Sk - Sq``)."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=device)[None, :]
+    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
         valid &= kpos <= qpos
     if window is not None:
         valid &= kpos > qpos - window
-    return _attend(q, k, v, valid, scale)
+    return valid
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            window: Optional[int], scale: Optional[float]
+            ) -> Tuple[torch.Tensor, torch.Tensor, float]:
+    """``(S, valid, scale)``: the float32 scores ``scale q kᵀ`` ``[B, Hq,
+    Sq, Sk]`` with the masked ones at -inf, K read through GQA."""
+    Sq, D = q.shape[2], q.shape[3]
+    scale = D ** -0.5 if scale is None else scale
+    valid = mha_valid(Sq, k.shape[2], causal, window, q.device)
+    kk = k.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    return s.masked_fill(~valid, float("-inf")), valid, scale
+
+
+def mha_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+            window: Optional[int] = None,
+            scale: Optional[float] = None) -> torch.Tensor:
+    """The row log-sum-exp of :func:`mha`'s scores, ``[B, Hq, Sq]``
+    float32 (what K10 stores when asked for it; -inf for a query with no
+    valid key)."""
+    return torch.logsumexp(_scores(q, k, causal, window, scale)[0], dim=-1)
+
+
+def mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+            window: Optional[int] = None, scale: Optional[float] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients ``(dq, dk, dv)`` of :func:`mha` at output gradient
+    ``do`` (the K10 backward's plain version), step by step in float32
+    from the forward's row log-sum-exp ``lse`` ``[B, Hq, Sq]``, as the
+    kernel takes them:
+
+      S = scale Q Kᵀ, masked as :func:`mha` masks;  E = exp(S - lse), a
+      row with no valid key (lse = -inf) all zeros;  P = E / rowsum(E);
+      dP = dO Vᵀ;  Δ = rowsum(P ∘ dP);  dS = P ∘ (dP - Δ);
+      dQ = scale dS K;  dK = scale dSᵀ Q;  dV = Pᵀ dO,
+
+    dK and dV summed over each KV head's group of query heads (GQA).  P is
+    normalised by its own row sum and Δ taken from it, as autograd of a
+    softmax does, so that a row of dS sums to zero up to rounding (Δ from
+    the forward's output instead, ``rowsum(dO ∘ O)``, would carry the
+    forward's rounding into every row, and dQ and dK would carry it times
+    the component the keys and queries share).  Each gradient comes back
+    at its operand's type."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    s, valid, scale = _scores(q, k, causal, window, scale)
+    lse = lse.float()[..., None]
+    live = valid & torch.isfinite(lse)
+    e = torch.where(live, torch.exp(s - torch.where(live, lse, 0.0)), 0.0)
+    total = e.sum(dim=-1, keepdim=True)
+    p = e / torch.where(total > 0, total, 1.0)
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dk = dk.view(B, Hkv, g, Sk, D).sum(dim=2)
+    dv = dv.view(B, Hkv, g, Sk, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

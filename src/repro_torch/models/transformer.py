@@ -11,7 +11,9 @@ reference's: the prologue, then the pattern repeated ``repeats`` times
 Three modes, one code path (:meth:`TransformerLM.trunk`):
 
   - ``train``:   the full sequence, causal (K10 an attention layer, K12 a
-                 Mamba layer), no cache;
+                 Mamba layer), no cache; :meth:`TransformerLM.loss` runs
+                 it under autograd, each pattern repeat recomputed in the
+                 backward as ``cfg.remat`` says;
   - ``prefill``: as train, and returns each layer's cache (KV rows, or
                  the Mamba conv tail and SSM state);
   - ``decode``:  one token a sequence against the caches (K11 an
@@ -22,8 +24,16 @@ Ported: attention mixers (``attn``, GQA with optional SWA and biases)
 with dense SwiGLU MLPs -- granite, stablelm, command-r, llama3 -- and
 Mamba-2 mixers without an MLP (``mlp="none"``) -- mamba2.  Configs that
 need another mixer or MLP, cross-attention or an encoder raise
-``NotImplementedError`` naming the ROADMAP item that ports them.  The
-training loss (``loss``) and ``encode`` wait for LM training.
+``NotImplementedError`` naming the ROADMAP item that ports them.
+
+Training (:meth:`TransformerLM.loss`, reference ``:401``): the token
+cross-entropy of the final hidden states, chunked over the sequence under
+``cfg.loss_chunk``.  On the card an attention layer's backward is K10's,
+written by hand (``kernels/flash_attention.py`` ``FlashAttention``, f32
+operands; a bf16 one raises); on the CPU autograd differentiates the
+plain versions.  A config with a Mamba layer raises under grad on any
+device: K12 has no backward yet (ROADMAP.md queue 2).  ``encode`` and
+the MoE losses wait with their blocks (``NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -32,12 +42,14 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, BlockDesc, layer_plan
+from repro_torch.kernels.mamba_ssd import K12_BACKWARD
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
-from repro_torch.models.layers import (embed_init, rmsnorm, rmsnorm_init,
-                                       swiglu, swiglu_init)
+from repro_torch.models.layers import (cross_entropy, embed_init, rmsnorm,
+                                       rmsnorm_init, swiglu, swiglu_init)
 
 Params = Dict[str, Any]
 #: One dict a layer, ``{"attn": {"k", "v"}}`` or ``{"mamba": {"conv",
@@ -153,6 +165,42 @@ def block_apply(params: Params, x: torch.Tensor, desc: BlockDesc,
 
 
 # ---------------------------------------------------------------------------
+# Rematerialisation (the reference's ``_maybe_remat``)
+# ---------------------------------------------------------------------------
+
+#: The products "dots" keeps: matrix products with no batch dimension, as
+#: the reference's ``dots_with_no_batch_dims_saveable``; einsum runs such a
+#: product as a ``bmm`` of one batch.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS or (op == torch.ops.aten.bmm.default
+                       and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return ckpt.create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat(fn, mode: str):
+    """``fn`` as ``cfg.remat`` asks (reference ``_maybe_remat``, ``:290``):
+    ``"none"`` as it is; ``"full"`` saving only its inputs and recomputing
+    the rest in the backward; ``"dots"`` saving the outputs of its matrix
+    products with no batch dimension and recomputing the rest.  Through
+    ``torch.utils.checkpoint`` (non-reentrant); no value changes."""
+    if mode == "none":
+        return fn
+    if mode not in ("full", "dots"):
+        raise ValueError(f"unknown remat mode {mode!r}")
+    kw = {"context_fn": _dots_contexts} if mode == "dots" else {}
+    return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                         **kw)
+
+
+# ---------------------------------------------------------------------------
 # The LM
 # ---------------------------------------------------------------------------
 
@@ -169,9 +217,14 @@ class TransformerLM:
             check_ported(self.cfg, d)
 
     @property
+    def plan(self) -> Tuple[List[BlockDesc], List[BlockDesc], int]:
+        """The reference's ``(prologue, pattern, repeats)`` (``:225``)."""
+        return layer_plan(self.cfg)
+
+    @property
     def descs(self) -> List[BlockDesc]:
         """One :class:`BlockDesc` a layer, in the reference's order."""
-        prologue, pattern, repeats = layer_plan(self.cfg)
+        prologue, pattern, repeats = self.plan
         return list(prologue) + list(pattern) * repeats
 
     # -- init ----------------------------------------------------------------
@@ -201,6 +254,9 @@ class TransformerLM:
               ) -> Tuple[torch.Tensor, Optional[Cache]]:
         """Every layer in order; returns ``(x, cache)``, the cache a list
         of one dict a layer (prefill, decode) or ``None`` (train)."""
+        if mode == "train" and cache is None and torch.is_grad_enabled() \
+                and self.cfg.remat != "none":
+            return self._train_trunk(params, x, positions), None
         new_cache: Optional[Cache] = [] if mode in ("prefill", "decode") \
             else None
         for i, (desc, layer) in enumerate(zip(self.descs, params["layers"])):
@@ -211,6 +267,29 @@ class TransformerLM:
             if new_cache is not None:
                 new_cache.append(c)
         return x, new_cache
+
+    def _train_trunk(self, params: Params, x: torch.Tensor,
+                     positions: Optional[torch.Tensor]) -> torch.Tensor:
+        """The train-mode trunk under ``cfg.remat``, as the reference
+        remats it: the prologue's blocks as they are, each repeat of the
+        pattern (the reference's scan body) as one unit."""
+        prologue, pattern, repeats = self.plan
+        descs, layers = self.descs, params["layers"]
+
+        def run(x, first, n, *units):
+            for desc, layer in zip(descs[first:first + n], units):
+                x = block_apply(layer, x, desc, self.cfg, mode="train",
+                                positions=positions)[0]
+            return x
+
+        n0 = len(prologue)
+        x = run(x, 0, n0, *layers[:n0])
+        body = remat(run, self.cfg.remat)
+        for r in range(repeats):
+            first = n0 + r * len(pattern)
+            x = body(x, first, len(pattern),
+                     *layers[first:first + len(pattern)])
+        return x
 
     # -- heads ---------------------------------------------------------------
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -226,6 +305,47 @@ class TransformerLM:
 
     def embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens].to(dtype_of(self.cfg.compute_dtype))
+
+    # -- training ------------------------------------------------------------
+    def _loss_from_hidden(self, params: Params, x: torch.Tensor,
+                          labels: torch.Tensor
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Token CE of the final hidden ``x`` ``[B, S, D]`` (reference
+        ``:366``); with ``cfg.loss_chunk`` shorter than ``S``, over
+        ``S // chunk`` chunks of the sequence so that the ``[B, S, V]``
+        logits never stand whole (the tail past the last whole chunk left
+        out, as in the reference), their token-weighted mean."""
+        chunk = self.cfg.loss_chunk
+        if not chunk or x.shape[1] <= chunk:
+            return cross_entropy(self.logits(params, x), labels)
+        tot = tok = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c in range(x.shape[1] // chunk):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            loss, m = cross_entropy(self.logits(params, x[:, sl]),
+                                    labels[:, sl])
+            tot = tot + loss * m["tokens"]
+            tok = tok + m["tokens"]
+        loss = tot / torch.clamp(tok, min=1.0)
+        return loss, {"nll": loss, "tokens": tok}
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training objective of one (micro)batch (reference
+        ``:401``): ``batch`` holds ``tokens`` and ``labels`` ``[B, S]``.
+        Returns ``(loss, {"nll", "tokens", "loss"})``.  Under grad, a
+        config with a Mamba layer raises ``NotImplementedError``: K12 has
+        no backward."""
+        if torch.is_grad_enabled() and any(d.mixer == "mamba"
+                                           for d in self.descs):
+            raise NotImplementedError(f"{self.cfg.name}: {K12_BACKWARD}")
+        tokens, labels = batch["tokens"], batch["labels"]
+        S = tokens.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        x = self.embed(params, tokens)
+        x, _ = self.trunk(params, x, mode="train", positions=positions)
+        loss, metrics = self._loss_from_hidden(params, x, labels)
+        metrics["loss"] = loss
+        return loss, metrics
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *, dtype=None,

@@ -1,6 +1,7 @@
-"""AdamW with decoupled weight decay over nested dicts of tensors (port of
-``repro.optim.adamw``, same defaults: b2 0.95, weight decay 0.1 on
-matrices only, clipping at a global norm of 1.0, float32 moments).
+"""AdamW with decoupled weight decay over nested dicts and lists of
+tensors (port of ``repro.optim.adamw``, same defaults: b2 0.95, weight
+decay 0.1 on matrices only, clipping at a global norm of 1.0, float32
+moments).
 
 Unlike the JAX version, which returns new arrays, :func:`adamw_update`
 updates the params and the moments IN PLACE under ``torch.no_grad()``.
@@ -20,8 +21,9 @@ Params = Any
 
 
 def tree_leaves(tree: Params) -> List[torch.Tensor]:
-    """The tensors of a nested dict, keys in sorted order (the order of
-    ``jax.tree.leaves`` on the same dict)."""
+    """The tensors of nested dicts, lists and tuples: dict keys in sorted
+    order, list and tuple items in theirs (the order of ``jax.tree.leaves``
+    on the same structure).  An LM's ``layers`` is a list."""
     return list(_leaves(tree))
 
 
@@ -29,14 +31,21 @@ def _leaves(tree: Params) -> Iterator[torch.Tensor]:
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for item in tree:
+            yield from _leaves(item)
     else:
         yield tree
 
 
 def tree_map(f, tree: Params, *rest: Params) -> Params:
-    """``f`` over the leaves of nested dicts of one structure."""
+    """``f`` over the leaves of nested dicts, lists and tuples of one
+    structure; the result has that structure (a list stays a list)."""
     if isinstance(tree, dict):
         return {k: tree_map(f, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(f, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
     return f(tree, *rest)
 
 

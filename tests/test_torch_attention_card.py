@@ -7,7 +7,7 @@ multiple of a tile, ``kv_len`` 0, 1 and ragged, caches of 4,096 rows,
 unaligned cache rows, float32 and bf16 -- two launches bitwise equal,
 K11 one launch a call and at f32 within 1e-6 of its split computed in
 plain PyTorch (``ref.decode_attention_split``) whatever the cluster size,
-the wrappers refusing a gradient, and the launch
+K11 and bf16 K10 refusing a gradient (f32 K10 giving one), and the launch
 counts of ``ServeEngine`` over a small LM on the card (one K10 a layer a
 prompt, one K11 a layer a tick) with its greedy tokens equal to a full
 recompute at f32, every K10 launch on the tf32 route at f32 and on the
@@ -255,11 +255,20 @@ def test_decode_attention_is_one_launch_of_the_split(monkeypatch, ns):
 
 @pytest.mark.gpu
 def test_wrappers_refuse_grad_and_bad_operands():
+    """K11 refuses a gradient, and K10 at bf16 (its wgmma forward saves no
+    log-sum-exp); K10 at f32 differentiates (its backward is
+    ``tests/test_torch_attention_bwd_card.py``'s); both refuse bad
+    operands."""
     _need_card()
     q = torch.randn(1, 4, 8, 64, device="cuda", requires_grad=True)
     k = torch.randn(1, 2, 8, 64, device="cuda")
     with pytest.raises(NotImplementedError, match="forward only"):
-        fa.flash_attention(q, k, k)
+        dec.decode_attention(q[:, :, 0], k, k)
+    with pytest.raises(NotImplementedError, match="K10 backward at bf16"):
+        fa.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    out = fa.flash_attention(q, k, k)
+    (g,) = torch.autograd.grad(out.sum(), q)
+    assert g.shape == q.shape and bool(torch.isfinite(g).all())
     with torch.no_grad():
         fa.flash_attention(q, k, k)
     k3 = torch.randn(1, 3, 8, 64, device="cuda")

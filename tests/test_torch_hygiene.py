@@ -120,3 +120,16 @@ def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):
                          env={"PATH": "/usr/bin:/bin"})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_sources_cover_the_lm_training_slice():
+    """The globs reach every module of the LM-training slice: the loss, the
+    K10 wrapper with its backward, the plain backward, the tree utilities,
+    the launcher and the example."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for rel in ("models/transformer.py", "kernels/flash_attention.py",
+                "kernels/ref.py", "kernels/_build.py", "optim/adamw.py",
+                "launch/train.py", "train/trainer.py", "interop.py"):
+        assert f"src/repro_torch/{rel}" in names, rel
+    assert "examples/torch_train_lm.py" in names
+    assert (PORT / "kernels" / "csrc" / "flash_attention_bwd.cu").is_file()
